@@ -1,0 +1,9 @@
+"""Errno constants the codec path raises — the reference returns negative
+errnos across every subsystem boundary.  A copy of the names the port uses
+from `ceph_tpu/common/errs.py`."""
+
+ENOENT = 2
+EIO = 5
+EINVAL = 22
+EEXIST = 17
+EXDEV = 18

@@ -1,0 +1,143 @@
+"""The port's SWAR coding (plain version of the hand kernel) and plain-torch
+XOR ops against the JAX package: the Pallas kernel itself in interpret mode,
+the jnp ops, and the numpy oracle.  All comparisons are byte-exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.gf import isa_cauchy_matrix, isa_decode_matrix, isa_rs_vandermonde_matrix
+from ceph_tpu.ops import xor_mm as jxor
+from ceph_tpu.ops.pallas_gf import CodingPlan as PallasPlan
+
+from ceph_tpu_torch.gf import expand_matrix, xor_matmul_host_batch
+from ceph_tpu_torch.ops import swar_gf, xor_mm
+
+CPU = torch.device("cpu")
+
+
+def _rs83(technique):
+    build = isa_rs_vandermonde_matrix if technique == "van" else isa_cauchy_matrix
+    return build(8, 3)
+
+
+def _matrix(technique, erasures):
+    """RS(8,3) encode rows (erasures None) or the decode matrix for erasures."""
+    full = _rs83(technique)
+    if erasures is None:
+        return full[8:]
+    c, _ = isa_decode_matrix(full, list(erasures), 8)
+    return c
+
+
+MATRICES = [
+    ("van", None), ("cauchy", None),
+    ("van", (0, 9)), ("cauchy", (0, 5, 10)), ("van", (9, 10)),
+]
+
+
+@pytest.mark.parametrize("technique,erasures", MATRICES)
+@pytest.mark.parametrize("S,L", [(1, 128), (2, 512), (1, 4096)])
+def test_reference_matches_pallas_interpret(technique, erasures, S, L):
+    mat = _matrix(technique, erasures)
+    rng = np.random.default_rng([S, L, len(technique), *(erasures or ())])
+    data = rng.integers(0, 256, (S, mat.shape[1], L), dtype=np.uint8)
+    pallas = np.asarray(PallasPlan(mat, interpret=True)(data))
+    ours = swar_gf.swar_code_reference(
+        swar_gf.schedule_from_matrix(mat), torch.from_numpy(data)
+    ).numpy()
+    assert np.array_equal(ours, pallas)
+    assert np.array_equal(ours, xor_matmul_host_batch(expand_matrix(mat), data))
+
+
+@pytest.mark.parametrize("k,m", [(8, 3), (4, 2), (5, 2), (6, 6), (4, 1), (3, 9)])
+def test_reference_matches_oracle(k, m):
+    rng = np.random.default_rng(100 * k + m)
+    mat = isa_cauchy_matrix(k, m)[k:]
+    data = rng.integers(0, 256, (2, 3, k, 256), dtype=np.uint8)  # two lead dims
+    plan = swar_gf.CodingPlan(mat, device=CPU)
+    ours = plan(torch.from_numpy(data)).numpy()
+    assert ours.shape == (2, 3, m, 256)
+    assert np.array_equal(ours, xor_matmul_host_batch(expand_matrix(mat), data))
+
+
+def _byte_parity(x):
+    x = x ^ (x >> 4)
+    x = x ^ (x >> 2)
+    x = x ^ (x >> 1)
+    return x & np.uint32(0x01010101)
+
+
+def _cuda_formulation(masks, m, data):
+    """numpy model of csrc/swar_gf.cu's arithmetic on its schedule operand:
+    t_o = XOR_j (w_j & rep[o][j]); out_i = OR_r parity(t_{8i+r}) << r, in
+    passes of min(m, 4) output rows."""
+    S, k, L = data.shape
+    words = data.view(np.uint32)
+    mg = min(m, 4)
+    assert masks.shape == (8 * (-(-m // mg) * mg), k)
+    assert not masks[8 * m:].any()
+    out = np.zeros((S, m, L // 4), dtype=np.uint32)
+    for g in range(0, m, mg):
+        for i in range(g, min(g + mg, m)):
+            for r in range(8):
+                t = np.zeros((S, L // 4), dtype=np.uint32)
+                for j in range(k):
+                    t ^= words[:, j] & masks[8 * i + r, j]
+                out[:, i] |= _byte_parity(t) << np.uint32(r)
+    return out.view(np.uint8)
+
+
+@pytest.mark.parametrize("k,m", [(8, 3), (5, 2), (4, 5), (2, 8)])
+def test_kernel_schedule_operand(k, m):
+    """The hand kernel's schedule operand and arithmetic, modelled in
+    numpy (the CUDA source itself runs only on the card: chip_smoke.py),
+    give the plain version's bytes."""
+    rng = np.random.default_rng(7 * k + m)
+    mat = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    masks = swar_gf.schedule_masks(mat)
+    data = rng.integers(0, 256, (2, k, 128), dtype=np.uint8)
+    want = swar_gf.swar_code_reference(
+        swar_gf.schedule_from_matrix(mat), torch.from_numpy(data)
+    ).numpy()
+    assert np.array_equal(_cuda_formulation(masks, m, data), want)
+
+
+def test_cpu_wrapper_counts_no_launch():
+    mat = _matrix("van", None)
+    plan = swar_gf.CodingPlan(mat, device=CPU)
+    before = swar_gf.launches
+    data = torch.zeros((1, 8, 128), dtype=torch.uint8)
+    assert plan(data).shape == (1, 3, 128)
+    assert swar_gf.launches == before
+    assert plan.masks is None  # the kernel operand is built only for CUDA
+
+
+def test_wrapper_rejects_bad_input():
+    plan = swar_gf.CodingPlan(_matrix("van", None), device=CPU)
+    with pytest.raises(TypeError):
+        plan(torch.zeros((1, 8, 128), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        plan(torch.zeros((1, 7, 128), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 2)])
+@pytest.mark.parametrize("L", [128, 96, 200])
+def test_xor_matmul_matches_jnp(lead, L):
+    rng = np.random.default_rng(len(lead) * 1000 + L)
+    k, m = 5, 3
+    bm = expand_matrix(isa_cauchy_matrix(k, m)[k:])
+    data = rng.integers(0, 256, (*lead, k, L), dtype=np.uint8)
+    ours = xor_mm.xor_matmul(torch.from_numpy(bm), torch.from_numpy(data)).numpy()
+    ref = np.asarray(jxor.xor_matmul(bm, data))
+    assert ours.dtype == np.uint8 and ours.shape == (*lead, m, L)
+    assert np.array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("lead", [(), (4,)])
+def test_xor_reduce_matches_jnp(lead):
+    rng = np.random.default_rng(11 + len(lead))
+    data = rng.integers(0, 256, (*lead, 6, 300), dtype=np.uint8)
+    ours = xor_mm.xor_reduce(torch.from_numpy(data)).numpy()
+    assert np.array_equal(ours, np.asarray(jxor.xor_reduce(data)))
+    assert ours.shape == (*lead, 300)
