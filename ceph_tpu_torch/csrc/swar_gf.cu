@@ -34,17 +34,18 @@
 // bulk shape (256, 8, 131072):
 //   * memory: (k + m) * S * L = 11 * 256 * 131072 B = 369 MB
 //     -> 369e6 / 3.35e12 = 0.110 ms.
-//   * integer ALU.  On the TPU kernel's schedule: the bit-expanded
-//     Vandermonde matrix has 401 ones over 24 output bit-rows and 64 input
-//     planes (Cauchy: 795).  Per 32-bit word position of the 8 chunks that
-//     is 377 XORs + 120 shift/and to cut the planes + 42 shift/or to place
-//     the rows = 539 ops on 32 input bytes, 16.8 ops per input byte
-//     -> 4.52e9 ops / 16.7e12 = 0.271 ms.  This kernel's formulation does
-//     less: 8m*k LOP3 + 8m*8 parity-fold and placement ops per word
-//     (24*8 + 24*8 = 384 on 32 bytes, 12 per byte, whatever the density,
-//     so Cauchy costs the same) -> 3.22e9 ops / 16.7e12 = 0.193 ms.
-//   The ALU bound binds, by 1.75x over the memory bound (chip_smoke.py
-//   computes both from the run's shapes).  Beside the ALU work, each
+//   * integer ALU, counted on what the function needs: Horner's ring
+//     program over the packed bytes (ops/packed_gf.py, 47 program ops for
+//     Vandermonde RS(8,3): 33 XORs + 14 multiply-by-x, each of the latter 5
+//     SWAR ops) is 103 ops per 32-bit word position of the 8 chunks, on 32
+//     input bytes -> 0.86e9 ops / 16.7e12 = 0.052 ms.
+//   The memory bound binds (chip_smoke.py computes both from the run's
+//   shapes).  This kernel does far more integer work than the function
+//   needs: 8m*k LOP3 + 8m*8 parity-fold and placement ops per word (24*8 +
+//   24*8 = 384, whatever the density, so Cauchy costs the same) -> 0.193
+//   ms at the INT32 peak, above the memory bound; the TPU kernel's own
+//   schedule (401 ones: 377 XORs + 120 plane cuts + 42 row placements =
+//   539 ops per word) would be more still.  Beside the ALU work, each
 //   thread loads one cached schedule word per (row, chunk) per 16 bytes.
 // What the design does about it: nothing yet beyond coalesced 16-byte
 // accesses and a branch-free, density-independent inner loop.  Faster

@@ -216,6 +216,7 @@ def build_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         build_info["seconds"] = time.perf_counter() - t0
         build_info["library"] = str(so)
+        build_info["source_sha256"] = tag
         _LIB = lib
         return lib
 

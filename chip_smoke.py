@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (`xor_matmul_host_batch` on the first stripe, the GF(2^8) table product
    `gf_matmul` on the last), byte for byte, over RS(8,3) encode matrices of
    both techniques, RS(8,3) decode matrices, RS(4,2) and RS(5,2), at chunk
-   lengths {128, 256, 512, 131072} and {1, 2, 256} stripes.
+   lengths {128, 256, 512, 131072} and {1, 2, 256} stripes, and at the main
+   path's own shape (1, k, 524288).
 3. The main path at a real size: plugin `tpu` RS(8,3) built through the
    registry with no device argument (so on the card), 32 objects of 4 MiB
    (RBD's default object size) encoded and decoded for every erasure class
@@ -21,8 +22,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    to the encoded bytes.  Kernel launch counts are reset just before and read
    just after, and must equal the kernel-tier calls made.
 4. Bulk timing: `encode_array` on (256, 8, 131072) uint8 on the card, CUDA
-   events, median of 20 runs, beside both bounds, the plain version and a
-   device copy of the same input as the memory yardstick; then
+   events, median of 20 runs, beside the bound (the larger of the bytes
+   moved at the HBM rate and the ops of the packed ring program at the
+   INT32 rate), the plain version and a device copy of the same input as
+   the memory yardstick; then
    `decode_array` at the same shape for one pattern of each erasure class.
 
 The last line of standard output is one JSON object,
@@ -46,6 +49,15 @@ SEED = 20261016
 # 1.98 GHz (half the fp32 lanes behind the 67 TFLOP/s float32 figure).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# 32-bit ops of one SWAR multiply-by-x of 4 packed GF(2^8) bytes,
+# ((w << 1) & 0xfefefefe) ^ (((w >> 7) & 0x01010101) * 0x1d):
+# shl, shr, and, imul, and one LOP3 for the closing and-xor.
+XTIME_OPS = 5
+
+
+# Phase 2's (chunk length, stripes): the TPU on-chip test geometries, and
+# the main path's own shape (one 4 MiB RS(8,3) object: 512 KiB chunks).
+SHAPES = [(L, S) for L in (128, 256, 512, 131072) for S in (1, 2, 256)] + [(524288, 1)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -62,23 +74,28 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def schedule_word_ops(sched) -> int:
-    """Integer ops per 32-bit word position of the k chunks in the TPU
-    kernel's formulation: plane cuts (shift + and, and alone for b=0), one
-    XOR per extra term of a row, and a shift (r>0) plus an OR per placed
-    row beyond the first of each output byte.  Printed for comparison."""
-    needed = {t for row in sched for t in row}
-    ops = sum(2 if b else 1 for _, b in needed)
-    ops += sum(len(row) - 1 for row in sched if row)
-    for i in range(len(sched) // 8):
-        rows = [r for r in range(8) if sched[8 * i + r]]
-        ops += sum(1 for r in rows if r) + max(0, len(rows) - 1)
+def ring_word_ops(mat) -> int:
+    """Integer ops per 32-bit word position of the k chunks that the coding
+    function needs, counted on Horner's ring program over the packed bytes
+    as stored (the construction ops/packed_gf.py picks for RS(8,3), 47
+    program ops): per output row, XOR the chunks of each coefficient bit and
+    chain multiply-by-x from the top bit down.  The ALU side of bound_ms."""
+    ops = 0
+    for row in np.asarray(mat, dtype=np.uint8):
+        levels = [sum((int(c) >> b) & 1 for c in row) for b in range(8)]
+        nonzero = [b for b in range(8) if levels[b]]
+        if not nonzero:
+            continue
+        top = nonzero[-1]
+        ops += levels[top] - 1 + XTIME_OPS * top
+        # a lower level: its XOR chain (n - 1) and one XOR into the sum
+        ops += sum(levels[b] for b in range(top))
     return ops
 
 
 def kernel_word_ops(plan, swar) -> int:
     """Integer ops per 32-bit word position of the k chunks that
-    csrc/swar_gf.cu does: one LOP3 (acc ^= w & mask) per schedule row and
+    csrc/swar_gf.cu itself does (a diagnostic, not the bound): one LOP3 (acc ^= w & mask) per schedule row and
     chunk, over the rows padded to whole passes, then per output bit-row a
     bytewise parity fold (3 shifts + 3 XORs) and its placement (shift+OR)."""
     rows = swar.schedule_masks_rows(plan.m)
@@ -138,26 +155,27 @@ def phase_kernel_checks(torch, swar, gf) -> int:
     for label, mat in mats:
         plan = swar.CodingPlan(mat, device=dev)
         bm = gf.expand_matrix(mat)
-        for L in (128, 256, 512, 131072):
-            for S in (1, 2, 256):
-                data = torch.randint(0, 256, (S, plan.k, L), dtype=torch.uint8,
-                                     device=dev, generator=gen)
-                got = swar.swar_gf(plan, data)
-                ref = swar.swar_code_reference(plan.sched, data)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
-                max_err = max(max_err, err)
-                check(err == 0, f"{label} L={L} S={S}: kernel != plain (max err {err})")
-                # the bitslice oracle costs seconds per MiB on the host: it
-                # takes the first stripe, the table product the last
+        for L, S in SHAPES:
+            data = torch.randint(0, 256, (S, plan.k, L), dtype=torch.uint8,
+                                 device=dev, generator=gen)
+            got = swar.swar_gf(plan, data)
+            ref = swar.swar_code_reference(plan.sched, data)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"{label} L={L} S={S}: kernel != plain (max err {err})")
+            # the bitslice oracle costs seconds per MiB on the host: it
+            # takes the first stripe up to 128 KiB, the table product
+            # the last stripe at every length
+            if L <= 131072:
                 oracle = gf.xor_matmul_host_batch(bm, data[:1].cpu().numpy())
                 check(np.array_equal(got[:1].cpu().numpy(), oracle),
                       f"{label} L={L} S={S}: kernel != bitslice oracle")
-                table = gf.gf_matmul(mat, data[S - 1].cpu().numpy())
-                check(np.array_equal(got[S - 1].cpu().numpy(), table),
-                      f"{label} L={L} S={S}: kernel != table oracle")
-                cases += 1
-                del data, got, ref
+            table = gf.gf_matmul(mat, data[S - 1].cpu().numpy())
+            check(np.array_equal(got[S - 1].cpu().numpy(), table),
+                  f"{label} L={L} S={S}: kernel != table oracle")
+            cases += 1
+            del data, got, ref
     print(f"[2] kernel == plain == oracle on {cases} cases "
           f"({len(mats)} matrices), max_abs_err={max_err}")
     return max_err
@@ -220,7 +238,8 @@ def phase_bulk(torch, swar, registry, gf, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     data = torch.randint(0, 256, (S, k, L), dtype=torch.uint8, device=dev, generator=gen)
-    plan = swar.CodingPlan(ec.distribution_matrix()[k:], device=dev)
+    mat = ec.distribution_matrix()[k:]
+    plan = swar.CodingPlan(mat, device=dev)
     out = ec.encode_array(data)
     ref = swar.swar_code_reference(plan.sched, data)
     torch.cuda.synchronize()
@@ -234,25 +253,26 @@ def phase_bulk(torch, swar, registry, gf, card):
     copy_ms = time_ms(torch, lambda: dst.copy_(data))
     in_bytes = S * k * L
     moved = (k + m) * S * L
-    word_ops = kernel_word_ops(plan, swar)
-    tpu_word_ops = schedule_word_ops(plan.sched)
-    ops = word_ops * S * (L // 4)
+    words = S * (L // 4)
     mem_ms = moved / HBM_BYTES_PER_S * 1e3
-    alu_ms = ops / INT32_OPS_PER_S * 1e3
+    need_ops = ring_word_ops(mat) * words
+    alu_ms = need_ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(mem_ms, alu_ms)
     bound_by = "bytes" if mem_ms >= alu_ms else "operations"
+    own_ops = kernel_word_ops(plan, swar) * words
     print(f"[4] card: {card}")
     print(f"[4] encode_array (256, 8, 131072) uint8: {entry_ms:.4f} ms, "
           f"{in_bytes / entry_ms / 1e6:.2f} GB/s input")
     print(f"[4] swar_gf kernel: {kernel_ms:.4f} ms, "
           f"{in_bytes / kernel_ms / 1e6:.2f} GB/s input")
-    print(f"[4] memory bound: {moved} B / 3.35 TB/s = {mem_ms:.4f} ms "
-          f"(share {mem_ms / kernel_ms:.3f})")
-    print(f"[4] int ALU bound: {word_ops} ops/word x {S * (L // 4)} words = {ops} ops "
-          f"/ {INT32_OPS_PER_S:.4g} ops/s = {alu_ms:.4f} ms (share {alu_ms / kernel_ms:.3f})")
-    print(f"[4] (the TPU kernel's schedule formulation: {tpu_word_ops} ops/word = "
-          f"{tpu_word_ops * S * (L // 4) / INT32_OPS_PER_S * 1e3:.4f} ms)")
-    print(f"[4] bound {bound_ms:.4f} ms by {bound_by}")
+    print(f"[4] memory bound: {moved} B / 3.35 TB/s = {mem_ms:.4f} ms")
+    print(f"[4] int ALU bound (ring program, xtime = {XTIME_OPS} ops): "
+          f"{ring_word_ops(mat)} ops/word x {words} words = {need_ops} ops "
+          f"/ {INT32_OPS_PER_S:.4g} ops/s = {alu_ms:.4f} ms")
+    print(f"[4] bound {bound_ms:.4f} ms by {bound_by}; kernel at "
+          f"{bound_ms / kernel_ms:.3f} of it")
+    print(f"[4] (diagnostic) the kernel's own ops: {kernel_word_ops(plan, swar)} ops/word "
+          f"= {own_ops / INT32_OPS_PER_S * 1e3:.4f} ms at the INT32 peak")
     print(f"[4] plain swar_code_reference: {plain_ms:.4f} ms")
     print(f"[4] copy yardstick (read {in_bytes} B + write {in_bytes} B): "
           f"{copy_ms:.4f} ms, {2 * in_bytes / copy_ms / 1e6:.2f} GB/s moved")
@@ -262,8 +282,7 @@ def phase_bulk(torch, swar, registry, gf, card):
         c, _ = gf.isa_decode_matrix(full, erasures, k)
         dec_ms = time_ms(torch, lambda: ec.decode_array(erasures, data))
         dec_bytes = (k + len(erasures)) * S * L
-        dec_plan = swar.CodingPlan(c, device=dev)
-        dec_ops = kernel_word_ops(dec_plan, swar) * S * (L // 4)
+        dec_ops = ring_word_ops(c) * words
         dec_bound = max(dec_bytes / HBM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S) * 1e3
         print(f"[4] decode_array {erasures}: {dec_ms:.4f} ms, "
               f"{in_bytes / dec_ms / 1e6:.2f} GB/s input, bound {dec_bound:.4f} ms")
@@ -302,6 +321,7 @@ def main() -> int:
         "bound_ms": bulk["bound_ms"],
         "bound_by": bulk["bound_by"],
         "library_ms": None,
+        "source_sha256": swar.build_info["source_sha256"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))
