@@ -27,18 +27,14 @@ b of the matching byte of chunk j.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..gf.bitslice import expand_matrix
+from . import _nvcc
 
 # One bit per packed byte field: plane words hold bit b of 4 bytes at bit
 # positions {0, 8, 16, 24}.
@@ -53,7 +49,6 @@ _ROWS_PER_PASS = 4
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "swar_gf.cu"
-BUILD_DIR = _PKG / "_build"
 
 
 def pick_geometry(L: int) -> tuple[int, int] | None:
@@ -167,58 +162,22 @@ class CodingPlan:
 launches = 0  # kernel launches made by swar_gf (plain-version calls excluded)
 _LAUNCH_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-_LIB_LOCK = threading.Lock()
 build_info: dict = {}
 
 
-def _nvcc() -> str:
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(nvcc):
-        return nvcc
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("swar_gf: nvcc not found (set CUDA_HOME)")
-    return found
-
-
 def build_library() -> ctypes.CDLL:
-    """Compile csrc/swar_gf.cu for sm_90a into BUILD_DIR (once per source
-    content) and load it.  A failed build raises."""
+    """Compile csrc/swar_gf.cu for sm_90a into the build directory (once per
+    source content) and load it.  A failed build raises."""
     global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"libswar_gf_{tag}.so"
-        t0 = time.perf_counter()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f".libswar_gf_{tag}.{os.getpid()}.so"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"swar_gf: nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            build_info["ptxas"] = proc.stderr
-        lib = ctypes.CDLL(str(so))
-        fn = lib.swar_gf_launch
-        fn.argtypes = [
+    if _LIB is None:
+        built = _nvcc.build("swar_gf", SOURCE, {"swar_gf_launch": [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        build_info["seconds"] = time.perf_counter() - t0
-        build_info["library"] = str(so)
-        build_info["source_sha256"] = tag
-        _LIB = lib
-        return lib
+        ]})
+        build_info.update(built.info)
+        _LIB = built.lib
+    return _LIB
 
 
 def swar_gf(plan: CodingPlan, data: torch.Tensor) -> torch.Tensor:

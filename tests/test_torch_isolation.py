@@ -1,5 +1,5 @@
 """The port stands alone: neither `ceph_tpu_torch/` nor `chip_smoke.py`
-imports jax or anything of the JAX package."""
+imports jax, anything of the JAX package, or its `benchmarks` scripts."""
 
 import ast
 import subprocess
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ceph_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ceph_tpu", "benchmarks")
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -26,7 +26,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert len(PORT_FILES) >= 15
-    assert (ROOT / "ceph_tpu_torch" / "csrc" / "swar_gf.cu").exists()
+    for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu"):
+        assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
