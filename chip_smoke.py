@@ -42,6 +42,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the calls it made; then each kernel timed at (256, 8, 131072), median
    of 20, beside its bound, its plain version and (copy only) the library
    call `dst.copy_(data[:, :3])`.
+6. The bit-matrix kernels of csrc/bitmatrix.cu (diag/kern_exp.py): grouped,
+   for every (g, operand type, tile) of kern_exp.main(), against its plain
+   version and `gf_matmul`; mm_only against its plain version's counts;
+   expand_only against its plain version and a numpy popcount; byte for
+   byte, on (8, 8, 4096) and (64, 8, 131072) for the three matrices of
+   phase 1 and on (8, 4, 4096) for RS(4,2).  Then kern_exp.main() once at
+   its script's sizes, launch counts reset before and held against its
+   calls; then each kernel timed at (256, 8, 131072) beside its bound, its
+   plain version and (mm_only only) the library call
+   `torch.matmul(bm_bf16, planes).to(torch.uint8)`.  Phase 1 builds the
+   library with the others and checks its SASS has no tensor-core
+   instruction.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -51,6 +63,7 @@ There is no CPU branch: without CUDA the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import re
@@ -68,6 +81,9 @@ SEED = 20261016
 # 1.98 GHz (half the fp32 lanes behind the 67 TFLOP/s float32 figure).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Dense tensor-core rates of the same sheet, ops (2 per multiply-add) a second.
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 # 32-bit ops of one SWAR multiply-by-x of 4 packed GF(2^8) bytes,
 # ((w << 1) & 0xfefefefe) ^ (((w >> 7) & 0x01010101) * 0x1d):
 # shl, shr, and, imul, and one LOP3 for the closing and-xor.
@@ -80,6 +96,10 @@ SHAPES = [(L, S) for L in (128, 256, 512, 131072) for S in (1, 2, 256)] + [(5242
 # Phase 5's (S, k, L): one chunk of 4 KiB, 128 KiB (the scripts' CHUNK) and
 # 512 KiB (the main path's), and two batches.
 DIAG_SHAPES = [(1, 8, 4096), (1, 8, 131072), (1, 8, 524288), (8, 8, 16384), (64, 8, 131072)]
+# Phase 6's (S, k, L) for RS(8,3) (every grouped variant divides both), and
+# for RS(4,2).
+BITMATRIX_SHAPES = [(8, 8, 4096), (64, 8, 131072)]
+BITMATRIX_RS42_SHAPE = (8, 4, 4096)
 # The bulk shape every kernel is timed at, and the calls timed per run.
 BULK = (256, 8, 131072)
 CALLS_PER_RUN = 5
@@ -165,6 +185,14 @@ def ptxas_lines(info: dict) -> list[str]:
             if "registers" in line or "spill" in line]
 
 
+@functools.cache
+def sass_text(tool: str, library: str) -> str:
+    proc = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          timeout=120)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr.strip()}")
+    return proc.stdout
+
+
 def sass_opcodes(nvcc: str, library: str, kernel: str):
     """Counter of the SASS opcodes (e.g. "LOP3.LUT", "LDG.E.128.CONSTANT")
     of the function of `library` whose name contains `kernel`; None if the
@@ -172,10 +200,7 @@ def sass_opcodes(nvcc: str, library: str, kernel: str):
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    proc = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
-                          timeout=120)
-    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr.strip()}")
-    for section in proc.stdout.split("Function : ")[1:]:
+    for section in sass_text(tool, library).split("Function : ")[1:]:
         if kernel in section.splitlines()[0]:
             return collections.Counter(
                 m.group(1) for m in re.finditer(
@@ -187,7 +212,7 @@ def count_prefix(ops, prefix: str) -> int:
     return sum(n for op, n in ops.items() if op.startswith(prefix))
 
 
-def phase_env(torch, swar, gf, diag, nvcc):
+def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
     kern_exp2, kern_exp3, kern_exp4 = diag[:3]
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -199,7 +224,8 @@ def phase_env(torch, swar, gf, diag, nvcc):
         swar.build_library()
         return swar.build_info
 
-    jobs = {"swar_gf": swar_gf_info, "copy_floor": lambda: kern_exp4.build().info}
+    jobs = {"swar_gf": swar_gf_info, "copy_floor": lambda: kern_exp4.build().info,
+            "bitmatrix": lambda: kern_exp.build().info}
     for label, mat in baked_matrices(gf):
         jobs[f"swar_baked {label}"] = lambda mat=mat: kern_exp2.make_swar(mat, 128).build().info
         jobs[f"swar3_baked {label}"] = (
@@ -230,6 +256,16 @@ def phase_env(torch, swar, gf, diag, nvcc):
         mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
         print(f"[1] swar_baked_kernel (rs83-van-encode) SASS: {total} instructions, "
               f"{total / 4:.1f} per word (TPU program as written: 539); {mix}")
+        # the bit-matrix kernels run on the CUDA cores: no HMMA/IMMA/HGMMA...
+        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op)
+        for kernel in ("Bf16Operand", "Int8Operand", "mm_only_kernelILi24E",
+                       "expand_only_kernel"):
+            ops = sass_opcodes(nvcc, infos["bitmatrix"]["library"], kernel)
+            mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
+            mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(6))
+            print(f"[1] bitmatrix {kernel} SASS: {sum(ops.values())} instructions, "
+                  f"{mma} tensor-core; {mix}")
+            check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     return name, card, infos
 
 
@@ -406,20 +442,25 @@ def coding_bound(mat, S: int, k: int, L: int) -> tuple[float, str]:
     return max(mem_ms, alu_ms), ("bytes" if mem_ms >= alu_ms else "operations")
 
 
-def unported_bounds(S: int, k: int, L: int, m: int = 3) -> dict:
-    """Bounds (ms, by) at (S, k, L) of the TPU kernels of
-    benchmarks/diag/kern_exp.py that are still to port, from their shapes:
+def bitmatrix_bounds(S: int, k: int, L: int, m: int = 3,
+                     tensor_ops_per_s: float = BF16_OPS_PER_S) -> dict:
+    """Bounds (ms, by) at (S, k, L) of the kernels of csrc/bitmatrix.cu
+    (the TPU kernels of benchmarks/diag/kern_exp.py), from their shapes:
     each input byte read once, each output byte written once, at the HBM
     rate; the (8m, 8k) 0/1 bit-matrix product over S·L columns (2 ops per
-    multiply-add) at the dense bf16 tensor rate (989e12/s); the bytewise
-    popcount of k chunks as SWAR on 32-bit words (10 ops per word of each
-    chunk, k - 1 adds) at the INT32 rate."""
-    mm_ms = 2 * (8 * m) * (8 * k) * S * L / 989e12 * 1e3
+    multiply-add) at the dense tensor rate of the operand's type (bf16
+    989e12/s, int8 1979e12/s); the bytewise popcount of k chunks as SWAR on
+    32-bit words (10 ops per word of each chunk, k - 1 adds) at the INT32
+    rate."""
+    mm_ops = 2 * (8 * m) * (8 * k) * S * L
     popc_ms = (10 * k + k - 1) * S * (L // 4) / INT32_OPS_PER_S * 1e3
     rows = {
-        "make_grouped": ((k + m) * S * L, mm_ms),       # (S,k,L) u8 -> (S,m,L) u8
-        "make_mm_only": ((2 * 8 * k + 8 * m) * S * L, mm_ms),  # bf16 planes -> u8 counts
-        "make_expand_only": ((k + 1) * S * L, popc_ms),  # (S,k,L) u8 -> (S,1,L) u8
+        # (S,k,L) u8 -> (S,m,L) u8, operand bf16 or int8
+        "bitmatrix_grouped": ((k + m) * S * L, mm_ops / tensor_ops_per_s * 1e3),
+        # bf16 planes -> u8 counts
+        "bitmatrix_mm_only": ((2 * 8 * k + 8 * m) * S * L, mm_ops / BF16_OPS_PER_S * 1e3),
+        # (S,k,L) u8 -> (S,1,L) u8
+        "bitmatrix_expand_only": ((k + 1) * S * L, popc_ms),
     }
     out = {}
     for name, (moved, ops_ms) in rows.items():
@@ -548,8 +589,6 @@ def phase_diag_timing(torch, swar, gf, diag, floor_ms) -> dict:
           f"{plain_ms:.4f} ms")
     print(f"[5] swar3_baked best {geo_label}: {swar3_ms:.4f} ms; plain swar3_reference "
           f"{plain3_ms:.4f} ms")
-    for name, (ms, by) in unported_bounds(S, k, L).items():
-        print(f"[5] bound of kern_exp.py {name} (still to port) at {BULK}: {ms:.4f} ms by {by}")
     print(f"[5] copy_floor (phase 4): {floor_ms:.4f} ms, {copy_bound_ms / floor_ms:.3f} of "
           f"its bound; plain copy_reference {copy_plain_ms:.4f} ms; library "
           f"dst.copy_(data[:, :3]) {library_ms:.4f} ms")
@@ -566,6 +605,162 @@ def phase_diag_timing(torch, swar, gf, diag, floor_ms) -> dict:
     }
 
 
+BITMATRIX_KERNELS = ("bitmatrix_grouped", "bitmatrix_mm_only", "bitmatrix_expand_only")
+
+
+def popcount_oracle(host: np.ndarray) -> np.ndarray:
+    """(k, L) uint8 -> (1, L): the set bits of each column, by numpy."""
+    return np.unpackbits(host[..., None], axis=-1).sum(axis=(0, 2)).astype(np.uint8)[None]
+
+
+def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
+    """The three bit-matrix kernels against their plain versions and the
+    oracles, byte for byte: grouped for every variant of kern_exp.main()
+    (oracle `gf_matmul`), mm_only (counts of the plain version) and
+    expand_only (numpy popcount); returns each kernel's max abs error."""
+    dev = torch.device("cuda")
+    rs42 = ("rs42-van-encode", gf.isa_rs_vandermonde_matrix(4, 2)[4:])
+    cases = [(shape, baked_matrices(gf)) for shape in BITMATRIX_SHAPES]
+    cases.append((BITMATRIX_RS42_SHAPE, [rs42]))
+    errs = dict.fromkeys(BITMATRIX_KERNELS, 0)
+    counts = dict.fromkeys(BITMATRIX_KERNELS, 0)
+
+    def record(kernel, label, got, plain, oracle):
+        err = byte_err(torch, got, plain)
+        errs[kernel] = max(errs[kernel], err)
+        check(err == 0, f"{kernel} {label}: kernel != plain (max err {err})")
+        for s, want in oracle.items():
+            check(np.array_equal(got[s].cpu().numpy(), want),
+                  f"{kernel} {label}: stripe {s} != oracle")
+        counts[kernel] += 1
+
+    expand = kern_exp.make_expand_only(kern_exp.EXPAND_TILE)
+    for n, (shape, mats) in enumerate(cases):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 20 + n)
+        data = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        ends = sorted({0, shape[0] - 1})  # the oracle costs host time: first and last stripe
+        host = {s: data[s].cpu().numpy() for s in ends}
+        record("bitmatrix_expand_only", f"{shape}", expand(data),
+               kern_exp.expand_only_reference(data), {s: popcount_oracle(host[s]) for s in ends})
+        for label, mat in mats:
+            oracle = {s: gf.gf_matmul(mat, host[s]) for s in ends}
+            plain = {}
+            for g, dn, tile in kern_exp.GROUPED_VARIANTS:
+                fn = kern_exp.make_grouped(mat, g, kern_exp.OPERANDS[dn], tile)
+                if (g, dn) not in plain:
+                    plain[g, dn] = kern_exp.grouped_reference(fn.operand.on(dev), data, g)
+                record("bitmatrix_grouped", f"{label} {shape} {kern_exp.variant_name(g, dn, tile)}",
+                       fn(data), plain[g, dn], oracle)
+            del plain
+            planes = kern_exp.bit_planes(data, torch.bfloat16)
+            mm = kern_exp.make_mm_only(mat, kern_exp.MM_TILE)
+            record("bitmatrix_mm_only", f"{label} {shape}", mm(planes),
+                   kern_exp.mm_only_reference(mm.operand.on(dev), planes), {})
+            del planes
+        del data
+    for kernel, err in errs.items():
+        print(f"[6] {kernel} == plain == oracle on {counts[kernel]} cases, max_abs_err={err}")
+    return errs
+
+
+def phase_bitmatrix_main(torch, swar, kern_exp) -> dict:
+    """kern_exp.main() at its script's sizes; launch counts reset just before
+    and held against the calls it made."""
+    for kernel in kern_exp.launches:
+        kern_exp.launches[kernel] = 0
+    swar.launches = 0
+    print("[6] --- ceph_tpu_torch.diag.kern_exp.main()", flush=True)
+    calls = kern_exp.main([])
+    torch.cuda.synchronize()
+    launches = {**kern_exp.launches, "swar_gf": swar.launches}
+    for kernel, n in launches.items():
+        print(f"[6] {kernel}: launches {n}, wrapper calls {calls.get(kernel, 0)}")
+        check(n > 0 and n == calls.get(kernel, 0),
+              f"{kernel}: launches {n} != wrapper calls {calls.get(kernel, 0)}")
+    return launches
+
+
+def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
+    """Each bit-matrix kernel at the bulk shape, median of 20, beside its
+    bound, its plain version and (mm_only only) the library call."""
+    dev = torch.device("cuda")
+    S, k, L = BULK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    data = torch.randint(0, 256, BULK, dtype=torch.uint8, device=dev, generator=gen)
+    mat = gf.isa_rs_vandermonde_matrix(k, 3)[k:]
+    in_bytes = S * k * L
+    want = kern_exp.grouped_reference(
+        kern_exp.make_grouped(mat, 1, torch.int8, 4096).operand.on(dev), data, 1)
+    check(np.array_equal(want[0].cpu().numpy(), gf.gf_matmul(mat, data[0].cpu().numpy())),
+          "grouped_reference != oracle at the bulk shape")
+    times, fns = {}, {}
+    for g in (1, 8):
+        for dn, dtype in kern_exp.OPERANDS.items():
+            label = kern_exp.variant_name(g, dn, 4096)
+            fn = fns[label] = kern_exp.make_grouped(mat, g, dtype, 4096)
+            check(torch.equal(fn(data), want), f"bitmatrix_grouped {label} != plain at {BULK}")
+            times[label] = time_ms(torch, lambda: fn(data))
+            print(f"[6] bitmatrix_grouped {label}: {times[label]:.4f} ms, "
+                  f"{in_bytes / times[label] / 1e6:.2f} GB/s input", flush=True)
+    del want
+    best = min(times, key=times.get)
+    grouped = fns[best]
+    bounds = bitmatrix_bounds(S, k, L, tensor_ops_per_s=(
+        INT8_OPS_PER_S if grouped.dtype == torch.int8 else BF16_OPS_PER_S))
+    grouped_plain_ms = time_ms(
+        torch, lambda: kern_exp.grouped_reference(grouped.operand.on(dev), data, grouped.g),
+        warmup=2, reps=5)
+
+    planes = kern_exp.bit_planes(data, torch.bfloat16)
+    mm = kern_exp.make_mm_only(mat, kern_exp.MM_TILE)
+    operand = mm.operand.on(dev)
+    counts = mm(planes)
+    check(torch.equal(counts, kern_exp.mm_only_reference(operand, planes)),
+          f"bitmatrix_mm_only != plain at {BULK}")
+
+    def library():  # cuBLAS on the same planes; counts <= 64 are exact in bf16
+        return torch.matmul(operand, planes).to(torch.uint8)
+
+    check(torch.equal(library(), counts), f"library matmul != bitmatrix_mm_only at {BULK}")
+    del counts
+    mm_ms = time_ms(torch, lambda: mm(planes))
+    mm_plain_ms = time_ms(torch, lambda: kern_exp.mm_only_reference(operand, planes),
+                          warmup=2, reps=5)
+    mm_library_ms = time_ms(torch, library)
+    del planes
+
+    expand = kern_exp.make_expand_only(kern_exp.EXPAND_TILE)
+    check(torch.equal(expand(data), kern_exp.expand_only_reference(data)),
+          f"bitmatrix_expand_only != plain at {BULK}")
+    expand_ms = time_ms(torch, lambda: expand(data))
+    expand_plain_ms = time_ms(torch, lambda: kern_exp.expand_only_reference(data),
+                              warmup=2, reps=5)
+
+    rows = {
+        "bitmatrix_grouped": (times[best], grouped_plain_ms, None, best),
+        "bitmatrix_mm_only": (mm_ms, mm_plain_ms, mm_library_ms, f"tile={kern_exp.MM_TILE}"),
+        "bitmatrix_expand_only": (expand_ms, expand_plain_ms, None,
+                                  f"tile={kern_exp.EXPAND_TILE}"),
+    }
+    sha = kern_exp.build().info["source_sha256"]
+    out = {}
+    for kernel, (ms, plain_ms, library_ms, variant) in rows.items():
+        bound_ms, bound_by = bounds[kernel]
+        library = "" if library_ms is None else (
+            f"; library torch.matmul(bm_bf16, planes).to(uint8) {library_ms:.4f} ms")
+        print(f"[6] {kernel} {variant}: {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({bound_ms / ms:.4f} of it); plain {plain_ms:.4f} ms{library}")
+        out[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms, "variant": variant,
+                       "source_sha256": sha}
+    print(f"[6] bitmatrix_grouped g8 / g1 time: bf16 "
+          f"{times['g8_bf16_t4096'] / times['g1_bf16_t4096']:.2f}x, int8 "
+          f"{times['g8_int8_t4096'] / times['g1_int8_t4096']:.2f}x (best {best})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -576,7 +771,7 @@ def main() -> int:
     try:
         from ceph_tpu_torch import gf
         from ceph_tpu_torch.codec import registry
-        from ceph_tpu_torch.diag import kern_exp2, kern_exp3, kern_exp4, kern_exp5
+        from ceph_tpu_torch.diag import kern_exp, kern_exp2, kern_exp3, kern_exp4, kern_exp5
         from ceph_tpu_torch.ops import swar_gf as swar
         from ceph_tpu_torch.ops._nvcc import nvcc_path
     except ImportError as e:
@@ -590,13 +785,16 @@ def main() -> int:
         print(f"[{n}] phase {n}: {time.perf_counter() - t0:.2f} s", flush=True)
         return result
 
-    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, nvcc_path())
+    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, nvcc_path())
     max_err = phase(2, phase_kernel_checks, torch, swar, gf)
     launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4)
     errs = phase("5a", phase_diag_checks, torch, swar, gf, diag)
     diag_launches = phase("5b", phase_diag_mains, torch, swar, diag)
     diag_times = phase("5c", phase_diag_timing, torch, swar, gf, diag, bulk["floor_ms"])
+    errs.update(phase("6a", phase_bitmatrix_checks, torch, gf, kern_exp))
+    diag_launches.update(phase("6b", phase_bitmatrix_main, torch, swar, kern_exp))
+    diag_times.update(phase("6c", phase_bitmatrix_timing, torch, gf, kern_exp))
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -615,6 +813,9 @@ def main() -> int:
         ("copy_floor", "copy_floor.cu", "benchmarks/diag/kern_exp4.py:34"),
         ("swar_baked", "swar_baked.cu", "benchmarks/diag/kern_exp2.py:48"),
         ("swar3_baked", "swar3_baked.cu", "benchmarks/diag/kern_exp3.py:41"),
+        ("bitmatrix_grouped", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:53"),
+        ("bitmatrix_mm_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:98"),
+        ("bitmatrix_expand_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:131"),
     ):
         kernels.append({
             "name": kernel,

@@ -1,0 +1,167 @@
+"""The port of benchmarks/diag/kern_exp.py (ceph_tpu_torch/diag/kern_exp.py)
+against the TPU script, whose Pallas kernels run here in interpret mode,
+and against the GF(2^8) table product and a numpy popcount.  All
+comparisons are byte-exact.  The CUDA kernels run only on the card
+(chip_smoke.py phase 6); here the wrappers take their plain versions."""
+
+import functools
+from pathlib import Path
+
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.gf import gf_matmul, isa_cauchy_matrix, isa_decode_matrix, isa_rs_vandermonde_matrix
+
+from ceph_tpu_torch.diag import kern_exp
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _van83():
+    return isa_rs_vandermonde_matrix(8, 3)[8:]
+
+
+MATRICES = {
+    "rs83-van": _van83,
+    "rs83-cauchy": lambda: isa_cauchy_matrix(8, 3)[8:],
+    "rs83-decode-0-5-10": lambda: isa_decode_matrix(isa_rs_vandermonde_matrix(8, 3), [0, 5, 10], 8)[0],
+    "rs42-van": lambda: isa_rs_vandermonde_matrix(4, 2)[4:],
+}
+JAX_OPERANDS = {"bf16": jnp.bfloat16, "int8": jnp.int8}
+
+
+@pytest.fixture(scope="module")
+def tpu_kern_exp():
+    """The TPU script as a module, its pallas_call in interpret mode; the
+    patch and the script's sys.path edits are undone after this module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+        mp.syspath_prepend(str(ROOT / "benchmarks" / "diag"))
+        import kern_exp as tpu
+
+        yield tpu
+
+
+def _data(S, k, L, seed):
+    return np.random.default_rng(seed).integers(0, 256, (S, k, L), dtype=np.uint8)
+
+
+def _oracle(mat, data):
+    return np.stack([gf_matmul(mat, d) for d in data])
+
+
+GROUPED_CASES = [("rs83-van", g, dn) for g in (1, 2, 4, 8) for dn in JAX_OPERANDS] + [
+    ("rs83-cauchy", 2, "bf16"), ("rs83-decode-0-5-10", 4, "int8"), ("rs42-van", 8, "bf16")]
+
+
+@pytest.mark.parametrize("name,g,dn", GROUPED_CASES)
+def test_grouped_matches_tpu(tpu_kern_exp, name, g, dn):
+    mat = MATRICES[name]()
+    data = _data(8, mat.shape[1], 1024, 10 * g + len(name))
+    tpu = np.asarray(tpu_kern_exp.make_grouped(mat, g, JAX_OPERANDS[dn], 512)(data))
+    ours = kern_exp.make_grouped(mat, g, kern_exp.OPERANDS[dn], 512)(torch.from_numpy(data))
+    assert np.array_equal(ours.numpy(), tpu)
+    assert np.array_equal(tpu, _oracle(mat, data))
+
+
+@pytest.mark.parametrize("name", ["rs83-van", "rs42-van"])
+def test_mm_only_matches_tpu(tpu_kern_exp, name):
+    mat = MATRICES[name]()
+    data = _data(2, mat.shape[1], 1024, len(name))
+    planes = kern_exp.bit_planes(torch.from_numpy(data), torch.bfloat16)
+    jplanes = jnp.asarray(kern_exp.bit_planes(torch.from_numpy(data), torch.uint8).numpy())
+    tpu = np.asarray(tpu_kern_exp.make_mm_only(mat, 512)(jplanes.astype(jnp.bfloat16)))
+    ours = kern_exp.make_mm_only(mat, 512)(planes).numpy()
+    assert np.array_equal(ours, tpu)
+    # counts, not parity: the 0/1 product in integers
+    bm = kern_exp.arrange_dense_matrix(mat).astype(np.int64)
+    counts = np.einsum("rc,scl->srl", bm, kern_exp.bit_planes(
+        torch.from_numpy(data), torch.int64).numpy())
+    assert np.array_equal(ours, counts.astype(np.uint8)) and ours.max() > 1
+
+
+@pytest.mark.parametrize("k", [8, 4])
+def test_expand_only_matches_tpu(tpu_kern_exp, k):
+    data = _data(2, k, 8192, k)
+    tpu = np.asarray(tpu_kern_exp.make_expand_only(4096)(data))
+    ours = kern_exp.make_expand_only(4096)(torch.from_numpy(data)).numpy()
+    assert np.array_equal(ours, tpu)
+    popcount = np.unpackbits(data[..., None], axis=-1).sum(axis=(1, 3), dtype=np.int64)
+    assert np.array_equal(ours[:, 0], popcount.astype(np.uint8))
+
+
+def test_bit_planes_match_the_script():
+    """Bit-major rows, as the script builds mm_only's planes (:209-211)."""
+    data = _data(2, 8, 64, 5)
+    want = np.concatenate([(data.astype(np.int32) >> b) & 1 for b in range(8)], axis=1)
+    assert np.array_equal(kern_exp.bit_planes(torch.from_numpy(data), torch.int32).numpy(), want)
+
+
+@pytest.mark.parametrize("name", MATRICES)
+def test_helpers_match_the_script(tpu_kern_exp, name):
+    mat = MATRICES[name]()
+    ours = kern_exp.arrange_dense_matrix(mat)
+    want = tpu_kern_exp.arrange_dense_matrix(mat)
+    assert ours.dtype == want.dtype and np.array_equal(ours, want)
+    for g in (1, 3, 8):
+        assert np.array_equal(kern_exp.block_diag(ours, g), tpu_kern_exp.block_diag(want, g))
+
+
+def test_probe_fits_every_variant(tpu_kern_exp):
+    """main()'s probe is divided by every grouped variant, unlike the
+    script's (2, 1024) probe, on which the script's own kernel writes
+    nothing and misses the oracle."""
+    assert len(kern_exp.GROUPED_VARIANTS) == 13
+    for g, dn, tile in kern_exp.GROUPED_VARIANTS:
+        assert kern_exp.PROBE_S % g == 0 and kern_exp.PROBE_L % tile == 0
+        assert kern_exp.PROBE_L >= tile
+    assert kern_exp.CHUNK % kern_exp.MM_TILE == 0 and kern_exp.CHUNK % kern_exp.EXPAND_TILE == 0
+    mat = _van83()
+    small = _data(2, 8, 1024, 9)
+    tpu = np.asarray(tpu_kern_exp.make_grouped(mat, 2, jnp.int8, 2048)(small))
+    assert not tpu.any() and not np.array_equal(tpu, _oracle(mat, small))
+
+
+@pytest.mark.parametrize("make,shape", [
+    (lambda: kern_exp.make_grouped(_van83(), 4, torch.int8, 512), (6, 8, 1024)),   # S % g
+    (lambda: kern_exp.make_grouped(_van83(), 2, torch.bfloat16, 512), (2, 8, 768)),  # L % tile
+    (lambda: kern_exp.make_grouped(_van83(), 1, torch.int8, 2048), (2, 8, 1024)),  # L < tile
+    (lambda: kern_exp.make_grouped(_van83(), 2, torch.int8, 512), (2, 7, 1024)),   # k
+    (lambda: kern_exp.make_grouped(_van83(), 2, torch.float32, 512), None),        # dtype
+    (lambda: kern_exp.make_grouped(_van83(), 16, torch.int8, 512), None),          # g·k > 96
+    (lambda: kern_exp.make_expand_only(4096), (2, 8, 2048)),                       # L < tile
+    (lambda: kern_exp.make_expand_only(4096), (2, 8, 6144)),                       # L % tile
+    (lambda: kern_exp.make_expand_only(100), None),                                # tile % 16
+])
+def test_invalid_shapes_raise(make, shape):
+    with pytest.raises(ValueError):
+        make()(torch.zeros(shape, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 64, 768), torch.bfloat16),   # L % tile
+    ((2, 64, 256), torch.bfloat16),   # L < tile
+    ((2, 32, 1024), torch.bfloat16),  # 8k
+    ((2, 64, 1024), torch.float32),   # dtype
+])
+def test_mm_only_invalid_shapes_raise(shape, dtype):
+    with pytest.raises(ValueError):
+        kern_exp.make_mm_only(_van83(), 512)(torch.zeros(shape, dtype=dtype))
+
+
+def test_cpu_wrappers_launch_nothing():
+    data = torch.from_numpy(_data(2, 8, 1024, 3))
+    before = dict(kern_exp.launches)
+    kern_exp.make_grouped(_van83(), 2, torch.int8, 512)(data)
+    kern_exp.make_mm_only(_van83(), 512)(kern_exp.bit_planes(data, torch.bfloat16))
+    kern_exp.make_expand_only(512)(data)
+    assert kern_exp.launches == before
+
+
+def test_main_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        kern_exp.main([])
