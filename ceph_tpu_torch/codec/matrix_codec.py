@@ -32,12 +32,23 @@ from .interface import EcError
 DECODE_LRU_CAPACITY = 2516
 
 
+def dense_aligned(data: torch.Tensor) -> torch.Tensor:
+    """`data` itself when it is contiguous and its base address is 16-byte
+    aligned, else a fresh dense copy (a new allocation is aligned).  A
+    slice of a tensor, such as `cw[:, :8]` or `buf[1:]`, may be neither,
+    and the kernel tier takes only dense, aligned input."""
+    if data.is_contiguous() and data.data_ptr() % 16 == 0:
+        return data
+    return data.clone(memory_format=torch.contiguous_format)
+
+
 class _DeviceCoder:
     """One cached coding operator on one device, two tiers:
 
     - chunk length a multiple of 128 (`pick_geometry`): the SWAR kernel
-      wrapper, which launches csrc/swar_gf.cu for a CUDA tensor and runs
-      its plain version for a CPU tensor;
+      wrapper on the input made dense and aligned (`dense_aligned`), which
+      launches csrc/swar_gf.cu for a CUDA tensor and runs its plain version
+      for a CPU tensor;
     - any other length: `xor_matmul` on the bit-matrix.
     """
 
@@ -49,7 +60,7 @@ class _DeviceCoder:
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
         if pick_geometry(data.shape[-1]) is not None:
-            return self.plan(data)
+            return self.plan(dense_aligned(data))
         return xor_matmul(self.bm, data)
 
 

@@ -1,5 +1,6 @@
-// The bit-matrix kernels of the kern_exp.py experiment, for Hopper (sm_90a),
-// on the CUDA cores.
+// The bit-matrix kernels of the kern_exp.py experiment, for Hopper (sm_90a).
+// mm_only runs on the tensor cores (bf16 mma.sync); grouped and expand_only
+// still run on the CUDA cores.
 //
 // Replaces the three Pallas kernels of benchmarks/diag/kern_exp.py:
 //
@@ -32,34 +33,50 @@
 //
 // Translation.  The TPU grid (S/g, L/tile) becomes a 1-D grid of
 // (S/g)·(L/tile) blocks; a block covers `tile` byte columns of g stripes, so
-// the script's variant names keep their meaning.  The MXU product of the
-// TPU is a loop of CUDA-core multiply-adds here: no tensor cores, no TMA,
-// no cp.async.  The operand is a runtime argument read as given, zero
-// blocks included, as the MXU multiplies them; g, k and m are runtime
-// arguments, so one library serves every matrix and every variant.
+// the script's variant names keep their meaning.  The operand is a runtime
+// argument read as given, zero blocks included, as the MXU multiplies them;
+// g, k and m are runtime arguments, so one library serves every matrix and
+// every variant (mm_only has one instance per (8m/8, ceil(8k/16))).
 //
-// grouped: a thread covers 4 consecutive byte columns (one 32-bit word of
-// each of the g·k chunks).  It stages its g·k words in its own column of
-// shared memory, then computes 8 output rows at a time (the 8 bits of one
-// output byte, 32 accumulators): for each plane it extracts the 4 column
-// bits once and multiply-adds them into the 8 rows, reading the operand
-// with warp-uniform loads.  The product does 8mg·8kg multiply-adds per
-// column, g times what the coding needs.
-// mm_only: a thread covers 4 columns and keeps all 8m rows in registers
-// (8m <= 32), reading 8 bytes of planes per plane row; the operand is
-// staged transposed in shared memory as float, 4 rows per 16-byte read.
-// expand_only: 16-byte vectors; bytewise popcounts on 32-bit words by the
-// 0x55/0x33/0x0f SWAR steps, summed over the k chunks (8k <= 255, so no
-// byte carries into the next).
+// grouped (CUDA cores): a thread covers 4 consecutive byte columns (one
+// 32-bit word of each of the g·k chunks).  It stages its g·k words in its
+// own column of shared memory, then computes 8 output rows at a time (the
+// 8 bits of one output byte, 32 accumulators): for each plane it extracts
+// the 4 column bits once and multiply-adds them into the 8 rows, reading
+// the operand with warp-uniform loads.  The product does 8mg·8kg
+// multiply-adds per column, g times what the coding needs.
+// mm_only (tensor cores): a memory stream with an MMA inside it.  The
+// planes are the A side of mma.sync m16n8k16 (M = 16 columns, K = 16
+// planes) and the operand the B side, so the 8m rows are N = 8m/8 tiles
+// of n8 with no padding, and the operand's rows lie in memory as the "col"
+// B layout wants: each warp loads its B fragments (at most 8 k-steps x 4
+// n-tiles x 2 registers) once and keeps them for the whole block.  The
+// wrapper pads the operand's columns with zeros to a multiple of 16.  The
+// planes stream once through a 3-stage cp.async.cg ring in shared memory,
+// 16 B a thread, a stage being 128 columns of every plane (16 KiB for
+// 8k = 64); the padded plane rows of every stage are zeroed once and never
+// loaded (bf16 garbage could be NaN, and 0 x NaN is NaN).  Rows are padded
+// by 16 B so that ldmatrix.x4.trans, which forms the A fragments, and the
+// epilogue's byte writes are free of bank conflicts.  Epilogue: each f32
+// sum is cut to int (__float2int_rz) and its low byte staged in shared
+// memory, then written with coalesced 16-byte stores.
+// expand_only (CUDA cores): 16-byte vectors; bytewise popcounts on 32-bit
+// words by the 0x55/0x33/0x0f SWAR steps, summed over the k chunks
+// (8k <= 255, so no byte carries into the next).
 //
 // Bound on an H100 SXM at (256, 8, 131072), RS(8,3): bytes for all three.
 // grouped moves (k + m)·S·L = 369,098,752 B, 0.1102 ms at 3.35 TB/s; the
 // (8m, 8k) product it needs is 5.15e10 multiply-adds, 0.1042 ms at the
-// dense bf16 tensor rate.  mm_only moves (2·8k + 8m)·S·L B, 1.5225 ms.
-// expand_only moves (k + 1)·S·L B, 0.0901 ms.  On the CUDA cores the
-// grouped and mm_only products are far above their bounds (5.15e10·g
-// multiply-adds at the float32 rate of 33.5e12 per second take 1.5·g ms);
-// the tensor cores are the work of a later redesign.
+// dense bf16 tensor rate.  On the CUDA cores that product takes 1.5·g ms
+// (5.15e10·g multiply-adds at the float32 rate of 33.5e12 per second):
+// far above the bound; the tensor cores are the work of a later redesign.
+// mm_only moves (2·8k + 8m)·S·L = 5.1e9 B, 1.5225 ms, beside 0.104 ms of
+// bf16 MMA (0.14 ms with K padded and the M side in whole m16 tiles): the
+// ring keeps 2 stages in flight per block to cover memory latency (for
+// 8k = 64 a block takes 55,680 B of shared memory, so 4 blocks fit an SM,
+// 128 KiB in flight), and the MMA, the cut and the staging hide under the
+// stream.  expand_only moves (k + 1)·S·L B,
+// 0.0901 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,8 +86,12 @@ namespace {
 constexpr int kGroupedThreads = 128;
 // A grouped thread stages g·k 32-bit words; at most 48 KiB for the block.
 constexpr int kMaxGroupedWords = 96;
-constexpr int kMmThreads = 128;
-constexpr int kMaxMmCols = 128;  // 8k columns of the mm_only operand
+constexpr int kMmThreads = 128;     // 4 warps, 32 columns of a stage each
+constexpr int kMmStageCols = 128;   // columns of every plane in one ring stage
+constexpr int kMmStages = 3;        // ring depth: 2 stages in flight while 1 is read
+constexpr int kMmPitch = kMmStageCols + 8;      // bf16 a staged plane row
+constexpr int kMmOutPitch = kMmStageCols + 16;  // bytes a staged output row
+constexpr int kMaxMmCols = 128;     // 8k columns of the mm_only operand
 constexpr int kExpandThreads = 256;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
@@ -149,54 +170,145 @@ grouped_kernel(const uint32_t* __restrict__ data, const typename Op::Raw* __rest
   }
 }
 
-template <int ROWS>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kMmStages - 2 groups are pending: the oldest stage landed
+__device__ __forceinline__ void cp_async_wait_oldest() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmStages - 2) : "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: lanes 8q..8q+7 give the row
+// addresses of matrix q, and register q of every lane receives its part.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// d += a·b, m16n8k16, bf16 inputs, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+constexpr size_t mm_only_shared_bytes(int nt, int ks) {
+  return (size_t)kMmStages * 16 * ks * kMmPitch * sizeof(uint16_t) +
+         (size_t)8 * nt * kMmOutPitch;
+}
+
+// NT = 8m / 8 output n-tiles, KS = ceil(8k / 16) k-steps.  planes (S, cols,
+// L) bf16; mat (8·NT, 16·KS) bf16 with the columns from `cols` on zero;
+// out (S, 8·NT, L) uint8.
+template <int NT, int KS>
 __global__ void __launch_bounds__(kMmThreads)
-mm_only_kernel(const uint2* __restrict__ planes, const uint16_t* __restrict__ mat,
-               uint32_t* __restrict__ out, int cols, long long quads, int tile_quads,
-               long long tiles) {
-  __shared__ float4 mt[kMaxMmCols * ROWS / 4];  // operand transposed: [c][ROWS] floats
-  float* mtf = reinterpret_cast<float*>(mt);
-  for (int i = threadIdx.x; i < ROWS * cols; i += kMmThreads) {
-    const int r = i / cols;
-    const int c = i - r * cols;
-    mtf[c * ROWS + r] = bf16_bits_to_float(mat[i]);
+mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__ mat,
+               uint8_t* __restrict__ out, int cols, long long L, int tile, long long tiles) {
+  constexpr int kRows = 8 * NT;
+  constexpr int kDepth = 16 * KS;
+  extern __shared__ __align__(16) uint8_t smem[];
+  // [kMmStages][kDepth][kMmPitch] bf16, then [kRows][kMmOutPitch] bytes
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* staged = smem + kMmStages * kDepth * kMmPitch * sizeof(uint16_t);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;  // mma's groupID
+  const int tig = lane & 3;   // mma's thread in group
+
+  // B fragments for the whole block: b0 = mat[n][k0 + 2·tig .. +1] with
+  // n = nt·8 + gid, b1 the same 8 columns on; one 32-bit word each.
+  uint32_t b[KS][NT][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint32_t* row = mat + (nt * 8 + gid) * (kDepth / 2) + ks * 8 + tig;
+      b[ks][nt][0] = row[0];
+      b[ks][nt][1] = row[4];
+    }
+  // the padded plane rows: zero in every stage, never loaded
+  for (int i = threadIdx.x; i < kMmStages * (kDepth - cols) * (kMmPitch / 8); i += kMmThreads) {
+    const int per_stage = (kDepth - cols) * (kMmPitch / 8);
+    const int stage = i / per_stage;
+    const int v = i - stage * per_stage;
+    reinterpret_cast<uint4*>(ring + (stage * kDepth + cols) * kMmPitch)[v] =
+        make_uint4(0u, 0u, 0u, 0u);
   }
-  __syncthreads();
+
   const long long s = blockIdx.x / tiles;
   const long long t = blockIdx.x - s * tiles;
-  const uint2* src = planes + s * cols * quads + t * tile_quads;
-  uint32_t* dst = out + s * ROWS * quads + t * tile_quads;
-#pragma unroll 1
-  for (int v = threadIdx.x; v < tile_quads; v += kMmThreads) {
-    float acc[ROWS][4];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < cols; ++c) {
-      const uint2 x = src[(long long)c * quads + v];  // 4 bf16 columns of plane c
-      const float p[4] = {bf16_bits_to_float(x.x & 0xffffu), bf16_bits_to_float(x.x >> 16),
-                          bf16_bits_to_float(x.y & 0xffffu), bf16_bits_to_float(x.y >> 16)};
-#pragma unroll
-      for (int r4 = 0; r4 < ROWS / 4; ++r4) {
-        const float4 a = mt[c * (ROWS / 4) + r4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[4 * r4 + 0][q] += a.x * p[q];
-          acc[4 * r4 + 1][q] += a.y * p[q];
-          acc[4 * r4 + 2][q] += a.z * p[q];
-          acc[4 * r4 + 3][q] += a.w * p[q];
-        }
-      }
+  const uint16_t* src = planes + s * cols * L + t * tile;
+  uint8_t* dst = out + s * kRows * L + t * tile;
+  const int stages = tile / kMmStageCols;
+  auto load = [&](int st) {  // stage st: 128 columns of every plane, 16 B a thread
+    uint16_t* slot = ring + (st % kMmStages) * kDepth * kMmPitch;
+    const uint16_t* from = src + st * kMmStageCols;
+    for (int i = threadIdx.x; i < cols * (kMmStageCols / 8); i += kMmThreads) {
+      const int c = i / (kMmStageCols / 8);
+      const int v = i - c * (kMmStageCols / 8);
+      cp_async16(slot + c * kMmPitch + v * 8, from + c * L + v * 8);
     }
+  };
+#pragma unroll 1
+  for (int p = 0; p < kMmStages - 1; ++p) {
+    if (p < stages) load(p);
+    cp_async_commit();  // possibly empty, so that the group count is the stage count
+  }
+#pragma unroll 1
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait_oldest();
+    // stage st has landed for every thread, and every warp is done with
+    // the slot the next load overwrites and with the staged output
+    __syncthreads();
+    if (st + kMmStages - 1 < stages) load(st + kMmStages - 1);
+    cp_async_commit();
+
+    const uint16_t* slot = ring + (st % kMmStages) * kDepth * kMmPitch;
+    float acc[2][NT][4] = {};
+    // ldmatrix.x4.trans of plane rows k0 + 8·(q >> 1) + i, columns
+    // c0 + 8·(q & 1): the A fragment {a0a1, a2a3, a4a5, a6a7}
+    const int q = lane >> 3;
+    const uint16_t* frag =
+        slot + ((q >> 1) * 8 + (lane & 7)) * kMmPitch + warp * 32 + (q & 1) * 8;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      uint32_t packed = 0;
-      // astype(int32) truncates, astype(uint8) keeps the low byte
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) packed |= ((uint32_t)(int)acc[r][q] & 0xffu) << (8 * q);
-      dst[(long long)r * quads + v] = packed;
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, frag + ks * 16 * kMmPitch + mt * 16);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[ks][nt]);
+      }
+    // d0, d1: column c0 + gid, rows n0 + 2·tig, +1; d2, d3: column + 8.
+    // astype(int32) truncates, astype(uint8) keeps the low byte.
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint8_t* o = staged + (nt * 8 + 2 * tig) * kMmOutPitch + warp * 32 + mt * 16 + gid;
+        o[0] = (uint8_t)__float2int_rz(acc[mt][nt][0]);
+        o[kMmOutPitch] = (uint8_t)__float2int_rz(acc[mt][nt][1]);
+        o[8] = (uint8_t)__float2int_rz(acc[mt][nt][2]);
+        o[kMmOutPitch + 8] = (uint8_t)__float2int_rz(acc[mt][nt][3]);
+      }
+    __syncthreads();
+    uint8_t* to = dst + st * kMmStageCols;
+    for (int i = threadIdx.x; i < kRows * (kMmStageCols / 16); i += kMmThreads) {
+      const int r = i / (kMmStageCols / 16);
+      const int v = i - r * (kMmStageCols / 16);
+      *reinterpret_cast<uint4*>(to + r * L + v * 16) =
+          *reinterpret_cast<const uint4*>(staged + r * kMmOutPitch + v * 16);
     }
   }
 }
@@ -264,32 +376,37 @@ extern "C" int bitmatrix_grouped_launch(const void* data, void* out, const void*
   return (int)cudaGetLastError();
 }
 
-// planes: (stripes, cols, L) bf16 with cols = 8k <= 128; mat: (rows, cols)
-// bf16 with rows = 8m in {8, 16, 24, 32}; out: (stripes, rows, L) uint8.
-// tile % 4 == 0, L % tile == 0, L >= tile.  Returns as above.
+// planes: (stripes, cols, L) bf16 with cols = 8k <= 128; mat: (rows,
+// 16·ceil(cols/16)) bf16, its columns from `cols` on zero, with rows = 8m in
+// {8, 16, 24, 32}; out: (stripes, rows, L) uint8.  tile % 128 == 0,
+// L % tile == 0, L >= tile.  Returns as above.
 extern "C" int bitmatrix_mm_only_launch(const void* planes, void* out, const void* mat,
                                         long long stripes, int cols, int rows, long long L,
                                         int tile, void* stream) {
-  const long long blocks = grid_blocks(stripes, 1, L, tile, 4);
-  if (blocks == 0 || cols <= 0 || cols > kMaxMmCols) return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto in = static_cast<const uint2*>(planes);
-  auto a = static_cast<const uint16_t*>(mat);
-  auto dst = static_cast<uint32_t*>(out);
-  switch (rows) {
-#define MM_ONLY_CASE(R)                                                              \
-  case R:                                                                            \
-    mm_only_kernel<R><<<(unsigned)blocks, kMmThreads, 0, st>>>(in, a, dst, cols, L / 4, \
-                                                               tile / 4, L / tile);  \
-    break;
-    MM_ONLY_CASE(8)
-    MM_ONLY_CASE(16)
-    MM_ONLY_CASE(24)
-    MM_ONLY_CASE(32)
-#undef MM_ONLY_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+  const long long blocks = grid_blocks(stripes, 1, L, tile, kMmStageCols);
+  if (blocks == 0 || cols <= 0 || cols > kMaxMmCols || rows % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  const int nt = rows / 8;
+  const int ks = (cols + 15) / 16;
+  if (nt < 1 || nt > 4) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const uint16_t*, const uint32_t*, uint8_t*, int, long long, int,
+                          long long);
+#define MM_ONLY_ROW(NT)                                                                   \
+  {mm_only_kernel<NT, 1>, mm_only_kernel<NT, 2>, mm_only_kernel<NT, 3>,                   \
+   mm_only_kernel<NT, 4>, mm_only_kernel<NT, 5>, mm_only_kernel<NT, 6>,                   \
+   mm_only_kernel<NT, 7>, mm_only_kernel<NT, 8>}
+  static const Kernel kernels[4][8] = {MM_ONLY_ROW(1), MM_ONLY_ROW(2), MM_ONLY_ROW(3),
+                                       MM_ONLY_ROW(4)};
+#undef MM_ONLY_ROW
+  const Kernel kernel = kernels[nt - 1][ks - 1];
+  const size_t shared = mm_only_shared_bytes(nt, ks);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kMmThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(planes), static_cast<const uint32_t*>(mat),
+      static_cast<uint8_t*>(out), cols, L, tile, L / tile);
   return (int)cudaGetLastError();
 }
 

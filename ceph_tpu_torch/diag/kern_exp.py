@@ -10,7 +10,10 @@ csrc/bitmatrix.cu (one library, the matrix and g runtime operands):
   multiplied by the block-diagonal (8mg, 8kg) operand of `dtype`
   (torch.bfloat16 or torch.int8), `& 1`, packed LSB-first into bytes.
 - `make_mm_only(gfm, tile)`: the (8m, 8k) bf16 operand times pre-expanded
-  bf16 planes (S, 8k, L) -> (S, 8m, L) uint8 counts (not parity).
+  bf16 planes (S, 8k, L) -> (S, 8m, L) uint8 counts (not parity), on the
+  tensor cores; the kernel takes the operand with its columns padded with
+  zeros to a multiple of 16 (`pad_depth`), and `tile` a multiple of
+  `MM_STAGE_COLS`.
 - `make_expand_only(tile)`: (S, k, L) uint8 -> (S, 1, L) uint8, the set
   bits over the k bytes of each column.
 
@@ -63,11 +66,14 @@ EXPAND_TILE = 4096
 # This probe is divided by every variant's g and tile.
 PROBE_S, PROBE_L = 8, 8192
 # csrc/bitmatrix.cu's limits: the words a grouped thread stages, the
-# columns of the mm_only operand, its rows, and the chunks whose popcounts
-# fit a byte.
+# columns of the mm_only operand, its rows, the columns of one mm_only ring
+# stage (a tile is a whole number of them), the K step of mma.sync
+# m16n8k16, and the chunks whose popcounts fit a byte.
 MAX_GROUPED_WORDS = 96
 MAX_MM_COLS = 128
 MM_ROWS = (8, 16, 24, 32)
+MM_STAGE_COLS = 128
+MMA_K = 16
 MAX_EXPAND_K = 31
 SOURCE = CSRC / "bitmatrix.cu"
 
@@ -99,6 +105,15 @@ def bit_planes(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     S, k, L = data.shape
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device).view(1, 8, 1, 1)
     return ((data.unsqueeze(1) >> shifts) & 1).reshape(S, 8 * k, L).to(dtype)
+
+
+def pad_depth(bm: np.ndarray) -> np.ndarray:
+    """(8m, 8k) operand -> (8m, 16·ceil(8k/16)): the columns the mm_only
+    kernel's K steps cover, those past 8k zero."""
+    rows, cols = bm.shape
+    out = np.zeros((rows, -(-cols // MMA_K) * MMA_K), dtype=bm.dtype)
+    out[:, :cols] = bm
+    return out
 
 
 def grouped_reference(operand: torch.Tensor, data: torch.Tensor, g: int) -> torch.Tensor:
@@ -199,17 +214,21 @@ def make_grouped(gf_matrix: np.ndarray, g: int, dtype: torch.dtype, tile: int) -
 
 class MmOnly:
     """Wrapper of the mm_only kernel: the bf16 bit-matrix of one (m, k)
-    matrix times bf16 planes, `tile` columns a block."""
+    matrix times bf16 planes, `tile` columns a block.  `operand` is the
+    (8m, 8k) bit-matrix the plain version multiplies; `padded` is the same
+    with zero columns up to the kernel's K steps."""
 
     def __init__(self, gf_matrix: np.ndarray, tile: int):
-        if tile < 4 or tile % 4:
-            raise ValueError(f"make_mm_only: tile={tile} is not a positive multiple of 4")
+        if tile < MM_STAGE_COLS or tile % MM_STAGE_COLS:
+            raise ValueError(f"make_mm_only: tile={tile} is not a positive multiple of "
+                             f"{MM_STAGE_COLS}")
         bm = arrange_dense_matrix(gf_matrix)
         if bm.shape[0] not in MM_ROWS or bm.shape[1] > MAX_MM_COLS:
             raise ValueError(f"make_mm_only: operand {bm.shape}, want 8m in {MM_ROWS}, "
                              f"8k <= {MAX_MM_COLS}")
         self.tile = tile
         self.operand = Operand(torch.from_numpy(bm).to(torch.bfloat16))
+        self.padded = Operand(torch.from_numpy(pad_depth(bm)).to(torch.bfloat16))
 
     def __call__(self, planes: torch.Tensor) -> torch.Tensor:
         rows, cols = self.operand.matrix.shape
@@ -222,7 +241,7 @@ class MmOnly:
             return mm_only_reference(self.operand.matrix, planes)
         out = torch.empty((S, rows, L), dtype=torch.uint8, device=planes.device)
         launch("bitmatrix_mm_only", build().lib.bitmatrix_mm_only_launch, planes, out,
-               self.operand.on(planes.device).data_ptr(), S, cols, rows, L, self.tile)
+               self.padded.on(planes.device).data_ptr(), S, cols, rows, L, self.tile)
         launches["bitmatrix_mm_only"] += 1
         return out
 

@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    `gf_matmul` on the last), byte for byte, over RS(8,3) encode matrices of
    both techniques, RS(8,3) decode matrices, RS(4,2) and RS(5,2), at chunk
    lengths {128, 256, 512, 131072} and {1, 2, 256} stripes, and at the main
-   path's own shape (1, k, 524288).
+   path's own shape (1, k, 524288).  Then two views a caller may pass to
+   `encode_array` (fault C1 of ROADMAP.md): `cw[:, :8]` of a dense
+   (2, 11, 4096) CUDA tensor, and a dense (2, 8, 4096) input whose base is
+   1 byte past a 16-byte boundary; each equal to `gf_matmul`, each one
+   `swar_gf` launch.
 3. The main path at a real size: plugin `tpu` RS(8,3) built through the
    registry with no device argument (so on the card), 32 objects of 4 MiB
    (RBD's default object size) encoded and decoded for every erasure class
@@ -51,9 +55,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    its script's sizes, launch counts reset before and held against its
    calls; then each kernel timed at (256, 8, 131072) beside its bound, its
    plain version and (mm_only only) the library call
-   `torch.matmul(bm_bf16, planes).to(torch.uint8)`.  Phase 1 builds the
-   library with the others and checks its SASS has no tensor-core
-   instruction.
+   `torch.matmul(bm_bf16, planes).to(torch.uint8)`.  mm_only runs on the
+   tensor cores: phase 6a also holds it, byte for byte against its plain
+   version and integer counts, at RS(5,2) (8k = 40, K padded to 48),
+   RS(10,4) (8m = 32, 8k = 80) and RS(3,1) (8m = 8, K padded to 32), at its
+   tile and at one ring stage (tile 128).  Phase 1 builds the library with
+   the others and checks the SASS: tensor-core instructions (HMMA) in
+   mm_only's RS(8,3) instance, printed with ptxas's registers for it and
+   for the largest instance (8m = 32, 8k = 128); none in grouped's or
+   expand_only's.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -100,6 +110,13 @@ DIAG_SHAPES = [(1, 8, 4096), (1, 8, 131072), (1, 8, 524288), (8, 8, 16384), (64,
 # for RS(4,2).
 BITMATRIX_SHAPES = [(8, 8, 4096), (64, 8, 131072)]
 BITMATRIX_RS42_SHAPE = (8, 4, 4096)
+# mm_only's other geometries (k, m): K padded (8k = 40 -> 48), 8m = 32 with
+# 8k = 80, and 8m = 8 with K padded (24 -> 32); at (8, k, 4096).
+MM_ONLY_GEOMETRIES = [(5, 2), (10, 4), (3, 1)]
+# mm_only's instances in csrc/bitmatrix.cu, mm_only_kernel<8m/8, ceil(8k/16)>:
+# RS(8,3)'s, and the largest (the most operand fragments in registers).
+MM_ONLY_RS83 = "mm_only_kernelILi3ELi4E"
+MM_ONLY_LARGEST = "mm_only_kernelILi4ELi8E"
 # The bulk shape every kernel is timed at, and the calls timed per run.
 BULK = (256, 8, 131072)
 CALLS_PER_RUN = 5
@@ -179,10 +196,16 @@ def baked_matrices(gf):
             ("rs83-van-decode[0,5,10]", dec)]
 
 
-def ptxas_lines(info: dict) -> list[str]:
-    return [line.replace("ptxas info    :", "").strip()
-            for line in info.get("ptxas", "").splitlines()
-            if "registers" in line or "spill" in line]
+def ptxas_lines(info: dict, kernel: str | None = None) -> list[str]:
+    """ptxas's register and spill lines, of the functions whose mangled
+    name contains `kernel` (all functions if None)."""
+    lines, mine = [], kernel is None
+    for line in info.get("ptxas", "").splitlines():
+        if "Compiling entry function" in line and kernel is not None:
+            mine = kernel in line
+        elif mine and ("registers" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return lines
 
 
 @functools.cache
@@ -238,7 +261,8 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
           "(one nvcc each, all started together)")
     for label, info in infos.items():
         print(f"[1] {label}: {info['seconds']:.2f} s, sha256 {info['source_sha256']}")
-        for line in ptxas_lines(info):
+        # bitmatrix has 32 mm_only instances: its checked kernels are below
+        for line in ptxas_lines(info) if label != "bitmatrix" else []:
             print(f"[1]   ptxas: {line}")
     copy_ops = sass_opcodes(nvcc, infos["copy_floor"]["library"], "copy_floor_kernelILi8E")
     if copy_ops is None:
@@ -256,21 +280,35 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
         mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
         print(f"[1] swar_baked_kernel (rs83-van-encode) SASS: {total} instructions, "
               f"{total / 4:.1f} per word (TPU program as written: 539); {mix}")
-        # the bit-matrix kernels run on the CUDA cores: no HMMA/IMMA/HGMMA...
-        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op)
-        for kernel in ("Bf16Operand", "Int8Operand", "mm_only_kernelILi24E",
-                       "expand_only_kernel"):
+        # grouped and expand_only run on the CUDA cores: no HMMA/IMMA/HGMMA...
+        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op);
+        # mm_only on the tensor cores: HMMA
+        for kernel in ("Bf16Operand", "Int8Operand", "expand_only_kernel", MM_ONLY_RS83):
             ops = sass_opcodes(nvcc, infos["bitmatrix"]["library"], kernel)
             mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
-            mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(6))
+            mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
             print(f"[1] bitmatrix {kernel} SASS: {sum(ops.values())} instructions, "
                   f"{mma} tensor-core; {mix}")
-            check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
+            if kernel == MM_ONLY_RS83:
+                hmma = count_prefix(ops, "HMMA")
+                print(f"[1] bitmatrix {kernel}: {hmma} HMMA, {count_prefix(ops, 'LDSM')} LDSM, "
+                      f"{count_prefix(ops, 'LDGSTS')} LDGSTS, {count_prefix(ops, 'F2I')} F2I")
+                check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
+            else:
+                check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
+    for kernel in ("Bf16Operand", "Int8Operand", "expand_only_kernel", MM_ONLY_RS83,
+                   MM_ONLY_LARGEST):
+        for line in ptxas_lines(infos["bitmatrix"], kernel):
+            print(f"[1]   ptxas bitmatrix {kernel}: {line}")
+    spills = [line for line in ptxas_lines(infos["bitmatrix"], "mm_only_kernel")
+              if "spill" in line and not re.search(r"\b0 bytes spill stores", line)]
+    check(not spills, f"mm_only instances spill: {spills}")
     return name, card, infos
 
 
-def phase_kernel_checks(torch, swar, gf) -> int:
-    """Kernel vs plain and vs oracle; returns the max abs byte error."""
+def phase_kernel_checks(torch, swar, gf, registry) -> int:
+    """Kernel vs plain and vs oracle, then the views of fault C1 through
+    `encode_array`; returns the max abs byte error."""
     dev = torch.device("cuda")
     mats = []
     for tech, build in (("van", gf.isa_rs_vandermonde_matrix),
@@ -312,7 +350,38 @@ def phase_kernel_checks(torch, swar, gf) -> int:
             del data, got, ref
     print(f"[2] kernel == plain == oracle on {cases} cases "
           f"({len(mats)} matrices), max_abs_err={max_err}")
+    check_views(torch, swar, registry, gf)
     return max_err
+
+
+def check_views(torch, swar, registry, gf) -> None:
+    """Fault C1: `encode_array` of a strided and of a misaligned CUDA view
+    goes through the kernel tier (one `swar_gf` launch each) and equals
+    the GF(2^8) table product."""
+    dev = torch.device("cuda")
+    ec = registry.instance().factory("tpu", {"k": "8", "m": "3"})
+    mat = ec.distribution_matrix()[8:]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    cw = torch.randint(0, 256, (2, 11, 4096), dtype=torch.uint8, device=dev, generator=gen)
+    n = 2 * 8 * 4096
+    buf = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device=dev, generator=gen)
+    off = (1 - buf.data_ptr()) % 16
+    views = {"cw[:, :8]": cw[:, :8], "base 1 byte past 16": buf[off:off + n].view(2, 8, 4096)}
+    check(not views["cw[:, :8]"].is_contiguous(), "cw[:, :8] is contiguous")
+    check(views["base 1 byte past 16"].data_ptr() % 16 == 1, "misaligned view is aligned")
+    before = swar.launches
+    for label, view in views.items():
+        got = ec.encode_array(view).cpu().numpy()
+        host = view.cpu().numpy()
+        for s in range(host.shape[0]):
+            check(np.array_equal(got[s], gf.gf_matmul(mat, host[s])),
+                  f"encode_array({label}) stripe {s} != gf_matmul")
+    torch.cuda.synchronize()
+    launched = swar.launches - before
+    print(f"[2] encode_array of views (fault C1): {', '.join(views)} == gf_matmul; "
+          f"swar_gf launches {launched} for {len(views)} calls")
+    check(launched == len(views), f"views: {launched} launches for {len(views)} calls")
 
 
 def phase_main_path(torch, swar, registry, gf):
@@ -659,6 +728,20 @@ def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
                    kern_exp.mm_only_reference(mm.operand.on(dev), planes), {})
             del planes
         del data
+    for n, (k, m) in enumerate(MM_ONLY_GEOMETRIES):
+        mat = gf.isa_rs_vandermonde_matrix(k, m)[k:]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 30 + n)
+        data = torch.randint(0, 256, (8, k, 4096), dtype=torch.uint8, device=dev, generator=gen)
+        planes = kern_exp.bit_planes(data, torch.bfloat16)
+        # integer counts of the first stripe, by numpy
+        bm = kern_exp.arrange_dense_matrix(mat).astype(np.int64)
+        first = {0: (bm @ planes[0].to(torch.int64).cpu().numpy()).astype(np.uint8)}
+        for tile in (kern_exp.MM_TILE, kern_exp.MM_STAGE_COLS):
+            mm = kern_exp.make_mm_only(mat, tile)
+            record("bitmatrix_mm_only", f"rs{k}{m}-van-encode (8, {k}, 4096) tile {tile}",
+                   mm(planes), kern_exp.mm_only_reference(mm.operand.on(dev), planes), first)
+        del data, planes
     for kernel, err in errs.items():
         print(f"[6] {kernel} == plain == oracle on {counts[kernel]} cases, max_abs_err={err}")
     return errs
@@ -786,7 +869,7 @@ def main() -> int:
         return result
 
     name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, nvcc_path())
-    max_err = phase(2, phase_kernel_checks, torch, swar, gf)
+    max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4)
     errs = phase("5a", phase_diag_checks, torch, swar, gf, diag)

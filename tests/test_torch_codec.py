@@ -11,6 +11,7 @@ from ceph_tpu.codec import registry as jregistry
 
 from ceph_tpu_torch.codec import registry
 from ceph_tpu_torch.codec.interface import EcError
+from ceph_tpu_torch.codec.matrix_codec import dense_aligned
 from ceph_tpu_torch.codec.rs import ErasureCodeTpuRs
 
 GEOMETRIES = [(4, 2, "reed_sol_van"), (4, 2, "cauchy"),
@@ -199,3 +200,43 @@ def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ErasureCodeTpuRs(device="cuda")
     assert ErasureCodeTpuRs(device="cpu").device == torch.device("cpu")
+
+
+def _views():
+    """A strided view (data chunks of whole codewords) and a dense view one
+    byte past an aligned base, as a caller may slice them."""
+    cw = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (2, 11, 4096), dtype=np.uint8))
+    buf = torch.from_numpy(np.random.default_rng(12).integers(0, 256, 4113, dtype=np.uint8))
+    return {"strided": cw[:, :8], "misaligned": buf[1:4097]}
+
+
+@pytest.mark.parametrize("kind", ["strided", "misaligned"])
+def test_dense_aligned_copies_what_the_kernel_refuses(kind):
+    view = _views()[kind]
+    assert not view.is_contiguous() or view.data_ptr() % 16
+    got = dense_aligned(view)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert got.data_ptr() != view.data_ptr() and torch.equal(got, view)
+
+
+def test_dense_aligned_passes_an_aligned_tensor_through():
+    dense = torch.zeros((2, 8, 4096), dtype=torch.uint8)
+    assert dense.data_ptr() % 16 == 0
+    assert dense_aligned(dense) is dense
+
+
+@pytest.mark.parametrize("kind", ["strided", "misaligned"])
+def test_encode_array_of_a_view_matches_reference(kind):
+    """The case of the reference's verify, which slices codewords: the
+    port codes a strided or misaligned view as the reference codes it."""
+    ours, ref = _pair({"k": "8", "m": "3"})
+    view = _views()[kind]
+    if kind == "misaligned":
+        view = view.view(1, 8, 512)
+    got = ours.encode_array(view)
+    want = np.asarray(ref.encode_array_host(view.numpy()))
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    idx = ours.decode_index([0, 9])
+    full = torch.cat([view, got], dim=-2)
+    rec = ours.decode_array([0, 9], full[..., idx, :])
+    assert np.array_equal(rec.numpy(), full[..., [0, 9], :].numpy())

@@ -29,6 +29,11 @@ MATRICES = {
     "rs83-cauchy": lambda: isa_cauchy_matrix(8, 3)[8:],
     "rs83-decode-0-5-10": lambda: isa_decode_matrix(isa_rs_vandermonde_matrix(8, 3), [0, 5, 10], 8)[0],
     "rs42-van": lambda: isa_rs_vandermonde_matrix(4, 2)[4:],
+    # mm_only's geometry: 8k = 40 pads K to 48; 8m = 32 with 8k = 80;
+    # 8m = 8 with 8k = 24 padded to 32
+    "rs52-van": lambda: isa_rs_vandermonde_matrix(5, 2)[5:],
+    "rs104-van": lambda: isa_rs_vandermonde_matrix(10, 4)[10:],
+    "rs31-van": lambda: isa_rs_vandermonde_matrix(3, 1)[3:],
 }
 JAX_OPERANDS = {"bf16": jnp.bfloat16, "int8": jnp.int8}
 
@@ -67,7 +72,7 @@ def test_grouped_matches_tpu(tpu_kern_exp, name, g, dn):
     assert np.array_equal(tpu, _oracle(mat, data))
 
 
-@pytest.mark.parametrize("name", ["rs83-van", "rs42-van"])
+@pytest.mark.parametrize("name", ["rs83-van", "rs42-van", "rs52-van", "rs104-van", "rs31-van"])
 def test_mm_only_matches_tpu(tpu_kern_exp, name):
     mat = MATRICES[name]()
     data = _data(2, mat.shape[1], 1024, len(name))
@@ -81,6 +86,22 @@ def test_mm_only_matches_tpu(tpu_kern_exp, name):
     counts = np.einsum("rc,scl->srl", bm, kern_exp.bit_planes(
         torch.from_numpy(data), torch.int64).numpy())
     assert np.array_equal(ours, counts.astype(np.uint8)) and ours.max() > 1
+
+
+@pytest.mark.parametrize("name", ["rs83-van", "rs42-van", "rs52-van", "rs104-van", "rs31-van"])
+def test_mm_only_padded_operand(name):
+    """The operand the kernel gets: arrange_dense_matrix top left, zero
+    columns up to the next multiple of mma's K step of 16."""
+    bm = kern_exp.arrange_dense_matrix(MATRICES[name]())
+    mm = kern_exp.make_mm_only(MATRICES[name](), 512)
+    padded = mm.padded.matrix
+    rows, cols = bm.shape
+    assert padded.dtype == torch.bfloat16 and padded.is_contiguous()
+    assert padded.shape[0] == rows and padded.shape[1] % 16 == 0
+    assert cols <= padded.shape[1] < cols + 16
+    assert np.array_equal(padded[:, :cols].float().numpy(), bm)
+    assert not padded[:, cols:].any()
+    assert torch.equal(mm.operand.matrix, torch.from_numpy(bm).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("k", [8, 4])
@@ -141,15 +162,17 @@ def test_invalid_shapes_raise(make, shape):
         make()(torch.zeros(shape, dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((2, 64, 768), torch.bfloat16),   # L % tile
-    ((2, 64, 256), torch.bfloat16),   # L < tile
-    ((2, 32, 1024), torch.bfloat16),  # 8k
-    ((2, 64, 1024), torch.float32),   # dtype
+@pytest.mark.parametrize("shape,dtype,tile", [
+    ((2, 64, 768), torch.bfloat16, 512),   # L % tile
+    ((2, 64, 256), torch.bfloat16, 512),   # L < tile
+    ((2, 32, 1024), torch.bfloat16, 512),  # 8k
+    ((2, 64, 1024), torch.float32, 512),   # dtype
+    ((2, 64, 768), torch.bfloat16, 192),   # tile % 128 (a ring stage is 128 columns)
+    ((2, 64, 1024), torch.bfloat16, 64),   # tile < 128
 ])
-def test_mm_only_invalid_shapes_raise(shape, dtype):
+def test_mm_only_invalid_shapes_raise(shape, dtype, tile):
     with pytest.raises(ValueError):
-        kern_exp.make_mm_only(_van83(), 512)(torch.zeros(shape, dtype=dtype))
+        kern_exp.make_mm_only(_van83(), tile)(torch.zeros(shape, dtype=dtype))
 
 
 def test_cpu_wrappers_launch_nothing():
