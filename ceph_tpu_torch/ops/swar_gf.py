@@ -44,8 +44,8 @@ _FIELD_MASK = 0x01010101
 _GEOMETRY_COLS = (256, 128, 64, 32)
 _MAX_ROWS = 128
 
-# Output byte-rows one kernel pass keeps in registers (csrc/swar_gf.cu).
-_ROWS_PER_PASS = 4
+# Output byte-rows one kernel pass codes at most (csrc/swar_gf.cu).
+_MAX_ROWS_PER_PASS = 4
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "swar_gf.cu"
@@ -86,26 +86,39 @@ def schedule_from_matrix(gf_matrix: np.ndarray) -> tuple[tuple[tuple[int, int], 
     )
 
 
-def schedule_masks_rows(m: int) -> int:
-    """Rows of the kernel's schedule operand for m outputs: 8 per output
-    byte-row, m rounded up to whole passes of min(m, 4) rows."""
-    rows = min(m, _ROWS_PER_PASS)
-    return 8 * (-(-m // rows) * rows)
+def pass_geometry(m: int) -> tuple[int, int]:
+    """(passes, rows per pass) of the kernel for m output byte-rows: at most
+    4 rows a pass, the rows spread as evenly as the passes allow (m = 6: two
+    passes of 3; m = 5: two of 3, the last row of the second pass empty)."""
+    passes = -(-m // _MAX_ROWS_PER_PASS)
+    return passes, -(-m // passes)
 
 
 def schedule_masks(gf_matrix: np.ndarray) -> np.ndarray:
-    """The kernel's schedule operand: (8m', k) uint32, m' = m rounded up to
-    whole kernel passes, zero rows past 8m.
+    """The kernel's schedule operand: (passes, k, rows, 8) uint32, with
+    `pass_geometry(m)`; output byte-row o = g * rows + i is [g, :, i], and
+    rows past m are zero.
 
-    Entry [o, j] is the 8-bit mask of the planes of chunk j that XOR into
-    output bit-row o, repeated in all 4 bytes of the word."""
+    With M[r] the 8-bit mask of the planes of chunk j that XOR into bit-row
+    8o + r, entry [g, j, i, 2p] is A_p = low nibble of M[p] | high nibble of
+    M[p+4], and [g, j, i, 2p+1] is B_p = high nibble of M[p] moved down |
+    low nibble of M[p+4] moved up, each repeated in the 4 bytes of the word.
+    Then XOR_j (w_j & A_p) ^ (nibble_swap(w_j) & B_p) is the first level of
+    the kernel's parity butterfly, merge_4(t_p, t_{p+4}), for the
+    accumulators t_r = XOR_j (w_j & M[r])."""
     plain = expand_matrix(np.asarray(gf_matrix, dtype=np.uint8))
     m8, k8 = plain.shape
-    weights = (1 << np.arange(8, dtype=np.uint32))
-    masks = (plain.reshape(m8, k8 // 8, 8).astype(np.uint32) * weights).sum(axis=-1)
-    out = np.zeros((schedule_masks_rows(m8 // 8), k8 // 8), dtype=np.uint32)
-    out[:m8] = masks * np.uint32(0x01010101)
-    return out
+    m, k = m8 // 8, k8 // 8
+    weights = 1 << np.arange(8, dtype=np.uint32)
+    masks = (plain.reshape(m, 8, k, 8).astype(np.uint32) * weights).sum(axis=-1)
+    low, high = masks[:, :4], masks[:, 4:]  # rows p and p + 4: (m, 4, k)
+    a = (low & 0x0F) | (high & 0xF0)
+    b = (low >> 4) | ((high & 0x0F) << 4)
+    pairs = np.stack([a, b], axis=-1).transpose(2, 0, 1, 3).reshape(k, m, 8)
+    passes, rows = pass_geometry(m)
+    out = np.zeros((k, passes * rows, 8), dtype=np.uint32)
+    out[:, :m] = pairs * np.uint32(0x01010101)
+    return np.ascontiguousarray(out.reshape(k, passes, rows, 8).transpose(1, 0, 2, 3))
 
 
 def swar_code_reference(sched, data: torch.Tensor) -> torch.Tensor:

@@ -11,15 +11,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the RS(8,3) Vandermonde and Cauchy encode matrices and one decode matrix
    (erasures [0, 5, 10]); print each build's time and ptxas registers and
    spills, and count the 16-byte loads and stores of copy_floor_kernel<8>
-   in its SASS.
+   in its SASS.  For csrc/swar_gf.cu: ptxas's registers and spills of every
+   swar_gf_kernel instance (fails on a spill, or on more than 128 registers
+   for RS(8,3)'s), the SASS mix of RS(8,3)'s instance and of its 4-chunk
+   loop, and no CALL in any instance.
 2. Kernel vs plain on the card: the kernel against its plain PyTorch
    version (`swar_code_reference`) and against the numpy oracle
    (`xor_matmul_host_batch` on the first stripe, the GF(2^8) table product
    `gf_matmul` on the last), byte for byte, over RS(8,3) encode matrices of
-   both techniques, RS(8,3) decode matrices, RS(4,2) and RS(5,2), at chunk
-   lengths {128, 256, 512, 131072} and {1, 2, 256} stripes, and at the main
-   path's own shape (1, k, 524288).  Then two views a caller may pass to
-   `encode_array` (fault C1 of ROADMAP.md): `cw[:, :8]` of a dense
+   both techniques, RS(8,3) decode matrices, RS(4,2), RS(5,2), RS(10,4)
+   encode and a 4-erasure RS(10,4) decode (one pass of 4 rows), and Cauchy
+   (6,6) (two passes of 3), at chunk lengths {128, 256, 512, 131072} and
+   {1, 2, 256} stripes, and at the main path's own shape (1, k, 524288).
+   Then two views a caller may pass to `encode_array` (fault C1 of
+   ROADMAP.md): `cw[:, :8]` of a dense
    (2, 11, 4096) CUDA tensor, and a dense (2, 8, 4096) input whose base is
    1 byte past a 16-byte boundary; each equal to `gf_matmul`, each one
    `swar_gf` launch.
@@ -35,8 +40,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    moved at the HBM rate and the ops of the packed ring program at the
    INT32 rate), the plain version, the hand copy floor (which moves the
    same bytes) and a device copy of the whole input as the memory
-   yardstick; then `decode_array` at the same shape for one pattern of each
-   erasure class.
+   yardstick, and the baked kernel swar_baked (rs83-van-encode, its SASS
+   instructions per word beside swar_gf's modelled ops per word); then
+   `decode_array` at the same shape for one pattern of each erasure class,
+   beside its bound, and RS(10,4)'s with 4 erasures (m = 4) at
+   (256, 10, 131072).
 5. The kernel experiments (ceph_tpu_torch/diag): copy_floor, swar_baked and
    swar3_baked against their plain versions and the oracle, byte for byte,
    on (1, 8, L) for L in {4096, 131072, 524288}, (8, 8, 16384) and
@@ -117,6 +125,10 @@ MM_ONLY_GEOMETRIES = [(5, 2), (10, 4), (3, 1)]
 # RS(8,3)'s, and the largest (the most operand fragments in registers).
 MM_ONLY_RS83 = "mm_only_kernelILi3ELi4E"
 MM_ONLY_LARGEST = "mm_only_kernelILi4ELi8E"
+# swar_gf_kernel<rows> instances in csrc/swar_gf.cu (rows of a pass: 1-4),
+# and RS(8,3)'s (3 rows, one pass).
+SWAR_GF_INSTANCES = [f"swar_gf_kernelILi{rows}E" for rows in range(1, 5)]
+SWAR_GF_RS83 = "swar_gf_kernelILi3E"
 # The bulk shape every kernel is timed at, and the calls timed per run.
 BULK = (256, 8, 131072)
 CALLS_PER_RUN = 5
@@ -157,11 +169,13 @@ def ring_word_ops(mat) -> int:
 
 def kernel_word_ops(plan, swar) -> int:
     """Integer ops per 32-bit word position of the k chunks that
-    csrc/swar_gf.cu itself does (a diagnostic, not the bound): one LOP3 (acc ^= w & mask) per schedule row and
-    chunk, over the rows padded to whole passes, then per output bit-row a
-    bytewise parity fold (3 shifts + 3 XORs) and its placement (shift+OR)."""
-    rows = swar.schedule_masks_rows(plan.m)
-    return rows * plan.k + 8 * 8 * plan.m
+    csrc/swar_gf.cu itself does (a diagnostic, not the bound), over the
+    rows padded to whole passes: per pass, a nibble swap of each chunk word
+    (3 ops), two LOP3 per (row, pair, chunk) (acc ^= (w & A) ^ (ws & B)),
+    and per row the two last levels of the parity butterfly (3 merges of 5
+    ops)."""
+    passes, rows = swar.pass_geometry(plan.m)
+    return passes * (3 * plan.k + rows * (8 * plan.k + 3 * 5))
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
@@ -216,19 +230,61 @@ def sass_text(tool: str, library: str) -> str:
     return proc.stdout
 
 
-def sass_opcodes(nvcc: str, library: str, kernel: str):
-    """Counter of the SASS opcodes (e.g. "LOP3.LUT", "LDG.E.128.CONSTANT")
-    of the function of `library` whose name contains `kernel`; None if the
-    toolkit has no cuobjdump."""
+def sass_section(nvcc: str, library: str, kernel: str) -> str | None:
+    """The SASS listing of the function of `library` whose name contains
+    `kernel`; None if the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
         return None
     for section in sass_text(tool, library).split("Function : ")[1:]:
         if kernel in section.splitlines()[0]:
-            return collections.Counter(
-                m.group(1) for m in re.finditer(
-                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", section))
+            return section
     check(False, f"no function {kernel} in the SASS of {library}")
+
+
+_SASS_INSTRUCTION = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;\n]*)")
+
+
+def sass_opcodes(nvcc: str, library: str, kernel: str):
+    """Counter of the SASS opcodes (e.g. "LOP3.LUT", "LDG.E.128.CONSTANT")
+    of the function of `library` whose name contains `kernel`; None if the
+    toolkit has no cuobjdump."""
+    section = sass_section(nvcc, library, kernel)
+    if section is None:
+        return None
+    return collections.Counter(m.group(2) for m in _SASS_INSTRUCTION.finditer(section))
+
+
+def sass_loops(nvcc: str, library: str, kernel: str):
+    """The loops of the function of `library` whose name contains `kernel`:
+    for each backward branch, the opcodes from its target to the branch, in
+    order.  None if the toolkit has no cuobjdump."""
+    section = sass_section(nvcc, library, kernel)
+    if section is None:
+        return None
+    ops, labels, pending = [], {}, []
+    for line in section.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        inst = _SASS_INSTRUCTION.search(line)
+        if inst:
+            addr = int(inst.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            ops.append((addr, inst.group(2), inst.group(3)))
+    loops = []
+    for n, (addr, op, args) in enumerate(ops):
+        target = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", args) if op.startswith("BRA") else None
+        if target is None:
+            continue
+        dest = int(target.group(1), 16) if target.group(1) else labels.get(target.group(2))
+        if dest is not None and dest <= addr:
+            loops.append([o for a, o, _ in ops[: n + 1] if a >= dest])
+    return loops
 
 
 def count_prefix(ops, prefix: str) -> int:
@@ -296,6 +352,7 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
                 check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
             else:
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
+    check_swar_gf_build(nvcc, infos["swar_gf"])
     for kernel in ("Bf16Operand", "Int8Operand", "expand_only_kernel", MM_ONLY_RS83,
                    MM_ONLY_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
@@ -304,6 +361,53 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
               if "spill" in line and not re.search(r"\b0 bytes spill stores", line)]
     check(not spills, f"mm_only instances spill: {spills}")
     return name, card, infos
+
+
+def check_swar_gf_build(nvcc: str, info: dict) -> None:
+    """csrc/swar_gf.cu as compiled: ptxas's registers and spills of every
+    swar_gf_kernel instance (none may spill; RS(8,3)'s at most 128
+    registers), the SASS mix of RS(8,3)'s instance and of its 4-chunk loop,
+    and no CALL (a called routine, such as 64-bit division) in any
+    instance."""
+    if "ptxas" not in info:
+        print("[1] swar_gf: loaded from the build directory, ptxas not read")
+    else:
+        for kernel in SWAR_GF_INSTANCES:
+            lines = ptxas_lines(info, kernel)
+            print(f"[1] ptxas {kernel}: {'; '.join(lines)}")
+            check(lines, f"no ptxas lines for {kernel}")
+            spills = [line for line in lines if "spill" in line and not (
+                re.search(r"\b0 bytes spill stores", line)
+                and re.search(r"\b0 bytes spill loads", line))]
+            check(not spills, f"{kernel} spills: {spills}")
+            regs = [int(n) for line in lines for n in re.findall(r"Used (\d+) registers", line)]
+            if kernel == SWAR_GF_RS83:
+                check(regs and max(regs) <= 128, f"{kernel}: {regs} registers, want <= 128")
+    lib = info["library"]
+    ops = sass_opcodes(nvcc, lib, SWAR_GF_RS83)
+    if ops is None:
+        print("[1] swar_gf SASS: no cuobjdump in the toolkit, not counted")
+        return
+    mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
+    print(f"[1] {SWAR_GF_RS83} SASS (whole kernel, static): {sum(ops.values())} instructions, "
+          f"LOP3 {count_prefix(ops, 'LOP3')}, LDS {count_prefix(ops, 'LDS')}, "
+          f"LDG.E.128 {count_prefix(ops, 'LDG.E.128')}, STG.E.128 {count_prefix(ops, 'STG.E.128')}, "
+          f"CALL {count_prefix(ops, 'CALL')}; {mix}")
+    for kernel in SWAR_GF_INSTANCES:
+        calls = count_prefix(sass_opcodes(nvcc, lib, kernel), "CALL")
+        check(calls == 0, f"{kernel}: {calls} CALL in its SASS")
+    groups = [loop for loop in sass_loops(nvcc, lib, SWAR_GF_RS83)
+              if sum(op.startswith("LDG.E.128") for op in loop) == 4]
+    if not groups:
+        print(f"[1] {SWAR_GF_RS83}: its 4-chunk loop was not found in the SASS")
+        return
+    body = collections.Counter(min(groups, key=len))
+    n = sum(body.values())
+    print(f"[1] {SWAR_GF_RS83} 4-chunk loop: {n} instructions for 4 chunks x 4 words "
+          f"({n / 16:.1f} per chunk-word, {n / 2:.1f} per word at k = 8 before the fold); "
+          f"LOP3 {count_prefix(body, 'LOP3')}, LDS {count_prefix(body, 'LDS')}, "
+          f"LDG.E.128 {count_prefix(body, 'LDG.E.128')}; "
+          + ", ".join(f"{op} {c}" for op, c in body.most_common(6)))
 
 
 def phase_kernel_checks(torch, swar, gf, registry) -> int:
@@ -320,6 +424,13 @@ def phase_kernel_checks(torch, swar, gf, registry) -> int:
             mats.append((f"rs83-{tech}-decode{erasures}", c))
         mats.append((f"rs42-{tech}-encode", build(4, 2)[4:]))
         mats.append((f"rs52-{tech}-encode", build(5, 2)[5:]))
+    # m = 4 (one pass of 4 rows), encode and a 4-erasure decode, and m = 6
+    # (two passes of 3)
+    van104 = gf.isa_rs_vandermonde_matrix(10, 4)
+    mats.append(("rs104-van-encode", van104[10:]))
+    c, _ = gf.isa_decode_matrix(van104, [0, 3, 10, 13], 10)
+    mats.append(("rs104-van-decode[0, 3, 10, 13]", c))
+    mats.append(("rs66-cauchy-encode", gf.isa_cauchy_matrix(6, 6)[6:]))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     max_err = 0
@@ -349,7 +460,8 @@ def phase_kernel_checks(torch, swar, gf, registry) -> int:
             cases += 1
             del data, got, ref
     print(f"[2] kernel == plain == oracle on {cases} cases "
-          f"({len(mats)} matrices), max_abs_err={max_err}")
+          f"({len(mats)} matrices, (passes, rows) "
+          f"{sorted({swar.pass_geometry(len(mat)) for _, mat in mats})}), max_abs_err={max_err}")
     check_views(torch, swar, registry, gf)
     return max_err
 
@@ -433,7 +545,7 @@ def phase_main_path(torch, swar, registry, gf):
     return launches
 
 
-def phase_bulk(torch, swar, registry, gf, card, kern_exp4):
+def phase_bulk(torch, swar, registry, gf, card, kern_exp4, kern_exp2, nvcc):
     dev = torch.device("cuda")
     ec = registry.instance().factory("tpu", {"k": "8", "m": "3"})
     S, k, L = BULK
@@ -447,6 +559,8 @@ def phase_bulk(torch, swar, registry, gf, card, kern_exp4):
     ref = swar.swar_code_reference(plan.sched, data)
     torch.cuda.synchronize()
     check(torch.equal(out, ref), "bulk encode != plain version")
+    baked = kern_exp2.make_swar(mat, 512)  # the schedule compiled in, as a yardstick
+    check(torch.equal(baked(data), ref), "swar_baked != plain version at the bulk shape")
     del out, ref
     entry_ms = time_ms(torch, lambda: ec.encode_array(data))
     kernel_ms = time_ms(torch, lambda: swar.swar_gf(plan, data))
@@ -480,6 +594,14 @@ def phase_bulk(torch, swar, registry, gf, card, kern_exp4):
           f"{bound_ms / kernel_ms:.3f} of it")
     print(f"[4] (diagnostic) the kernel's own ops: {kernel_word_ops(plan, swar)} ops/word "
           f"= {own_ops / INT32_OPS_PER_S * 1e3:.4f} ms at the INT32 peak")
+    baked_ms = time_ms(torch, lambda: baked(data))
+    baked_ops = sass_opcodes(nvcc, baked.build().info["library"], "swar_baked_kernel")
+    baked_words = "not counted" if baked_ops is None else (
+        f"{sum(baked_ops.values()) / 4:.1f} SASS instructions/word")
+    print(f"[4] per word at {BULK}: swar_gf (schedule a runtime operand) "
+          f"{kernel_word_ops(plan, swar)} integer ops/word modelled, {kernel_ms:.4f} ms; "
+          f"swar_baked rs83-van-encode (wt 512, schedule compiled in) {baked_words}, "
+          f"{baked_ms:.4f} ms")
     print(f"[4] plain swar_code_reference: {plain_ms:.4f} ms")
     print(f"[4] copy yardstick (read {in_bytes} B + write {in_bytes} B): "
           f"{copy_ms:.4f} ms, {2 * in_bytes / copy_ms / 1e6:.2f} GB/s moved")
@@ -498,6 +620,20 @@ def phase_bulk(torch, swar, registry, gf, card, kern_exp4):
         dec_bound = max(dec_bytes / HBM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S) * 1e3
         print(f"[4] decode_array {erasures}: {dec_ms:.4f} ms, "
               f"{in_bytes / dec_ms / 1e6:.2f} GB/s input, bound {dec_bound:.4f} ms")
+    # m = 4, the most rows one pass holds: RS(10,4) with 4 erasures
+    ec104 = registry.instance().factory("tpu", {"k": "10", "m": "4"})
+    erasures = [0, 3, 10, 13]
+    survivors = torch.randint(0, 256, (S, ec104.k, L), dtype=torch.uint8, device=dev,
+                              generator=gen)
+    c, _ = gf.isa_decode_matrix(ec104.distribution_matrix(), erasures, ec104.k)
+    check(torch.equal(ec104.decode_array(erasures, survivors),
+                      swar.swar_code_reference(swar.schedule_from_matrix(c), survivors)),
+          "RS(10,4) decode_array != plain version")
+    dec_ms = time_ms(torch, lambda: ec104.decode_array(erasures, survivors))
+    dec_bound, dec_by = coding_bound(c, S, ec104.k, L)
+    print(f"[4] RS(10,4) decode_array {erasures} at {(S, ec104.k, L)} (m = 4, one pass of "
+          f"{swar.pass_geometry(len(c))[1]} rows): {dec_ms:.4f} ms, bound {dec_bound:.4f} ms "
+          f"by {dec_by} ({dec_bound / dec_ms:.3f} of it)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "floor_ms": floor_ms}
 
@@ -871,7 +1007,8 @@ def main() -> int:
     name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, nvcc_path())
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches = phase(3, phase_main_path, torch, swar, registry, gf)
-    bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4)
+    bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4, kern_exp2,
+                 nvcc_path())
     errs = phase("5a", phase_diag_checks, torch, swar, gf, diag)
     diag_launches = phase("5b", phase_diag_mains, torch, swar, diag)
     diag_times = phase("5c", phase_diag_timing, torch, swar, gf, diag, bulk["floor_ms"])
