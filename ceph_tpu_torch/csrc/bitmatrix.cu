@@ -1,6 +1,7 @@
 // The bit-matrix kernels of the kern_exp.py experiment, for Hopper (sm_90a).
-// mm_only runs on the tensor cores (bf16 mma.sync); grouped and expand_only
-// still run on the CUDA cores.
+// grouped with an int8 operand runs on the tensor cores (wgmma), mm_only
+// too (bf16 mma.sync); grouped with a bf16 operand and expand_only run on
+// the CUDA cores.
 //
 // Replaces the three Pallas kernels of benchmarks/diag/kern_exp.py:
 //
@@ -33,17 +34,66 @@
 //
 // Translation.  The TPU grid (S/g, L/tile) becomes a 1-D grid of
 // (S/g)·(L/tile) blocks; a block covers `tile` byte columns of g stripes, so
-// the script's variant names keep their meaning.  The operand is a runtime
-// argument read as given, zero blocks included, as the MXU multiplies them;
-// g, k and m are runtime arguments, so one library serves every matrix and
-// every variant (mm_only has one instance per (8m/8, ceil(8k/16))).
+// the script's variant names keep their meaning.  g, k and m are runtime
+// arguments, so one library serves every matrix and every variant (mm_only
+// has one instance per (8m/8, ceil(8k/16)), grouped's int8 kernel one per
+// (k-steps, stage width)).
 //
-// grouped (CUDA cores): a thread covers 4 consecutive byte columns (one
-// 32-bit word of each of the g·k chunks).  It stages its g·k words in its
-// own column of shared memory, then computes 8 output rows at a time (the
-// 8 bits of one output byte, 32 accumulators): for each plane it extracts
-// the 4 column bits once and multiply-adds them into the 8 rows, reading
-// the operand with warp-uniform loads.  The product does 8mg·8kg
+// grouped, int8 operand (tensor cores): wgmma m64n32k32, u8 A from
+// registers, s8 B from shared memory, s32 sums.  M = 64 byte columns (16 of
+// each warp of the warpgroup), K = 32 planes taken as 4 chunks x 8 bits,
+// N = 32 = the 8 bits of each of 4 output chunks (RS(8,3): 2 k-steps, 2
+// wgmma per 64 columns; m > 4 takes passes of 4 chunks on blockIdx.y).
+// - A from data words by one shift.  Each warp stages 256 columns of one
+//   stripe (every chunk row) through its own 3-stage cp.async ring, then
+//   turns each 4 chunk rows into words W[t][c] = the bytes of chunks
+//   4t..4t+3 at column c (a 4x4 byte transpose, 8 PRMT per 16 bytes), chunks
+//   past k as zero.  In k-step t lane (gid, tig) takes a0 = W[t][c0+gid] >>
+//   tig, a1 = W[t][c0+gid+8] >> tig, a2 = W[t][c0+gid] >> (tig+4), a3 =
+//   W[t][c0+gid+8] >> (tig+4): the low bit of byte i is then bit tig (or
+//   tig+4) of chunk 4t+i, which is A's element (row gid or gid+8, K = 4·tig
+//   + i or 16 + 4·tig + i: mma.sync's m16n8k32 layout, which wgmma keeps for
+//   each warp's 16 rows), so K index 4b + i is bit b of chunk 4t+i.  W's
+//   columns are stored 0, 8, 1, 9, ... within each 16, so the two words are
+//   one 8-byte load.
+// - Parity.  The other 7 bits of each u8 element are garbage.  Every B
+//   element is 0 or 1, so each product's low bit is the low bit of A times
+//   B, and a sum's parity is the parity of the sum of the planes' bits: the
+//   garbage changes the sum, never its low bit.  A sum is at most 255·32 a
+//   k-step, below 2^23 for the 24 k-steps of k = 96, so `acc & 1` equals the
+//   TPU's `acc & 1` (an s32 sum would keep its parity even if it wrapped).
+// - B = imma_operand(arrange_dense_matrix(gfm), k) (kern_exp.py), (8m,
+//   32·steps) int8: column 32t + 4b + i holds column b·k + 4t + i of the
+//   bit-matrix, zero where 4t + i >= k.  Each block copies its pass's 32
+//   rows into shared memory once, permuted so that N index n is bit 2(n/8) +
+//   n%2 of chunk (n%8)/2, as 8-row x 16-byte core matrices (no swizzle; 128
+//   bytes apart along K, 256 along N).  k > 32 takes groups of at most 8
+//   k-steps with the sums kept.
+// - g costs nothing: the g stripes of a block are only more columns, and the
+//   kernel multiplies the (8m, 8k) diagonal block alone.  The MXU pays for the
+//   off-diagonal zero blocks; the plain version still multiplies the whole
+//   block-diagonal operand, and chip_smoke.py holds the two equal.
+// - Epilogue.  Sum 4i + e (e = 0, 1) of lane (gid, tig) is N index 8i +
+//   2·tig + e at column gid, 4i + 2 + e the same at column gid + 8, so by the
+//   permutation lane tig holds all 8 bits of output chunk tig: PRMT gathers
+//   the sums' low bytes, two masks keep their parities, and one multiply by
+//   2^0 + 2^6 + 2^12 + 2^18 moves bit pair i from 8i to 2i.  No shuffle.  The
+//   byte is staged in shared memory and the warp writes its rows with
+//   coalesced 16-byte stores.
+// - Pipelining.  The warps run their rings apart and meet only in the
+//   collective products.  m-tile mt's product runs while the lanes pack
+//   m-tile mt - 1's sums and load mt + 1's A (two sets of sums and of A,
+//   wgmma.wait_group 1).
+// - Any tile % 4 == 0: a stage or m-tile past the tile's end is computed on
+//   stale bytes and never stored; where L or the tile is not a multiple of
+//   16 the copies are 4 bytes wide.  Where 256-column stages do not fit the
+//   block's shared memory (k > 48), stages are 128 columns.
+// grouped, bf16 operand (CUDA cores): a thread covers 4 consecutive byte
+// columns (one 32-bit word of each of the g·k chunks).  It stages its g·k
+// words in its own column of shared memory, then computes 8 output rows at a
+// time (the 8 bits of one output byte, 32 accumulators): for each plane it
+// extracts the 4 column bits once and multiply-adds them into the 8 rows,
+// reading the operand with warp-uniform loads.  The product does 8mg·8kg
 // multiply-adds per column, g times what the coding needs.
 // mm_only (tensor cores): a memory stream with an MMA inside it.  The
 // planes are the A side of mma.sync m16n8k16 (M = 16 columns, K = 16
@@ -66,10 +116,15 @@
 //
 // Bound on an H100 SXM at (256, 8, 131072), RS(8,3): bytes for all three.
 // grouped moves (k + m)·S·L = 369,098,752 B, 0.1102 ms at 3.35 TB/s; the
-// (8m, 8k) product it needs is 5.15e10 multiply-adds, 0.1042 ms at the
-// dense bf16 tensor rate.  On the CUDA cores that product takes 1.5·g ms
-// (5.15e10·g multiply-adds at the float32 rate of 33.5e12 per second):
-// far above the bound; the tensor cores are the work of a later redesign.
+// (8m, 8k) product it needs is 5.15e10 multiply-adds, 0.0521 ms at the dense
+// int8 tensor rate (0.1042 ms at the bf16 rate).  The int8 kernel stays near
+// the byte stream: its product is the diagonal block only, at wgmma's rate
+// (the legacy mma.sync path's int8 rate held a first design of this kernel
+// to about four times the bound), its planes never leave registers (one
+// shift per A register), each warp keeps 2 stages in flight, and the
+// epilogue needs no shuffle.  On the CUDA cores the bf16 product takes
+// 1.5·g ms (5.15e10·g multiply-adds at the float32 rate of 33.5e12 per
+// second): far above the bound.
 // mm_only moves (2·8k + 8m)·S·L = 5.1e9 B, 1.5225 ms, beside 0.104 ms of
 // bf16 MMA (0.14 ms with K padded and the M side in whole m16 tiles): the
 // ring keeps 2 stages in flight per block to cover memory latency (for
@@ -86,9 +141,17 @@ namespace {
 constexpr int kGroupedThreads = 128;
 // A grouped thread stages g·k 32-bit words; at most 48 KiB for the block.
 constexpr int kMaxGroupedWords = 96;
+constexpr int kImmaThreads = 128;      // one warpgroup: 4 warps, each with its own ring
+// columns of one stripe in one ring stage of a warp: 256, or 128 where the
+// block's shared memory would not hold 256 (k > 48)
+constexpr int kImmaWideCols = 256;
+constexpr int kImmaNarrowCols = 128;
+constexpr int kImmaChunks = 4;         // output chunks of one pass: N = 32 bits
+constexpr int kImmaMaxSteps = 8;       // k-steps (4 chunks each) of one chunk group
+constexpr int kImmaStepBytes = 1024;   // B of one k-step in shared memory: 32 x 32 bytes
 constexpr int kMmThreads = 128;     // 4 warps, 32 columns of a stage each
 constexpr int kMmStageCols = 128;   // columns of every plane in one ring stage
-constexpr int kMmStages = 3;        // ring depth: 2 stages in flight while 1 is read
+constexpr int kStages = 3;          // ring depth: 2 stages in flight while 1 is read
 constexpr int kMmPitch = kMmStageCols + 8;      // bf16 a staged plane row
 constexpr int kMmOutPitch = kMmStageCols + 16;  // bytes a staged output row
 constexpr int kMaxMmCols = 128;     // 8k columns of the mm_only operand
@@ -98,27 +161,10 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
   return __uint_as_float(bits << 16);
 }
 
-struct Bf16Operand {
-  using Raw = uint16_t;
-  using Acc = float;
-  static __device__ __forceinline__ float value(uint16_t v) { return bf16_bits_to_float(v); }
-  // the TPU kernel's acc.astype(int32) & 1: a truncating cast
-  static __device__ __forceinline__ uint32_t parity(float acc) { return (uint32_t)(int)acc & 1u; }
-};
-
-struct Int8Operand {
-  using Raw = int8_t;
-  using Acc = int;
-  static __device__ __forceinline__ int value(int8_t v) { return v; }
-  static __device__ __forceinline__ uint32_t parity(int acc) { return (uint32_t)acc & 1u; }
-};
-
-template <class Op>
 __global__ void __launch_bounds__(kGroupedThreads)
-grouped_kernel(const uint32_t* __restrict__ data, const typename Op::Raw* __restrict__ mat,
-               uint32_t* __restrict__ out, int k, int m, int g, long long words,
-               int tile_words, long long tiles) {
-  using Acc = typename Op::Acc;
+grouped_bf16_kernel(const uint32_t* __restrict__ data, const uint16_t* __restrict__ mat,
+                    uint32_t* __restrict__ out, int k, int m, int g, long long words,
+                    int tile_words, long long tiles) {
   extern __shared__ uint32_t staged[];  // [g·k][kGroupedThreads]: a column per thread
   const long long grp = blockIdx.x / tiles;
   const long long t = blockIdx.x - grp * tiles;
@@ -134,37 +180,38 @@ grouped_kernel(const uint32_t* __restrict__ data, const typename Op::Raw* __rest
     // rows r0..r0+7 are the bits of output chunk (r0/8) % m of stripe r0/(8m)
 #pragma unroll 1
     for (int r0 = 0; r0 < rows; r0 += 8) {
-      Acc acc[8][4];
+      float acc[8][4];
 #pragma unroll
       for (int rr = 0; rr < 8; ++rr)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[rr][q] = 0;
-      const typename Op::Raw* base = mat + (long long)r0 * cols;
+        for (int q = 0; q < 4; ++q) acc[rr][q] = 0.f;
+      const uint16_t* base = mat + (long long)r0 * cols;
 #pragma unroll 1
       for (int s = 0; s < g; ++s) {
 #pragma unroll 1
         for (int j = 0; j < k; ++j) {
           const uint32_t w = mine[(s * k + j) * kGroupedThreads];
-          const typename Op::Raw* col = base + s * 8 * k + j;  // plane b: col[b·k]
+          const uint16_t* col = base + s * 8 * k + j;  // plane b: col[b·k]
 #pragma unroll
           for (int b = 0; b < 8; ++b) {
-            Acc p[4];
+            float p[4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) p[q] = (Acc)((w >> (8 * q + b)) & 1u);
+            for (int q = 0; q < 4; ++q) p[q] = (float)((w >> (8 * q + b)) & 1u);
 #pragma unroll
             for (int rr = 0; rr < 8; ++rr) {
-              const Acc a = Op::value(col[rr * cols + b * k]);
+              const float a = bf16_bits_to_float(col[rr * cols + b * k]);
 #pragma unroll
               for (int q = 0; q < 4; ++q) acc[rr][q] += a * p[q];
             }
           }
         }
       }
+      // the TPU kernel's acc.astype(int32) & 1: a truncating cast
       uint32_t packed = 0;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int rr = 0; rr < 8; ++rr) packed |= Op::parity(acc[rr][q]) << (8 * q + rr);
+        for (int rr = 0; rr < 8; ++rr) packed |= ((uint32_t)(int)acc[rr][q] & 1u) << (8 * q + rr);
       dst[(long long)(r0 / 8) * words + v] = packed;
     }
   }
@@ -175,13 +222,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most kMmStages - 2 groups are pending: the oldest stage landed
+// wait until at most kStages - 2 groups are pending: the oldest stage landed
 __device__ __forceinline__ void cp_async_wait_oldest() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmStages - 2) : "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
 }
 
 // Four 8x8 bf16 matrices, transposed: lanes 8q..8q+7 give the row
@@ -204,7 +256,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 constexpr size_t mm_only_shared_bytes(int nt, int ks) {
-  return (size_t)kMmStages * 16 * ks * kMmPitch * sizeof(uint16_t) +
+  return (size_t)kStages * 16 * ks * kMmPitch * sizeof(uint16_t) +
          (size_t)8 * nt * kMmOutPitch;
 }
 
@@ -218,9 +270,9 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
   constexpr int kRows = 8 * NT;
   constexpr int kDepth = 16 * KS;
   extern __shared__ __align__(16) uint8_t smem[];
-  // [kMmStages][kDepth][kMmPitch] bf16, then [kRows][kMmOutPitch] bytes
+  // [kStages][kDepth][kMmPitch] bf16, then [kRows][kMmOutPitch] bytes
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* staged = smem + kMmStages * kDepth * kMmPitch * sizeof(uint16_t);
+  uint8_t* staged = smem + kStages * kDepth * kMmPitch * sizeof(uint16_t);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane >> 2;  // mma's groupID
@@ -238,7 +290,7 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
       b[ks][nt][1] = row[4];
     }
   // the padded plane rows: zero in every stage, never loaded
-  for (int i = threadIdx.x; i < kMmStages * (kDepth - cols) * (kMmPitch / 8); i += kMmThreads) {
+  for (int i = threadIdx.x; i < kStages * (kDepth - cols) * (kMmPitch / 8); i += kMmThreads) {
     const int per_stage = (kDepth - cols) * (kMmPitch / 8);
     const int stage = i / per_stage;
     const int v = i - stage * per_stage;
@@ -252,7 +304,7 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
   uint8_t* dst = out + s * kRows * L + t * tile;
   const int stages = tile / kMmStageCols;
   auto load = [&](int st) {  // stage st: 128 columns of every plane, 16 B a thread
-    uint16_t* slot = ring + (st % kMmStages) * kDepth * kMmPitch;
+    uint16_t* slot = ring + (st % kStages) * kDepth * kMmPitch;
     const uint16_t* from = src + st * kMmStageCols;
     for (int i = threadIdx.x; i < cols * (kMmStageCols / 8); i += kMmThreads) {
       const int c = i / (kMmStageCols / 8);
@@ -261,7 +313,7 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
     }
   };
 #pragma unroll 1
-  for (int p = 0; p < kMmStages - 1; ++p) {
+  for (int p = 0; p < kStages - 1; ++p) {
     if (p < stages) load(p);
     cp_async_commit();  // possibly empty, so that the group count is the stage count
   }
@@ -271,10 +323,10 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
     // stage st has landed for every thread, and every warp is done with
     // the slot the next load overwrites and with the staged output
     __syncthreads();
-    if (st + kMmStages - 1 < stages) load(st + kMmStages - 1);
+    if (st + kStages - 1 < stages) load(st + kStages - 1);
     cp_async_commit();
 
-    const uint16_t* slot = ring + (st % kMmStages) * kDepth * kMmPitch;
+    const uint16_t* slot = ring + (st % kStages) * kDepth * kMmPitch;
     float acc[2][NT][4] = {};
     // ldmatrix.x4.trans of plane rows k0 + 8·(q >> 1) + i, columns
     // c0 + 8·(q & 1): the A fragment {a0a1, a2a3, a4a5, a6a7}
@@ -309,6 +361,310 @@ mm_only_kernel(const uint16_t* __restrict__ planes, const uint32_t* __restrict__
       const int v = i - r * (kMmStageCols / 16);
       *reinterpret_cast<uint4*>(to + r * L + v * 16) =
           *reinterpret_cast<const uint4*>(staged + r * kMmOutPitch + v * 16);
+    }
+  }
+}
+
+// Shared-memory descriptor of a K-major operand without swizzle (CUTLASS's
+// GmmaDescriptor, LayoutType::INTERLEAVE): 8-row x 16-byte core matrices
+// of 128 contiguous bytes, `lbo` bytes apart along K and `sbo` bytes apart
+// along N.
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, int lbo, int sbo) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  return (uint64_t)((s >> 4) & 0x3fff) | ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
+}
+
+// d (+)= a·B for the warpgroup, m64n32k32: u8 A from registers (each warp's
+// 16 rows in mma.sync's m16n8k32 fragment layout), s8 B from shared memory,
+// s32 sums (each warp's 16 rows in mma.sync's m16n8 layout, n8 block i in
+// d[4i..4i+3]).  accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_u8s8(int (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most `pending` committed groups are still in flight
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(pending) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of d across the asynchronous
+// product (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void pin(int (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// One output byte from the sums d of the 4 n8 blocks: block i holds bits 2i
+// (d[4i + j]) and 2i + 1 (d[4i + j + 1]), each the low bit of its sum.
+__device__ __forceinline__ uint32_t gather_byte(const int (&d)[16], int j) {
+  // byte i of x0 (x1): the low byte of d[4i + j] (d[4i + j + 1])
+  const uint32_t x0 = __byte_perm(__byte_perm(d[j], d[4 + j], 0x0040),
+                                  __byte_perm(d[8 + j], d[12 + j], 0x0040), 0x5410);
+  const uint32_t x1 = __byte_perm(__byte_perm(d[j + 1], d[5 + j], 0x0040),
+                                  __byte_perm(d[9 + j], d[13 + j], 0x0040), 0x5410);
+  // bits 2i, 2i + 1 of the byte at bits 8i, 8i + 1
+  const uint32_t e = (x0 & 0x01010101u) | ((x1 << 1) & 0x02020202u);
+  // times 2^0 + 2^6 + 2^12 + 2^18: field i lands at 8i + 6n for n = 0..3,
+  // at 18 + 2i for n = 3 - i, and no two of the 16 places overlap
+  return (e * 0x41041u) >> 18;
+}
+
+// Bytes of 4 chunk words x0..x3 (4 columns each) -> o0..o3, o_c holding the
+// 4 chunks' bytes of column c.
+__device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3,
+                                           uint32_t* o) {
+  const uint32_t a = __byte_perm(x0, x1, 0x5140), b = __byte_perm(x0, x1, 0x7362);
+  const uint32_t c = __byte_perm(x2, x3, 0x5140), d = __byte_perm(x2, x3, 0x7362);
+  o[0] = __byte_perm(a, c, 0x5410);
+  o[1] = __byte_perm(a, c, 0x7632);
+  o[2] = __byte_perm(b, d, 0x5410);
+  o[3] = __byte_perm(b, d, 0x7632);
+}
+
+// A warp's shared memory for stages of `cols` columns: its ring, its
+// words, its staged output (rows padded by 16 bytes).
+__host__ __device__ constexpr size_t grouped_imma_warp_bytes(int k, int steps, int cols) {
+  return (size_t)kStages * k * cols + (size_t)steps * cols * 4 +
+         (size_t)kImmaChunks * (cols + 16);
+}
+
+// The block's shared memory: the operand, then each warp's.
+constexpr size_t grouped_imma_shared_bytes(int k, int steps, int cols) {
+  return (size_t)steps * kImmaStepBytes +
+         kImmaThreads / 32 * grouped_imma_warp_bytes(k, steps, cols);
+}
+
+// KS k-steps a chunk group, `groups` groups, stages of COLS columns; the 4
+// output chunks from 4·blockIdx.y on.  data (S, k, L) uint8; mat (8m,
+// 32·KS·groups) int8; out (S, m, L) uint8.  vec16: L and tile are multiples of 16.  Each warp
+// runs its own ring over its own stages (the block's stages warp, warp + 4,
+// ...); the warps meet only in the warpgroup's products, one m64 tile = 16
+// columns of each warp at a time.
+template <int KS, int COLS>
+__global__ void __launch_bounds__(kImmaThreads)
+grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ mat,
+                    uint8_t* __restrict__ out, int k, int m, int g, int groups, long long L,
+                    int tile, long long tiles, int vec16) {
+  constexpr int kCols = COLS;
+  constexpr int kTiles = COLS / 16;   // m-tiles of a stage
+  constexpr int kPitch = COLS + 16;   // bytes a staged output row
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;  // mma's groupID
+  const int tig = lane & 3;   // mma's thread in group
+  const int steps = KS * groups;
+  // [steps][4 row groups][2 K halves][8 rows][16 B], then the warps':
+  // [kStages][k][kCols] bytes, [steps][kCols] words, [4][kPitch] bytes
+  uint8_t* operand = smem;
+  uint8_t* ring = smem + steps * kImmaStepBytes + warp * grouped_imma_warp_bytes(k, steps, COLS);
+  uint32_t* words = reinterpret_cast<uint32_t*>(ring + kStages * k * kCols);
+  uint8_t* staged = reinterpret_cast<uint8_t*>(words + steps * kCols);
+  const int first = kImmaChunks * blockIdx.y;  // the pass's first output chunk
+  const int live = min(kImmaChunks, m - first);
+
+  // B row n (N index) is bit 2(n / 8) + n % 2 of output chunk first +
+  // (n % 8) / 2, zero past m: n8 block i holds bits 2i, 2i + 1 of the 4
+  // chunks, so that lane tig's sums are all 8 bits of chunk tig.
+  for (int i = threadIdx.x; i < steps * 64; i += kImmaThreads) {
+    const int t = i >> 6, n = (i >> 1) & 31, half = i & 1;
+    const int chunk = first + ((n & 7) >> 1);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (chunk < m) {
+      const long long row = 8 * chunk + 2 * (n >> 3) + (n & 1);
+      v = *reinterpret_cast<const uint4*>(mat + row * (32 * steps) + 32 * t + 16 * half);
+    }
+    *reinterpret_cast<uint4*>(operand + t * kImmaStepBytes + (n >> 3) * 256 + half * 128 +
+                              (n & 7) * 16) = v;
+  }
+  // the product reads shared memory through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  auto desc = [&](int t) { return gmma_desc(operand + t * kImmaStepBytes, 128, 256); };
+
+  const long long grp = blockIdx.x / tiles;
+  const long long tt = blockIdx.x - grp * tiles;
+  const int per_stripe = (tile + kCols - 1) / kCols;
+  const int stages = g * per_stripe;
+  // every warp runs the same number of rounds (the products are
+  // collective); a round past the warp's last stage codes stale bytes and
+  // stores nothing
+  const int rounds = (stages + kImmaThreads / 32 - 1) / (kImmaThreads / 32);
+  struct Stage {
+    long long stripe, col0;
+    int cols;
+  };
+  auto stage = [&](int j) {  // the warp's stage j: `cols` columns of a stripe from col0
+    const int q = warp + j * (kImmaThreads / 32);
+    const int s = q / per_stripe;
+    const int st = q - s * per_stripe;
+    return Stage{grp * g + s, tt * tile + (long long)st * kCols, min(kCols, tile - st * kCols)};
+  };
+  auto valid = [&](int j) { return warp + j * (kImmaThreads / 32) < stages; };
+  auto load = [&](int j) {
+    const Stage sg = stage(j);
+    const uint8_t* from = data + sg.stripe * k * L + sg.col0;
+    uint8_t* slot = ring + (j % kStages) * k * kCols;
+    if (vec16) {
+      for (int i = lane; i < k * (kCols / 16); i += 32) {
+        const int c = i / (kCols / 16);
+        const int v = i - c * (kCols / 16);
+        if (v * 16 < sg.cols) cp_async16(slot + c * kCols + v * 16, from + c * L + v * 16);
+      }
+    } else {
+      for (int i = lane; i < k * (kCols / 4); i += 32) {
+        const int c = i / (kCols / 4);
+        const int v = i - c * (kCols / 4);
+        if (v * 4 < sg.cols) cp_async4(slot + c * kCols + v * 4, from + c * L + v * 4);
+      }
+    }
+  };
+  // slot -> words: W[t][c] = bytes of chunks 4t..4t+3 at column c (chunks
+  // past k zero), columns stored 0, 8, 1, 9, ... 7, 15 within each 16
+  auto transpose = [&](int j) {
+    const uint8_t* slot = ring + (j % kStages) * k * kCols;
+    const int kt = (k + 3) / 4;
+    for (int i = lane; i < kt * (kCols / 16); i += 32) {
+      const int t = i / (kCols / 16);
+      const int v = i - t * (kCols / 16);
+      uint4 r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        r[e] = 4 * t + e < k
+                   ? *reinterpret_cast<const uint4*>(slot + (4 * t + e) * kCols + v * 16)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      uint32_t o[16];
+      transpose4(r[0].x, r[1].x, r[2].x, r[3].x, o);
+      transpose4(r[0].y, r[1].y, r[2].y, r[3].y, o + 4);
+      transpose4(r[0].z, r[1].z, r[2].z, r[3].z, o + 8);
+      transpose4(r[0].w, r[1].w, r[2].w, r[3].w, o + 12);
+      uint4* w = reinterpret_cast<uint4*>(words + t * kCols + v * 16);
+      w[0] = make_uint4(o[0], o[8], o[1], o[9]);
+      w[1] = make_uint4(o[2], o[10], o[3], o[11]);
+      w[2] = make_uint4(o[4], o[12], o[5], o[13]);
+      w[3] = make_uint4(o[6], o[14], o[7], o[15]);
+    }
+  };
+  // A of m-tile mt, k-steps t0..t0+KS-1: a0 = W[t][c0+gid] >> tig, a1 =
+  // W[t][c0+gid+8] >> tig, a2, a3 the same >> (tig + 4)
+  auto load_a = [&](int mt, int t0, uint32_t (&a)[KS][4]) {
+    const uint32_t* w = words + t0 * kCols + mt * 16 + 2 * gid;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint2 x = *reinterpret_cast<const uint2*>(w + ks * kCols);  // columns gid, gid + 8
+      a[ks][0] = x.x >> tig;
+      a[ks][1] = x.y >> tig;
+      a[ks][2] = x.x >> (tig + 4);
+      a[ks][3] = x.y >> (tig + 4);
+    }
+  };
+  // lane tig's sums are the 8 bits of the pass's output chunk tig
+  auto emit = [&](const int (&d)[16], int mt) {
+    if (tig < live) {
+      uint8_t* o = staged + tig * kPitch + mt * 16 + gid;
+      o[0] = (uint8_t)gather_byte(d, 0);  // column gid
+      o[8] = (uint8_t)gather_byte(d, 2);  // column gid + 8
+    }
+  };
+
+#pragma unroll 1
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < rounds && valid(p)) load(p);
+    cp_async_commit();  // possibly empty, so that the group count is the stage count
+  }
+#pragma unroll 1
+  for (int j = 0; j < rounds; ++j) {
+    cp_async_wait_oldest();
+    // stage j has landed for every lane; every lane is done with the words,
+    // the staged output and the slot the next load overwrites
+    __syncwarp();
+    if (j + kStages - 1 < rounds && valid(j + kStages - 1)) load(j + kStages - 1);
+    cp_async_commit();
+    transpose(j);
+    __syncwarp();
+    if (groups == 1) {
+      // m-tile mt's product runs while the lanes pack m-tile mt - 1's sums
+      // and load m-tile mt + 1's A
+      int d[2][16];
+      uint32_t a[2][KS][4];
+      load_a(0, 0, a[0]);
+#pragma unroll
+      for (int mt = 0; mt < kTiles; ++mt) {
+        pin(d[mt & 1]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) wgmma_u8s8(d[mt & 1], a[mt & 1][ks], desc(ks), ks > 0);
+        wgmma_commit();
+        if (mt > 0) {
+          wgmma_wait<1>();
+          pin(d[(mt - 1) & 1]);
+          emit(d[(mt - 1) & 1], mt - 1);
+        }
+        if (mt + 1 < kTiles) load_a(mt + 1, 0, a[(mt + 1) & 1]);
+      }
+      wgmma_wait<0>();
+      pin(d[(kTiles - 1) & 1]);
+      emit(d[(kTiles - 1) & 1], kTiles - 1);
+    } else {
+      // k > 32: the sums kept over the chunk groups, one group at a time
+#pragma unroll 1
+      for (int mt = 0; mt < kTiles; ++mt) {
+        int d[16];
+#pragma unroll 1
+        for (int gr = 0; gr < groups; ++gr) {
+          uint32_t a[KS][4];
+          load_a(mt, gr * KS, a);
+          pin(d);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            wgmma_u8s8(d, a[ks], desc(gr * KS + ks), gr > 0 || ks > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(d);
+        }
+        emit(d, mt);
+      }
+    }
+    __syncwarp();
+    if (!valid(j)) continue;
+    const Stage sg = stage(j);
+    uint8_t* to = out + (sg.stripe * m + first) * L + sg.col0;
+    if (vec16) {
+      for (int i = lane; i < live * (kCols / 16); i += 32) {
+        const int r = i / (kCols / 16);
+        const int v = i - r * (kCols / 16);
+        if (v * 16 < sg.cols)
+          *reinterpret_cast<uint4*>(to + r * L + v * 16) =
+              *reinterpret_cast<const uint4*>(staged + r * kPitch + v * 16);
+      }
+    } else {
+      for (int i = lane; i < live * (kCols / 4); i += 32) {
+        const int r = i / (kCols / 4);
+        const int v = i - r * (kCols / 4);
+        if (v * 4 < sg.cols)
+          *reinterpret_cast<uint32_t*>(to + r * L + v * 4) =
+              *reinterpret_cast<const uint32_t*>(staged + r * kPitch + v * 4);
+      }
     }
   }
 }
@@ -352,27 +708,68 @@ long long grid_blocks(long long stripes, int per_block, long long L, int tile, i
 
 }  // namespace
 
-// data: (stripes, k, L) uint8; mat: (8mg, 8kg) bf16 (int8_operand == 0) or
-// int8, row-major; out: (stripes, m, L) uint8.  All 16-byte aligned.
-// stripes % g == 0, tile % 4 == 0, L % tile == 0, L >= tile, g·k <= 96.
-// Returns cudaGetLastError() after the launch (0 on success), or
+// data: (stripes, k, L) uint8; mat: (8mg, 8kg) bf16, row-major; out:
+// (stripes, m, L) uint8.  All 16-byte aligned.  stripes % g == 0,
+// tile % 4 == 0, L % tile == 0, L >= tile, g·k <= 96.  Returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue without launching; does not synchronise.
-extern "C" int bitmatrix_grouped_launch(const void* data, void* out, const void* mat,
-                                        long long stripes, int k, int m, long long L,
-                                        int g, int tile, int int8_operand, void* stream) {
+extern "C" int bitmatrix_grouped_bf16_launch(const void* data, void* out, const void* mat,
+                                             long long stripes, int k, int m, long long L,
+                                             int g, int tile, void* stream) {
   const long long blocks = grid_blocks(stripes, g, L, tile, 4);
   if (blocks == 0 || k <= 0 || m <= 0 || g * k > kMaxGroupedWords)
     return (int)cudaErrorInvalidValue;
   const size_t shared = (size_t)g * k * kGroupedThreads * sizeof(uint32_t);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto in = static_cast<const uint32_t*>(data);
-  auto dst = static_cast<uint32_t*>(out);
-  if (int8_operand)
-    grouped_kernel<Int8Operand><<<(unsigned)blocks, kGroupedThreads, shared, st>>>(
-        in, static_cast<const int8_t*>(mat), dst, k, m, g, L / 4, tile / 4, L / tile);
-  else
-    grouped_kernel<Bf16Operand><<<(unsigned)blocks, kGroupedThreads, shared, st>>>(
-        in, static_cast<const uint16_t*>(mat), dst, k, m, g, L / 4, tile / 4, L / tile);
+  grouped_bf16_kernel<<<(unsigned)blocks, kGroupedThreads, shared,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(data), static_cast<const uint16_t*>(mat),
+      static_cast<uint32_t*>(out), k, m, g, L / 4, tile / 4, L / tile);
+  return (int)cudaGetLastError();
+}
+
+// data: (stripes, k, L) uint8; mat: imma_operand (kern_exp.py), (8m,
+// 32·steps) int8 with steps = KS·groups of grouped_imma_kernel, row-major;
+// out: (stripes, m, L) uint8.  All 16-byte aligned.  The same shapes as
+// bitmatrix_grouped_bf16_launch; any m >= 1.  Returns as above.
+extern "C" int bitmatrix_grouped_imma_launch(const void* data, void* out, const void* mat,
+                                             long long stripes, int k, int m, long long L,
+                                             int g, int tile, void* stream) {
+  const long long blocks = grid_blocks(stripes, g, L, tile, 4);
+  if (blocks == 0 || k <= 0 || m <= 0 || g * k > kMaxGroupedWords)
+    return (int)cudaErrorInvalidValue;
+  // chunk groups of at most kImmaMaxSteps k-steps, as even as they go;
+  // passes of kImmaChunks output chunks
+  const int kt = (k + 3) / 4;
+  const int groups = (kt + kImmaMaxSteps - 1) / kImmaMaxSteps;
+  const int ks = (kt + groups - 1) / groups;
+  const int passes = (m + kImmaChunks - 1) / kImmaChunks;
+  if (passes > 65535) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, int, int, int, int,
+                          long long, int, long long, int);
+#define GROUPED_IMMA_ROW(COLS)                                                            \
+  {grouped_imma_kernel<1, COLS>, grouped_imma_kernel<2, COLS>,                            \
+   grouped_imma_kernel<3, COLS>, grouped_imma_kernel<4, COLS>,                            \
+   grouped_imma_kernel<5, COLS>, grouped_imma_kernel<6, COLS>,                            \
+   grouped_imma_kernel<7, COLS>, grouped_imma_kernel<8, COLS>}
+  static const Kernel kernels[2][kImmaMaxSteps] = {GROUPED_IMMA_ROW(kImmaWideCols),
+                                                   GROUPED_IMMA_ROW(kImmaNarrowCols)};
+#undef GROUPED_IMMA_ROW
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const bool wide = grouped_imma_shared_bytes(k, ks * groups, kImmaWideCols) <= (size_t)limit;
+  const Kernel kernel = kernels[wide ? 0 : 1][ks - 1];
+  const size_t shared =
+      grouped_imma_shared_bytes(k, ks * groups, wide ? kImmaWideCols : kImmaNarrowCols);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  const int vec16 = L % 16 == 0 && tile % 16 == 0;
+  kernel<<<dim3((unsigned)blocks, (unsigned)passes), kImmaThreads, shared,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const uint8_t*>(mat),
+      static_cast<uint8_t*>(out), k, m, g, groups, L, tile, L / tile, vec16);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,10 @@ csrc/bitmatrix.cu (one library, the matrix and g runtime operands):
   planes, bit-major (row s·8k + b·k + j is bit b of chunk j of stripe s),
   multiplied by the block-diagonal (8mg, 8kg) operand of `dtype`
   (torch.bfloat16 or torch.int8), `& 1`, packed LSB-first into bytes.
+  With an int8 operand the kernel runs on the tensor cores (wgmma) and
+  multiplies only the diagonal (8m, 8k) block, permuted by `imma_operand`;
+  with bf16, on the CUDA cores, the whole block-diagonal operand.  Each operand type
+  counts its own launches (`bitmatrix_grouped_int8`, `bitmatrix_grouped_bf16`).
 - `make_mm_only(gfm, tile)`: the (8m, 8k) bf16 operand times pre-expanded
   bf16 planes (S, 8k, L) -> (S, 8m, L) uint8 counts (not parity), on the
   tensor cores; the kernel takes the operand with its columns padded with
@@ -66,10 +70,14 @@ EXPAND_TILE = 4096
 # This probe is divided by every variant's g and tile.
 PROBE_S, PROBE_L = 8, 8192
 # csrc/bitmatrix.cu's limits: the words a grouped thread stages, the
-# columns of the mm_only operand, its rows, the columns of one mm_only ring
-# stage (a tile is a whole number of them), the K step of mma.sync
-# m16n8k16, and the chunks whose popcounts fit a byte.
+# chunks of one k-step of the int8 grouped kernel (wgmma m64n32k32: K = 4
+# chunks x 8 bits) and its k-steps a chunk group, the columns of the mm_only
+# operand, its rows, the columns of one mm_only ring stage (a tile is a
+# whole number of them), the K step of mma.sync m16n8k16, and the chunks
+# whose popcounts fit a byte.
 MAX_GROUPED_WORDS = 96
+IMMA_CHUNKS = 4
+IMMA_MAX_STEPS = 8
 MAX_MM_COLS = 128
 MM_ROWS = (8, 16, 24, 32)
 MM_STAGE_COLS = 128
@@ -78,7 +86,8 @@ MAX_EXPAND_K = 31
 SOURCE = CSRC / "bitmatrix.cu"
 
 # kernel launches made by each wrapper (plain-version calls excluded)
-launches = {"bitmatrix_grouped": 0, "bitmatrix_mm_only": 0, "bitmatrix_expand_only": 0}
+launches = {"bitmatrix_grouped_int8": 0, "bitmatrix_grouped_bf16": 0,
+            "bitmatrix_mm_only": 0, "bitmatrix_expand_only": 0}
 
 
 def arrange_dense_matrix(gfm) -> np.ndarray:
@@ -116,6 +125,28 @@ def pad_depth(bm: np.ndarray) -> np.ndarray:
     return out
 
 
+def imma_steps(k: int) -> int:
+    """The k-steps of 4 chunks the int8 grouped kernel runs for k chunks:
+    ceil(k / 4), rounded up to whole chunk groups of equal size, at most
+    IMMA_MAX_STEPS each (as bitmatrix_grouped_imma_launch splits them)."""
+    kt = -(-k // IMMA_CHUNKS)
+    groups = -(-kt // IMMA_MAX_STEPS)
+    return -(-kt // groups) * groups
+
+
+def imma_operand(bm: np.ndarray, k: int) -> np.ndarray:
+    """(8m, 8k) bit-matrix in bit-major columns (b·k + j) -> the int8 B
+    operand of the tensor-core grouped kernel, (8m, 32·imma_steps(k)):
+    column 32t + 4b + i holds column b·k + 4t + i, zero where 4t + i >= k,
+    so K index 4b + i of k-step t is bit b of chunk 4t + i."""
+    rows = bm.shape[0]
+    steps = imma_steps(k)
+    padded = np.zeros((rows, 8, steps * IMMA_CHUNKS), dtype=np.int8)
+    padded[:, :, :k] = bm.reshape(rows, 8, k)
+    return padded.reshape(rows, 8, steps, IMMA_CHUNKS).transpose(0, 2, 1, 3).reshape(
+        rows, 32 * steps)
+
+
 def grouped_reference(operand: torch.Tensor, data: torch.Tensor, g: int) -> torch.Tensor:
     """Plain version of the grouped kernel: the planes of each g stripes
     times the (8mg, 8kg) operand, summed in float32 (exact in the domain of
@@ -147,7 +178,8 @@ def build() -> _nvcc.Built:
     """Build and load csrc/bitmatrix.cu, once per process."""
     ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     return _nvcc.build("bitmatrix", SOURCE, {
-        "bitmatrix_grouped_launch": [p, p, p, ll, i, i, ll, i, i, i, p],
+        "bitmatrix_grouped_bf16_launch": [p, p, p, ll, i, i, ll, i, i, p],
+        "bitmatrix_grouped_imma_launch": [p, p, p, ll, i, i, ll, i, i, p],
         "bitmatrix_mm_only_launch": [p, p, p, ll, i, i, ll, i, p],
         "bitmatrix_expand_only_launch": [p, p, ll, i, ll, i, p],
     })
@@ -176,8 +208,12 @@ class Operand:
 
 
 class Grouped:
-    """Wrapper of the grouped bit-matrix kernel for one (m, k) matrix, g
-    stripes a block, operand type `dtype` and `tile` columns a block."""
+    """Wrapper of the grouped bit-matrix kernels for one (m, k) matrix, g
+    stripes a block, operand type `dtype` and `tile` columns a block:
+    `bitmatrix_grouped_int8` on the tensor cores, `bitmatrix_grouped_bf16`
+    on the CUDA cores.  `operand` is the (8mg, 8kg) block-diagonal operand
+    the plain version multiplies; `imma` (int8 only) the one the tensor-core
+    kernel takes."""
 
     def __init__(self, gf_matrix: np.ndarray, g: int, dtype: torch.dtype, tile: int):
         if dtype not in OPERANDS.values():
@@ -189,22 +225,29 @@ class Grouped:
         if g * self.k > MAX_GROUPED_WORDS:
             raise ValueError(f"make_grouped: g·k = {g * self.k} > {MAX_GROUPED_WORDS}")
         self.g, self.dtype, self.tile = g, dtype, tile
-        bm = block_diag(arrange_dense_matrix(gfm), g)
-        self.operand = Operand(torch.from_numpy(bm).to(dtype))
+        self.kernel = f"bitmatrix_grouped_{'int8' if dtype == torch.int8 else 'bf16'}"
+        bm = arrange_dense_matrix(gfm)
+        self.operand = Operand(torch.from_numpy(block_diag(bm, g)).to(dtype))
+        if dtype == torch.int8:
+            self.imma = Operand(torch.from_numpy(imma_operand(bm, self.k)))
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        check_uint8_3d("bitmatrix_grouped", data)
+        check_uint8_3d(self.kernel, data)
         S, k, L = data.shape
         if k != self.k:
-            raise ValueError(f"bitmatrix_grouped: k={k} but the matrix has k={self.k}")
-        check_grid("bitmatrix_grouped", S, L, self.g, self.tile)
+            raise ValueError(f"{self.kernel}: k={k} but the matrix has k={self.k}")
+        check_grid(self.kernel, S, L, self.g, self.tile)
         if data.device.type == "cpu":
             return grouped_reference(self.operand.matrix, data, self.g)
         out = torch.empty((S, self.m, L), dtype=torch.uint8, device=data.device)
-        launch("bitmatrix_grouped", build().lib.bitmatrix_grouped_launch, data, out,
-               self.operand.on(data.device).data_ptr(), S, k, self.m, L, self.g, self.tile,
-               int(self.dtype == torch.int8))
-        launches["bitmatrix_grouped"] += 1
+        lib = build().lib
+        if self.dtype == torch.int8:
+            fn, operand = lib.bitmatrix_grouped_imma_launch, self.imma
+        else:
+            fn, operand = lib.bitmatrix_grouped_bf16_launch, self.operand
+        launch(self.kernel, fn, data, out, operand.on(data.device).data_ptr(), S, k, self.m, L,
+               self.g, self.tile)
+        launches[self.kernel] += 1
         return out
 
 
@@ -294,7 +337,7 @@ def main(argv: list[str] | None = None) -> Calls:
     variants = {"cur_plan": calls.counted("swar_gf", CodingPlan(gfm, device=dev))}
     for g, dn, tile in GROUPED_VARIANTS:
         variants[variant_name(g, dn, tile)] = calls.counted(
-            "bitmatrix_grouped", make_grouped(gfm, g, OPERANDS[dn], tile))
+            f"bitmatrix_grouped_{dn}", make_grouped(gfm, g, OPERANDS[dn], tile))
     for name, fn in variants.items():
         if want and not any(w in name for w in want):
             continue

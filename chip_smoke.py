@@ -67,11 +67,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    tensor cores: phase 6a also holds it, byte for byte against its plain
    version and integer counts, at RS(5,2) (8k = 40, K padded to 48),
    RS(10,4) (8m = 32, 8k = 80) and RS(3,1) (8m = 8, K padded to 32), at its
-   tile and at one ring stage (tile 128).  Phase 1 builds the library with
-   the others and checks the SASS: tensor-core instructions (HMMA) in
-   mm_only's RS(8,3) instance, printed with ptxas's registers for it and
-   for the largest instance (8m = 32, 8k = 128); none in grouped's or
-   expand_only's.
+   tile and at one ring stage (tile 128).  grouped with an int8 operand
+   runs on the tensor cores too (`bitmatrix_grouped_int8`; bf16 stays on
+   the CUDA cores, `bitmatrix_grouped_bf16`): phase 6a also holds it
+   against its plain version and `gf_matmul` at RS(5,2) (padded chunks),
+   RS(10,4), Cauchy (6,6) (two passes: 4 and 2 output chunks) and RS(40,2) at
+   g = 2 (two chunk groups), on (8, k, 4096), at a tile of one warp's ring
+   stage (256: three warps code stale bytes and store nothing), at tile
+   512, and at tile 1028 on (8, 8, 4112) (not a multiple of 16: masked
+   m-tiles, 4-byte copies).  Phase 6c times every int8 variant at tile
+   4096 (g1, g2, g4, g8) beside bf16 g1 and g8, and reports the best of
+   each operand type as its own kernel row.  Phase 1 builds the library
+   with the others and checks the SASS: tensor-core instructions (HMMA)
+   in mm_only's RS(8,3) instance, printed with ptxas's registers for it
+   and for the largest instance (8m = 32, 8k = 128); IGMMA (wgmma's
+   integer product) in the int8 grouped kernel's RS(8,3) instance (IGMMA,
+   IMMA, LDS, SHFL and PRMT counted);
+   none in the bf16 grouped kernel or expand_only; no spill in any mm_only
+   or grouped instance.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -125,6 +138,24 @@ MM_ONLY_GEOMETRIES = [(5, 2), (10, 4), (3, 1)]
 # RS(8,3)'s, and the largest (the most operand fragments in registers).
 MM_ONLY_RS83 = "mm_only_kernelILi3ELi4E"
 MM_ONLY_LARGEST = "mm_only_kernelILi4ELi8E"
+# The int8 grouped kernel's instances, grouped_imma_kernel<k-steps of 4
+# chunks, columns of a warp's stage>: RS(8,3)'s (2 steps, 256 columns), and
+# the largest (8 steps: the most A fragments in registers).
+GROUPED_IMMA_RS83 = "grouped_imma_kernelILi2ELi256E"
+GROUPED_IMMA_LARGEST = "grouped_imma_kernelILi8ELi256E"
+GROUPED_BF16 = "grouped_bf16_kernel"
+# The int8 grouped kernel's other geometries, (label, k, m, shape, (g, tile)
+# pairs): padded chunks (k = 5), 3 k-steps with m = 4, two passes (m = 6),
+# two chunk groups (k = 40 at g = 2), one warp's ring stage a tile (256)
+# and two (512), and a tile that is not a multiple of 16.
+GROUPED_INT8_GEOMETRIES = [
+    ("rs52-van-encode", 5, 2, (8, 5, 4096), [(1, 4096), (2, 2048)]),
+    ("rs104-van-encode", 10, 4, (8, 10, 4096), [(1, 4096), (2, 2048)]),
+    ("rs66-cauchy-encode", 6, 6, (8, 6, 4096), [(1, 4096), (2, 2048)]),
+    ("rs402-van-encode", 40, 2, (8, 40, 4096), [(2, 4096)]),
+    ("rs83-van-encode", 8, 3, (8, 8, 4096), [(1, 256), (4, 512)]),
+    ("rs83-van-encode", 8, 3, (8, 8, 4112), [(1, 1028), (2, 1028)]),
+]
 # swar_gf_kernel<rows> instances in csrc/swar_gf.cu (rows of a pass: 1-4),
 # and RS(8,3)'s (3 rows, one pass).
 SWAR_GF_INSTANCES = [f"swar_gf_kernelILi{rows}E" for rows in range(1, 5)]
@@ -336,10 +367,11 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
         mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
         print(f"[1] swar_baked_kernel (rs83-van-encode) SASS: {total} instructions, "
               f"{total / 4:.1f} per word (TPU program as written: 539); {mix}")
-        # grouped and expand_only run on the CUDA cores: no HMMA/IMMA/HGMMA...
-        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op);
-        # mm_only on the tensor cores: HMMA
-        for kernel in ("Bf16Operand", "Int8Operand", "expand_only_kernel", MM_ONLY_RS83):
+        # the bf16 grouped kernel and expand_only run on the CUDA cores: no
+        # HMMA/IMMA/HGMMA/IGMMA... (HFMA2.MMA, a move idiom on the FMA pipe,
+        # is not a matrix op); mm_only on the tensor cores: HMMA (mma.sync);
+        # the int8 grouped kernel: IGMMA (wgmma's integer product)
+        for kernel in (GROUPED_BF16, "expand_only_kernel", MM_ONLY_RS83, GROUPED_IMMA_RS83):
             ops = sass_opcodes(nvcc, infos["bitmatrix"]["library"], kernel)
             mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
             mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
@@ -350,16 +382,26 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
                 print(f"[1] bitmatrix {kernel}: {hmma} HMMA, {count_prefix(ops, 'LDSM')} LDSM, "
                       f"{count_prefix(ops, 'LDGSTS')} LDGSTS, {count_prefix(ops, 'F2I')} F2I")
                 check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
+            elif kernel == GROUPED_IMMA_RS83:
+                igmma = count_prefix(ops, "IGMMA")
+                print(f"[1] bitmatrix {kernel}: {igmma} IGMMA, {count_prefix(ops, 'IMMA')} IMMA, "
+                      f"{count_prefix(ops, 'LDS')} LDS, {count_prefix(ops, 'SHFL')} SHFL, "
+                      f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LDGSTS')} LDGSTS")
+                check(igmma > 0, f"bitmatrix {kernel}: no IGMMA in its SASS")
             else:
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
-    for kernel in ("Bf16Operand", "Int8Operand", "expand_only_kernel", MM_ONLY_RS83,
-                   MM_ONLY_LARGEST):
+    for kernel in (GROUPED_BF16, "expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST,
+                   GROUPED_IMMA_RS83, GROUPED_IMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
             print(f"[1]   ptxas bitmatrix {kernel}: {line}")
-    spills = [line for line in ptxas_lines(infos["bitmatrix"], "mm_only_kernel")
-              if "spill" in line and not re.search(r"\b0 bytes spill stores", line)]
-    check(not spills, f"mm_only instances spill: {spills}")
+    for family in ("mm_only_kernel", "grouped_"):
+        lines = ptxas_lines(infos["bitmatrix"], family)
+        check("ptxas" not in infos["bitmatrix"] or lines, f"no ptxas lines for {family}")
+        spills = [line for line in lines if "spill" in line and not (
+            re.search(r"\b0 bytes spill stores", line)
+            and re.search(r"\b0 bytes spill loads", line))]
+        check(not spills, f"{family} instances spill: {spills}")
     return name, card, infos
 
 
@@ -647,8 +689,7 @@ def coding_bound(mat, S: int, k: int, L: int) -> tuple[float, str]:
     return max(mem_ms, alu_ms), ("bytes" if mem_ms >= alu_ms else "operations")
 
 
-def bitmatrix_bounds(S: int, k: int, L: int, m: int = 3,
-                     tensor_ops_per_s: float = BF16_OPS_PER_S) -> dict:
+def bitmatrix_bounds(S: int, k: int, L: int, m: int = 3) -> dict:
     """Bounds (ms, by) at (S, k, L) of the kernels of csrc/bitmatrix.cu
     (the TPU kernels of benchmarks/diag/kern_exp.py), from their shapes:
     each input byte read once, each output byte written once, at the HBM
@@ -660,8 +701,9 @@ def bitmatrix_bounds(S: int, k: int, L: int, m: int = 3,
     mm_ops = 2 * (8 * m) * (8 * k) * S * L
     popc_ms = (10 * k + k - 1) * S * (L // 4) / INT32_OPS_PER_S * 1e3
     rows = {
-        # (S,k,L) u8 -> (S,m,L) u8, operand bf16 or int8
-        "bitmatrix_grouped": ((k + m) * S * L, mm_ops / tensor_ops_per_s * 1e3),
+        # (S,k,L) u8 -> (S,m,L) u8, operand int8 or bf16
+        "bitmatrix_grouped_int8": ((k + m) * S * L, mm_ops / INT8_OPS_PER_S * 1e3),
+        "bitmatrix_grouped_bf16": ((k + m) * S * L, mm_ops / BF16_OPS_PER_S * 1e3),
         # bf16 planes -> u8 counts
         "bitmatrix_mm_only": ((2 * 8 * k + 8 * m) * S * L, mm_ops / BF16_OPS_PER_S * 1e3),
         # (S,k,L) u8 -> (S,1,L) u8
@@ -810,7 +852,8 @@ def phase_diag_timing(torch, swar, gf, diag, floor_ms) -> dict:
     }
 
 
-BITMATRIX_KERNELS = ("bitmatrix_grouped", "bitmatrix_mm_only", "bitmatrix_expand_only")
+BITMATRIX_KERNELS = ("bitmatrix_grouped_int8", "bitmatrix_grouped_bf16", "bitmatrix_mm_only",
+                     "bitmatrix_expand_only")
 
 
 def popcount_oracle(host: np.ndarray) -> np.ndarray:
@@ -855,7 +898,7 @@ def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
                 fn = kern_exp.make_grouped(mat, g, kern_exp.OPERANDS[dn], tile)
                 if (g, dn) not in plain:
                     plain[g, dn] = kern_exp.grouped_reference(fn.operand.on(dev), data, g)
-                record("bitmatrix_grouped", f"{label} {shape} {kern_exp.variant_name(g, dn, tile)}",
+                record(fn.kernel, f"{label} {shape} {kern_exp.variant_name(g, dn, tile)}",
                        fn(data), plain[g, dn], oracle)
             del plain
             planes = kern_exp.bit_planes(data, torch.bfloat16)
@@ -878,6 +921,20 @@ def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
             record("bitmatrix_mm_only", f"rs{k}{m}-van-encode (8, {k}, 4096) tile {tile}",
                    mm(planes), kern_exp.mm_only_reference(mm.operand.on(dev), planes), first)
         del data, planes
+    # the int8 grouped kernel's other geometries
+    for n, (label, k, m, shape, variants) in enumerate(GROUPED_INT8_GEOMETRIES):
+        build = gf.isa_cauchy_matrix if "cauchy" in label else gf.isa_rs_vandermonde_matrix
+        mat = build(k, m)[k:]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 40 + n)
+        data = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        ends = sorted({0, shape[0] - 1})
+        oracle = {s: gf.gf_matmul(mat, data[s].cpu().numpy()) for s in ends}
+        for g, tile in variants:
+            fn = kern_exp.make_grouped(mat, g, torch.int8, tile)
+            record(fn.kernel, f"{label} {shape} {kern_exp.variant_name(g, 'int8', tile)}",
+                   fn(data), kern_exp.grouped_reference(fn.operand.on(dev), data, g), oracle)
+        del data
     for kernel, err in errs.items():
         print(f"[6] {kernel} == plain == oracle on {counts[kernel]} cases, max_abs_err={err}")
     return errs
@@ -915,22 +972,24 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
     check(np.array_equal(want[0].cpu().numpy(), gf.gf_matmul(mat, data[0].cpu().numpy())),
           "grouped_reference != oracle at the bulk shape")
     times, fns = {}, {}
-    for g in (1, 8):
-        for dn, dtype in kern_exp.OPERANDS.items():
+    for dn, gs in (("int8", (1, 2, 4, 8)), ("bf16", (1, 8))):
+        for g in gs:
             label = kern_exp.variant_name(g, dn, 4096)
-            fn = fns[label] = kern_exp.make_grouped(mat, g, dtype, 4096)
-            check(torch.equal(fn(data), want), f"bitmatrix_grouped {label} != plain at {BULK}")
+            fn = fns[label] = kern_exp.make_grouped(mat, g, kern_exp.OPERANDS[dn], 4096)
+            check(torch.equal(fn(data), want), f"{fn.kernel} {label} != plain at {BULK}")
             times[label] = time_ms(torch, lambda: fn(data))
-            print(f"[6] bitmatrix_grouped {label}: {times[label]:.4f} ms, "
+            print(f"[6] {fn.kernel} {label}: {times[label]:.4f} ms, "
                   f"{in_bytes / times[label] / 1e6:.2f} GB/s input", flush=True)
     del want
-    best = min(times, key=times.get)
-    grouped = fns[best]
-    bounds = bitmatrix_bounds(S, k, L, tensor_ops_per_s=(
-        INT8_OPS_PER_S if grouped.dtype == torch.int8 else BF16_OPS_PER_S))
-    grouped_plain_ms = time_ms(
-        torch, lambda: kern_exp.grouped_reference(grouped.operand.on(dev), data, grouped.g),
-        warmup=2, reps=5)
+    bounds = bitmatrix_bounds(S, k, L)
+    grouped = {}
+    for dn in kern_exp.OPERANDS:
+        best = min((label for label in times if f"_{dn}_" in label), key=times.get)
+        fn = fns[best]
+        plain_ms = time_ms(
+            torch, lambda: kern_exp.grouped_reference(fn.operand.on(dev), data, fn.g),
+            warmup=2, reps=5)
+        grouped[fn.kernel] = (times[best], plain_ms, None, best)
 
     planes = kern_exp.bit_planes(data, torch.bfloat16)
     mm = kern_exp.make_mm_only(mat, kern_exp.MM_TILE)
@@ -958,7 +1017,7 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
                               warmup=2, reps=5)
 
     rows = {
-        "bitmatrix_grouped": (times[best], grouped_plain_ms, None, best),
+        **grouped,
         "bitmatrix_mm_only": (mm_ms, mm_plain_ms, mm_library_ms, f"tile={kern_exp.MM_TILE}"),
         "bitmatrix_expand_only": (expand_ms, expand_plain_ms, None,
                                   f"tile={kern_exp.EXPAND_TILE}"),
@@ -974,9 +1033,13 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
         out[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": library_ms, "variant": variant,
                        "source_sha256": sha}
-    print(f"[6] bitmatrix_grouped g8 / g1 time: bf16 "
-          f"{times['g8_bf16_t4096'] / times['g1_bf16_t4096']:.2f}x, int8 "
-          f"{times['g8_int8_t4096'] / times['g1_int8_t4096']:.2f}x (best {best})")
+    g1 = times["g1_int8_t4096"]
+    print("[6] bitmatrix_grouped_int8 gN / g1 time: " + ", ".join(
+        f"g{g} {times[f'g{g}_int8_t4096'] / g1:.3f}x" for g in (2, 4, 8))
+        + f"; bitmatrix_grouped_bf16 g8 / g1 "
+        f"{times['g8_bf16_t4096'] / times['g1_bf16_t4096']:.2f}x")
+    print(f"[6] bitmatrix_grouped_bf16 / bitmatrix_grouped_int8 at g1: "
+          f"{times['g1_bf16_t4096'] / g1:.2f}x")
     return out
 
 
@@ -1033,7 +1096,8 @@ def main() -> int:
         ("copy_floor", "copy_floor.cu", "benchmarks/diag/kern_exp4.py:34"),
         ("swar_baked", "swar_baked.cu", "benchmarks/diag/kern_exp2.py:48"),
         ("swar3_baked", "swar3_baked.cu", "benchmarks/diag/kern_exp3.py:41"),
-        ("bitmatrix_grouped", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:53"),
+        ("bitmatrix_grouped_int8", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:53"),
+        ("bitmatrix_grouped_bf16", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:53"),
         ("bitmatrix_mm_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:98"),
         ("bitmatrix_expand_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:131"),
     ):

@@ -188,3 +188,106 @@ def test_main_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         kern_exp.main([])
+
+
+# The int8 grouped kernel (tensor cores, grouped_imma_kernel in
+# csrc/bitmatrix.cu): the file's matrices, one with m > 4 (two passes: 4 and 2
+# output chunks) and one with k > 32 (two chunk groups).
+IMMA_MATRICES = dict(MATRICES, **{
+    "rs66-cauchy": lambda: isa_cauchy_matrix(6, 6)[6:],
+    "rs402-van": lambda: isa_rs_vandermonde_matrix(40, 2)[40:],
+})
+
+
+@pytest.mark.parametrize("name", IMMA_MATRICES)
+def test_imma_operand_layout(name):
+    """Column 32t + 4b + i of the operand is column b·k + 4t + i of the
+    bit-matrix (bit b of chunk 4t + i), zero past k; whole k-steps of 4
+    chunks, in chunk groups of at most 8 steps."""
+    mat = IMMA_MATRICES[name]()
+    m, k = mat.shape
+    bm = kern_exp.arrange_dense_matrix(mat)
+    op = kern_exp.imma_operand(bm, k)
+    steps = kern_exp.imma_steps(k)
+    assert op.dtype == np.int8 and op.flags.c_contiguous and op.shape == (8 * m, 32 * steps)
+    assert -(-k // 4) <= steps < -(-k // 4) + -(-k // 32)
+    for t in range(steps):
+        for b in range(8):
+            for i in range(4):
+                col = op[:, 32 * t + 4 * b + i]
+                if 4 * t + i < k:
+                    assert np.array_equal(col, bm[:, b * k + 4 * t + i])
+                else:
+                    assert not col.any()
+    assert torch.equal(kern_exp.make_grouped(mat, 1, torch.int8, 512).imma.matrix,
+                       torch.from_numpy(op))
+
+
+def _imma_model(mat, data, seed):
+    """The int8 grouped kernel's arithmetic in numpy: words W[t] of the
+    bytes of chunks 4t..4t+3 (chunks past k nonzero garbage), element (t, b,
+    i) = byte i of W[t] >> b with its 7 garbage bits, times imma_operand in
+    int64, `& 1`, packed LSB-first."""
+    S, k, L = data.shape
+    op = kern_exp.imma_operand(kern_exp.arrange_dense_matrix(mat), k).astype(np.int64)
+    steps = op.shape[1] // 32
+    garbage = np.random.default_rng(seed).integers(1, 256, (S, 4 * steps - k, L), dtype=np.uint8)
+    chunks = np.concatenate([data, garbage], axis=1).astype(np.uint64).reshape(S, steps, 4, L)
+    words = (chunks << (8 * np.arange(4, dtype=np.uint64))[:, None]).sum(2)  # (S, T, L)
+    shifted = words[:, :, None] >> np.arange(8, dtype=np.uint64)[:, None]  # (S, T, 8, L)
+    elems = (shifted[:, :, :, None] >> (8 * np.arange(4, dtype=np.uint64))[:, None]) & 0xFF
+    planes = elems.reshape(S, 32 * steps, L).astype(np.int64)
+    assert (planes > 1).any()  # the garbage bits are there
+    bits = (np.einsum("rc,scl->srl", op, planes) & 1).reshape(S, -1, 8, L)
+    return (bits << np.arange(8)[:, None]).sum(2).astype(np.uint8)
+
+
+IMMA_CASES = [("rs83-van", 1), ("rs83-cauchy", 2), ("rs83-decode-0-5-10", 4), ("rs42-van", 8),
+              ("rs52-van", 1), ("rs104-van", 2), ("rs66-cauchy", 1), ("rs402-van", 2)]
+
+
+@pytest.mark.parametrize("name,g", IMMA_CASES)
+def test_imma_model_matches_tpu(tpu_kern_exp, name, g):
+    mat = IMMA_MATRICES[name]()
+    data = _data(8, mat.shape[1], 1024, 20 + g + len(name))
+    tpu = np.asarray(tpu_kern_exp.make_grouped(mat, g, jnp.int8, 512)(data))
+    model = _imma_model(mat, data, g)
+    assert np.array_equal(model, tpu)
+    assert np.array_equal(model, _oracle(mat, data))
+
+
+def test_split_grouped_counters_stay_zero_on_cpu():
+    data = torch.from_numpy(_data(2, 8, 1024, 4))
+    assert {"bitmatrix_grouped_int8", "bitmatrix_grouped_bf16"} <= set(kern_exp.launches)
+    assert "bitmatrix_grouped" not in kern_exp.launches
+    before = dict(kern_exp.launches)
+    for dtype in (torch.int8, torch.bfloat16):
+        kern_exp.make_grouped(_van83(), 2, dtype, 512)(data)
+    assert kern_exp.launches == before
+
+
+@pytest.mark.parametrize("name,g,shape,tile", [
+    ("rs83-van", 1, (2, 8, 4112), 1028),   # tile not a multiple of 16
+    ("rs83-van", 2, (4, 8, 1024), 4),      # the smallest tile
+    ("rs66-cauchy", 1, (2, 6, 1024), 512),  # m > 4
+    ("rs402-van", 2, (4, 40, 1024), 512),  # k > 32
+    ("rs104-van", 8, (8, 10, 512), 512),   # g·k = 80
+])
+def test_int8_grouped_domain(name, g, shape, tile):
+    """Every shape the int8 wrapper took before still codes."""
+    mat = IMMA_MATRICES[name]()
+    data = _data(*shape, seed=len(name) + g)
+    got = kern_exp.make_grouped(mat, g, torch.int8, tile)(torch.from_numpy(data)).numpy()
+    assert np.array_equal(got, _oracle(mat, data))
+
+
+@pytest.mark.parametrize("g,shape,tile", [
+    (3, (6, 40, 1024), 512),   # g·k = 120 > 96
+    (1, (2, 8, 1024), 6),      # tile % 4
+    (2, (3, 8, 1024), 512),    # S % g
+    (1, (2, 8, 1000), 512),    # L % tile
+])
+def test_int8_grouped_still_raises(g, shape, tile):
+    mat = (IMMA_MATRICES["rs402-van"] if shape[1] == 40 else _van83)()
+    with pytest.raises(ValueError):
+        kern_exp.make_grouped(mat, g, torch.int8, tile)(torch.zeros(shape, dtype=torch.uint8))
