@@ -1,7 +1,6 @@
 // The bit-matrix kernels of the kern_exp.py experiment, for Hopper (sm_90a).
-// grouped with an int8 operand runs on the tensor cores (wgmma), mm_only
-// too (bf16 mma.sync); grouped with a bf16 operand and expand_only run on
-// the CUDA cores.
+// grouped runs on the tensor cores with either operand type (wgmma),
+// mm_only too (bf16 mma.sync); expand_only runs on the CUDA cores.
 //
 // Replaces the three Pallas kernels of benchmarks/diag/kern_exp.py:
 //
@@ -37,25 +36,46 @@
 // the script's variant names keep their meaning.  g, k and m are runtime
 // arguments, so one library serves every matrix and every variant (mm_only
 // has one instance per (8m/8, ceil(8k/16)), grouped's int8 kernel one per
-// (k-steps, stage width)).
+// (k-steps, stage width), its bf16 kernel one per (words, stage width)).
 //
-// grouped, int8 operand (tensor cores): wgmma m64n32k32, u8 A from
-// registers, s8 B from shared memory, s32 sums.  M = 64 byte columns (16 of
-// each warp of the warpgroup), K = 32 planes taken as 4 chunks x 8 bits,
-// N = 32 = the 8 bits of each of 4 output chunks (RS(8,3): 2 k-steps, 2
-// wgmma per 64 columns; m > 4 takes passes of 4 chunks on blockIdx.y).
-// - A from data words by one shift.  Each warp stages 256 columns of one
-//   stripe (every chunk row) through its own 3-stage cp.async ring, then
-//   turns each 4 chunk rows into words W[t][c] = the bytes of chunks
-//   4t..4t+3 at column c (a 4x4 byte transpose, 8 PRMT per 16 bytes), chunks
-//   past k as zero.  In k-step t lane (gid, tig) takes a0 = W[t][c0+gid] >>
-//   tig, a1 = W[t][c0+gid+8] >> tig, a2 = W[t][c0+gid] >> (tig+4), a3 =
-//   W[t][c0+gid+8] >> (tig+4): the low bit of byte i is then bit tig (or
-//   tig+4) of chunk 4t+i, which is A's element (row gid or gid+8, K = 4·tig
-//   + i or 16 + 4·tig + i: mma.sync's m16n8k32 layout, which wgmma keeps for
-//   each warp's 16 rows), so K index 4b + i is bit b of chunk 4t+i.  W's
-//   columns are stored 0, 8, 1, 9, ... within each 16, so the two words are
-//   one 8-byte load.
+// grouped, both operand types (grouped_tc, the body of the two kernels):
+// one warpgroup a block.  Each warp stages 256 columns of one stripe
+// (every chunk row) through its own 3-stage cp.async ring, then turns each
+// 4 chunk rows into words W[t][c] = the bytes of chunks 4t..4t+3 at column c
+// (a 4x4 byte transpose, 8 PRMT per 16 bytes), chunks past k as zero.  W's
+// columns are stored 0, 8, 1, 9, ... within each 16, so that the words of
+// columns gid and gid + 8 are one 8-byte load.  A is made from the words in
+// registers; B, the (8m, 8k) diagonal block permuted for the pass's output
+// chunks, lies in shared memory as 8-row x 16-byte core matrices (no
+// swizzle; 128 bytes apart along K, 256 along N).  M = 64 byte columns (16 of
+// each warp).  The epilogue stages each output byte in shared memory and the
+// warp writes its rows with coalesced 16-byte stores.
+// - g costs nothing: the g stripes of a block are only more columns, and the
+//   kernel multiplies the (8m, 8k) diagonal block alone.  The MXU pays for the
+//   off-diagonal zero blocks; the plain version still multiplies the whole
+//   block-diagonal operand, and chip_smoke.py holds the two equal.
+// - Pipelining.  The warps run their rings apart and meet only in the
+//   collective products.  m-tile mt's product runs while the lanes pack
+//   m-tile mt - 1's sums and load mt + 1's A (two sets of sums and of A,
+//   wgmma.wait_group 1).  Every warp runs the same number of rounds; a round
+//   past its last stage codes stale bytes and stores nothing.
+// - Any tile % 4 == 0: a stage or m-tile past the tile's end is computed on
+//   stale bytes and never stored; where L or the tile is not a multiple of
+//   16 the copies are 4 bytes wide.  Large k takes chunk groups with the
+//   sums kept (not pipelined), and narrower stages where 256 columns do not
+//   fit the block's shared memory.
+//
+// grouped, int8 operand: wgmma m64n32k32, u8 A from registers, s8 B, s32
+// sums.  K = 32 planes taken as 4 chunks x 8 bits, N = 32 = the 8 bits of
+// each of 4 output chunks (RS(8,3): 2 k-steps, 2 wgmma per 64 columns; m > 4
+// takes passes of 4 chunks on blockIdx.y).
+// - A from data words by one shift.  In k-step t lane (gid, tig) takes a0 =
+//   W[t][c0+gid] >> tig, a1 = W[t][c0+gid+8] >> tig, a2 = W[t][c0+gid] >>
+//   (tig+4), a3 = W[t][c0+gid+8] >> (tig+4): the low bit of byte i is then
+//   bit tig (or tig+4) of chunk 4t+i, which is A's element (row gid or
+//   gid+8, K = 4·tig + i or 16 + 4·tig + i: mma.sync's m16n8k32 layout, which
+//   wgmma keeps for each warp's 16 rows), so K index 4b + i is bit b of
+//   chunk 4t+i.
 // - Parity.  The other 7 bits of each u8 element are garbage.  Every B
 //   element is 0 or 1, so each product's low bit is the low bit of A times
 //   B, and a sum's parity is the parity of the sum of the planes' bits: the
@@ -65,36 +85,52 @@
 // - B = imma_operand(arrange_dense_matrix(gfm), k) (kern_exp.py), (8m,
 //   32·steps) int8: column 32t + 4b + i holds column b·k + 4t + i of the
 //   bit-matrix, zero where 4t + i >= k.  Each block copies its pass's 32
-//   rows into shared memory once, permuted so that N index n is bit 2(n/8) +
-//   n%2 of chunk (n%8)/2, as 8-row x 16-byte core matrices (no swizzle; 128
-//   bytes apart along K, 256 along N).  k > 32 takes groups of at most 8
-//   k-steps with the sums kept.
-// - g costs nothing: the g stripes of a block are only more columns, and the
-//   kernel multiplies the (8m, 8k) diagonal block alone.  The MXU pays for the
-//   off-diagonal zero blocks; the plain version still multiplies the whole
-//   block-diagonal operand, and chip_smoke.py holds the two equal.
+//   rows into shared memory once (stage_b), permuted so that N index n is
+//   bit 2(n/8) + n%2 of chunk (n%8)/2.  k > 32 takes groups of at most 8 k-steps; k > 48
+//   128-column stages.
 // - Epilogue.  Sum 4i + e (e = 0, 1) of lane (gid, tig) is N index 8i +
 //   2·tig + e at column gid, 4i + 2 + e the same at column gid + 8, so by the
 //   permutation lane tig holds all 8 bits of output chunk tig: PRMT gathers
 //   the sums' low bytes, two masks keep their parities, and one multiply by
-//   2^0 + 2^6 + 2^12 + 2^18 moves bit pair i from 8i to 2i.  No shuffle.  The
-//   byte is staged in shared memory and the warp writes its rows with
-//   coalesced 16-byte stores.
-// - Pipelining.  The warps run their rings apart and meet only in the
-//   collective products.  m-tile mt's product runs while the lanes pack
-//   m-tile mt - 1's sums and load mt + 1's A (two sets of sums and of A,
-//   wgmma.wait_group 1).
-// - Any tile % 4 == 0: a stage or m-tile past the tile's end is computed on
-//   stale bytes and never stored; where L or the tile is not a multiple of
-//   16 the copies are 4 bytes wide.  Where 256-column stages do not fit the
-//   block's shared memory (k > 48), stages are 128 columns.
-// grouped, bf16 operand (CUDA cores): a thread covers 4 consecutive byte
-// columns (one 32-bit word of each of the g·k chunks).  It stages its g·k
-// words in its own column of shared memory, then computes 8 output rows at a
-// time (the 8 bits of one output byte, 32 accumulators): for each plane it
-// extracts the 4 column bits once and multiply-adds them into the 8 rows,
-// reading the operand with warp-uniform loads.  The product does 8mg·8kg
-// multiply-adds per column, g times what the coding needs.
+//   2^0 + 2^6 + 2^12 + 2^18 moves bit pair i from 8i to 2i.  No shuffle.
+// grouped, bf16 operand: wgmma m64n32k16, bf16 A from registers, bf16 B,
+// f32 sums.  A word W[t] feeds two k16 steps: step 2t + o takes y = W[t] >>
+// 8o, whose bytes 0 and 2 are chunks 4t + o and 4t + o + 2, the low and
+// high bf16 of each A register.  N = 32 = the 8 bits of each of 4 output
+// chunks, as for int8 (RS(8,3): 4 k16 steps with no K padding, 4 HGMMA per
+// 64 columns; m > 4 takes passes of 4 chunks on blockIdx.y).
+// - A from data words by one LOP3 a register.  mma.sync's m16n8k16 layout
+//   (kept by wgmma for each warp's 16 rows) gives lane (gid, tig) K = 2·tig,
+//   2·tig + 1 in a0 (row gid) and a1 (row gid + 8), K + 8 in a2 and a3.  a0 =
+//   (y & mask_s) ^ base_s with s = tig, a2 the same with s = tig + 4: for s <
+//   7 mask_s keeps bits s..6 of each bf16 half and base_s is 0x4300 (128),
+//   so the element is 128 + v with v a multiple of 2^s whose bit s is bit s
+//   of its chunk; for s = 7 mask_s keeps bit 7 and base_s = 0x4380 (256), so
+//   the element is 256, or 128 where bit 7 of the chunk is set (it flips the
+//   exponent's low bit).  K index 2(b % 4) + 8(b / 4) + e of step 2t + o is
+//   bit b of chunk 4t + o + 2e.  One SHF a word for y, one LOP3 a register.
+// - Parity.  B = hgmma_operand(arrange_dense_matrix(gfm), k) (kern_exp.py)
+//   puts 2^-b where the bit-matrix has a 1 at bit b, else 0, and 0 at every
+//   chunk >= k (A is 128 or more there: the zero must be in B).  A product
+//   is then (128 + v)·2^-s = 2^(7-s) + v/2^s for s < 7, an even number plus
+//   the plane bit, and 2 or 1 for s = 7, an even number plus the plane bit
+//   too.  Every product is a small integer, at most 255, 127, 63, ..., 3, 2
+//   for s = 0..7: at most 503 a chunk, so an m-tile's sum is an integer of
+//   at most 503k (48,288 for k = 96), and every partial sum below is exact in
+//   f32, in any order; its parity is the parity of the planes' bits, the
+//   TPU's `acc & 1`.
+// - B: each block copies its pass's 32 rows into shared memory once with
+//   the int8 kernel's permutation (stage_b), so that lane tig holds all 8
+//   bits of output chunk tig.  k > 16 takes groups of at most 4 words;
+//   k > 48 64-column stages.
+// - Epilogue.  The sums of the two sets (m-tiles mt % 2) start each stage at
+//   2^23 and keep adding their m-tiles' products, so that a float's low
+//   mantissa bits are an integer's, with no add of 2^23 per sum: with one
+//   chunk group (k <= 16) a set adds 8 m-tiles of at most 503·16, so it stays
+//   below 2^23 + 2^16 and exact; with chunk groups each m-tile starts anew.
+//   The parity of an m-tile's sum is the low bit of its set's float XOR that
+//   of the set's previous one (2^23's is 0): gather_byte packs lane tig's
+//   8 bits of both, and one XOR leaves the m-tile's byte.  No shuffle.
 // mm_only (tensor cores): a memory stream with an MMA inside it.  The
 // planes are the A side of mma.sync m16n8k16 (M = 16 columns, K = 16
 // planes) and the operand the B side, so the 8m rows are N = 8m/8 tiles
@@ -117,14 +153,20 @@
 // Bound on an H100 SXM at (256, 8, 131072), RS(8,3): bytes for all three.
 // grouped moves (k + m)·S·L = 369,098,752 B, 0.1102 ms at 3.35 TB/s; the
 // (8m, 8k) product it needs is 5.15e10 multiply-adds, 0.0521 ms at the dense
-// int8 tensor rate (0.1042 ms at the bf16 rate).  The int8 kernel stays near
-// the byte stream: its product is the diagonal block only, at wgmma's rate
-// (the legacy mma.sync path's int8 rate held a first design of this kernel
-// to about four times the bound), its planes never leave registers (one
-// shift per A register), each warp keeps 2 stages in flight, and the
-// epilogue needs no shuffle.  On the CUDA cores the bf16 product takes
-// 1.5·g ms (5.15e10·g multiply-adds at the float32 rate of 33.5e12 per
-// second): far above the bound.
+// int8 tensor rate, 0.1042 ms at the bf16 rate.  Both grouped kernels stay
+// near the byte stream: their product is the diagonal block only, at
+// wgmma's rate (the legacy mma.sync path's int8 rate held a first design of
+// the int8 kernel to about four times the bound), their planes never leave
+// registers (one shift per int8 A register, one LOP3 per bf16 one), and
+// each warp keeps 2 stages in flight.  N = 32 computes 4/3 of RS(8,3)'s
+// bf16 product, 0.139 ms at the nominal peak, above the byte bound; yet on
+// an H100 80GB HBM3 at 700 W a build with N = 8 x the pass's chunks
+// (m64n24k16 for RS(8,3), one shuffle to finish each byte) took the same
+// time as N = 32 (1.002-1.004x), so the multiply-adds do not bind and
+// N = 32 is the only width.  The bf16 kernel takes about 1.35x the int8
+// one: per m-tile the warpgroup feeds 4 HGMMA with 2 KB of A from
+// registers each (int8: 2 IGMMA), and each lane builds 16 A registers by
+// LOP3 (int8: 8 by SHF).
 // mm_only moves (2·8k + 8m)·S·L = 5.1e9 B, 1.5225 ms, beside 0.104 ms of
 // bf16 MMA (0.14 ms with K padded and the M side in whole m16 tiles): the
 // ring keeps 2 stages in flight per block to cover memory latency (for
@@ -138,17 +180,18 @@
 
 namespace {
 
-constexpr int kGroupedThreads = 128;
-// A grouped thread stages g·k 32-bit words; at most 48 KiB for the block.
+// chunks (g·k) of a grouped block
 constexpr int kMaxGroupedWords = 96;
-constexpr int kImmaThreads = 128;      // one warpgroup: 4 warps, each with its own ring
-// columns of one stripe in one ring stage of a warp: 256, or 128 where the
-// block's shared memory would not hold 256 (k > 48)
-constexpr int kImmaWideCols = 256;
+constexpr int kTcThreads = 128;        // one warpgroup: 4 warps, each with its own ring
+// columns of one stripe in one ring stage of a warp: 256, or fewer where
+// the block's shared memory would not hold 256 (int8: 128 for k > 48;
+// bf16: 64 for k > 48)
+constexpr int kTcWideCols = 256;
 constexpr int kImmaNarrowCols = 128;
-constexpr int kImmaChunks = 4;         // output chunks of one pass: N = 32 bits
-constexpr int kImmaMaxSteps = 8;       // k-steps (4 chunks each) of one chunk group
-constexpr int kImmaStepBytes = 1024;   // B of one k-step in shared memory: 32 x 32 bytes
+constexpr int kHgmmaNarrowCols = 64;
+constexpr int kPassChunks = 4;         // output chunks of one pass: N = 32 bits
+constexpr int kImmaMaxSteps = 8;       // int8 k-steps (words of 4 chunks) of one chunk group
+constexpr int kHgmmaMaxWords = 4;      // bf16 words (4 chunks, two k16 steps) of one chunk group
 constexpr int kMmThreads = 128;     // 4 warps, 32 columns of a stage each
 constexpr int kMmStageCols = 128;   // columns of every plane in one ring stage
 constexpr int kStages = 3;          // ring depth: 2 stages in flight while 1 is read
@@ -156,66 +199,6 @@ constexpr int kMmPitch = kMmStageCols + 8;      // bf16 a staged plane row
 constexpr int kMmOutPitch = kMmStageCols + 16;  // bytes a staged output row
 constexpr int kMaxMmCols = 128;     // 8k columns of the mm_only operand
 constexpr int kExpandThreads = 256;
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
-__global__ void __launch_bounds__(kGroupedThreads)
-grouped_bf16_kernel(const uint32_t* __restrict__ data, const uint16_t* __restrict__ mat,
-                    uint32_t* __restrict__ out, int k, int m, int g, long long words,
-                    int tile_words, long long tiles) {
-  extern __shared__ uint32_t staged[];  // [g·k][kGroupedThreads]: a column per thread
-  const long long grp = blockIdx.x / tiles;
-  const long long t = blockIdx.x - grp * tiles;
-  const int cols = 8 * k * g;
-  const int rows = 8 * m * g;
-  const uint32_t* src = data + grp * g * k * words + t * tile_words;
-  uint32_t* dst = out + grp * g * m * words + t * tile_words;
-  uint32_t* mine = staged + threadIdx.x;
-#pragma unroll 1
-  for (int v = threadIdx.x; v < tile_words; v += kGroupedThreads) {
-#pragma unroll 1
-    for (int c = 0; c < g * k; ++c) mine[c * kGroupedThreads] = src[(long long)c * words + v];
-    // rows r0..r0+7 are the bits of output chunk (r0/8) % m of stripe r0/(8m)
-#pragma unroll 1
-    for (int r0 = 0; r0 < rows; r0 += 8) {
-      float acc[8][4];
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[rr][q] = 0.f;
-      const uint16_t* base = mat + (long long)r0 * cols;
-#pragma unroll 1
-      for (int s = 0; s < g; ++s) {
-#pragma unroll 1
-        for (int j = 0; j < k; ++j) {
-          const uint32_t w = mine[(s * k + j) * kGroupedThreads];
-          const uint16_t* col = base + s * 8 * k + j;  // plane b: col[b·k]
-#pragma unroll
-          for (int b = 0; b < 8; ++b) {
-            float p[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) p[q] = (float)((w >> (8 * q + b)) & 1u);
-#pragma unroll
-            for (int rr = 0; rr < 8; ++rr) {
-              const float a = bf16_bits_to_float(col[rr * cols + b * k]);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) acc[rr][q] += a * p[q];
-            }
-          }
-        }
-      }
-      // the TPU kernel's acc.astype(int32) & 1: a truncating cast
-      uint32_t packed = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int rr = 0; rr < 8; ++rr) packed |= ((uint32_t)(int)acc[rr][q] & 1u) << (8 * q + rr);
-      dst[(long long)(r0 / 8) * words + v] = packed;
-    }
-  }
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -392,6 +375,24 @@ __device__ __forceinline__ void wgmma_u8s8(int (&d)[16], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
+// d (+)= a·B for the warpgroup, m64n32k16: bf16 A from registers (each
+// warp's 16 rows in mma.sync's m16n8k16 fragment layout), bf16 B from shared
+// memory (K-major, not transposed), f32 sums (each warp's 16 rows in
+// mma.sync's m16n8 layout, n8 block i in d[4i..4i+3]).  accumulate == 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -411,6 +412,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void pin(int (&d)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void pin(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // One output byte from the sums d of the 4 n8 blocks: block i holds bits 2i
@@ -440,52 +446,28 @@ __device__ __forceinline__ void transpose4(uint32_t x0, uint32_t x1, uint32_t x2
   o[3] = __byte_perm(b, d, 0x7632);
 }
 
-// A warp's shared memory for stages of `cols` columns: its ring, its
-// words, its staged output (rows padded by 16 bytes).
-__host__ __device__ constexpr size_t grouped_imma_warp_bytes(int k, int steps, int cols) {
-  return (size_t)kStages * k * cols + (size_t)steps * cols * 4 +
-         (size_t)kImmaChunks * (cols + 16);
+// A warp's shared memory for stages of `cols` columns and `words` words of
+// 4 chunks: its ring, its words, its staged output (the pass's chunks,
+// rows padded by 16 bytes).
+__host__ __device__ constexpr size_t grouped_warp_bytes(int k, int words, int cols) {
+  return (size_t)kStages * k * cols + (size_t)words * cols * 4 + (size_t)kPassChunks * (cols + 16);
 }
 
-// The block's shared memory: the operand, then each warp's.
-constexpr size_t grouped_imma_shared_bytes(int k, int steps, int cols) {
-  return (size_t)steps * kImmaStepBytes +
-         kImmaThreads / 32 * grouped_imma_warp_bytes(k, steps, cols);
+// The block's shared memory: the operand (`word_bytes` a word), then each warp's.
+constexpr size_t grouped_shared_bytes(int k, int words, int cols, int word_bytes) {
+  return (size_t)words * word_bytes + kTcThreads / 32 * grouped_warp_bytes(k, words, cols);
 }
 
-// KS k-steps a chunk group, `groups` groups, stages of COLS columns; the 4
-// output chunks from 4·blockIdx.y on.  data (S, k, L) uint8; mat (8m,
-// 32·KS·groups) int8; out (S, m, L) uint8.  vec16: L and tile are multiples of 16.  Each warp
-// runs its own ring over its own stages (the block's stages warp, warp + 4,
-// ...); the warps meet only in the warpgroup's products, one m64 tile = 16
-// columns of each warp at a time.
-template <int KS, int COLS>
-__global__ void __launch_bounds__(kImmaThreads)
-grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ mat,
-                    uint8_t* __restrict__ out, int k, int m, int g, int groups, long long L,
-                    int tile, long long tiles, int vec16) {
-  constexpr int kCols = COLS;
-  constexpr int kTiles = COLS / 16;   // m-tiles of a stage
-  constexpr int kPitch = COLS + 16;   // bytes a staged output row
-  extern __shared__ __align__(1024) uint8_t smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gid = lane >> 2;  // mma's groupID
-  const int tig = lane & 3;   // mma's thread in group
-  const int steps = KS * groups;
-  // [steps][4 row groups][2 K halves][8 rows][16 B], then the warps':
-  // [kStages][k][kCols] bytes, [steps][kCols] words, [4][kPitch] bytes
-  uint8_t* operand = smem;
-  uint8_t* ring = smem + steps * kImmaStepBytes + warp * grouped_imma_warp_bytes(k, steps, COLS);
-  uint32_t* words = reinterpret_cast<uint32_t*>(ring + kStages * k * kCols);
-  uint8_t* staged = reinterpret_cast<uint8_t*>(words + steps * kCols);
-  const int first = kImmaChunks * blockIdx.y;  // the pass's first output chunk
-  const int live = min(kImmaChunks, m - first);
-
-  // B row n (N index) is bit 2(n / 8) + n % 2 of output chunk first +
-  // (n % 8) / 2, zero past m: n8 block i holds bits 2i, 2i + 1 of the 4
-  // chunks, so that lane tig's sums are all 8 bits of chunk tig.
-  for (int i = threadIdx.x; i < steps * 64; i += kImmaThreads) {
+// B of a pass in shared memory, for both operand types: mat's rows are
+// 32·steps bytes, row r bit r % 8 of output chunk r / 8, and `steps` K
+// slices of 32 bytes (one int8 k32 step or one bf16 k16 step) are stored
+// [steps][4 row groups][2 K halves][8 rows][16 B].  Row n (N index) is bit
+// 2(n / 8) + n % 2 of output chunk first + (n % 8) / 2, zero past m: n8
+// block i holds bits 2i, 2i + 1 of the 4 chunks, so that lane tig's sums
+// are all 8 bits of chunk tig.
+__device__ __forceinline__ void stage_b(uint8_t* operand, const uint8_t* mat, int steps,
+                                        int first, int m) {
+  for (int i = threadIdx.x; i < steps * 64; i += kTcThreads) {
     const int t = i >> 6, n = (i >> 1) & 31, half = i & 1;
     const int chunk = first + ((n & 7) >> 1);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -493,13 +475,183 @@ grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict_
       const long long row = 8 * chunk + 2 * (n >> 3) + (n & 1);
       v = *reinterpret_cast<const uint4*>(mat + row * (32 * steps) + 32 * t + 16 * half);
     }
-    *reinterpret_cast<uint4*>(operand + t * kImmaStepBytes + (n >> 3) * 256 + half * 128 +
-                              (n & 7) * 16) = v;
+    *reinterpret_cast<uint4*>(operand + t * 1024 + (n >> 3) * 256 + half * 128 + (n & 7) * 16) =
+        v;
   }
+}
+
+// The int8 operand's part of grouped_tc: one k32 step a word, N = 32 (the
+// 4 output chunks of a pass), s32 sums.
+template <int KS>
+struct ImmaOp {
+  static constexpr int kWords = KS;            // words of a chunk group
+  static constexpr int kWordBytes = 1024;      // B of one word: 32 x 32 bytes
+  struct Acc {
+    int d[16];
+  };
+  struct Frag {
+    uint32_t a[KS][4];
+  };
+
+  __device__ static void stage(uint8_t* operand, const uint8_t* mat, int words, int first,
+                               int m) {
+    stage_b(operand, mat, words, first, m);
+  }
+  // w: W[t0][c0 + 2·gid] (columns gid, gid + 8, one 8-byte load); a0 =
+  // W[t][c0+gid] >> tig, a1 = W[t][c0+gid+8] >> tig, a2, a3 the same >> (tig + 4)
+  __device__ static void load_a(const uint32_t* w, int pitch, int tig, Frag& f) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint2 x = *reinterpret_cast<const uint2*>(w + ks * pitch);
+      f.a[ks][0] = x.x >> tig;
+      f.a[ks][1] = x.y >> tig;
+      f.a[ks][2] = x.x >> (tig + 4);
+      f.a[ks][3] = x.y >> (tig + 4);
+    }
+  }
+  // words t0..t0 + KS - 1; accumulate == 0 overwrites the sums
+  __device__ static void mma(Acc& acc, const Frag& f, const uint8_t* operand, int t0,
+                             int accumulate) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_u8s8(acc.d, f.a[ks], gmma_desc(operand + (t0 + ks) * kWordBytes, 128, 256),
+                 accumulate || ks > 0);
+  }
+  __device__ static void pin_sums(Acc& acc) { pin(acc.d); }
+  static constexpr int kFirstAccumulate = 0;  // a chain's first product overwrites the sums
+  __device__ static void start(Acc&) {}
+  // o: the staged byte of column gid in row 0; lane tig's sums are the 8
+  // bits of the pass's output chunk tig
+  __device__ static void emit(const Acc& acc, uint32_t&, uint8_t* o, int pitch, int tig,
+                              int live) {
+    if (tig < live) {
+      o += tig * pitch;
+      o[0] = (uint8_t)gather_byte(acc.d, 0);  // column gid
+      o[8] = (uint8_t)gather_byte(acc.d, 2);  // column gid + 8
+    }
+  }
+};
+
+// The bf16 operand's part of grouped_tc: two k16 steps a word (o = 0:
+// chunks 4w, 4w + 2; o = 1: chunks 4w + 1, 4w + 3), N = 32 (the 4 output
+// chunks of a pass), f32 sums.
+template <int KS>
+struct HgmmaOp {
+  static constexpr int kWords = KS;
+  static constexpr int kStepBytes = 1024;            // B of one k16 step: 32 x 16 bf16
+  static constexpr int kWordBytes = 2 * kStepBytes;
+  struct Acc {
+    float d[16];
+  };
+  struct Frag {
+    uint32_t a[2 * KS][4];
+  };
+
+  // mat (hgmma_operand, 32·words bf16 a row): 2·words k16 steps
+  __device__ static void stage(uint8_t* operand, const uint8_t* mat, int words, int first,
+                               int m) {
+    stage_b(operand, mat, 2 * words, first, m);
+  }
+  // w: W[t0][c0 + 2·gid].  Step 2t + o takes y = W[t] >> 8o: bytes 0 and 2
+  // are chunks 4t + o and 4t + o + 2, the low and high bf16 of a register.
+  // Register a0 (a1: column gid + 8) holds K = 2·tig, 2·tig + 1, bit s = tig
+  // of the two chunks, a2 (a3) K + 8, bit s = tig + 4: the bf16 pair
+  // (y & mask_s) ^ base_s, mask_s keeping bits s..6 of each half on base
+  // 0x4300 (128), or, for s = 7, bit 7 flipping base 0x4380 (256) to 128.
+  __device__ static void load_a(const uint32_t* w, int pitch, int tig, Frag& f) {
+    const uint32_t lo_mask = ((0x7Fu >> tig) << tig) * 0x00010001u;
+    const uint32_t hi_mask =
+        tig == 3 ? 0x00800080u : ((0x7Fu >> (tig + 4)) << (tig + 4)) * 0x00010001u;
+    const uint32_t hi_base = tig == 3 ? 0x43804380u : 0x43004300u;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint2 x = *reinterpret_cast<const uint2*>(w + ks * pitch);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const uint32_t y0 = x.x >> (8 * o), y1 = x.y >> (8 * o);
+        f.a[2 * ks + o][0] = (y0 & lo_mask) ^ 0x43004300u;
+        f.a[2 * ks + o][1] = (y1 & lo_mask) ^ 0x43004300u;
+        f.a[2 * ks + o][2] = (y0 & hi_mask) ^ hi_base;
+        f.a[2 * ks + o][3] = (y1 & hi_mask) ^ hi_base;
+      }
+    }
+  }
+  __device__ static void mma(Acc& acc, const Frag& f, const uint8_t* operand, int t0,
+                             int accumulate) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+        wgmma_bf16(acc.d, f.a[2 * ks + o],
+                   gmma_desc(operand + (2 * (t0 + ks) + o) * kStepBytes, 128, 256),
+                   accumulate || ks > 0 || o > 0);
+  }
+  __device__ static void pin_sums(Acc& acc) { pin(acc.d); }
+  // The sums of a chain start at 2^23 and every product accumulates.
+  static constexpr int kFirstAccumulate = 1;
+  __device__ static void start(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc.d[i] = 8388608.f;
+  }
+  // acc: the chain's sums, 2^23 + an integer below 2^23, so the float's low
+  // mantissa bits are the integer's; prev: the parities packed at the
+  // chain's previous m-tile (0 at its start).  gather_byte packs lane tig's
+  // 8 bits of chunk tig, and the XOR with prev leaves this m-tile's.
+  __device__ static void emit(const Acc& acc, uint32_t& prev, uint8_t* o, int pitch, int tig,
+                              int live) {
+    int u[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) u[i] = __float_as_int(acc.d[i]);
+    // byte 0: column gid, byte 1: column gid + 8 (gather_byte's bits above
+    // 7 are not the byte's)
+    const uint32_t carried = __byte_perm(gather_byte(u, 0), gather_byte(u, 2), 0x0040);
+    const uint32_t x = carried ^ prev;
+    prev = carried;
+    if (tig < live) {
+      o += tig * pitch;
+      o[0] = (uint8_t)x;
+      o[8] = (uint8_t)(x >> 8);
+    }
+  }
+};
+
+// The body of both tensor-core grouped kernels.  Op::kWords words (4 chunks
+// each) a chunk group, `groups` groups, stages of COLS columns; the
+// kPassChunks output chunks from kPassChunks·blockIdx.y on.  data (S, k, L)
+// uint8; mat the operand Op takes; out (S, m, L) uint8.  vec16: L and tile
+// are multiples of 16.  Each warp runs its own ring over its own stages (the
+// block's stages warp, warp + 4, ...); the warps meet only in the
+// warpgroup's products, one m64 tile = 16 columns of each warp at a time.
+template <class Op, int COLS>
+__device__ __forceinline__ void grouped_tc(uint8_t* smem, const uint8_t* __restrict__ data,
+                                           const uint8_t* __restrict__ mat,
+                                           uint8_t* __restrict__ out, int k, int m, int g,
+                                           int groups, long long L, int tile, long long tiles,
+                                           int vec16) {
+  constexpr int KS = Op::kWords;
+  constexpr int kCols = COLS;
+  constexpr int kTiles = COLS / 16;   // m-tiles of a stage
+  constexpr int kPitch = COLS + 16;   // bytes a staged output row
+  constexpr int kWarps = kTcThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;  // mma's groupID
+  const int tig = lane & 3;   // mma's thread in group
+  const int steps = KS * groups;  // words of all chunk groups
+  // the operand, then the warps': [kStages][k][kCols] bytes, [steps][kCols]
+  // words, [kPassChunks][kPitch] bytes
+  uint8_t* operand = smem;
+  uint8_t* ring =
+      smem + steps * Op::kWordBytes + warp * grouped_warp_bytes(k, steps, COLS);
+  uint32_t* words = reinterpret_cast<uint32_t*>(ring + kStages * k * kCols);
+  uint8_t* staged = reinterpret_cast<uint8_t*>(words + steps * kCols);
+  const int first = kPassChunks * blockIdx.y;  // the pass's first output chunk
+  const int live = min(kPassChunks, m - first);
+
+  Op::stage(operand, mat, steps, first, m);
   // the product reads shared memory through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  auto desc = [&](int t) { return gmma_desc(operand + t * kImmaStepBytes, 128, 256); };
 
   const long long grp = blockIdx.x / tiles;
   const long long tt = blockIdx.x - grp * tiles;
@@ -508,18 +660,18 @@ grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict_
   // every warp runs the same number of rounds (the products are
   // collective); a round past the warp's last stage codes stale bytes and
   // stores nothing
-  const int rounds = (stages + kImmaThreads / 32 - 1) / (kImmaThreads / 32);
+  const int rounds = (stages + kWarps - 1) / kWarps;
   struct Stage {
     long long stripe, col0;
     int cols;
   };
   auto stage = [&](int j) {  // the warp's stage j: `cols` columns of a stripe from col0
-    const int q = warp + j * (kImmaThreads / 32);
+    const int q = warp + j * kWarps;
     const int s = q / per_stripe;
     const int st = q - s * per_stripe;
     return Stage{grp * g + s, tt * tile + (long long)st * kCols, min(kCols, tile - st * kCols)};
   };
-  auto valid = [&](int j) { return warp + j * (kImmaThreads / 32) < stages; };
+  auto valid = [&](int j) { return warp + j * kWarps < stages; };
   auto load = [&](int j) {
     const Stage sg = stage(j);
     const uint8_t* from = data + sg.stripe * k * L + sg.col0;
@@ -564,26 +716,12 @@ grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict_
       w[3] = make_uint4(o[6], o[14], o[7], o[15]);
     }
   };
-  // A of m-tile mt, k-steps t0..t0+KS-1: a0 = W[t][c0+gid] >> tig, a1 =
-  // W[t][c0+gid+8] >> tig, a2, a3 the same >> (tig + 4)
-  auto load_a = [&](int mt, int t0, uint32_t (&a)[KS][4]) {
-    const uint32_t* w = words + t0 * kCols + mt * 16 + 2 * gid;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const uint2 x = *reinterpret_cast<const uint2*>(w + ks * kCols);  // columns gid, gid + 8
-      a[ks][0] = x.x >> tig;
-      a[ks][1] = x.y >> tig;
-      a[ks][2] = x.x >> (tig + 4);
-      a[ks][3] = x.y >> (tig + 4);
-    }
+  // A of m-tile mt, words t0..t0 + KS - 1
+  auto load_a = [&](int mt, int t0, typename Op::Frag& f) {
+    Op::load_a(words + t0 * kCols + mt * 16 + 2 * gid, kCols, tig, f);
   };
-  // lane tig's sums are the 8 bits of the pass's output chunk tig
-  auto emit = [&](const int (&d)[16], int mt) {
-    if (tig < live) {
-      uint8_t* o = staged + tig * kPitch + mt * 16 + gid;
-      o[0] = (uint8_t)gather_byte(d, 0);  // column gid
-      o[8] = (uint8_t)gather_byte(d, 2);  // column gid + 8
-    }
+  auto emit = [&](const typename Op::Acc& acc, uint32_t& prev, int mt) {
+    Op::emit(acc, prev, staged + mt * 16 + gid, kPitch, tig, live);
   };
 
 #pragma unroll 1
@@ -604,45 +742,47 @@ grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict_
     if (groups == 1) {
       // m-tile mt's product runs while the lanes pack m-tile mt - 1's sums
       // and load m-tile mt + 1's A
-      int d[2][16];
-      uint32_t a[2][KS][4];
+      typename Op::Acc d[2];
+      typename Op::Frag a[2];
+      uint32_t prev[2] = {0u, 0u};  // the two chains' (m-tiles mt % 2) last parities
+      Op::start(d[0]);
+      Op::start(d[1]);
       load_a(0, 0, a[0]);
 #pragma unroll
       for (int mt = 0; mt < kTiles; ++mt) {
-        pin(d[mt & 1]);
+        Op::pin_sums(d[mt & 1]);
         wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) wgmma_u8s8(d[mt & 1], a[mt & 1][ks], desc(ks), ks > 0);
+        Op::mma(d[mt & 1], a[mt & 1], operand, 0, Op::kFirstAccumulate);
         wgmma_commit();
         if (mt > 0) {
           wgmma_wait<1>();
-          pin(d[(mt - 1) & 1]);
-          emit(d[(mt - 1) & 1], mt - 1);
+          Op::pin_sums(d[(mt - 1) & 1]);
+          emit(d[(mt - 1) & 1], prev[(mt - 1) & 1], mt - 1);
         }
         if (mt + 1 < kTiles) load_a(mt + 1, 0, a[(mt + 1) & 1]);
       }
       wgmma_wait<0>();
-      pin(d[(kTiles - 1) & 1]);
-      emit(d[(kTiles - 1) & 1], kTiles - 1);
+      Op::pin_sums(d[(kTiles - 1) & 1]);
+      emit(d[(kTiles - 1) & 1], prev[(kTiles - 1) & 1], kTiles - 1);
     } else {
-      // k > 32: the sums kept over the chunk groups, one group at a time
+      // the sums kept over the chunk groups, one group at a time
 #pragma unroll 1
       for (int mt = 0; mt < kTiles; ++mt) {
-        int d[16];
+        typename Op::Acc d;
+        uint32_t prev = 0u;
+        Op::start(d);
 #pragma unroll 1
         for (int gr = 0; gr < groups; ++gr) {
-          uint32_t a[KS][4];
+          typename Op::Frag a;
           load_a(mt, gr * KS, a);
-          pin(d);
+          Op::pin_sums(d);
           wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            wgmma_u8s8(d, a[ks], desc(gr * KS + ks), gr > 0 || ks > 0);
+          Op::mma(d, a, operand, gr * KS, gr > 0 || Op::kFirstAccumulate);
           wgmma_commit();
           wgmma_wait<0>();
-          pin(d);
+          Op::pin_sums(d);
         }
-        emit(d, mt);
+        emit(d, prev, mt);
       }
     }
     __syncwarp();
@@ -667,6 +807,28 @@ grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict_
       }
     }
   }
+}
+
+// KS k-steps (words of 4 chunks) a chunk group, stages of COLS columns:
+// grouped_tc with the int8 operand (imma_operand, (8m, 32·KS·groups)).
+template <int KS, int COLS>
+__global__ void __launch_bounds__(kTcThreads)
+grouped_imma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ mat,
+                    uint8_t* __restrict__ out, int k, int m, int g, int groups, long long L,
+                    int tile, long long tiles, int vec16) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  grouped_tc<ImmaOp<KS>, COLS>(smem, data, mat, out, k, m, g, groups, L, tile, tiles, vec16);
+}
+
+// KS words a chunk group, stages of COLS columns: grouped_tc with the bf16
+// operand (hgmma_operand, (8m, 32·KS·groups) bf16).
+template <int KS, int COLS>
+__global__ void __launch_bounds__(kTcThreads)
+grouped_hgmma_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ mat,
+                     uint8_t* __restrict__ out, int k, int m, int g, int groups, long long L,
+                     int tile, long long tiles, int vec16) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  grouped_tc<HgmmaOp<KS>, COLS>(smem, data, mat, out, k, m, g, groups, L, tile, tiles, vec16);
 }
 
 __device__ __forceinline__ uint32_t byte_popcounts(uint32_t x) {
@@ -706,31 +868,41 @@ long long grid_blocks(long long stripes, int per_block, long long L, int tile, i
   return blocks > 0x7fffffffLL ? 0 : blocks;
 }
 
-}  // namespace
+using GroupedKernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, int, int, int, int,
+                               long long, int, long long, int);
 
-// data: (stripes, k, L) uint8; mat: (8mg, 8kg) bf16, row-major; out:
-// (stripes, m, L) uint8.  All 16-byte aligned.  stripes % g == 0,
-// tile % 4 == 0, L % tile == 0, L >= tile, g·k <= 96.  Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue without launching; does not synchronise.
-extern "C" int bitmatrix_grouped_bf16_launch(const void* data, void* out, const void* mat,
-                                             long long stripes, int k, int m, long long L,
-                                             int g, int tile, void* stream) {
-  const long long blocks = grid_blocks(stripes, g, L, tile, 4);
-  if (blocks == 0 || k <= 0 || m <= 0 || g * k > kMaxGroupedWords)
-    return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)g * k * kGroupedThreads * sizeof(uint32_t);
-  grouped_bf16_kernel<<<(unsigned)blocks, kGroupedThreads, shared,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(data), static_cast<const uint16_t*>(mat),
-      static_cast<uint32_t*>(out), k, m, g, L / 4, tile / 4, L / tile);
+// The shared memory a block may opt in to on the current device.
+cudaError_t shared_limit(int* limit) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// Launch a tensor-core grouped kernel on (blocks, passes) with `shared`
+// bytes; returns cudaGetLastError() after the launch.
+int launch_grouped(GroupedKernel kernel, size_t shared, long long blocks, int passes,
+                   const void* data, void* out, const void* mat, int k, int m, int g, int groups,
+                   long long L, int tile, void* stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  const int vec16 = L % 16 == 0 && tile % 16 == 0;
+  kernel<<<dim3((unsigned)blocks, (unsigned)passes), kTcThreads, shared,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const uint8_t*>(mat),
+      static_cast<uint8_t*>(out), k, m, g, groups, L, tile, L / tile, vec16);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
 // data: (stripes, k, L) uint8; mat: imma_operand (kern_exp.py), (8m,
 // 32·steps) int8 with steps = KS·groups of grouped_imma_kernel, row-major;
-// out: (stripes, m, L) uint8.  All 16-byte aligned.  The same shapes as
-// bitmatrix_grouped_bf16_launch; any m >= 1.  Returns as above.
+// out: (stripes, m, L) uint8.  All 16-byte aligned.  stripes % g == 0,
+// tile % 4 == 0, L % tile == 0, L >= tile, g·k <= 96, any m >= 1.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue without launching; does not synchronise.
 extern "C" int bitmatrix_grouped_imma_launch(const void* data, void* out, const void* mat,
                                              long long stripes, int k, int m, long long L,
                                              int g, int tile, void* stream) {
@@ -738,39 +910,63 @@ extern "C" int bitmatrix_grouped_imma_launch(const void* data, void* out, const 
   if (blocks == 0 || k <= 0 || m <= 0 || g * k > kMaxGroupedWords)
     return (int)cudaErrorInvalidValue;
   // chunk groups of at most kImmaMaxSteps k-steps, as even as they go;
-  // passes of kImmaChunks output chunks
+  // passes of kPassChunks output chunks
   const int kt = (k + 3) / 4;
   const int groups = (kt + kImmaMaxSteps - 1) / kImmaMaxSteps;
   const int ks = (kt + groups - 1) / groups;
-  const int passes = (m + kImmaChunks - 1) / kImmaChunks;
+  const int passes = (m + kPassChunks - 1) / kPassChunks;
   if (passes > 65535) return (int)cudaErrorInvalidValue;
-  using Kernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, int, int, int, int,
-                          long long, int, long long, int);
 #define GROUPED_IMMA_ROW(COLS)                                                            \
   {grouped_imma_kernel<1, COLS>, grouped_imma_kernel<2, COLS>,                            \
    grouped_imma_kernel<3, COLS>, grouped_imma_kernel<4, COLS>,                            \
    grouped_imma_kernel<5, COLS>, grouped_imma_kernel<6, COLS>,                            \
    grouped_imma_kernel<7, COLS>, grouped_imma_kernel<8, COLS>}
-  static const Kernel kernels[2][kImmaMaxSteps] = {GROUPED_IMMA_ROW(kImmaWideCols),
-                                                   GROUPED_IMMA_ROW(kImmaNarrowCols)};
+  static const GroupedKernel kernels[2][kImmaMaxSteps] = {GROUPED_IMMA_ROW(kTcWideCols),
+                                                          GROUPED_IMMA_ROW(kImmaNarrowCols)};
 #undef GROUPED_IMMA_ROW
-  int device = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  int limit = 0;
+  const cudaError_t err = shared_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  const bool wide = grouped_imma_shared_bytes(k, ks * groups, kImmaWideCols) <= (size_t)limit;
-  const Kernel kernel = kernels[wide ? 0 : 1][ks - 1];
+  constexpr int kWordBytes = ImmaOp<1>::kWordBytes;
+  const bool wide = grouped_shared_bytes(k, ks * groups, kTcWideCols, kWordBytes) <= (size_t)limit;
   const size_t shared =
-      grouped_imma_shared_bytes(k, ks * groups, wide ? kImmaWideCols : kImmaNarrowCols);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+      grouped_shared_bytes(k, ks * groups, wide ? kTcWideCols : kImmaNarrowCols, kWordBytes);
+  return launch_grouped(kernels[wide ? 0 : 1][ks - 1], shared, blocks, passes, data, out, mat, k,
+                        m, g, groups, L, tile, stream);
+}
+
+// data, out and shapes as bitmatrix_grouped_imma_launch's; mat:
+// hgmma_operand (kern_exp.py), (8m, 32·words) bf16 with words = KS·groups
+// of grouped_hgmma_kernel, row-major.  Returns as above.
+extern "C" int bitmatrix_grouped_hgmma_launch(const void* data, void* out, const void* mat,
+                                              long long stripes, int k, int m, long long L,
+                                              int g, int tile, void* stream) {
+  const long long blocks = grid_blocks(stripes, g, L, tile, 4);
+  if (blocks == 0 || k <= 0 || m <= 0 || g * k > kMaxGroupedWords)
+    return (int)cudaErrorInvalidValue;
+  // chunk groups of at most kHgmmaMaxWords words, as even as they go;
+  // passes of kPassChunks output chunks
+  const int kt = (k + 3) / 4;
+  const int groups = (kt + kHgmmaMaxWords - 1) / kHgmmaMaxWords;
+  const int ks = (kt + groups - 1) / groups;
+  const int passes = (m + kPassChunks - 1) / kPassChunks;
+  if (passes > 65535) return (int)cudaErrorInvalidValue;
+  static const GroupedKernel wide_kernels[kHgmmaMaxWords] = {
+      grouped_hgmma_kernel<1, kTcWideCols>, grouped_hgmma_kernel<2, kTcWideCols>,
+      grouped_hgmma_kernel<3, kTcWideCols>, grouped_hgmma_kernel<4, kTcWideCols>};
+  int limit = 0;
+  const cudaError_t err = shared_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  const int vec16 = L % 16 == 0 && tile % 16 == 0;
-  kernel<<<dim3((unsigned)blocks, (unsigned)passes), kImmaThreads, shared,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<const uint8_t*>(mat),
-      static_cast<uint8_t*>(out), k, m, g, groups, L, tile, L / tile, vec16);
-  return (int)cudaGetLastError();
+  constexpr int kWordBytes = HgmmaOp<1>::kWordBytes;
+  const bool wide = grouped_shared_bytes(k, ks * groups, kTcWideCols, kWordBytes) <= (size_t)limit;
+  // 256-column stages hold every k <= 48, so narrow ones come with
+  // kHgmmaMaxWords words a group
+  if (!wide && ks != kHgmmaMaxWords) return (int)cudaErrorInvalidValue;
+  const size_t shared =
+      grouped_shared_bytes(k, ks * groups, wide ? kTcWideCols : kHgmmaNarrowCols, kWordBytes);
+  return launch_grouped(
+      wide ? wide_kernels[ks - 1] : grouped_hgmma_kernel<kHgmmaMaxWords, kHgmmaNarrowCols>,
+      shared, blocks, passes, data, out, mat, k, m, g, groups, L, tile, stream);
 }
 
 // planes: (stripes, cols, L) bf16 with cols = 8k <= 128; mat: (rows,

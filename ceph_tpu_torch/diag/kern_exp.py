@@ -9,9 +9,10 @@ csrc/bitmatrix.cu (one library, the matrix and g runtime operands):
   planes, bit-major (row s·8k + b·k + j is bit b of chunk j of stripe s),
   multiplied by the block-diagonal (8mg, 8kg) operand of `dtype`
   (torch.bfloat16 or torch.int8), `& 1`, packed LSB-first into bytes.
-  With an int8 operand the kernel runs on the tensor cores (wgmma) and
-  multiplies only the diagonal (8m, 8k) block, permuted by `imma_operand`;
-  with bf16, on the CUDA cores, the whole block-diagonal operand.  Each operand type
+  Both operand types run on the tensor cores (wgmma, N = 32: passes of 4
+  output chunks) and multiply only the diagonal (8m, 8k) block: int8
+  permuted by `imma_operand`, bf16 permuted and scaled by `hgmma_operand`.
+  Each operand type
   counts its own launches (`bitmatrix_grouped_int8`, `bitmatrix_grouped_bf16`).
 - `make_mm_only(gfm, tile)`: the (8m, 8k) bf16 operand times pre-expanded
   bf16 planes (S, 8k, L) -> (S, 8m, L) uint8 counts (not parity), on the
@@ -69,15 +70,17 @@ EXPAND_TILE = 4096
 # its Pallas grid (S // g, L // tile) is empty and the output all zeros.
 # This probe is divided by every variant's g and tile.
 PROBE_S, PROBE_L = 8, 8192
-# csrc/bitmatrix.cu's limits: the words a grouped thread stages, the
+# csrc/bitmatrix.cu's limits: the chunks of a grouped block (g·k), the
 # chunks of one k-step of the int8 grouped kernel (wgmma m64n32k32: K = 4
-# chunks x 8 bits) and its k-steps a chunk group, the columns of the mm_only
-# operand, its rows, the columns of one mm_only ring stage (a tile is a
-# whole number of them), the K step of mma.sync m16n8k16, and the chunks
-# whose popcounts fit a byte.
+# chunks x 8 bits) and its k-steps a chunk group, the words (4 chunks, two
+# k16 steps) of a chunk group of the bf16 grouped kernel, the columns of the
+# mm_only operand, its rows, the columns of one mm_only ring stage (a tile
+# is a whole number of them), the K step of mma.sync m16n8k16, and the
+# chunks whose popcounts fit a byte.
 MAX_GROUPED_WORDS = 96
 IMMA_CHUNKS = 4
 IMMA_MAX_STEPS = 8
+HGMMA_MAX_WORDS = 4
 MAX_MM_COLS = 128
 MM_ROWS = (8, 16, 24, 32)
 MM_STAGE_COLS = 128
@@ -147,6 +150,33 @@ def imma_operand(bm: np.ndarray, k: int) -> np.ndarray:
         rows, 32 * steps)
 
 
+def hgmma_words(k: int) -> int:
+    """The words of 4 chunks the bf16 grouped kernel runs for k chunks:
+    ceil(k / 4), rounded up to whole chunk groups of equal size, at most
+    HGMMA_MAX_WORDS each (as bitmatrix_grouped_hgmma_launch splits them)."""
+    kt = -(-k // IMMA_CHUNKS)
+    groups = -(-kt // HGMMA_MAX_WORDS)
+    return -(-kt // groups) * groups
+
+
+def hgmma_operand(bm: np.ndarray, k: int) -> np.ndarray:
+    """(8m, 8k) bit-matrix in bit-major columns (b·k + j) -> the B operand of
+    the bf16 grouped kernel, (8m, 32·hgmma_words(k)) float32 (exact in
+    bf16): k16 step j = 2w + o takes chunks 4w + o and 4w + o + 2 of word w;
+    its column 16j + q is bit b = (q % 8) // 2 + 4·(q // 8) of chunk
+    4w + o + 2·(q % 2), scaled by 2^-b, zero where the chunk is >= k."""
+    rows = bm.shape[0]
+    words = hgmma_words(k)
+    q = np.arange(16)
+    bits = (q % 8) // 2 + 4 * (q // 8)
+    out = np.zeros((rows, 2 * words, 16), dtype=np.float32)
+    for j in range(2 * words):
+        chunks = 4 * (j // 2) + j % 2 + 2 * (q % 2)
+        live = chunks < k
+        out[:, j, live] = bm[:, bits[live] * k + chunks[live]] * 2.0 ** -bits[live]
+    return out.reshape(rows, 32 * words)
+
+
 def grouped_reference(operand: torch.Tensor, data: torch.Tensor, g: int) -> torch.Tensor:
     """Plain version of the grouped kernel: the planes of each g stripes
     times the (8mg, 8kg) operand, summed in float32 (exact in the domain of
@@ -178,7 +208,7 @@ def build() -> _nvcc.Built:
     """Build and load csrc/bitmatrix.cu, once per process."""
     ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     return _nvcc.build("bitmatrix", SOURCE, {
-        "bitmatrix_grouped_bf16_launch": [p, p, p, ll, i, i, ll, i, i, p],
+        "bitmatrix_grouped_hgmma_launch": [p, p, p, ll, i, i, ll, i, i, p],
         "bitmatrix_grouped_imma_launch": [p, p, p, ll, i, i, ll, i, i, p],
         "bitmatrix_mm_only_launch": [p, p, p, ll, i, i, ll, i, p],
         "bitmatrix_expand_only_launch": [p, p, ll, i, ll, i, p],
@@ -209,11 +239,10 @@ class Operand:
 
 class Grouped:
     """Wrapper of the grouped bit-matrix kernels for one (m, k) matrix, g
-    stripes a block, operand type `dtype` and `tile` columns a block:
-    `bitmatrix_grouped_int8` on the tensor cores, `bitmatrix_grouped_bf16`
-    on the CUDA cores.  `operand` is the (8mg, 8kg) block-diagonal operand
-    the plain version multiplies; `imma` (int8 only) the one the tensor-core
-    kernel takes."""
+    stripes a block, operand type `dtype` and `tile` columns a block, both on
+    the tensor cores: `bitmatrix_grouped_int8` and `bitmatrix_grouped_bf16`.
+    `operand` is the (8mg, 8kg) block-diagonal operand the plain version
+    multiplies; `imma` (int8) or `hgmma` (bf16) the one the kernel takes."""
 
     def __init__(self, gf_matrix: np.ndarray, g: int, dtype: torch.dtype, tile: int):
         if dtype not in OPERANDS.values():
@@ -230,6 +259,8 @@ class Grouped:
         self.operand = Operand(torch.from_numpy(block_diag(bm, g)).to(dtype))
         if dtype == torch.int8:
             self.imma = Operand(torch.from_numpy(imma_operand(bm, self.k)))
+        else:
+            self.hgmma = Operand(torch.from_numpy(hgmma_operand(bm, self.k)).to(dtype))
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
         check_uint8_3d(self.kernel, data)
@@ -244,7 +275,7 @@ class Grouped:
         if self.dtype == torch.int8:
             fn, operand = lib.bitmatrix_grouped_imma_launch, self.imma
         else:
-            fn, operand = lib.bitmatrix_grouped_bf16_launch, self.operand
+            fn, operand = lib.bitmatrix_grouped_hgmma_launch, self.hgmma
         launch(self.kernel, fn, data, out, operand.on(data.device).data_ptr(), S, k, self.m, L,
                self.g, self.tile)
         launches[self.kernel] += 1

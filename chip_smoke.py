@@ -67,24 +67,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    tensor cores: phase 6a also holds it, byte for byte against its plain
    version and integer counts, at RS(5,2) (8k = 40, K padded to 48),
    RS(10,4) (8m = 32, 8k = 80) and RS(3,1) (8m = 8, K padded to 32), at its
-   tile and at one ring stage (tile 128).  grouped with an int8 operand
-   runs on the tensor cores too (`bitmatrix_grouped_int8`; bf16 stays on
-   the CUDA cores, `bitmatrix_grouped_bf16`): phase 6a also holds it
-   against its plain version and `gf_matmul` at RS(5,2) (padded chunks),
-   RS(10,4), Cauchy (6,6) (two passes: 4 and 2 output chunks) and RS(40,2) at
-   g = 2 (two chunk groups), on (8, k, 4096), at a tile of one warp's ring
+   tile and at one ring stage (tile 128).  grouped runs on the tensor cores
+   with either operand type (`bitmatrix_grouped_int8`, wgmma m64n32k32;
+   `bitmatrix_grouped_bf16`, wgmma m64n32k16): phase 6a also holds both
+   against their plain versions and `gf_matmul` at RS(3,1) (m = 1),
+   RS(5,2) (padded chunks), RS(10,4) (also at g = 8: g·k = 80), Cauchy
+   (6,6) (two passes), RS(40,2) at g = 2 (chunk groups) and RS(96,4) (chunk
+   groups, narrow stages), on (8, k, 4096), at a tile of one warp's ring
    stage (256: three warps code stale bytes and store nothing), at tile
-   512, and at tile 1028 on (8, 8, 4112) (not a multiple of 16: masked
-   m-tiles, 4-byte copies).  Phase 6c times every int8 variant at tile
-   4096 (g1, g2, g4, g8) beside bf16 g1 and g8, and reports the best of
-   each operand type as its own kernel row.  Phase 1 builds the library
-   with the others and checks the SASS: tensor-core instructions (HMMA)
-   in mm_only's RS(8,3) instance, printed with ptxas's registers for it
-   and for the largest instance (8m = 32, 8k = 128); IGMMA (wgmma's
-   integer product) in the int8 grouped kernel's RS(8,3) instance (IGMMA,
-   IMMA, LDS, SHFL and PRMT counted);
-   none in the bf16 grouped kernel or expand_only; no spill in any mm_only
-   or grouped instance.
+   512, at tile 1028 on (8, 8, 4112) (not a multiple of 16: masked
+   m-tiles, 4-byte copies) and at tile 4, the smallest.  Phase 6b also
+   fails if `grouped_reference` is called during kern_exp.main() (a CUDA
+   tensor launches the kernel or raises).  Phase 6c times every grouped
+   variant at tile 4096 (g1, g2, g4, g8, each operand type), and reports
+   the best of each operand type as its own kernel row.  Phase 1 builds the library with the others and checks the
+   SASS: tensor-core instructions (HMMA) in mm_only's RS(8,3) instance,
+   printed with ptxas's registers for it and for the largest instance
+   (8m = 32, 8k = 128); IGMMA (wgmma's integer product) in the int8 grouped
+   kernel's RS(8,3) instance and HGMMA (its bf16 product) in the bf16
+   grouped kernel's (IGMMA/HGMMA, LDS, SHFL, PRMT, LOP3 and FADD counted,
+   ptxas's registers printed for these and the largest instances, at most
+   168 for RS(8,3)'s bf16 instance); none in expand_only; no spill in any
+   mm_only or grouped instance.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -143,18 +147,27 @@ MM_ONLY_LARGEST = "mm_only_kernelILi4ELi8E"
 # the largest (8 steps: the most A fragments in registers).
 GROUPED_IMMA_RS83 = "grouped_imma_kernelILi2ELi256E"
 GROUPED_IMMA_LARGEST = "grouped_imma_kernelILi8ELi256E"
-GROUPED_BF16 = "grouped_bf16_kernel"
-# The int8 grouped kernel's other geometries, (label, k, m, shape, (g, tile)
-# pairs): padded chunks (k = 5), 3 k-steps with m = 4, two passes (m = 6),
-# two chunk groups (k = 40 at g = 2), one warp's ring stage a tile (256)
-# and two (512), and a tile that is not a multiple of 16.
-GROUPED_INT8_GEOMETRIES = [
+# The bf16 grouped kernel's instances, grouped_hgmma_kernel<words of 4
+# chunks, columns of a warp's stage>: RS(8,3)'s (2 words, 256 columns), and
+# the largest (4 words: the most A fragments in registers).
+GROUPED_HGMMA_RS83 = "grouped_hgmma_kernelILi2ELi256E"
+GROUPED_HGMMA_LARGEST = "grouped_hgmma_kernelILi4ELi256E"
+GROUPED_HGMMA_MAX_REGISTERS = 168  # 3 blocks of 128 threads an SM
+# The grouped kernels' other geometries, both operand types, (label, k, m,
+# shape, (g, tile) pairs): m = 1, padded chunks (k = 5), m = 4 (also g·k =
+# 80), two passes (m = 6), chunk groups (k = 40 at g = 2; k = 96, which also
+# takes narrower stages), one warp's ring stage a tile (256) and two (512),
+# a tile that is not a multiple of 16, and the smallest tile (4).
+GROUPED_GEOMETRIES = [
+    ("rs31-van-encode", 3, 1, (8, 3, 4096), [(1, 4096)]),
     ("rs52-van-encode", 5, 2, (8, 5, 4096), [(1, 4096), (2, 2048)]),
-    ("rs104-van-encode", 10, 4, (8, 10, 4096), [(1, 4096), (2, 2048)]),
+    ("rs104-van-encode", 10, 4, (8, 10, 4096), [(1, 4096), (2, 2048), (8, 4096)]),
     ("rs66-cauchy-encode", 6, 6, (8, 6, 4096), [(1, 4096), (2, 2048)]),
     ("rs402-van-encode", 40, 2, (8, 40, 4096), [(2, 4096)]),
     ("rs83-van-encode", 8, 3, (8, 8, 4096), [(1, 256), (4, 512)]),
     ("rs83-van-encode", 8, 3, (8, 8, 4112), [(1, 1028), (2, 1028)]),
+    ("rs83-van-encode", 8, 3, (8, 8, 1024), [(1, 4), (2, 4)]),
+    ("rs964-van-encode", 96, 4, (2, 96, 4096), [(1, 4096)]),
 ]
 # swar_gf_kernel<rows> instances in csrc/swar_gf.cu (rows of a pass: 1-4),
 # and RS(8,3)'s (3 rows, one pass).
@@ -367,11 +380,11 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
         mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
         print(f"[1] swar_baked_kernel (rs83-van-encode) SASS: {total} instructions, "
               f"{total / 4:.1f} per word (TPU program as written: 539); {mix}")
-        # the bf16 grouped kernel and expand_only run on the CUDA cores: no
-        # HMMA/IMMA/HGMMA/IGMMA... (HFMA2.MMA, a move idiom on the FMA pipe,
-        # is not a matrix op); mm_only on the tensor cores: HMMA (mma.sync);
-        # the int8 grouped kernel: IGMMA (wgmma's integer product)
-        for kernel in (GROUPED_BF16, "expand_only_kernel", MM_ONLY_RS83, GROUPED_IMMA_RS83):
+        # expand_only runs on the CUDA cores: no HMMA/IMMA/HGMMA/IGMMA...
+        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op);
+        # mm_only on the tensor cores: HMMA (mma.sync); the grouped kernels:
+        # IGMMA (int8) and HGMMA (bf16), wgmma's products
+        for kernel in ("expand_only_kernel", MM_ONLY_RS83, GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
             ops = sass_opcodes(nvcc, infos["bitmatrix"]["library"], kernel)
             mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
             mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
@@ -382,19 +395,26 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
                 print(f"[1] bitmatrix {kernel}: {hmma} HMMA, {count_prefix(ops, 'LDSM')} LDSM, "
                       f"{count_prefix(ops, 'LDGSTS')} LDGSTS, {count_prefix(ops, 'F2I')} F2I")
                 check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
-            elif kernel == GROUPED_IMMA_RS83:
-                igmma = count_prefix(ops, "IGMMA")
-                print(f"[1] bitmatrix {kernel}: {igmma} IGMMA, {count_prefix(ops, 'IMMA')} IMMA, "
+            elif kernel in (GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
+                want = "IGMMA" if kernel == GROUPED_IMMA_RS83 else "HGMMA"
+                n = count_prefix(ops, want)
+                print(f"[1] bitmatrix {kernel}: {n} {want}, {count_prefix(ops, 'IMMA')} IMMA, "
                       f"{count_prefix(ops, 'LDS')} LDS, {count_prefix(ops, 'SHFL')} SHFL, "
-                      f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LDGSTS')} LDGSTS")
-                check(igmma > 0, f"bitmatrix {kernel}: no IGMMA in its SASS")
+                      f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LOP3')} LOP3, "
+                      f"{count_prefix(ops, 'FADD')} FADD, {count_prefix(ops, 'LDGSTS')} LDGSTS")
+                check(n > 0, f"bitmatrix {kernel}: no {want} in its SASS")
             else:
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
-    for kernel in (GROUPED_BF16, "expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST,
-                   GROUPED_IMMA_RS83, GROUPED_IMMA_LARGEST):
+    for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
+                   GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
             print(f"[1]   ptxas bitmatrix {kernel}: {line}")
+    regs = [int(n) for line in ptxas_lines(infos["bitmatrix"], GROUPED_HGMMA_RS83)
+            for n in re.findall(r"Used (\d+) registers", line)]
+    check("ptxas" not in infos["bitmatrix"]
+          or (regs and max(regs) <= GROUPED_HGMMA_MAX_REGISTERS),
+          f"{GROUPED_HGMMA_RS83}: {regs} registers, want <= {GROUPED_HGMMA_MAX_REGISTERS}")
     for family in ("mm_only_kernel", "grouped_"):
         lines = ptxas_lines(infos["bitmatrix"], family)
         check("ptxas" not in infos["bitmatrix"] or lines, f"no ptxas lines for {family}")
@@ -921,8 +941,8 @@ def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
             record("bitmatrix_mm_only", f"rs{k}{m}-van-encode (8, {k}, 4096) tile {tile}",
                    mm(planes), kern_exp.mm_only_reference(mm.operand.on(dev), planes), first)
         del data, planes
-    # the int8 grouped kernel's other geometries
-    for n, (label, k, m, shape, variants) in enumerate(GROUPED_INT8_GEOMETRIES):
+    # the grouped kernels' other geometries, both operand types
+    for n, (label, k, m, shape, variants) in enumerate(GROUPED_GEOMETRIES):
         build = gf.isa_cauchy_matrix if "cauchy" in label else gf.isa_rs_vandermonde_matrix
         mat = build(k, m)[k:]
         gen = torch.Generator(device=dev)
@@ -931,9 +951,10 @@ def phase_bitmatrix_checks(torch, gf, kern_exp) -> dict:
         ends = sorted({0, shape[0] - 1})
         oracle = {s: gf.gf_matmul(mat, data[s].cpu().numpy()) for s in ends}
         for g, tile in variants:
-            fn = kern_exp.make_grouped(mat, g, torch.int8, tile)
-            record(fn.kernel, f"{label} {shape} {kern_exp.variant_name(g, 'int8', tile)}",
-                   fn(data), kern_exp.grouped_reference(fn.operand.on(dev), data, g), oracle)
+            for dn, dtype in kern_exp.OPERANDS.items():
+                fn = kern_exp.make_grouped(mat, g, dtype, tile)
+                record(fn.kernel, f"{label} {shape} {kern_exp.variant_name(g, dn, tile)}",
+                       fn(data), kern_exp.grouped_reference(fn.operand.on(dev), data, g), oracle)
         del data
     for kernel, err in errs.items():
         print(f"[6] {kernel} == plain == oracle on {counts[kernel]} cases, max_abs_err={err}")
@@ -946,9 +967,22 @@ def phase_bitmatrix_main(torch, swar, kern_exp) -> dict:
     for kernel in kern_exp.launches:
         kern_exp.launches[kernel] = 0
     swar.launches = 0
+    plain_calls = []
+    reference = kern_exp.grouped_reference
+
+    def counted_reference(*args, **kwargs):  # main() must never reach it on the card
+        plain_calls.append(1)
+        return reference(*args, **kwargs)
+
     print("[6] --- ceph_tpu_torch.diag.kern_exp.main()", flush=True)
-    calls = kern_exp.main([])
+    kern_exp.grouped_reference = counted_reference
+    try:
+        calls = kern_exp.main([])
+    finally:
+        kern_exp.grouped_reference = reference
     torch.cuda.synchronize()
+    print(f"[6] grouped_reference calls during main(): {len(plain_calls)}")
+    check(not plain_calls, f"kern_exp.main() reached grouped_reference {len(plain_calls)} times")
     launches = {**kern_exp.launches, "swar_gf": swar.launches}
     for kernel, n in launches.items():
         print(f"[6] {kernel}: launches {n}, wrapper calls {calls.get(kernel, 0)}")
@@ -972,8 +1006,8 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
     check(np.array_equal(want[0].cpu().numpy(), gf.gf_matmul(mat, data[0].cpu().numpy())),
           "grouped_reference != oracle at the bulk shape")
     times, fns = {}, {}
-    for dn, gs in (("int8", (1, 2, 4, 8)), ("bf16", (1, 8))):
-        for g in gs:
+    for dn in ("int8", "bf16"):
+        for g in (1, 2, 4, 8):
             label = kern_exp.variant_name(g, dn, 4096)
             fn = fns[label] = kern_exp.make_grouped(mat, g, kern_exp.OPERANDS[dn], 4096)
             check(torch.equal(fn(data), want), f"{fn.kernel} {label} != plain at {BULK}")
@@ -1033,13 +1067,16 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
         out[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": library_ms, "variant": variant,
                        "source_sha256": sha}
-    g1 = times["g1_int8_t4096"]
-    print("[6] bitmatrix_grouped_int8 gN / g1 time: " + ", ".join(
-        f"g{g} {times[f'g{g}_int8_t4096'] / g1:.3f}x" for g in (2, 4, 8))
-        + f"; bitmatrix_grouped_bf16 g8 / g1 "
-        f"{times['g8_bf16_t4096'] / times['g1_bf16_t4096']:.2f}x")
+    for dn in kern_exp.OPERANDS:
+        g1 = times[f"g1_{dn}_t4096"]
+        print(f"[6] bitmatrix_grouped_{dn} gN / g1 time: " + ", ".join(
+            f"g{g} {times[f'g{g}_{dn}_t4096'] / g1:.3f}x" for g in (2, 4, 8)))
+    bf16_g1 = times["g1_bf16_t4096"]
+    grouped_bound = bounds["bitmatrix_grouped_bf16"][0]
+    print(f"[6] bitmatrix_grouped_bf16 g1 t4096: {bf16_g1:.4f} ms, {grouped_bound / bf16_g1:.4f} "
+          f"of its {grouped_bound:.4f} ms bound")
     print(f"[6] bitmatrix_grouped_bf16 / bitmatrix_grouped_int8 at g1: "
-          f"{times['g1_bf16_t4096'] / g1:.2f}x")
+          f"{bf16_g1 / times['g1_int8_t4096']:.3f}x")
     return out
 
 

@@ -291,3 +291,156 @@ def test_int8_grouped_still_raises(g, shape, tile):
     mat = (IMMA_MATRICES["rs402-van"] if shape[1] == 40 else _van83)()
     with pytest.raises(ValueError):
         kern_exp.make_grouped(mat, g, torch.int8, tile)(torch.zeros(shape, dtype=torch.uint8))
+
+
+# The bf16 grouped kernel (tensor cores, grouped_hgmma_kernel in
+# csrc/bitmatrix.cu).
+HGMMA_MATRICES = dict(IMMA_MATRICES, **{
+    "rs1004-van": lambda: isa_rs_vandermonde_matrix(96, 4)[96:],
+})
+
+
+@pytest.mark.parametrize("name", ["rs83-van", "rs52-van", "rs104-van", "rs66-cauchy", "rs31-van",
+                                  "rs402-van", "rs1004-van"])
+def test_hgmma_operand_layout(name):
+    """Column 16j + q of the operand (k16 step j = 2w + o) is column b·k + c
+    of the bit-matrix scaled by 2^-b, b = (q % 8) // 2 + 4·(q // 8) and c =
+    4w + o + 2·(q % 2), zero where c >= k; whole words of 4 chunks, in chunk
+    groups of at most 4 words."""
+    mat = HGMMA_MATRICES[name]()
+    m, k = mat.shape
+    bm = kern_exp.arrange_dense_matrix(mat)
+    op = kern_exp.hgmma_operand(bm, k)
+    words = kern_exp.hgmma_words(k)
+    assert op.dtype == np.float32 and op.flags.c_contiguous and op.shape == (8 * m, 32 * words)
+    assert -(-k // 4) <= words < -(-k // 4) + -(-k // 16)
+    for j in range(2 * words):
+        for q in range(16):
+            b, c = (q % 8) // 2 + 4 * (q // 8), 4 * (j // 2) + j % 2 + 2 * (q % 2)
+            col = op[:, 16 * j + q]
+            if c < k:
+                assert np.array_equal(col, bm[:, b * k + c] / 2 ** b)
+            else:
+                assert not col.any()
+    # exact in bf16: every entry is 0 or a power of two
+    hg = kern_exp.make_grouped(mat, 1, torch.bfloat16, 512).hgmma.matrix
+    assert hg.dtype == torch.bfloat16 and torch.equal(hg.float(), torch.from_numpy(op))
+
+
+def _hgmma_slot(n):
+    """(output chunk of the pass, bit) of the kernel's N index n: n8 block i
+    holds bits 2i, 2i + 1 of the pass's 4 chunks, lane tig those of chunk
+    tig."""
+    i, tig, e = n // 8, (n % 8) // 2, n % 2
+    return tig, 2 * i + e
+
+
+def _bf16_values(bits):
+    """uint16 bf16 bit patterns -> float64 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _hgmma_model(mat, data, seed, tile=512):
+    """The bf16 grouped kernel's arithmetic in numpy.  Words W[w] of chunks
+    4w..4w+3 (chunks past k nonzero garbage); k16 step 2w + o takes y = W >>
+    8o; the bf16 pair of element bit s is (y & mask_s) ^ base_s (mask_s
+    keeps bits s..6 of bytes 0 and 2, base 128; for s = 7 bit 7, base 256),
+    so the element is 128 + v (v a multiple of 2^s, its bit s the plane bit)
+    or, for s = 7, 256 or 128.  Times hgmma_operand (2^-s or 0) summed
+    exactly.  Then the carried sums: with one chunk group, the two sets of
+    sums start a 256-column stage at 2^23 and each keeps adding its m-tiles
+    (16 columns; set mt % 2), so the low bit of a sum's float32 XOR that of
+    the set's previous sum is the m-tile's parity; with chunk groups each
+    m-tile starts at 2^23.  Then the epilogue: passes of 4 chunks, B's N
+    permutation, and each lane's 8 bits gathered into its chunk's byte."""
+    S, k, L = data.shape
+    m = mat.shape[0]
+    op = kern_exp.hgmma_operand(kern_exp.arrange_dense_matrix(mat), k).astype(np.float64)
+    words = op.shape[1] // 32
+    garbage = np.random.default_rng(seed).integers(1, 256, (S, 4 * words - k, L), dtype=np.uint8)
+    chunks = np.concatenate([data, garbage], axis=1).astype(np.uint32).reshape(S, words, 4, L)
+    W = (chunks << (8 * np.arange(4, dtype=np.uint32))[:, None]).sum(2, dtype=np.uint32)
+    elems = np.zeros((S, 2 * words, 16, L))
+    for q in range(16):
+        s, e = (q % 8) // 2 + 4 * (q // 8), q % 2
+        mask = (0x7F >> s << s) if s < 7 else 0x80
+        base = 0x4300 if s < 7 else 0x4380
+        for o in range(2):
+            half = ((W >> (8 * o + 16 * e)) & 0xFFFF).astype(np.uint16)
+            elems[:, o::2, q] = _bf16_values((half & mask) ^ base)
+    assert set(np.unique(elems)) <= set(range(128, 257))
+    sums = np.einsum("rc,scl->srl", op, elems.reshape(S, 32 * words, L))
+    assert np.array_equal(sums, np.round(sums))
+    if words <= kern_exp.HGMMA_MAX_WORDS:  # one chunk group: carried over a stage
+        assert tile % 256 == 0
+        chains = sums.reshape(S, 8 * m, L // 256, 8, 2, 16)  # stage, mt // 2, set, column
+        carried = np.cumsum(chains, axis=3)
+        before = np.concatenate([np.zeros_like(carried[:, :, :, :1]), carried[:, :, :, :-1]], 3)
+    else:
+        carried, before = sums, np.zeros_like(sums)
+    assert carried.max() < 2 ** 23
+    low = [((x.astype(np.float32) + np.float32(2 ** 23)).view(np.uint32) & 1).astype(np.int64)
+           for x in (carried, before)]
+    low = (low[0] ^ low[1]).reshape(S, 8 * m, L)
+    out = np.zeros((S, m, L), dtype=np.int64)
+    for first in range(0, m, 4):
+        bit = np.zeros((S, 32, L), dtype=np.int64)  # N index n's low bit
+        for n in range(32):
+            chunk, b = _hgmma_slot(n)
+            if first + chunk < m:
+                bit[:, n] = low[:, 8 * (first + chunk) + b]
+        # lane tig's byte: pair i from n8 block i at bits 2i, 2i + 1
+        for tig in range(min(4, m - first)):
+            out[:, first + tig] = sum(bit[:, 8 * i + 2 * tig + e] << (2 * i + e)
+                                      for i in range(4) for e in (0, 1))
+    return out.astype(np.uint8)
+
+
+HGMMA_CASES = [("rs83-van", 1), ("rs83-van", 2), ("rs83-cauchy", 2), ("rs83-decode-0-5-10", 1),
+               ("rs42-van", 2), ("rs52-van", 1), ("rs52-van", 2), ("rs104-van", 2),
+               ("rs66-cauchy", 1), ("rs66-cauchy", 2), ("rs31-van", 1), ("rs31-van", 2),
+               ("rs402-van", 2)]
+
+
+@pytest.mark.parametrize("name,g", HGMMA_CASES)
+def test_hgmma_model_matches_tpu(tpu_kern_exp, name, g):
+    mat = HGMMA_MATRICES[name]()
+    data = _data(8, mat.shape[1], 1024, 40 + g + len(name))
+    tpu = np.asarray(tpu_kern_exp.make_grouped(mat, g, jnp.bfloat16, 512)(data))
+    model = _hgmma_model(mat, data, g)
+    assert np.array_equal(model, tpu)
+    assert np.array_equal(model, _oracle(mat, data))
+
+
+@pytest.mark.parametrize("name,g,shape,tile", [
+    ("rs83-van", 1, (2, 8, 4112), 1028),   # tile not a multiple of 16
+    ("rs83-van", 2, (4, 8, 1024), 4),      # the smallest tile
+    ("rs52-van", 1, (2, 5, 1028), 4),      # the smallest tile, L not a multiple of 16
+    ("rs31-van", 4, (8, 3, 1024), 256),    # m = 1
+    ("rs66-cauchy", 1, (2, 6, 1024), 512),  # m > 4
+    ("rs402-van", 2, (4, 40, 1024), 512),  # k > 16: chunk groups
+    ("rs104-van", 8, (8, 10, 512), 512),   # g·k = 80
+    ("rs1004-van", 1, (2, 96, 256), 256),  # g·k = 96
+])
+def test_bf16_grouped_domain(name, g, shape, tile):
+    """Every shape the bf16 wrapper took before still codes, here on its
+    plain path (CPU tensors); chip_smoke.py's phase 6a holds the kernel to
+    the plain version at these geometries on the card."""
+    mat = HGMMA_MATRICES[name]()
+    data = _data(*shape, seed=len(name) + g)
+    got = kern_exp.make_grouped(mat, g, torch.bfloat16, tile)(torch.from_numpy(data)).numpy()
+    assert np.array_equal(got, _oracle(mat, data))
+
+
+@pytest.mark.parametrize("g,shape,tile", [
+    (3, (6, 40, 1024), 512),   # g·k = 120 > 96
+    (1, (2, 8, 1024), 6),      # tile % 4
+    (1, (2, 8, 1024), 0),      # tile 0
+    (2, (3, 8, 1024), 512),    # S % g
+    (1, (2, 8, 1000), 512),    # L % tile
+    (1, (2, 8, 256), 512),     # L < tile
+])
+def test_bf16_grouped_still_raises(g, shape, tile):
+    mat = (IMMA_MATRICES["rs402-van"] if shape[1] == 40 else _van83)()
+    with pytest.raises(ValueError):
+        kern_exp.make_grouped(mat, g, torch.bfloat16, tile)(torch.zeros(shape, dtype=torch.uint8))
