@@ -35,6 +35,7 @@ import torch
 
 from ..gf.bitslice import expand_matrix
 from . import _nvcc
+from .dispatch import lead_stripes, record_launch
 
 # One bit per packed byte field: plane words hold bit b of 4 bytes at bit
 # positions {0, 8, 16, 24}.
@@ -151,12 +152,15 @@ class CodingPlan:
     schedule for the plain version and, on CUDA, the kernel's schedule
     operand.  The analog of ISA-L's `ec_init_tables` product
     (ErasureCodeIsa.cc:83-91), built once and applied to any number of
-    stripe batches."""
+    stripe batches.  A call counts one dispatch on `ops/dispatch.py`'s
+    counters (a decode-kind plan also on DECODE_LAUNCHES), as the
+    reference's plan does."""
 
-    def __init__(self, gf_matrix: np.ndarray, *, device: torch.device):
+    def __init__(self, gf_matrix: np.ndarray, *, device: torch.device, decode: bool = False):
         gf_matrix = np.asarray(gf_matrix, dtype=np.uint8)
         self.m, self.k = gf_matrix.shape
         self.device = torch.device(device)
+        self.decode = decode
         self.sched = schedule_from_matrix(gf_matrix)
         self.masks = None
         if self.device.type == "cuda":
@@ -167,6 +171,7 @@ class CodingPlan:
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
         """(..., k, L) uint8 -> (..., m, L) uint8 coded output."""
+        record_launch(lead_stripes(data.shape), data.numel(), decode=self.decode)
         return swar_gf(self, data)
 
 

@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    in its SASS.  For csrc/swar_gf.cu: ptxas's registers and spills of every
    swar_gf_kernel instance (fails on a spill, or on more than 128 registers
    for RS(8,3)'s), the SASS mix of RS(8,3)'s instance and of its 4-chunk
-   loop, and no CALL in any instance.
+   loop, and no CALL in any instance.  For csrc/packed_gf.cu: ptxas's
+   registers, spills and stack frame of each of its three kernels (fails
+   on a spill or on local memory).
 2. Kernel vs plain on the card: the kernel against its plain PyTorch
    version (`swar_code_reference`) and against the numpy oracle
    (`xor_matmul_host_batch` on the first stripe, the GF(2^8) table product
@@ -89,6 +91,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ptxas's registers printed for these and the largest instances, at most
    168 for RS(8,3)'s bf16 instance); none in expand_only; no spill in any
    mm_only or grouped instance.
+7. The packed plane kernels of csrc/packed_gf.cu (ops/packed_gf.py).  7a:
+   packed_code against its plain version, `packed_code_host` (first
+   stripe) and `gf_matmul` (last stripe), byte for byte, over Vandermonde
+   encode matrices for k in {2, 4, 8, 12} x m in {1..4}, RS(8,3) Cauchy and
+   the RS(8,3) and RS(12,4) decode matrices for erasures 0..m-1, at L in
+   {1, 3, 5, 127, 4100, 4128, 131075, 4096, 131072} and {1, 2, 64}
+   stripes; each construction (naive, CSE, ring) and a legacy row
+   schedule forced in turn; a strided view (`cw[:, :8]`), a view 1 byte
+   past a 16-byte boundary, and `out=`.  packed_verify with a one-byte
+   corruption at every shard position (and a clean stripe) against its
+   plain version, `packed_verify_host` and the expected bitmap;
+   packed_delta, stacked and over separately allocated flat shard
+   buffers, against its plain version, `packed_delta_host` and a
+   re-encode of the new data.  7b: plugin `tpu` RS(8,3) from the registry
+   with no device argument: `verify_array` on one scrub chunk (25 objects
+   of 4 MiB, (3200, 11, 4096), encoded on the card), clean and with a
+   corruption at every shard position of one object; `encode_delta_device`
+   over 19 flat 512 KiB shard buffers for 32 objects, each equal to
+   `encode_array` of the new data; `encode_array` and `decode_array` (the
+   four erasure classes) on (32, 8, 524320), the packed tier, against
+   `gf_matmul` and the encoded bytes.  Launch counts (kernels and the
+   dispatch counters) reset just before and read just after, each equal
+   to its tier's calls; the plain versions must be called 0 times.  7c:
+   each kernel timed (median of 20 runs of 5 calls) beside its bound (the
+   bytes at the HBM rate against the program's ops at the INT32 rate, an
+   xtime XTIME_OPS) and its plain version, with the wrapper's host time a
+   call: packed_code at (256, 8, 131072) beside swar_gf and at
+   (256, 8, 131104), packed_verify at (3200, 11, 4096), packed_delta over
+   flat shards at (256, 8, 131072).
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -335,7 +366,7 @@ def count_prefix(ops, prefix: str) -> int:
     return sum(n for op, n in ops.items() if op.startswith(prefix))
 
 
-def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
+def phase_env(torch, swar, gf, diag, kern_exp, packed, nvcc):
     kern_exp2, kern_exp3, kern_exp4 = diag[:3]
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -347,8 +378,12 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
         swar.build_library()
         return swar.build_info
 
+    def packed_gf_info():
+        packed.build_library()
+        return packed.build_info
+
     jobs = {"swar_gf": swar_gf_info, "copy_floor": lambda: kern_exp4.build().info,
-            "bitmatrix": lambda: kern_exp.build().info}
+            "bitmatrix": lambda: kern_exp.build().info, "packed_gf": packed_gf_info}
     for label, mat in baked_matrices(gf):
         jobs[f"swar_baked {label}"] = lambda mat=mat: kern_exp2.make_swar(mat, 128).build().info
         jobs[f"swar3_baked {label}"] = (
@@ -361,8 +396,9 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
           "(one nvcc each, all started together)")
     for label, info in infos.items():
         print(f"[1] {label}: {info['seconds']:.2f} s, sha256 {info['source_sha256']}")
-        # bitmatrix has 32 mm_only instances: its checked kernels are below
-        for line in ptxas_lines(info) if label != "bitmatrix" else []:
+        # bitmatrix has 32 mm_only instances: its checked kernels are below,
+        # as are packed_gf's
+        for line in ptxas_lines(info) if label not in ("bitmatrix", "packed_gf") else []:
             print(f"[1]   ptxas: {line}")
     copy_ops = sass_opcodes(nvcc, infos["copy_floor"]["library"], "copy_floor_kernelILi8E")
     if copy_ops is None:
@@ -406,6 +442,7 @@ def phase_env(torch, swar, gf, diag, kern_exp, nvcc):
             else:
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
+    check_packed_build(infos["packed_gf"])
     for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
                    GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
@@ -470,6 +507,24 @@ def check_swar_gf_build(nvcc: str, info: dict) -> None:
           f"LOP3 {count_prefix(body, 'LOP3')}, LDS {count_prefix(body, 'LDS')}, "
           f"LDG.E.128 {count_prefix(body, 'LDG.E.128')}; "
           + ", ".join(f"{op} {c}" for op, c in body.most_common(6)))
+
+
+def check_packed_build(info: dict) -> None:
+    """csrc/packed_gf.cu as compiled: ptxas's registers, spills and local
+    memory (stack frame) of each of its three kernels; none may spill or
+    use local memory (the slots live in shared memory)."""
+    if "ptxas" not in info:
+        print("[1] packed_gf: loaded from the build directory, ptxas not read")
+        return
+    for kernel in PACKED_KERNELS:
+        lines = ptxas_lines(info, f"{kernel}_kernel")
+        print(f"[1] ptxas {kernel}_kernel: {'; '.join(lines)}")
+        check(lines, f"no ptxas lines for {kernel}_kernel")
+        bad = [line for line in lines if "spill" in line and not (
+            re.search(r"\b0 bytes stack frame", line)
+            and re.search(r"\b0 bytes spill stores", line)
+            and re.search(r"\b0 bytes spill loads", line))]
+        check(not bad, f"{kernel}_kernel spills or uses local memory: {bad}")
 
 
 def phase_kernel_checks(torch, swar, gf, registry) -> int:
@@ -1080,6 +1135,472 @@ def phase_bitmatrix_timing(torch, gf, kern_exp) -> dict:
     return out
 
 
+# Phase 7's chunk lengths: odd ones (rows not 16-byte aligned, ragged last
+# vectors), 4100 and 4128 (a multiple of 4 and of 16, not of 128), 131075,
+# and the aligned 4096 and 131072; stripes cycle through {1, 2, 64}.
+PACKED_LENGTHS = (1, 3, 5, 127, 4100, 4128, 131075, 4096, 131072)
+PACKED_STRIPES = (1, 2, 64)
+# Phase 7b: one scrub chunk (osd_scrub_chunk_max = 25 objects of 4 MiB at
+# Ceph's EC stripe_unit 4096: 3200 stripes of 8 x 4096), 32 cache-hit RMW
+# objects of 128 stripes, and a chunk length of Ceph's isa plugin (aligned
+# to its SIMD_ALIGN of 32, not to 128) for the packed tier.
+SCRUB_SHAPE = (3200, 11, 4096)
+SCRUB_OBJECT_STRIPES = 128
+RMW_OBJECTS = 32
+PACKED_TIER_SHAPE = (32, 8, 524320)
+WIDE_SHAPE = (32, 32, 131072)  # RS(32,3)'s decode, timed in 7c
+PACKED_KERNELS = ("packed_code", "packed_verify", "packed_delta")
+PACKED_PLAIN = ("packed_code_reference", "packed_verify_reference", "packed_delta_reference")
+
+
+# wide profiles whose best_program needs 150-233 slots: a full block fits
+# only their ring program, and Cauchy(32,3)'s CSE decode takes 32 threads
+WIDE_LABELS = ("rs214-van-decode[0, 1, 2, 3]", "rs323-van-decode[0, 1, 2]", "cauchy214-encode",
+               "cauchy323-decode[0, 1, 2]")
+
+
+def packed_matrices(gf):
+    """Phase 7a's matrices: Vandermonde encode rows over k in {2, 4, 8, 12}
+    x m in {1..4}, RS(8,3) and Cauchy(21,4) encode, and decode matrices
+    for erasures 0..m-1 of RS(8,3), RS(12,4), RS(21,4), RS(32,3) and
+    Cauchy(32,3) (the largest programs)."""
+    mats = [(f"rs{k}{m}-van-encode", gf.isa_rs_vandermonde_matrix(k, m)[k:])
+            for k in (2, 4, 8, 12) for m in (1, 2, 3, 4)]
+    mats.append(("rs83-cauchy-encode", gf.isa_cauchy_matrix(8, 3)[8:]))
+    for k, m in ((8, 3), (12, 4), (21, 4), (32, 3)):
+        c, _ = gf.isa_decode_matrix(gf.isa_rs_vandermonde_matrix(k, m), list(range(m)), k)
+        mats.append((f"rs{k}{m}-van-decode{list(range(m))}", c))
+    mats.append(("cauchy214-encode", gf.isa_cauchy_matrix(21, 4)[21:]))
+    c, _ = gf.isa_decode_matrix(gf.isa_cauchy_matrix(32, 3), [0, 1, 2], 32)
+    mats.append(("cauchy323-decode[0, 1, 2]", c))
+    return mats
+
+
+def verify_expected(mat, k: int, m: int, pos: int) -> int:
+    """The bitmap of a codeword corrupted at shard `pos` only: for a data
+    chunk, the rows whose coefficient on it is nonzero; for parity row i,
+    bit i."""
+    if pos < k:
+        return sum(1 << i for i in range(m) if mat[i, pos])
+    return 1 << (pos - k)
+
+
+def phase_packed_checks(torch, packed, gf) -> dict:
+    """The three kernels of csrc/packed_gf.cu against their plain versions
+    and the host oracles, byte for byte; returns each kernel's max abs
+    error."""
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(PACKED_KERNELS, 0)
+    cases = dict.fromkeys(PACKED_KERNELS, 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 50)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    def record(kernel, label, got, plain):
+        torch.cuda.synchronize()
+        err = byte_err(torch, got, plain)
+        errs[kernel] = max(errs[kernel], err)
+        check(err == 0, f"{kernel} {label}: kernel != plain (max err {err})")
+        cases[kernel] += 1
+
+    def code_case(label, mat, sched, data, n):
+        got = packed.packed_code(sched, data)
+        record("packed_code", label, got, packed.packed_code_reference(packed.best_program(mat),
+                                                                       data))
+        S = data.shape[0]
+        check(np.array_equal(got[0].cpu().numpy(),
+                             packed.packed_code_host(mat, data[0].cpu().numpy())),
+              f"packed_code {label}: stripe 0 != packed_code_host")
+        if n % 3 == 0 or data.shape[-1] <= 4128:  # the table product costs host time
+            check(np.array_equal(got[S - 1].cpu().numpy(),
+                                 gf.gf_matmul(mat, data[S - 1].cpu().numpy())),
+                  f"packed_code {label}: stripe {S - 1} != gf_matmul")
+        return got
+
+    mats = packed_matrices(gf)
+    n = 0
+    for label, mat in mats:
+        m, k = mat.shape
+        prog = packed.best_program(mat)
+        grid = ([(L, S) for L in PACKED_LENGTHS for S in PACKED_STRIPES]
+                if label in ("rs83-van-encode", "rs83-cauchy-encode") else
+                [(L, PACKED_STRIPES[i % 3]) for i, L in enumerate(PACKED_LENGTHS)])
+        for L, S in grid:
+            if S * k * L > (64 << 20):
+                S = 2
+            code_case(f"{label} ({S}, {k}, {L})", mat, prog, rand(S, k, L), n)
+            n += 1
+    # each construction forced in turn (the wide codes' CSE and tower
+    # programs take blocks of 64 or 32 threads), a legacy row schedule, and
+    # the construction a plan gives the kernels
+    for label, mat in mats:
+        if label not in ("rs83-van-encode", "rs83-cauchy-encode", "rs83-van-decode[0, 1, 2]",
+                         *WIDE_LABELS):
+            continue
+        names = ("naive_program", "cse_program", "ring_program", "plane_schedule")
+        plan = packed.PackedPlan(mat)
+        if label in WIDE_LABELS:
+            shapes = {name: (len(lp.ops), lp.nslots, lp.threads) for name, lp in
+                      ((name, packed.lower_program(getattr(packed, name)(mat), mat.shape[1]))
+                       for name in names)}
+            print(f"[7] {label}: (ops, slots, threads) {shapes}; the plan's "
+                  f"{(len(plan.lowered.ops), plan.lowered.nslots, plan.lowered.threads)}")
+            check(plan.lowered.threads == 128, f"{label}: the plan's program takes "
+                  f"{plan.lowered.threads} threads a block, want 128")
+        for L in (5, 4100, 131072):
+            data = rand(2, mat.shape[1], L)
+            for name in names:
+                code_case(f"{label} {name} (2, {mat.shape[1]}, {L})", mat,
+                          getattr(packed, name)(mat), data, n)
+                n += 1
+            code_case(f"{label} plan (2, {mat.shape[1]}, {L})", mat, plan.lowered, data, n)
+            n += 1
+    # a strided view (data rows of codewords), a misaligned view, and out=
+    mat = gf.isa_rs_vandermonde_matrix(8, 3)[8:]
+    for L in (4096, 4100):
+        cw = rand(2, 11, L)
+        code_case(f"cw[:, :8] L={L}", mat, packed.best_program(mat), cw[:, :8], 0)
+        buf = rand(2 * 8 * L + 16)
+        off = (1 - buf.data_ptr()) % 16
+        view = buf[off:off + 2 * 8 * L].view(2, 8, L)
+        check(view.data_ptr() % 16 == 1, "misaligned view is aligned")
+        code_case(f"base 1 byte past 16 L={L}", mat, packed.best_program(mat), view, 0)
+        out = torch.empty((2, 3, L), dtype=torch.uint8, device=dev)
+        got = packed.PackedPlan(mat)(view, out=out)
+        check(got is out, "PackedPlan ignored a fitting out")
+        record("packed_code", f"out= L={L}", out,
+               packed.packed_code_reference(packed.best_program(mat), view))
+    # verify: a one-byte corruption at every shard position, and a clean codeword
+    for label, mat in mats:
+        m, k = mat.shape
+        if label not in ("rs83-van-encode", "rs83-cauchy-encode", "rs124-van-encode",
+                         "rs21-van-encode", "rs124-van-decode[0, 1, 2, 3]",
+                         "cauchy214-encode"):
+            continue
+        prog = packed.best_program(mat)
+        for L in (1, 127, 4096, 4100, 131075):
+            data = rand(k + m + 1, k, L)
+            cw = torch.cat([data, packed.packed_code(prog, data)], dim=1)
+            for pos in range(k + m):
+                byte = (pos * 37) % L
+                cw[pos, pos, byte] ^= 1 << (pos % 8)
+            got = packed.packed_verify(prog, cw)
+            record("packed_verify", f"{label} L={L}", got, packed.packed_verify_reference(prog, cw))
+            host = got.cpu().numpy()
+            check(np.array_equal(host, packed.packed_verify_host(mat, cw.cpu().numpy())),
+                  f"packed_verify {label} L={L} != packed_verify_host")
+            want = [verify_expected(mat, k, m, pos) for pos in range(k + m)] + [0]
+            check(host.tolist() == want, f"packed_verify {label} L={L}: {host.tolist()} != {want}")
+    # delta, stacked and flat (separately allocated shard buffers)
+    for label, mat in mats:
+        m, k = mat.shape
+        if label not in ("rs83-van-encode", "rs83-cauchy-encode", "rs124-van-encode",
+                         "rs124-van-decode[0, 1, 2, 3]", "rs323-van-decode[0, 1, 2]"):
+            continue
+        prog = packed.best_program(mat)
+        for L, S in ((1, 64), (4100, 2), (4096, 64), (131075, 2), (131072, 2)):
+            old, new = rand(S, k, L), rand(S, k, L)
+            parity = packed.packed_code(prog, old)
+            got = packed.packed_delta(prog, old, new, parity)
+            record("packed_delta", f"{label} stacked ({S}, {k}, {L})", got,
+                   packed.packed_delta_reference(prog, old, new, parity))
+            check(torch.equal(got, packed.packed_code(prog, new)),
+                  f"packed_delta {label} ({S}, {k}, {L}) != re-encode of the new data")
+            check(np.array_equal(got[S - 1].cpu().numpy(), packed.packed_delta_host(
+                mat, old[S - 1].cpu().numpy(), new[S - 1].cpu().numpy(),
+                parity[S - 1].cpu().numpy())), f"packed_delta {label}: != packed_delta_host")
+            shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
+            flat = packed.packed_delta_flat(prog, shards(old), shards(new), shards(parity), L)
+            record("packed_delta", f"{label} flat ({S}, {k}, {L})", flat, got)
+    for kernel in PACKED_KERNELS:
+        print(f"[7] {kernel} == plain == oracle on {cases[kernel]} cases, "
+              f"max_abs_err={errs[kernel]}")
+    return errs
+
+
+def phase_packed_path(torch, packed, swar, dispatch, registry, gf) -> dict:
+    """The slice's path at real size through plugin `tpu` RS(8,3): deep
+    scrub of one scrub chunk, cache-hit RMW deltas, the packed tier of
+    encode_array and decode_array; launch counts reset just before and
+    read just after, plain versions counted (none may run)."""
+    dev = torch.device("cuda")
+    ec = registry.instance().factory("tpu", {"k": "8", "m": "3"})
+    check(ec.device.type == "cuda", f"codec on {ec.device}, want cuda")
+    k, m = ec.k, ec.m
+    mat = ec.distribution_matrix()[k:]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 60)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    scrub_data = rand(SCRUB_SHAPE[0], k, SCRUB_SHAPE[2])
+    rmw = [(rand(SCRUB_OBJECT_STRIPES, k, 4096), rand(SCRUB_OBJECT_STRIPES, k, 4096))
+           for _ in range(RMW_OBJECTS)]
+    tier_data = rand(*PACKED_TIER_SHAPE)
+    torch.cuda.synchronize()
+
+    plain_calls = collections.Counter()
+    originals = {(module, name): getattr(module, name)
+                 for module, names in ((packed, PACKED_PLAIN), (swar, ("swar_code_reference",)))
+                 for name in names}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):  # the path must never reach a plain version on the card
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for (module, name), fn in originals.items():
+        setattr(module, name, counted(name, fn))
+    for kernel in PACKED_KERNELS:
+        packed.launches[kernel] = 0
+    swar.launches = 0
+    counters = {"LAUNCHES": dispatch.LAUNCHES, "DECODE_LAUNCHES": dispatch.DECODE_LAUNCHES,
+                "VERIFY_LAUNCHES": dispatch.VERIFY_LAUNCHES}
+    for counter in counters.values():
+        counter.reset()
+    calls = collections.Counter()
+    t0 = time.perf_counter()
+    try:
+        # deep scrub of one scrub chunk: 25 objects of 4 MiB, codewords encoded on the card
+        cw = torch.cat([scrub_data, ec.encode_array(scrub_data)], dim=1)
+        calls["swar"] += 1
+        del scrub_data
+        before = dispatch.VERIFY_LAUNCHES.snapshot()["launches"]
+        clean = ec.verify_array(cw)
+        calls["verify"] += 1
+        check(dispatch.VERIFY_LAUNCHES.snapshot()["launches"] == before + 1,
+              "verify_array did not count one VERIFY launch")
+        check(tuple(clean.shape) == (SCRUB_SHAPE[0],) and not bool(clean.any()),
+              "clean scrub chunk: bitmap not all zero")
+        for pos in range(k + m):  # object 0, stripe pos, shard pos
+            cw[pos, pos, (pos * 373) % SCRUB_SHAPE[2]] ^= 1 << (pos % 8)
+        bitmap = ec.verify_array(cw)
+        calls["verify"] += 1
+        check(dispatch.VERIFY_LAUNCHES.snapshot()["launches"] == before + 2,
+              "verify_array did not count one VERIFY launch")
+        want = np.zeros(SCRUB_SHAPE[0], np.uint8)
+        want[: k + m] = [verify_expected(mat, k, m, pos) for pos in range(k + m)]
+        host = bitmap.cpu().numpy()
+        check(np.array_equal(host, want), f"scrub bitmap {host[:k + m].tolist()} != "
+              f"{want[:k + m].tolist()} (or a clean object flagged)")
+        obj0 = cw[:SCRUB_OBJECT_STRIPES].cpu().numpy()
+        check(np.array_equal(host[:SCRUB_OBJECT_STRIPES], ec.verify_array_host(obj0)),
+              "scrub bitmap of object 0 != verify_array_host")
+        del cw, obj0
+        # cache-hit RMW: 19 flat 512 KiB shard buffers an object
+        for old, new in rmw:
+            parity = ec.encode_array(old)
+            shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
+            got = ec.encode_delta_device(shards(old), shards(new), shards(parity), 4096)
+            calls["delta"] += 1
+            check(torch.equal(got, ec.encode_array(new)),
+                  "encode_delta_device != encode_array of the new data")
+            calls["swar"] += 2
+        del rmw
+        # the packed tier: L = 524320 (isa's SIMD_ALIGN 32, not 128)
+        parity = ec.encode_array(tier_data)
+        calls["code"] += 1
+        S = PACKED_TIER_SHAPE[0]
+        for s in (0, S - 1):
+            check(np.array_equal(parity[s].cpu().numpy(),
+                                 gf.gf_matmul(mat, tier_data[s].cpu().numpy())),
+                  f"packed tier encode stripe {s} != gf_matmul")
+        full = torch.cat([tier_data, parity], dim=1)
+        for erasures in ([0], [9], [0, 9], [0, 5, 10]):
+            survivors = full[:, ec.decode_index(erasures)]
+            rec = ec.decode_array(erasures, survivors)
+            calls["code"] += 1
+            calls["decode"] += 1
+            check(torch.equal(rec, full[:, erasures]),
+                  f"packed tier decode {erasures} != the encoded bytes")
+        del full, parity, tier_data
+        torch.cuda.synchronize()
+    finally:
+        for (module, name), fn in originals.items():
+            setattr(module, name, fn)
+    seconds = time.perf_counter() - t0
+    launches = dict(packed.launches)
+    counts = {name: counter.snapshot()["launches"] for name, counter in counters.items()}
+    print(f"[7] slice path: scrub of {SCRUB_SHAPE} (2 verifies), {RMW_OBJECTS} RMW deltas over "
+          f"19 flat 512 KiB shards, packed tier on {PACKED_TIER_SHAPE} (encode + 4 erasure "
+          f"classes), exact; {seconds:.2f} s host clock")
+    print(f"[7] launches {launches}, swar_gf {swar.launches}; tier calls {dict(calls)}; "
+          f"dispatch counters {counts}; plain-version calls {dict(plain_calls)}")
+    check(not plain_calls, f"the path reached plain versions: {dict(plain_calls)}")
+    want = {"packed_code": calls["code"], "packed_verify": calls["verify"],
+            "packed_delta": calls["delta"]}
+    check(launches == want, f"launches {launches} != tier calls {want}")
+    check(swar.launches == calls["swar"], f"swar_gf launches {swar.launches} != {calls['swar']}")
+    total = calls["code"] + calls["verify"] + calls["delta"] + calls["swar"]
+    check(counts == {"LAUNCHES": total, "DECODE_LAUNCHES": calls["decode"],
+                     "VERIFY_LAUNCHES": calls["verify"]},
+          f"dispatch counters {counts}")
+    return launches
+
+
+def packed_bound(prog, moved: int, words: int, extra_ops: int = 0) -> tuple[float, str]:
+    """(ms, by): `moved` bytes at the HBM rate against the program's ops
+    on `words` 32-bit words (an XOR 1 op, an xtime XTIME_OPS; `extra_ops`
+    a word beside them) at the INT32 rate."""
+    ops = sum(1 if op[0] == "x" else XTIME_OPS for op in prog[3]) + extra_ops
+    mem_ms = moved / HBM_BYTES_PER_S * 1e3
+    alu_ms = ops * words / INT32_OPS_PER_S * 1e3
+    return max(mem_ms, alu_ms), ("bytes" if mem_ms >= alu_ms else "operations")
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host time of one call of fn() enqueued behind the others, in
+    microseconds: the wall time of `calls` calls with no synchronise
+    between them.  Where it is close to a kernel's time_ms, the host's
+    enqueue, not the card, sets that time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over `reps` runs of the device time of one call of fn(): the
+    CUDA-event time of `calls` calls enqueued behind a spin kernel
+    (torch.cuda._sleep) that keeps the card busy while the host enqueues
+    them, so the host's time a call is hidden even where it is the larger
+    (time_ms then reads the host)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms of spinning, longer than the enqueue
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def phase_packed_timing(torch, packed, swar, gf) -> dict:
+    """The three kernels timed (median of 20 runs of 5 calls) beside their
+    plain versions and bounds, and each wrapper's host time a call and
+    device time a call (`device_ms`); packed_code beside swar_gf in this
+    call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 70)
+    mat = gf.isa_rs_vandermonde_matrix(8, 3)[8:]
+    prog = packed.best_program(mat)
+    lowered = packed.lower_program(prog)
+    k, m = 8, 3
+    out = {}
+    S, _, L = BULK
+    data = torch.randint(0, 256, BULK, dtype=torch.uint8, device=dev, generator=gen)
+    plan = swar.CodingPlan(mat, device=dev)
+    want = swar.swar_gf(plan, data)
+    check(torch.equal(packed.packed_code(lowered, data), want), "packed_code != swar_gf at bulk")
+    code_ms = time_ms(torch, lambda: packed.packed_code(lowered, data))
+    swar_ms = time_ms(torch, lambda: swar.swar_gf(plan, data))
+    code_plain_ms = time_ms(torch, lambda: packed.packed_code_reference(prog, data),
+                            warmup=2, reps=5)
+    bound, by = packed_bound(prog, (k + m) * S * L, S * L // 4)
+    print(f"[7] packed_code {BULK}: {code_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+          f"({bound / code_ms:.3f} of it); swar_gf in this call {swar_ms:.4f} ms "
+          f"(packed/swar {code_ms / swar_ms:.3f}x); plain {code_plain_ms:.4f} ms; "
+          f"host {host_us(torch, lambda: packed.packed_code(lowered, data)):.1f} us a call")
+    code_dev_ms = device_ms(torch, lambda: packed.packed_code(lowered, data))
+    swar_dev_ms = device_ms(torch, lambda: swar.swar_gf(plan, data))
+    print(f"[7] device time a call: packed_code {code_dev_ms:.4f} ms, swar_gf "
+          f"{swar_dev_ms:.4f} ms")
+    out["packed_code"] = {"ms": code_ms, "plain_ms": code_plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None, "variant": f"{BULK}",
+                          "swar_gf_ms": swar_ms, "device_ms": code_dev_ms}
+    L2 = 131104
+    ragged = torch.randint(0, 256, (S, k, L2), dtype=torch.uint8, device=dev, generator=gen)
+    check(torch.equal(packed.packed_code(lowered, ragged),
+                      packed.packed_code_reference(prog, ragged)), "packed_code != plain at L2")
+    ragged_ms = time_ms(torch, lambda: packed.packed_code(lowered, ragged))
+    rbound, rby = packed_bound(prog, (k + m) * S * L2, S * L2 // 4)
+    print(f"[7] packed_code {(S, k, L2)}: {ragged_ms:.4f} ms, bound {rbound:.4f} ms by {rby} "
+          f"({rbound / ragged_ms:.3f} of it)")
+    del ragged
+    out["packed_code"]["ragged_ms"] = ragged_ms
+    # a wide decode: the construction a plan takes (the ring program, 128
+    # threads a block) beside best_program (CSE, 204 slots, 64 threads)
+    wmat, _ = gf.isa_decode_matrix(gf.isa_rs_vandermonde_matrix(32, 3), [0, 1, 2], 32)
+    wplan = packed.PackedPlan(wmat)
+    wbest = packed.lower_program(packed.best_program(wmat))
+    wdata = torch.randint(0, 256, WIDE_SHAPE, dtype=torch.uint8, device=dev, generator=gen)
+    check(torch.equal(packed.packed_code(wplan.lowered, wdata), packed.packed_code(wbest, wdata)),
+          "RS(32,3) decode: the plan's program != best_program on the card")
+    wide_ms = time_ms(torch, lambda: packed.packed_code(wplan.lowered, wdata))
+    wbest_ms = time_ms(torch, lambda: packed.packed_code(wbest, wdata))
+    Sw, kw, Lw = WIDE_SHAPE
+    wbound, wby = packed_bound(wplan.lowered.prog, (kw + 3) * Sw * Lw, Sw * Lw // 4)
+    print(f"[7] packed_code RS(32,3) decode {WIDE_SHAPE}: the plan's program "
+          f"({len(wplan.lowered.ops)} ops, {wplan.lowered.nslots} slots, "
+          f"{wplan.lowered.threads} threads) {wide_ms:.4f} ms, bound {wbound:.4f} ms by {wby} "
+          f"({wbound / wide_ms:.3f} of it); best_program ({len(wbest.ops)} ops, "
+          f"{wbest.nslots} slots, {wbest.threads} threads) {wbest_ms:.4f} ms")
+    del wdata
+    out["packed_code"].update(wide_variant=f"RS(32,3) decode {WIDE_SHAPE}", wide_ms=wide_ms,
+                              wide_bound_ms=wbound, wide_best_program_ms=wbest_ms)
+    # verify at one scrub chunk
+    Sv, rows, Lv = SCRUB_SHAPE
+    vdata = torch.randint(0, 256, (Sv, k, Lv), dtype=torch.uint8, device=dev, generator=gen)
+    cw = torch.cat([vdata, packed.packed_code(lowered, vdata)], dim=1)
+    del vdata
+    check(not bool(packed.packed_verify(lowered, cw).any()), "clean codewords flagged")
+    verify_ms = time_ms(torch, lambda: packed.packed_verify(lowered, cw))
+    verify_plain_ms = time_ms(torch, lambda: packed.packed_verify_reference(prog, cw),
+                              warmup=2, reps=5)
+    vbound, vby = packed_bound(prog, rows * Sv * Lv + Sv, Sv * Lv // 4, extra_ops=m)
+    verify_dev_ms = device_ms(torch, lambda: packed.packed_verify(lowered, cw))
+    print(f"[7] packed_verify {SCRUB_SHAPE}: {verify_ms:.4f} ms, bound {vbound:.4f} ms by {vby} "
+          f"({vbound / verify_ms:.3f} of it); plain {verify_plain_ms:.4f} ms; "
+          f"host {host_us(torch, lambda: packed.packed_verify(lowered, cw)):.1f} us a call; "
+          f"device {verify_dev_ms:.4f} ms a call")
+    out["packed_verify"] = {"ms": verify_ms, "plain_ms": verify_plain_ms, "bound_ms": vbound,
+                            "bound_by": vby, "library_ms": None, "variant": f"{SCRUB_SHAPE}",
+                            "device_ms": verify_dev_ms}
+    del cw
+    # delta over flat shard buffers at the bulk shape
+    new = torch.randint(0, 256, BULK, dtype=torch.uint8, device=dev, generator=gen)
+    shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
+    bufs = (shards(data), shards(new), shards(want))
+    del new
+    check(torch.equal(packed.packed_delta_flat(lowered, *bufs, L),
+                      packed.packed_delta_reference(prog, *(torch.stack(
+                          [b.view(-1, L) for b in group], dim=1) for group in bufs))),
+          "packed_delta_flat != plain at bulk")
+    delta_ms = time_ms(torch, lambda: packed.packed_delta_flat(lowered, *bufs, L))
+    stacked = [torch.stack([b.view(-1, L) for b in group], dim=1) for group in bufs]
+    delta_plain_ms = time_ms(torch, lambda: packed.packed_delta_reference(prog, *stacked),
+                             warmup=2, reps=5)
+    dbound, dby = packed_bound(prog, (2 * k + 2 * m) * S * L, S * L // 4, extra_ops=k + m)
+    delta_dev_ms = device_ms(torch, lambda: packed.packed_delta_flat(lowered, *bufs, L))
+    print(f"[7] packed_delta flat {BULK}: {delta_ms:.4f} ms, bound {dbound:.4f} ms by {dby} "
+          f"({dbound / delta_ms:.3f} of it); plain (stacked) {delta_plain_ms:.4f} ms; "
+          f"host {host_us(torch, lambda: packed.packed_delta_flat(lowered, *bufs, L)):.1f} "
+          f"us a call; device {delta_dev_ms:.4f} ms a call")
+    print("[7] library_ms: none (no PyTorch call computes GF(2^8) coding)")
+    out["packed_delta"] = {"ms": delta_ms, "plain_ms": delta_plain_ms, "bound_ms": dbound,
+                           "bound_by": dby, "library_ms": None, "variant": f"flat {BULK}",
+                           "device_ms": delta_dev_ms}
+    sha = packed.build_info["source_sha256"]
+    for row in out.values():
+        row["source_sha256"] = sha
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1091,6 +1612,8 @@ def main() -> int:
         from ceph_tpu_torch import gf
         from ceph_tpu_torch.codec import registry
         from ceph_tpu_torch.diag import kern_exp, kern_exp2, kern_exp3, kern_exp4, kern_exp5
+        from ceph_tpu_torch.ops import dispatch
+        from ceph_tpu_torch.ops import packed_gf as packed
         from ceph_tpu_torch.ops import swar_gf as swar
         from ceph_tpu_torch.ops._nvcc import nvcc_path
     except ImportError as e:
@@ -1104,7 +1627,8 @@ def main() -> int:
         print(f"[{n}] phase {n}: {time.perf_counter() - t0:.2f} s", flush=True)
         return result
 
-    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, nvcc_path())
+    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed,
+                              nvcc_path())
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4, kern_exp2,
@@ -1115,6 +1639,10 @@ def main() -> int:
     errs.update(phase("6a", phase_bitmatrix_checks, torch, gf, kern_exp))
     diag_launches.update(phase("6b", phase_bitmatrix_main, torch, swar, kern_exp))
     diag_times.update(phase("6c", phase_bitmatrix_timing, torch, gf, kern_exp))
+    errs.update(phase("7a", phase_packed_checks, torch, packed, gf))
+    diag_launches.update(phase("7b", phase_packed_path, torch, packed, swar, dispatch,
+                               registry, gf))
+    diag_times.update(phase("7c", phase_packed_timing, torch, packed, swar, gf))
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -1137,6 +1665,9 @@ def main() -> int:
         ("bitmatrix_grouped_bf16", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:53"),
         ("bitmatrix_mm_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:98"),
         ("bitmatrix_expand_only", "bitmatrix.cu", "benchmarks/diag/kern_exp.py:131"),
+        ("packed_code", "packed_gf.cu", "ceph_tpu/ops/packed_gf.py:315"),
+        ("packed_verify", "packed_gf.cu", "ceph_tpu/ops/packed_gf.py:375"),
+        ("packed_delta", "packed_gf.cu", "ceph_tpu/ops/packed_gf.py:400"),
     ):
         kernels.append({
             "name": kernel,

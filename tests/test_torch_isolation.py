@@ -27,7 +27,7 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) >= 15
     for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu",
-                   "bitmatrix.cu"):
+                   "bitmatrix.cu", "packed_gf.cu"):
         assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
 
 
