@@ -27,10 +27,19 @@ ring's Horner form); all three compute the same bytes.
   if something reads it from memory, and slots are reused once dead.  An op
   whose first operand is the previous op's result reads it from the
   kernel's accumulator register (slot -1), and a result that only the next
-  op reads that way is not stored (dst -1).  The kernels keep 16 bytes a
-  slot a thread in shared memory, so a program's slots set the threads of
-  its block (`block_threads`); `kernel_program` gives a plan's matrix the
-  construction that fits the most threads, then the fewest ops.
+  op reads that way is not stored (dst -1).  A program may have any number
+  of ops: the kernels stage its rows in tiles of TILE_OPS.  They keep 16
+  bytes a slot a thread in shared memory, so a program's slots set the
+  threads of its block (`block_threads`).  `kernel_program` gives a plan's
+  matrix the construction that fits the most threads, then the fewest ops,
+  memoized; it never builds a tower-based construction whose leaves alone
+  cannot fit where the ring program does.
+- What bounds the kernels is bytes: a thread's input rows go into their
+  slots by cp.async, all in flight; a launch takes twice the resident blocks
+  and each walks its work items; the verify's blocks own whole stripes (no
+  zeroing, no atomic).  The row table is given as group descriptors
+  (address, stripe stride, row stride, rows), up to MAX_ROWS = 512 rows,
+  read by strides in place.  csrc/packed_gf.cu's note has the design.
 - Wrappers `packed_code`, `packed_verify`, `packed_delta`,
   `packed_delta_flat`: a CPU tensor takes the plain version; a CUDA tensor
   launches the kernel or raises.  `launches` counts the kernel launches of
@@ -42,6 +51,8 @@ ring's Horner form); all three compute the same bytes.
 from __future__ import annotations
 
 import ctypes
+import itertools
+import struct
 import threading
 from pathlib import Path
 
@@ -60,13 +71,14 @@ _XTIME_RED = int(GF_MUL_TABLE[2, 0x80])
 # `xor_matmul` (the reference's threshold, packed_gf.py:63).
 PACKED_MIN_BYTES = 64 * 1024
 
-# Kernel limits (csrc/packed_gf.cu): ops a program may have, row pointers
-# one launch may pass (2k + 2m for the delta), and the shared memory a block
-# may take.  A block has BLOCK_THREADS threads, halved down to MIN_THREADS
-# where the program's slots (16 bytes a thread each) would not fit; so a
-# program may need at most MAX_SLOTS live slots, fewer by its ops' rows.
-MAX_OPS = 4096
-MAX_ROWS = 192
+# Kernel limits (csrc/packed_gf.cu): row pointers one launch may pass (2k +
+# 2m for the delta, k + m <= 256), op rows staged at once (16 bytes each),
+# and the shared memory a block may take.  A block has BLOCK_THREADS threads,
+# halved down to MIN_THREADS where the program's slots (16 bytes a thread
+# each) would not fit; so a program may need at most MAX_SLOTS live slots,
+# fewer by its op rows.
+MAX_ROWS = 512
+TILE_OPS = 1024
 SMEM_LIMIT = 232448
 BLOCK_THREADS, MIN_THREADS = 128, 32
 MAX_SLOTS = SMEM_LIMIT // (16 * MIN_THREADS)
@@ -369,7 +381,7 @@ class LoweredProgram:
     (kind, dst slot, a slot, b slot), `in_slots` (k,) and `out_slots` (m,)
     int32 (-1: an unused input, an all-zero output row), `nslots` slots,
     `threads` a block (`block_threads`).  `operand(device)` is the flat
-    int32 tensor ops ++ in_slots ++ out_slots, cached per device."""
+    int32 tensor ops ++ in_slots ++ out_slots, cached per device index."""
 
     __slots__ = ("prog", "k", "m", "ops", "in_slots", "out_slots", "nslots", "threads",
                  "_host", "_dev", "_lock")
@@ -387,29 +399,34 @@ class LoweredProgram:
                 f"than {SMEM_LIMIT} bytes of shared memory at {MIN_THREADS} threads a block")
         self._host = np.concatenate(
             [self.ops.ravel(), self.in_slots, self.out_slots]).astype(np.int32)
-        self._dev: dict[str, torch.Tensor] = {}
+        self._dev: dict[int | None, torch.Tensor] = {}
         self._lock = threading.Lock()
 
     def operand(self, device: torch.device) -> torch.Tensor:
-        key = str(device)
-        with self._lock:
-            t = self._dev.get(key)
+        t = self._dev.get(device.index)
         if t is None:
             t = torch.from_numpy(self._host).to(device)
             with self._lock:
-                t = self._dev.setdefault(key, t)
+                t = self._dev.setdefault(device.index, t)
         return t
+
+
+def shared_bytes(nops: int, k: int, m: int, slots: int, threads: int) -> int:
+    """Shared memory of a block of csrc/packed_gf.cu: one tile of op rows (16
+    bytes each), the k + m slot maps and 8 reduction words, rounded up to 16
+    bytes, then 16 bytes a slot a thread."""
+    head = -(-(16 * min(nops, TILE_OPS) + 4 * (k + m) + 32) // 16) * 16
+    return head + 16 * slots * threads
 
 
 def block_threads(nops: int, nslots: int, k: int, m: int) -> int:
     """Threads a block of csrc/packed_gf.cu takes for a program of `nops`
     ops and `nslots` slots: BLOCK_THREADS, halved while its shared memory
-    (the op rows and slot maps, then 16 bytes a slot a thread) would pass
-    SMEM_LIMIT; 0 if it does not fit at MIN_THREADS."""
-    head = 16 * (nops + (k + m + 3) // 4)
+    (`shared_bytes`) would pass SMEM_LIMIT; 0 if it does not fit at
+    MIN_THREADS."""
     threads = BLOCK_THREADS
     while threads >= MIN_THREADS:
-        if head + 16 * nslots * threads <= SMEM_LIMIT:
+        if shared_bytes(nops, k, m, nslots, threads) <= SMEM_LIMIT:
             return threads
         threads //= 2
     return 0
@@ -417,11 +434,9 @@ def block_threads(nops: int, nslots: int, k: int, m: int) -> int:
 
 def _lower(prog: tuple):
     """(ops, in_slots, out_slots, nslots) of a plane program; see
-    `LoweredProgram`.  Raises ValueError past MAX_OPS."""
+    `LoweredProgram`."""
     _tag, k, m, ops, outputs = prog
     n = len(ops)
-    if n > MAX_OPS:
-        raise ValueError(f"plane program of {n} ops; the kernel takes at most {MAX_OPS}")
     # `a` is the accumulator when it is the previous op's result (an XOR
     # whose second operand is that result swaps its operands)
     operands = []
@@ -495,48 +510,82 @@ def lower_program(sched, k: int | None = None) -> LoweredProgram:
     return LoweredProgram(sched)
 
 
+# kernel_program memo, bounded as best_program's.
+_KERNEL_MEMO: dict[tuple, LoweredProgram] = {}
+
+
+def _fitting(prog: tuple) -> LoweredProgram | None:
+    """The lowered program, or None where it fits no block."""
+    try:
+        return LoweredProgram(prog)
+    except ValueError:
+        return None
+
+
+def tower_leaves(gf_matrix: np.ndarray) -> int:
+    """Distinct (chunk, power) planes the matrix's rows use: all are live at
+    once in a tower-based program (naive, CSE) once its towers are built, so
+    such a program needs at least this many slots."""
+    return len({term for row in plane_schedule(gf_matrix) for term in row})
+
+
 def kernel_program(gf_matrix: np.ndarray) -> LoweredProgram:
     """The construction the kernels run for a matrix (all give the same
-    bytes): of those that fit a block, the one with the most threads a
-    block, then the fewest ops, ties in `best_program`'s order.  The CSE and
-    tower programs keep every tower leaf live, about 7.5 slots a data chunk
-    in a dense decode, so from RS(21,4)'s decode on they fit a block only
-    of 64 threads or fewer, or none; the ring program needs about k + 3
-    slots and takes 128."""
+    bytes), memoized: of those that fit a block, the one with the most
+    threads a block, then the fewest ops, ties in `best_program`'s order.
+    The CSE and tower programs keep every tower leaf live, about 7.5 slots a
+    data chunk in a dense decode, so from RS(21,4)'s decode on they fit a
+    block only of 64 threads or fewer, or none; the ring program needs about
+    k + m + 3 slots (its outputs stay live to the end) and takes 128 up to
+    k + m of about 110.  So where the leaves alone do not fit a block of the
+    ring program's threads, the tower-based ones are not built (Cauchy(128,
+    16)'s CSE would take minutes of host time)."""
     gfm = np.asarray(gf_matrix, dtype=np.uint8)
-    fitting = []
-    for gen in (cse_program, ring_program, naive_program):
-        try:
-            fitting.append(LoweredProgram(gen(gfm)))
-        except ValueError:
-            pass
+    key = (gfm.shape, gfm.tobytes())
+    cached = _KERNEL_MEMO.get(key)
+    if cached is not None:
+        return cached
+    ring = _fitting(ring_program(gfm))
+    if ring is not None and tower_leaves(gfm) > (
+            SMEM_LIMIT - shared_bytes(0, gfm.shape[1], gfm.shape[0], 0, 0)) // (16 * ring.threads):
+        candidates = [ring]  # a tower program would fit only fewer threads
+    else:
+        candidates = [_fitting(cse_program(gfm)), ring, _fitting(naive_program(gfm))]
+    fitting = [lp for lp in candidates if lp is not None]
     if not fitting:
         raise ValueError(f"no plane program of the {gfm.shape} matrix fits the kernels")
-    return min(fitting, key=lambda lp: (-lp.threads, len(lp.ops)))
+    best = min(fitting, key=lambda lp: (-lp.threads, len(lp.ops)))
+    with _PROGRAM_LOCK:
+        if len(_KERNEL_MEMO) >= _PROGRAM_MEMO_CAPACITY:
+            _KERNEL_MEMO.clear()
+        return _KERNEL_MEMO.setdefault(key, best)
 
 
 # -- the hand kernels ----------------------------------------------------------------
 
 launches = {"packed_code": 0, "packed_verify": 0, "packed_delta": 0}
 _LAUNCH_LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LAUNCH = None  # the bound C entry packed_gf_launch
+_RAW_STREAM = None  # torch's current raw stream of a device index
 build_info: dict = {}
 
 
 def build_library() -> ctypes.CDLL:
     """Compile csrc/packed_gf.cu for sm_90a into the build directory (once
-    per source content) and load it.  A failed build raises."""
-    global _LIB
-    if _LIB is None:
-        built = _nvcc.build("packed_gf", SOURCE, {"packed_gf_launch": [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]})
-        build_info.update(built.info)
-        _LIB = built.lib
-    return _LIB
+    per source content) and load it; binds `packed_gf_launch`.  A failed
+    build raises."""
+    global _LAUNCH, _RAW_STREAM
+    from torch._C import _cuda_getCurrentRawStream
+
+    built = _nvcc.build("packed_gf", SOURCE, {"packed_gf_launch": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]})
+    build_info.update(built.info)
+    _RAW_STREAM = _cuda_getCurrentRawStream
+    _LAUNCH = built.lib.packed_gf_launch
+    return built.lib
 
 
 def _check(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -557,33 +606,41 @@ def _stripes(t: torch.Tensor, rows: int) -> torch.Tensor:
     else a copy."""
     if t.stride(-1) != 1:
         t = t.contiguous()
-    return t.reshape(-1, rows, t.shape[-1])
+    return t if t.dim() == 3 else t.reshape(-1, rows, t.shape[-1])
 
 
-def _row_table(*groups: torch.Tensor) -> list[tuple[int, int]]:
-    """(address, stripe stride in bytes) of every row of each (S, n, L)
-    tensor, in order."""
-    table = []
-    for g in groups:
-        base, s0, s1 = g.data_ptr(), g.stride(0), g.stride(1)
-        table.extend((base + i * s1, s0) for i in range(g.shape[1]))
-    return table
+def group(t: torch.Tensor) -> tuple[int, int, int, int]:
+    """The group descriptor of an (S, n, L) tensor whose last axis is dense:
+    (base address, stripe stride, row stride, rows), strides in bytes.  The
+    kernel's row table is the groups' rows in order, row i of a group at
+    base + i * row stride."""
+    s0, s1, _ = t.stride()
+    return (t.data_ptr(), s0, s1, t.shape[1])
 
 
-def _launch(mode: int, kernel: str, lowered: LoweredProgram, table, stripes: int,
+_DESCRIPTORS: dict[int, struct.Struct] = {}  # groups -> their packed int64 form
+
+
+def _launch(mode: int, kernel: str, lowered: LoweredProgram, groups, stripes: int,
             L: int, device: torch.device, flags: torch.Tensor | None = None) -> None:
-    if len(table) > MAX_ROWS:
-        raise ValueError(f"{kernel}: {len(table)} rows; the kernel takes at most {MAX_ROWS}")
-    rows = np.asarray(table, dtype=np.int64).reshape(-1)
+    rows = sum(g[3] for g in groups)
+    if rows > MAX_ROWS:
+        raise ValueError(f"{kernel}: {rows} rows; the kernel takes at most {MAX_ROWS}")
+    packer = _DESCRIPTORS.get(len(groups))
+    if packer is None:
+        packer = _DESCRIPTORS.setdefault(len(groups), struct.Struct(f"{4 * len(groups)}q"))
+    desc = packer.pack(*itertools.chain.from_iterable(groups))
     operand = lowered.operand(device)
-    lib = build_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.packed_gf_launch(
-            mode, rows.ctypes.data, len(table), operand.data_ptr(), len(lowered.ops),
-            lowered.nslots, lowered.threads, lowered.k, lowered.m, stripes, L, _XTIME_RED,
-            None if flags is None else flags.data_ptr(), stream,
-        )
+    if _LAUNCH is None:
+        build_library()
+    args = (mode, desc, len(groups), operand.data_ptr(), len(lowered.ops), lowered.nslots,
+            lowered.threads, lowered.k, lowered.m, stripes, L, _XTIME_RED,
+            None if flags is None else flags.data_ptr(), _RAW_STREAM(device.index), None)
+    if device.index == torch.cuda.current_device():
+        err = _LAUNCH(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _LAUNCH(*args)
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
@@ -618,8 +675,8 @@ def packed_code(sched, data: torch.Tensor, out: torch.Tensor | None = None) -> t
     src = _stripes(data, k)
     if src.shape[0] == 0 or L == 0:
         return out
-    table = _row_table(src, out.view(-1, lowered.m, L))
-    _launch(MODE_CODE, "packed_code", lowered, table, src.shape[0], L, dev)
+    _launch(MODE_CODE, "packed_code", lowered, (group(src), group(out.view(-1, lowered.m, L))),
+            src.shape[0], L, dev)
     return out
 
 
@@ -641,10 +698,12 @@ def packed_verify(sched, codeword: torch.Tensor) -> torch.Tensor:
     lowered = lower_program(sched)
     src = _stripes(codeword, rows)
     S = src.shape[0]
-    flags = torch.zeros(-(-S // 4) * 4, dtype=torch.uint8, device=dev)  # whole words
+    flags = torch.empty(S, dtype=torch.uint8, device=dev)  # the kernel writes every byte
     if S and L:
-        _launch(MODE_VERIFY, "packed_verify", lowered, _row_table(src), S, L, dev, flags)
-    return flags[:S].reshape(lead)
+        _launch(MODE_VERIFY, "packed_verify", lowered, (group(src),), S, L, dev, flags)
+    elif S:
+        flags.zero_()  # L == 0: nothing differs
+    return flags.reshape(lead)
 
 
 def packed_delta(sched, old: torch.Tensor, new: torch.Tensor,
@@ -666,8 +725,9 @@ def packed_delta(sched, old: torch.Tensor, new: torch.Tensor,
     out = torch.empty((*lead, lowered.m, L), dtype=torch.uint8, device=dev)
     groups = [_stripes(old, k), _stripes(new, k), _stripes(parity, lowered.m)]
     if groups[0].shape[0] and L:
-        table = _row_table(*groups, out.view(-1, lowered.m, L))
-        _launch(MODE_DELTA, "packed_delta", lowered, table, groups[0].shape[0], L, dev)
+        _launch(MODE_DELTA, "packed_delta", lowered,
+                [group(g) for g in (*groups, out.view(-1, lowered.m, L))], groups[0].shape[0],
+                L, dev)
     return out
 
 
@@ -688,15 +748,16 @@ def packed_delta_flat(sched, old_bufs, new_bufs, parity_bufs, chunk: int) -> tor
     if chunk <= 0 or n % chunk or any(b.numel() != n for b in bufs):
         raise ValueError(f"packed_delta_flat: buffers of {[b.numel() for b in bufs]} "
                          f"bytes, chunk {chunk}")
-    views = [(b if b.is_contiguous() else b.contiguous()).view(-1, 1, chunk) for b in bufs]
+    bufs = [b if b.is_contiguous() else b.contiguous() for b in bufs]
     if dev.type == "cpu":
-        od, nd, op_ = (torch.cat(views[a:b], dim=1) for a, b in
-                       ((0, k), (k, 2 * k), (2 * k, 2 * k + m)))
+        od, nd, op_ = (torch.cat([b.view(-1, 1, chunk) for b in bufs[a:b]], dim=1)
+                       for a, b in ((0, k), (k, 2 * k), (2 * k, 2 * k + m)))
         return packed_delta_reference(_program(sched), od, nd, op_)
     out = torch.empty((n // chunk, m, chunk), dtype=torch.uint8, device=dev)
-    if n:
-        _launch(MODE_DELTA, "packed_delta", lower_program(sched), _row_table(*views, out),
-                n // chunk, chunk, dev)
+    if n:  # a buffer is one row, its stripes `chunk` bytes apart
+        _launch(MODE_DELTA, "packed_delta", lower_program(sched),
+                [*((b.data_ptr(), chunk, chunk, 1) for b in bufs), group(out)], n // chunk,
+                chunk, dev)
     return out
 
 
@@ -704,17 +765,25 @@ def packed_delta_flat(sched, old_bufs, new_bufs, parity_bufs, chunk: int) -> tor
 
 
 class _Plan:
-    """One matrix: `best_program` for the plain version, and for the kernels
-    `kernel_program`, chosen at first use (a matrix no construction of
-    which fits the kernels raises only when a CUDA tensor needs it)."""
+    """One matrix: `sched`, `best_program` for the plain version, and for
+    the kernels `lowered`, `kernel_program`; each built at its first use, so
+    a CUDA plan never builds `best_program` (a wide Cauchy code's CSE takes
+    minutes) and a matrix no construction of which fits the kernels raises
+    only when a CUDA tensor needs it."""
 
-    __slots__ = ("k", "m", "sched", "_gfm", "_lowered")
+    __slots__ = ("k", "m", "_gfm", "_sched", "_lowered")
 
     def __init__(self, gf_matrix: np.ndarray):
         self._gfm = np.asarray(gf_matrix, dtype=np.uint8)
         self.m, self.k = self._gfm.shape
-        self.sched = best_program(self._gfm)
+        self._sched = None
         self._lowered = None
+
+    @property
+    def sched(self) -> tuple:
+        if self._sched is None:
+            self._sched = best_program(self._gfm)
+        return self._sched
 
     @property
     def lowered(self) -> LoweredProgram:

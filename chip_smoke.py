@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With --parent, phase 7c also times the packed kernels of the older
+checkout at DIR beside this one's (parent, this, this, parent), each in a
+process of its own.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -15,8 +19,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    swar_gf_kernel instance (fails on a spill, or on more than 128 registers
    for RS(8,3)'s), the SASS mix of RS(8,3)'s instance and of its 4-chunk
    loop, and no CALL in any instance.  For csrc/packed_gf.cu: ptxas's
-   registers, spills and stack frame of each of its three kernels (fails
-   on a spill or on local memory).
+   registers, spills and stack frame of each instance of its three kernels
+   (32 or 512 rows; fails on a spill or on local memory), and the CUDA
+   toolkit's release (the 512-row parameters need 12.1).
 2. Kernel vs plain on the card: the kernel against its plain PyTorch
    version (`swar_code_reference`) and against the numpy oracle
    (`xor_matmul_host_batch` on the first stripe, the GF(2^8) table product
@@ -104,22 +109,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    plain version, `packed_verify_host` and the expected bitmap;
    packed_delta, stacked and over separately allocated flat shard
    buffers, against its plain version, `packed_delta_host` and a
-   re-encode of the new data.  7b: plugin `tpu` RS(8,3) from the registry
+   re-encode of the new data.  Then fault C3's profiles, each on its ring
+   program and held against the plain version of that program and
+   `gf_matmul` on one stripe: Cauchy(128,16) encode and 16-erasure decode
+   at L = 4100 and 131075, Cauchy(200,56) encode (46216 ops, 256 rows),
+   the flat deltas of Cauchy(96,8) and Cauchy(128,128) (208 and 512 rows),
+   and Cauchy(248,8)'s verify corrupted at every shard position (256
+   rows).  7b: plugin `tpu` RS(8,3) from the registry
    with no device argument: `verify_array` on one scrub chunk (25 objects
    of 4 MiB, (3200, 11, 4096), encoded on the card), clean and with a
    corruption at every shard position of one object; `encode_delta_device`
    over 19 flat 512 KiB shard buffers for 32 objects, each equal to
    `encode_array` of the new data; `encode_array` and `decode_array` (the
    four erasure classes) on (32, 8, 524320), the packed tier, against
-   `gf_matmul` and the encoded bytes.  Launch counts (kernels and the
+   `gf_matmul` and the encoded bytes; plugin `tpu` Cauchy(128,16)'s
+   `encode_array` twice on (4, 128, 4100), the packed tier, against
+   `gf_matmul`.  Launch counts (kernels and the
    dispatch counters) reset just before and read just after, each equal
    to its tier's calls; the plain versions must be called 0 times.  7c:
    each kernel timed (median of 20 runs of 5 calls) beside its bound (the
    bytes at the HBM rate against the program's ops at the INT32 rate, an
    xtime XTIME_OPS) and its plain version, with the wrapper's host time a
    call: packed_code at (256, 8, 131072) beside swar_gf and at
-   (256, 8, 131104), packed_verify at (3200, 11, 4096), packed_delta over
-   flat shards at (256, 8, 131072).
+   (256, 8, 131104), packed_verify at (3200, 11, 4096) (with its grid and
+   the host time of a `PackedVerifyPlan` call step by step), packed_delta
+   over flat shards at (256, 8, 131072); with --parent, the older tree's
+   packed_code (bulk and RS(32,3)'s decode), packed_verify and
+   packed_delta beside this one's, time, device time and host time.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -128,7 +144,9 @@ There is no CPU branch: without CUDA the script exits non-zero.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import ctypes
 import functools
 import json
 import os
@@ -373,6 +391,8 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, nvcc):
     print(f"[1] device: {name}  count={torch.cuda.device_count()}")
     print(f"[1] nvidia-smi: {card}")
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
+    release = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
+    print(f"[1] nvcc: {release.stdout.strip().splitlines()[-2:]} (csrc/packed_gf.cu needs 12.1+)")
 
     def swar_gf_info():
         swar.build_library()
@@ -511,20 +531,23 @@ def check_swar_gf_build(nvcc: str, info: dict) -> None:
 
 def check_packed_build(info: dict) -> None:
     """csrc/packed_gf.cu as compiled: ptxas's registers, spills and local
-    memory (stack frame) of each of its three kernels; none may spill or
-    use local memory (the slots live in shared memory)."""
+    memory (stack frame) of each instance of its three kernels (32 or 512
+    rows); none may spill or use local memory (the slots live in shared
+    memory)."""
     if "ptxas" not in info:
         print("[1] packed_gf: loaded from the build directory, ptxas not read")
         return
     for kernel in PACKED_KERNELS:
-        lines = ptxas_lines(info, f"{kernel}_kernel")
-        print(f"[1] ptxas {kernel}_kernel: {'; '.join(lines)}")
-        check(lines, f"no ptxas lines for {kernel}_kernel")
-        bad = [line for line in lines if "spill" in line and not (
-            re.search(r"\b0 bytes stack frame", line)
-            and re.search(r"\b0 bytes spill stores", line)
-            and re.search(r"\b0 bytes spill loads", line))]
-        check(not bad, f"{kernel}_kernel spills or uses local memory: {bad}")
+        for rows in (32, 512):
+            name = f"{kernel}_kernelILi{rows}E"
+            lines = ptxas_lines(info, name)
+            print(f"[1] ptxas {kernel}_kernel<rows={rows}>: {'; '.join(lines)}")
+            check(lines, f"no ptxas lines for {name}")
+            bad = [line for line in lines if "spill" in line and not (
+                re.search(r"\b0 bytes stack frame", line)
+                and re.search(r"\b0 bytes spill stores", line)
+                and re.search(r"\b0 bytes spill loads", line))]
+            check(not bad, f"{name} spills or uses local memory: {bad}")
 
 
 def phase_kernel_checks(torch, swar, gf, registry) -> int:
@@ -1149,6 +1172,7 @@ SCRUB_OBJECT_STRIPES = 128
 RMW_OBJECTS = 32
 PACKED_TIER_SHAPE = (32, 8, 524320)
 WIDE_SHAPE = (32, 32, 131072)  # RS(32,3)'s decode, timed in 7c
+WIDE_TIER_SHAPE = (4, 128, 4100)  # plugin tpu Cauchy(128,16) on the packed tier, 7b
 PACKED_KERNELS = ("packed_code", "packed_verify", "packed_delta")
 PACKED_PLAIN = ("packed_code_reference", "packed_verify_reference", "packed_delta_reference")
 
@@ -1314,10 +1338,69 @@ def phase_packed_checks(torch, packed, gf) -> dict:
             shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
             flat = packed.packed_delta_flat(prog, shards(old), shards(new), shards(parity), L)
             record("packed_delta", f"{label} flat ({S}, {k}, {L})", flat, got)
+    wide_packed_checks(torch, packed, gf, rand, record)
     for kernel in PACKED_KERNELS:
         print(f"[7] {kernel} == plain == oracle on {cases[kernel]} cases, "
               f"max_abs_err={errs[kernel]}")
     return errs
+
+
+def wide_packed_checks(torch, packed, gf, rand, record) -> None:
+    """Fault C3's profiles (Cauchy has no k, m cap; k + m <= 256), each on
+    its ring program lowered for the kernels (never best_program, whose
+    CSE takes minutes at k = 128): Cauchy(128,16) encode and 16-erasure
+    decode at L = 4100 and 131075, Cauchy(200,56) encode (46216 ops, 256
+    rows), the flat deltas of Cauchy(96,8) (208 rows) and Cauchy(128,128)
+    (512 rows, 69632 ops), and Cauchy(248,8)'s verify (256 rows) corrupted
+    at every shard position; each against the plain version of the same
+    program and `gf_matmul` on one stripe."""
+    c128 = gf.isa_cauchy_matrix(128, 16)
+    for label, mat, lengths in (
+            ("cauchy128-16-encode", c128[128:], (4100, 131075)),
+            ("cauchy128-16-decode[0..15]", gf.isa_decode_matrix(c128, list(range(16)), 128)[0],
+             (4100, 131075)),
+            ("cauchy200-56-encode", gf.isa_cauchy_matrix(200, 56)[200:], (4100,))):
+        m, k = mat.shape
+        lowered = packed.LoweredProgram(packed.ring_program(mat))
+        for L in lengths:
+            data = rand(2, k, L)
+            got = packed.packed_code(lowered, data)
+            record("packed_code", f"{label} (2, {k}, {L})", got,
+                   packed.packed_code_reference(lowered.prog, data))
+            check(np.array_equal(got[1].cpu().numpy(), gf.gf_matmul(mat, data[1].cpu().numpy())),
+                  f"packed_code {label} L={L}: != gf_matmul")
+        print(f"[7] {label}: ring program {len(lowered.ops)} ops, {lowered.nslots} slots, "
+              f"{lowered.threads} threads, {k + m} rows: exact")
+    shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
+    for k, m in ((96, 8), (128, 128)):
+        mat = gf.isa_cauchy_matrix(k, m)[k:]
+        lowered = packed.LoweredProgram(packed.ring_program(mat))
+        L = 4100
+        old, new, parity = rand(2, k, L), rand(2, k, L), rand(2, m, L)
+        got = packed.packed_delta_flat(lowered, shards(old), shards(new), shards(parity), L)
+        record("packed_delta", f"cauchy{k}-{m} flat (2, {k}, {L})", got,
+               packed.packed_delta_reference(lowered.prog, old, new, parity))
+        want = parity[1].cpu().numpy() ^ gf.gf_matmul(mat, (old[1] ^ new[1]).cpu().numpy())
+        check(np.array_equal(got[1].cpu().numpy(), want), f"packed_delta cauchy{k}-{m}: "
+              "!= parity ^ gf_matmul(old ^ new)")
+        print(f"[7] cauchy{k}-{m} flat delta: ring program {len(lowered.ops)} ops, "
+              f"{lowered.nslots} slots, {lowered.threads} threads, {2 * (k + m)} rows: exact")
+    k, m, L = 248, 8, 4100
+    mat = gf.isa_cauchy_matrix(k, m)[k:]
+    lowered = packed.LoweredProgram(packed.ring_program(mat))
+    data = rand(k + m + 1, k, L)
+    cw = torch.cat([data, packed.packed_code(lowered, data)], dim=1)
+    check(np.array_equal(cw[0, k:].cpu().numpy(), gf.gf_matmul(mat, data[0].cpu().numpy())),
+          "cauchy248-8 encode != gf_matmul")
+    for pos in range(k + m):
+        cw[pos, pos, (pos * 37) % L] ^= 1 << (pos % 8)
+    got = packed.packed_verify(lowered, cw)
+    record("packed_verify", f"cauchy248-8 L={L}", got,
+           packed.packed_verify_reference(lowered.prog, cw))
+    want = [verify_expected(mat, k, m, pos) for pos in range(k + m)] + [0]
+    check(got.cpu().tolist() == want, "cauchy248-8 verify: bitmap != the corrupted shards")
+    print(f"[7] cauchy248-8 verify: ring program {len(lowered.ops)} ops, {lowered.nslots} "
+          f"slots, {lowered.threads} threads, {k + m} rows, every shard position: exact")
 
 
 def phase_packed_path(torch, packed, swar, dispatch, registry, gf) -> dict:
@@ -1340,6 +1423,9 @@ def phase_packed_path(torch, packed, swar, dispatch, registry, gf) -> dict:
     rmw = [(rand(SCRUB_OBJECT_STRIPES, k, 4096), rand(SCRUB_OBJECT_STRIPES, k, 4096))
            for _ in range(RMW_OBJECTS)]
     tier_data = rand(*PACKED_TIER_SHAPE)
+    wide = registry.instance().factory("tpu", {"k": "128", "m": "16", "technique": "cauchy"})
+    wide_mat = wide.distribution_matrix()[wide.k:]
+    wide_data = rand(*WIDE_TIER_SHAPE)
     torch.cuda.synchronize()
 
     plain_calls = collections.Counter()
@@ -1418,6 +1504,15 @@ def phase_packed_path(torch, packed, swar, dispatch, registry, gf) -> dict:
             check(torch.equal(rec, full[:, erasures]),
                   f"packed tier decode {erasures} != the encoded bytes")
         del full, parity, tier_data
+        # fault C3: a wide Cauchy code on the packed tier (L % 128 != 0)
+        for _ in range(2):
+            wide_parity = wide.encode_array(wide_data)
+            calls["code"] += 1
+        for s in (0, WIDE_TIER_SHAPE[0] - 1):
+            check(np.array_equal(wide_parity[s].cpu().numpy(),
+                                 gf.gf_matmul(wide_mat, wide_data[s].cpu().numpy())),
+                  f"Cauchy(128,16) packed tier encode stripe {s} != gf_matmul")
+        del wide_parity, wide_data
         torch.cuda.synchronize()
     finally:
         for (module, name), fn in originals.items():
@@ -1427,7 +1522,8 @@ def phase_packed_path(torch, packed, swar, dispatch, registry, gf) -> dict:
     counts = {name: counter.snapshot()["launches"] for name, counter in counters.items()}
     print(f"[7] slice path: scrub of {SCRUB_SHAPE} (2 verifies), {RMW_OBJECTS} RMW deltas over "
           f"19 flat 512 KiB shards, packed tier on {PACKED_TIER_SHAPE} (encode + 4 erasure "
-          f"classes), exact; {seconds:.2f} s host clock")
+          f"classes), Cauchy(128,16) packed tier encode of {WIDE_TIER_SHAPE} twice, exact; "
+          f"{seconds:.2f} s host clock")
     print(f"[7] launches {launches}, swar_gf {swar.launches}; tier calls {dict(calls)}; "
           f"dispatch counters {counts}; plain-version calls {dict(plain_calls)}")
     check(not plain_calls, f"the path reached plain versions: {dict(plain_calls)}")
@@ -1487,6 +1583,120 @@ def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def packed_compare(torch, packed, gf) -> dict:
+    """One tree's packed kernels (this checkout's, or an older one's through
+    --packed-timing-of) at the slice's shapes, RS(8,3) Vandermonde: ms
+    (`time_ms`), device ms (`device_ms`) and host us a call (`host_us`) of
+    packed_code at BULK and of RS(32,3)'s 3-erasure decode (the plan's
+    program) at WIDE_SHAPE, packed_verify at SCRUB_SHAPE and packed_delta
+    over 19 flat shard buffers at BULK.  Uses only the wrappers every tree
+    since the packed kernels landed has."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 80)
+    rand = lambda *shape: torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                                        generator=gen)
+    lowered = packed.lower_program(packed.best_program(gf.isa_rs_vandermonde_matrix(8, 3)[8:]))
+    out = {}
+
+    def timed(name, fn, host=True):
+        out[name] = {"ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn)}
+        if host:
+            out[name]["host_us"] = host_us(torch, fn)
+
+    data = rand(*BULK)
+    timed("packed_code", lambda: packed.packed_code(lowered, data))
+    wmat, _ = gf.isa_decode_matrix(gf.isa_rs_vandermonde_matrix(32, 3), [0, 1, 2], 32)
+    wide = packed.PackedPlan(wmat).lowered
+    wdata = rand(*WIDE_SHAPE)
+    timed("packed_code_wide", lambda: packed.packed_code(wide, wdata), host=False)
+    del wdata
+    vdata = rand(SCRUB_SHAPE[0], 8, SCRUB_SHAPE[2])
+    cw = torch.cat([vdata, packed.packed_code(lowered, vdata)], dim=1)
+    del vdata
+    check(not bool(packed.packed_verify(lowered, cw).any()), "clean codewords flagged")
+    timed("packed_verify", lambda: packed.packed_verify(lowered, cw))
+    del cw
+    shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
+    bufs = (shards(data), shards(rand(*BULK)), shards(packed.packed_code(lowered, data)))
+    timed("packed_delta", lambda: packed.packed_delta_flat(lowered, *bufs, BULK[2]))
+    return out
+
+
+def parent_comparison(parent: str | None) -> dict:
+    """`packed_compare` of an older tree (`parent`, the root of a checkout of
+    it) beside this one's, in turns (parent, this, this, parent), each in a
+    process of its own so both trees' ceph_tpu_torch are imported under
+    their own name.  Returns, per kernel, the parent's best ms and device
+    ms (empty without a parent)."""
+    if parent is None:
+        print("[7] parent comparison: not run (no --parent DIR)")
+        return {}
+    runs = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in (parent, here, here, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--packed-timing-of",
+                               os.path.abspath(root)], capture_output=True, text=True,
+                              timeout=600)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+        check(proc.returncode == 0 and lines,
+              f"packed timing of {root} failed: {proc.stderr.strip()[-2000:]}")
+        runs.append(json.loads(lines[-1]))
+    label = ("parent", "change", "change", "parent")
+    for name in runs[0]:
+        cells = "; ".join(
+            f"{who} {r[name]['ms']:.4f} ms, device {r[name]['device_ms']:.4f}"
+            + (f", host {r[name]['host_us']:.1f} us" if "host_us" in r[name] else "")
+            for who, r in zip(label, runs))
+        best = lambda rs, key: min(r[name][key] for r in rs)
+        print(f"[7] {name} parent/change: {cells}; change/parent "
+              f"{best(runs[1:3], 'ms') / best(runs[::3], 'ms'):.3f}x (ms), "
+              f"{best(runs[1:3], 'device_ms') / best(runs[::3], 'device_ms'):.3f}x (device)")
+    return {name: {"parent_ms": min(r[name]["ms"] for r in runs[::3]),
+                   "parent_device_ms": min(r[name]["device_ms"] for r in runs[::3])}
+            for name in ("packed_code", "packed_verify", "packed_delta")}
+
+
+def verify_host_steps(torch, packed, plan, cw, calls: int = 2000) -> dict:
+    """Host us a call of each step of a `PackedVerifyPlan` call on a scrub
+    chunk, each step timed alone: what `host_us` of the call is made of.
+    `_launch` (packing the descriptor, the operand, the device and stream
+    lookups, the C entry's launch, the count) is timed over 200 calls, so
+    its launches do not fill the card's queue."""
+    dev = cw.device
+    lowered = plan.lowered
+    src = packed._stripes(cw, cw.shape[1])
+    flags = torch.empty(cw.shape[0], dtype=torch.uint8, device=dev)
+    groups = (packed.group(src),)
+    steps = {
+        "record_launch": lambda: packed.record_launch(packed.lead_stripes(cw.shape), cw.numel(),
+                                                      verify=True),
+        "operand_for": lambda: plan.operand_for(cw),
+        "_check": lambda: packed._check("packed_verify", cw),
+        "_stripes": lambda: packed._stripes(cw, cw.shape[1]),
+        "torch.empty flags": lambda: torch.empty(cw.shape[0], dtype=torch.uint8, device=dev),
+        "group": lambda: packed.group(src),
+        "_launch": lambda: packed._launch(packed.MODE_VERIFY, "packed_verify", lowered, groups,
+                                          cw.shape[0], cw.shape[2], dev, flags),
+        "  descriptor pack": lambda: packed.struct.pack("4q", *groups[0]),
+        "  operand": lambda: lowered.operand(dev),
+        "  current_device": lambda: torch.cuda.current_device(),
+        "  raw stream": lambda: packed._RAW_STREAM(dev.index),
+    }
+    out = {}
+    for name, fn in steps.items():
+        n = 200 if name == "_launch" else calls
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    out["whole call"] = host_us(torch, lambda: plan(cw))
+    return out
 
 
 def phase_packed_timing(torch, packed, swar, gf) -> dict:
@@ -1571,6 +1781,21 @@ def phase_packed_timing(torch, packed, swar, gf) -> dict:
     out["packed_verify"] = {"ms": verify_ms, "plain_ms": verify_plain_ms, "bound_ms": vbound,
                             "bound_by": vby, "library_ms": None, "variant": f"{SCRUB_SHAPE}",
                             "device_ms": verify_dev_ms}
+    # the scrub launch's grid, and the host time of the plan's call step by step
+    grid = (ctypes.c_int * 2)()
+    flags = torch.empty(Sv, dtype=torch.uint8, device=dev)
+    err = packed._LAUNCH(packed.MODE_VERIFY, packed.struct.pack("4q", *packed.group(cw)), 1,
+                         lowered.operand(dev).data_ptr(), len(lowered.ops), lowered.nslots,
+                         lowered.threads, k, m, Sv, Lv, packed._XTIME_RED, flags.data_ptr(),
+                         packed._RAW_STREAM(cw.device.index), grid)
+    torch.cuda.synchronize()
+    check(err == 0, f"packed_verify launch for its grid: cudaError {err}")
+    print(f"[7] packed_verify {SCRUB_SHAPE}: grid {grid[0]} blocks of {lowered.threads} threads "
+          f"({grid[1]} resident an SM, {Sv / grid[0]:.2f} stripes a block)")
+    steps = verify_host_steps(torch, packed, packed.PackedVerifyPlan(mat), cw)
+    print("[7] packed_verify host us a call, step by step: "
+          + ", ".join(f"{name.strip()} {us:.2f}" for name, us in steps.items()))
+    out["packed_verify"]["host_us"] = steps["whole call"]
     del cw
     # delta over flat shard buffers at the bulk shape
     new = torch.randint(0, 256, BULK, dtype=torch.uint8, device=dev, generator=gen)
@@ -1601,13 +1826,29 @@ def phase_packed_timing(torch, packed, swar, gf) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="root of an older checkout whose packed kernels phase 7c times "
+                             "beside this one's")
+    parser.add_argument("--packed-timing-of", metavar="DIR",
+                        help="only time the packed kernels of the checkout at DIR and print "
+                             "one JSON line (what --parent runs)")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if args.packed_timing_of:
+        root = os.path.abspath(args.packed_timing_of)
+        sys.path.insert(0, root)
+        from ceph_tpu_torch import gf
+        from ceph_tpu_torch.ops import packed_gf as packed
+        check(packed.__file__.startswith(root + os.sep), f"{packed.__file__} is not under {root}")
+        print(json.dumps(packed_compare(torch, packed, gf)))
+        return 0
     try:
         from ceph_tpu_torch import gf
         from ceph_tpu_torch.codec import registry
@@ -1643,6 +1884,8 @@ def main() -> int:
     diag_launches.update(phase("7b", phase_packed_path, torch, packed, swar, dispatch,
                                registry, gf))
     diag_times.update(phase("7c", phase_packed_timing, torch, packed, swar, gf))
+    for kernel, row in phase("7c", parent_comparison, args.parent).items():
+        diag_times[kernel].update(row)
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -1686,4 +1929,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from ceph_tpu.codec import registry as jregistry
-from ceph_tpu.gf import isa_cauchy_matrix, isa_decode_matrix, isa_rs_vandermonde_matrix
+from ceph_tpu.gf import gf_matmul, isa_cauchy_matrix, isa_decode_matrix, isa_rs_vandermonde_matrix
 from ceph_tpu.ops import packed_gf as jpacked
 
 from ceph_tpu_torch.codec import matrix_codec, registry
@@ -347,3 +347,104 @@ def test_device_coder_tier_choice(monkeypatch, L, tier):
     got = ours.encode_array(data, out=out)
     assert np.array_equal(got.numpy(), parity.numpy())
     assert (got is out) == (tier == "packed")
+
+
+# The corners of the profiles plugin `tpu` takes (Cauchy has no k, m cap; k +
+# m <= 256): the widest encode of each shape class and a 16-erasure decode.
+def _wide_matrix(label):
+    k, m = (int(x) for x in label.split("-")[0][1:].split("_"))
+    full = isa_cauchy_matrix(k, m)
+    if label.endswith("-decode"):
+        return isa_decode_matrix(full, list(range(m)), k)[0]
+    return full[k:]
+
+
+# label -> threads a block of its ring program (its outputs stay live to the
+# end, so about k + m + 3 slots: 128 threads hold 113, 64 hold 227)
+WIDE_CAUCHY = {"c128_16": 64, "c96_8": 128, "c248_8": 32, "c200_56": 32, "c2_254": 32,
+               "c128_16-decode": 64}
+
+
+@pytest.mark.parametrize("label", WIDE_CAUCHY)
+def test_wide_cauchy_ring_program_fits_the_kernels(label):
+    """Every profile corner lowers with no op limit: the ring program fits a
+    block (Cauchy(96,8)'s 2984 ops: one 16 KB tile of op rows beside 104
+    slots at 128 threads), its operand computes the reference's bytes
+    (`gf_matmul`) on a small stripe, and the delta's 2k + 2m rows fit
+    MAX_ROWS."""
+    mat = _wide_matrix(label)
+    m, k = mat.shape
+    ring = packed_gf.LoweredProgram(packed_gf.ring_program(mat))
+    assert ring.threads == WIDE_CAUCHY[label]
+    assert packed_gf.shared_bytes(len(ring.ops), k, m, ring.nslots,
+                                  ring.threads) <= packed_gf.SMEM_LIMIT
+    data = _data((1, k, 7), [k, m])
+    assert np.array_equal(_model(ring, data)[0], gf_matmul(mat, data[0]))
+    assert 2 * (k + m) <= packed_gf.MAX_ROWS
+
+
+def test_kernel_program_of_a_wide_cauchy_code_skips_cse(monkeypatch):
+    """Cauchy(128,16): the tower leaves (1024) cannot fit a block of the ring
+    program's threads, so kernel_program builds neither the CSE nor the
+    tower program (CSE alone takes minutes there), and memoizes its choice."""
+    def refuse(_mat):
+        raise AssertionError("cse_program called")
+
+    monkeypatch.setattr(packed_gf, "cse_program", refuse)
+    monkeypatch.setattr(packed_gf, "naive_program", refuse)
+    monkeypatch.setattr(packed_gf, "_KERNEL_MEMO", {})
+    mat = _wide_matrix("c128_16")
+    assert packed_gf.tower_leaves(mat) == 1024
+    lowered = packed_gf.kernel_program(mat)
+    assert lowered.prog == packed_gf.ring_program(mat)
+    assert packed_gf.kernel_program(mat) is lowered
+
+
+def _row_table(*groups):
+    """The (address, stripe stride) rows the kernels read: one entry per row
+    of each (S, n, L) tensor, in order."""
+    return [(g.data_ptr() + i * g.stride(1), g.stride(0)) for g in groups
+            for i in range(g.shape[1])]
+
+
+def _expand(descriptors):
+    """The row table csrc/packed_gf.cu builds from group descriptors."""
+    return [(base + i * rstride, sstride) for base, sstride, rstride, rows in descriptors
+            for i in range(rows)]
+
+
+def test_group_descriptors_give_the_row_table():
+    """Group descriptors expand to one (address, stripe stride) row per row
+    of a dense tensor, of a strided view of codewords, and of 22 flat shard
+    buffers (the delta's old, new and parity of RS(8,3), and its output)."""
+    dense = torch.zeros((4, 11, 300), dtype=torch.uint8)
+    view = packed_gf._stripes(dense[:, :8], 8)
+    assert view.data_ptr() == dense.data_ptr()
+    for t in (dense, view):
+        assert _expand([packed_gf.group(t)]) == _row_table(t)
+    bufs = [torch.zeros(3 * 4096, dtype=torch.uint8).view(-1, 1, 4096) for _ in range(19)]
+    out = torch.zeros((3, 3, 4096), dtype=torch.uint8)
+    groups = [packed_gf.group(b) for b in (*bufs, out)]
+    assert len(_expand(groups)) == 22
+    assert _expand(groups) == _row_table(*bufs, out)
+
+
+def test_plan_builds_best_program_only_for_the_cpu(monkeypatch):
+    """A plan builds best_program at its first CPU use, never before (so a
+    CUDA plan of a wide code never runs cse_program)."""
+    calls = []
+    best = packed_gf.best_program
+    monkeypatch.setattr(packed_gf, "best_program", lambda mat: calls.append(1) or best(mat))
+    mat = isa_rs_vandermonde_matrix(8, 3)[8:]
+    plan = packed_gf.PackedPlan(mat)
+    verify = packed_gf.PackedVerifyPlan(mat)
+    assert not calls
+    assert plan.lowered.prog == best(mat)
+    assert not calls
+    data = _data((1, 8, 64), 21)
+    got = plan(torch.from_numpy(data))
+    assert calls == [1]
+    assert np.array_equal(got.numpy(), jpacked.packed_code_host(mat, data))
+    cw = np.concatenate([data, got.numpy()], axis=1)
+    assert not verify(torch.from_numpy(cw)).any()
+    assert calls == [1, 1]
