@@ -2,10 +2,13 @@
 
 The port of the part of `ceph_tpu/codec/matrix_codec.py` that the `tpu`
 plugin's encode, decode, deep-scrub verify and RMW delta run:
-`_DeviceCoder`, the plan cache and `MatrixCodecMixin`.  Any systematic code
-defined by a (k+m, k) distribution matrix gets its chunk-level and
-device-level paths from the mixin; concrete codecs supply geometry +
-`build_matrix()`.
+`_DeviceCoder`, the plan cache (with its hit/miss totals),
+`MatrixCodecMixin`, the EC aggregators of the offload runtime
+(`EncodeAggregator`, `DecodeAggregator`, `VerifyAggregator` and their
+process-wide `default_*_aggregator` services) and `EncodePipeline`.  Any
+systematic code defined by a (k+m, k) distribution matrix gets its
+chunk-level and device-level paths from the mixin; concrete codecs supply
+geometry + `build_matrix()`.
 
 Caching mirrors Ceph's two-level table cache
 (src/erasure-code/isa/ErasureCodeIsaTableCache.{h,cc}): encode coders per
@@ -18,7 +21,6 @@ device; every key includes the device.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Mapping
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..common.errs import EINVAL, EIO
+from ..common.lockdep import make_lock
 from ..gf import expand_matrix, isa_decode_matrix, xor_matmul_host_batch
 from ..ops.dispatch import lead_stripes, record_launch
 from ..ops.packed_gf import (
@@ -36,6 +39,14 @@ from ..ops.packed_gf import (
     packed_delta_flat,
     packed_delta_host,
     packed_verify_host,
+)
+from ..ops import packed_gf, swar_gf
+from ..ops.offload_runtime import (
+    AggTicket,
+    LaunchAggregator,
+    _AggGroup,
+    completion_event,
+    register_service,
 )
 from ..ops.swar_gf import CodingPlan, pick_geometry
 from ..ops.xor_mm import xor_matmul, xor_reduce
@@ -52,6 +63,18 @@ def dense_aligned(data: torch.Tensor) -> torch.Tensor:
     if data.is_contiguous() and data.data_ptr() % 16 == 0:
         return data
     return data.clone(memory_format=torch.contiguous_format)
+
+
+def load_kernels(device: torch.device) -> None:
+    """Build (once per process) and load the hand kernels a coder on
+    `device` runs: nothing for the CPU, `csrc/swar_gf.cu` and
+    `csrc/packed_gf.cu` for CUDA.  A CUDA codec calls it when it is made,
+    so an nvcc build never runs inside a guarded dispatch, where it would
+    count against the launch deadline and degrade the backend; a build
+    error raises to the caller."""
+    if device.type == "cuda":
+        swar_gf.build_library()
+        packed_gf.build_library()
 
 
 class _DeviceCoder:
@@ -80,10 +103,21 @@ class _DeviceCoder:
         self.bm = torch.from_numpy(expand_matrix(gf_rows)).to(device)
         self.decode = decode
 
+    @staticmethod
+    def tier(shape) -> str:
+        """The tier an input of this (..., k, L) shape runs on: "swar",
+        "packed" or "xor_matmul"."""
+        if pick_geometry(shape[-1]) is not None:
+            return "swar"
+        if int(np.prod(shape)) >= PACKED_MIN_BYTES:
+            return "packed"
+        return "xor_matmul"
+
     def __call__(self, data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-        if pick_geometry(data.shape[-1]) is not None:
+        tier = self.tier(data.shape)
+        if tier == "swar":
             return self.plan(dense_aligned(data))
-        if data.numel() >= PACKED_MIN_BYTES:
+        if tier == "packed":
             return self.packed(data, out=out)
         record_launch(lead_stripes(data.shape), data.numel(), decode=self.decode)
         return xor_matmul(self.bm, data)
@@ -94,11 +128,25 @@ class _GlobalPlanCache:
     content."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("plan_cache")
         self._encode_coders: dict[tuple, _DeviceCoder] = {}
         self._decode: OrderedDict[tuple, tuple[np.ndarray, list[int]]] = OrderedDict()
         self._decode_coders: OrderedDict[tuple, _DeviceCoder] = OrderedDict()
         self._verify_plans: dict[tuple, PackedVerifyPlan] = {}
+        # coder lookup hit/miss totals (encode, decode and verify), as the
+        # reference counts them
+        self._hits = 0
+        self._misses = 0
+
+    def stats(self) -> dict[str, int]:
+        """Coder-cache hit/miss totals (encode + decode + verify lookups)."""
+        with self._lock:
+            return {"hits": self._hits, "misses": self._misses}
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self._hits = 0
+            self._misses = 0
 
     def encode_coder(self, coding_rows: np.ndarray, device: torch.device) -> _DeviceCoder:
         """Cached coding operator for an encode matrix on `device`; unbounded
@@ -106,6 +154,10 @@ class _GlobalPlanCache:
         key = (str(device), coding_rows.shape, coding_rows.tobytes())
         with self._lock:
             coder = self._encode_coders.get(key)
+            if coder is not None:
+                self._hits += 1
+            else:
+                self._misses += 1
         if coder is not None:
             return coder
         coder = _DeviceCoder(coding_rows, device)  # built outside the lock
@@ -119,8 +171,10 @@ class _GlobalPlanCache:
         key = (str(device), coding_rows.shape, coding_rows.tobytes())
         with self._lock:
             plan = self._verify_plans.get(key)
-        if plan is not None:
-            return plan
+            if plan is not None:
+                self._hits += 1
+                return plan
+            self._misses += 1
         plan = PackedVerifyPlan(coding_rows)
         with self._lock:
             return self._verify_plans.setdefault(key, plan)
@@ -188,8 +242,10 @@ class _GlobalPlanCache:
         with self._lock:
             coder = self._decode_coders.get(ckey)
             if coder is not None:
+                self._hits += 1
                 self._decode_coders.move_to_end(ckey)
                 return coder, decode_index
+            self._misses += 1
         coder = _DeviceCoder(c, device, decode=True)  # built outside the lock
         with self._lock:
             self._decode_coders[ckey] = coder
@@ -200,6 +256,255 @@ class _GlobalPlanCache:
 
 
 PLAN_CACHE = _GlobalPlanCache()
+
+
+class EncodeAggregator(LaunchAggregator):
+    """Cross-write launch aggregation: concurrent stripe encodes of one
+    (matrix, chunk-size) geometry coalesce into one padded device launch
+    (knobs `ec_tpu_aggregate_window` / `ec_tpu_aggregate_max_bytes`)."""
+
+    PERF_NAME = "ec_aggregator"
+    WHAT = "encode"
+
+    def submit(self, ec: "MatrixCodecMixin", shaped: np.ndarray) -> AggTicket:
+        """Queue one (stripes, k, L) uint8 encode; returns its ticket."""
+        return self._submit(
+            (ec.distribution_matrix().tobytes(), shaped.shape[-1]), ec, None, shaped
+        )
+
+    def _dispatch(self, g: _AggGroup, data: np.ndarray, donate):
+        return g.ec.encode_array(data, out=donate)
+
+    def _out_shape(self, g: _AggGroup, data_shape) -> tuple:
+        return (
+            data_shape[0],
+            g.ec.get_chunk_count() - data_shape[1],
+            data_shape[2],
+        )
+
+    def _donate_ok(self, g: _AggGroup, data_shape) -> bool:
+        check = getattr(g.ec, "encode_donatable", None)
+        return bool(check(data_shape)) if check is not None else False
+
+
+class DecodeAggregator(LaunchAggregator):
+    """Cross-op DECODE launch aggregation — the recovery/degraded-read
+    twin of EncodeAggregator (knobs `ec_tpu_decode_aggregate_window` /
+    `ec_tpu_decode_aggregate_max_bytes`).
+
+    Submissions are (stripes, k, L) survivor batches in decode_index
+    order, keyed by the cached decode-plan signature + chunk length: the
+    common case during recovery/backfill is ONE erasure pattern repeating
+    across every object in the PG, so per-object decodes coalesce into
+    one padded launch exactly like concurrent writes do on the encode
+    side.  Tickets resolve to (stripes, len(erasures), L) reconstructed
+    chunks, rows in erasure order; a failed launch is sticky on its group
+    and reported at every co-rider's reap."""
+
+    PERF_NAME = "ec_decode_aggregator"
+    WHAT = "decode"
+    SCHED_CLASS = "recovery"
+
+    def submit(
+        self, ec: "MatrixCodecMixin", erasures: list[int], survivors: np.ndarray
+    ) -> AggTicket:
+        """Queue one (stripes, k, L) uint8 survivor batch (decode_index
+        order); returns its ticket.  Co-riders share a group only when
+        their decode-plan signature matches, so every ticket in a group
+        agrees on the erasure row order."""
+        erasures = list(erasures)
+        key = PLAN_CACHE._decode_key(
+            ec.distribution_matrix(), erasures, ec.k
+        ) + (survivors.shape[-1],)
+        return self._submit(key, ec, tuple(erasures), survivors)
+
+    def _dispatch(self, g: _AggGroup, data: np.ndarray, donate):
+        return g.ec.decode_array(list(g.ctx), data, out=donate)
+
+    def _out_shape(self, g: _AggGroup, data_shape) -> tuple:
+        return (data_shape[0], len(g.ctx), data_shape[2])
+
+    def _donate_ok(self, g: _AggGroup, data_shape) -> bool:
+        check = getattr(g.ec, "decode_donatable", None)
+        return bool(check(list(g.ctx), data_shape)) if check is not None else False
+
+
+class VerifyAggregator(LaunchAggregator):
+    """Cross-object VERIFY launch aggregation: deep-scrub parity
+    recomputes from one (matrix, chunk-length) geometry coalesce into one
+    compare-only device launch (knobs `ec_tpu_verify_aggregate_window` /
+    `ec_tpu_verify_aggregate_max_bytes`).
+
+    Submissions are (stripes, k+m, L) full-codeword batches — data rows
+    in encode order followed by the stored parity rows — and tickets
+    resolve to a (stripes,) uint8 per-stripe mismatch bitmap (bit j set
+    = parity row j inconsistent).  Padding stripes are all-zero
+    codewords, whose recomputed parity is zero = their stored parity,
+    so a padded launch's bitmap is exact.  Launches dispatch under the
+    `background` QoS lane: a scrub chunk's verify never preempts a
+    queued client encode."""
+
+    PERF_NAME = "ec_verify_aggregator"
+    WHAT = "verify"
+    SCHED_CLASS = "background"
+    MEM_POOL = "verify"
+
+    def submit(self, ec: "MatrixCodecMixin", codewords: np.ndarray) -> AggTicket:
+        """Queue one (stripes, k+m, L) uint8 codeword batch; the ticket
+        resolves to its (stripes,) mismatch bitmap."""
+        return self._submit(
+            (ec.distribution_matrix().tobytes(), "#verify",
+             codewords.shape[-1]),
+            ec, None, codewords,
+        )
+
+    def _dispatch(self, g: _AggGroup, data: np.ndarray, donate):
+        return g.ec.verify_array(data)
+
+    def _out_shape(self, g: _AggGroup, data_shape) -> tuple:
+        return (data_shape[0],)
+
+    def _donate_ok(self, g: _AggGroup, data_shape) -> bool:
+        return False  # the bitmap output is tiny; pooling buys nothing
+
+
+_DEFAULT_AGGREGATOR: EncodeAggregator | None = None
+
+
+def default_encode_aggregator() -> EncodeAggregator:
+    """Process-wide aggregator shared by every caller that isn't handed
+    its own — the sharing is what coalesces encodes ACROSS PGs.  Built
+    from the option-table defaults (common/options.py)."""
+    global _DEFAULT_AGGREGATOR
+    if _DEFAULT_AGGREGATOR is None:
+        from ..common.options import OPTIONS
+
+        _DEFAULT_AGGREGATOR = EncodeAggregator(
+            window=int(OPTIONS["ec_tpu_aggregate_window"].default),
+            max_bytes=int(OPTIONS["ec_tpu_aggregate_max_bytes"].default),
+        )
+    return _DEFAULT_AGGREGATOR
+
+
+_DEFAULT_DECODE_AGGREGATOR: DecodeAggregator | None = None
+
+
+def default_decode_aggregator() -> DecodeAggregator:
+    """Process-wide decode aggregator, so recovery/degraded-read decodes
+    coalesce ACROSS PGs on one OSD (the backfill case: one erasure
+    pattern, many objects)."""
+    global _DEFAULT_DECODE_AGGREGATOR
+    if _DEFAULT_DECODE_AGGREGATOR is None:
+        from ..common.options import OPTIONS
+
+        _DEFAULT_DECODE_AGGREGATOR = DecodeAggregator(
+            window=int(OPTIONS["ec_tpu_decode_aggregate_window"].default),
+            max_bytes=int(OPTIONS["ec_tpu_decode_aggregate_max_bytes"].default),
+        )
+    return _DEFAULT_DECODE_AGGREGATOR
+
+
+_DEFAULT_VERIFY_AGGREGATOR: VerifyAggregator | None = None
+
+
+def default_verify_aggregator() -> VerifyAggregator:
+    """Process-wide verify aggregator shared by every scrubber, so
+    concurrent deep scrubs of different PGs coalesce their parity
+    recomputes into shared compare-only launches.  The default window is
+    open (unlike encode/decode): scrub is a throughput workload with no
+    commit barrier, so batching is pure win — the scrubber's per-chunk
+    reap is the flush."""
+    global _DEFAULT_VERIFY_AGGREGATOR
+    if _DEFAULT_VERIFY_AGGREGATOR is None:
+        from ..common.options import OPTIONS
+
+        _DEFAULT_VERIFY_AGGREGATOR = VerifyAggregator(
+            window=int(OPTIONS["ec_tpu_verify_aggregate_window"].default),
+            max_bytes=int(OPTIONS["ec_tpu_verify_aggregate_max_bytes"].default),
+        )
+    return _DEFAULT_VERIFY_AGGREGATOR
+
+
+# The EC trio are the offload runtime's service entries: same singletons,
+# same knobs, same perf names as the reference's.
+register_service(
+    "encode", default_encode_aggregator, lane="client",
+    oracle="MatrixCodecMixin.encode_array_host",
+    doc="EC stripe encode (parity generation)",
+)
+register_service(
+    "decode", default_decode_aggregator, lane="recovery",
+    oracle="MatrixCodecMixin.decode_array_host",
+    doc="EC reconstruct decode (recovery / degraded reads)",
+)
+register_service(
+    "verify", default_verify_aggregator, lane="background",
+    oracle="MatrixCodecMixin.verify_array_host",
+    doc="EC deep-scrub compare-only verify",
+)
+
+
+class EncodePipeline:
+    """Asynchronous chunk-encode hand-off — the completion queue behind
+    the synchronous `encode_chunks` interface.
+
+    `submit` copies the stripe to the device and LAUNCHES the encode
+    (kernel launches are asynchronous: the call returns while the device
+    works; the host-to-device copy of pageable memory blocks), and records
+    a CUDA event after it, so consecutive submissions overlap compute with
+    the host-side gather of the next batch.  Completions copy parity back
+    into the caller's chunk buffers exactly like `encode_chunks`; `poll()`
+    reaps only launches whose event has fired (non-blocking), `flush()`
+    drains everything.  `depth` bounds device-side in-flight work the way
+    an AIO queue depth does.
+    """
+
+    def __init__(self, codec: "MatrixCodecMixin", depth: int = 4):
+        self.codec = codec
+        self.depth = max(1, depth)
+        self._tickets = 0
+        # in-flight: (ticket, caller chunk dict, device parity, its event)
+        self._inflight: list[tuple] = []
+        # tickets completed inside submit's backpressure path: the next
+        # poll()/flush() reports them — a completed ticket is NEVER lost
+        self._reaped: list[int] = []
+
+    def submit(self, chunks: Mapping[int, np.ndarray]) -> int:
+        """Launch one stripe's encode; returns its ticket.  Blocks only
+        when `depth` launches are already in flight (backpressure)."""
+        parity_dev = self.codec.encode_array(self.codec._gather(chunks))
+        self._tickets += 1
+        self._inflight.append(
+            (self._tickets, chunks, parity_dev, completion_event(parity_dev))
+        )
+        while len(self._inflight) > self.depth:
+            self._reaped += self._complete(*self._inflight.pop(0))
+        return self._tickets
+
+    def _complete(self, ticket: int, chunks, parity_dev, event) -> list[int]:
+        parity = parity_dev.cpu().numpy()  # blocks until the launch finishes
+        self.codec._scatter(chunks, parity)
+        return [ticket]
+
+    def poll(self) -> list[int]:
+        """Reap FINISHED launches without blocking (completion queue)."""
+        done, self._reaped = self._reaped, []
+        while self._inflight:
+            event = self._inflight[0][3]
+            # no event means unknown readiness, so NOT ready: popping
+            # would block in _complete and silently defeat the
+            # non-blocking contract (a CPU tensor is reaped by flush)
+            if event is None or not event.query():
+                break  # still computing; keep submission order
+            done += self._complete(*self._inflight.pop(0))
+        return done
+
+    def flush(self) -> list[int]:
+        """Drain every in-flight encode (the barrier before a commit)."""
+        done, self._reaped = self._reaped, []
+        while self._inflight:
+            done += self._complete(*self._inflight.pop(0))
+        return done
 
 
 class MatrixCodecMixin:
@@ -265,6 +570,22 @@ class MatrixCodecMixin:
             return xor_reduce(arr)[..., None, :]
         return PLAN_CACHE.encode_coder(mat[self.k :], self.device)(arr, out=out)
 
+    def encode_donatable(self, data_shape) -> bool:
+        """True when encode_array(data, out=...) at this input shape will
+        actually write into a donated parity buffer — i.e. the dispatch
+        lands on the packed tier.  The EncodeAggregator gates its donation
+        pool on this so it never hoards dead device memory for paths
+        (xor_reduce, SWAR, xor_matmul) that ignore `out`.  The size test
+        and the coder lookup come in the reference's order, so the plan
+        cache counts the same hits and misses."""
+        mat = self.distribution_matrix()
+        if self.m == 1 and self._xor_row_available():
+            return False
+        if int(np.prod(data_shape)) < PACKED_MIN_BYTES:
+            return False
+        coder = PLAN_CACHE.encode_coder(mat[self.k :], self.device)
+        return coder.tier(data_shape) == "packed"
+
     def decode_array(
         self, erasures: list[int], survivors, out: torch.Tensor | None = None
     ) -> torch.Tensor:
@@ -276,6 +597,18 @@ class MatrixCodecMixin:
             self.distribution_matrix(), list(erasures), self.k, self.device
         )
         return coder(self._to_device(survivors), out=out)
+
+    def decode_donatable(self, erasures: list[int], data_shape) -> bool:
+        """True when decode_array(erasures, data, out=...) at this input
+        shape will actually write into a donated output buffer — the
+        decode twin of encode_donatable, gating the DecodeAggregator's
+        pool."""
+        if int(np.prod(data_shape)) < PACKED_MIN_BYTES:
+            return False
+        coder, _ = PLAN_CACHE.decode_coder(
+            self.distribution_matrix(), list(erasures), self.k, self.device
+        )
+        return coder.tier(data_shape) == "packed"
 
     def verify_array(self, codewords) -> torch.Tensor:
         """(..., k+m, L) uint8 codewords (data rows in encode order, then the

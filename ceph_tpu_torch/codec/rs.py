@@ -24,7 +24,7 @@ from ..common.errs import EINVAL
 from ..gf import isa_cauchy_matrix, isa_rs_vandermonde_matrix
 from .base import ErasureCode
 from .interface import EcError, Profile
-from .matrix_codec import MatrixCodecMixin
+from .matrix_codec import MatrixCodecMixin, load_kernels
 
 VANDERMONDE = "reed_sol_van"
 CAUCHY = "cauchy"
@@ -90,6 +90,7 @@ class ErasureCodeTpuRs(MatrixCodecMixin, ErasureCode):
         self.parse(profile)
         # Build the encode matrix now (reference `prepare()`, ErasureCodeIsa.cc:369).
         self.distribution_matrix()
+        load_kernels(self.device)
         self._profile = dict(profile)
 
     # -- geometry / matrix --------------------------------------------------

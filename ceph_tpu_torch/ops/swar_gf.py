@@ -131,7 +131,8 @@ def swar_code_reference(sched, data: torch.Tensor) -> torch.Tensor:
     m = len(sched) // 8
     if L % 4:
         raise ValueError(f"swar_code_reference: L={L} is not a multiple of 4")
-    words = data.contiguous().view(torch.int32)  # (..., k, L/4)
+    # through 1-D: a dtype view checks every stride, even a size-1 dim's
+    words = data.contiguous().view(-1).view(torch.int32).view(*lead, k, L // 4)
     planes: dict[tuple[int, int], torch.Tensor] = {}
     for j, b in sorted({t for row in sched for t in row}):
         w = words[..., j, :]

@@ -136,6 +136,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    over flat shards at (256, 8, 131072); with --parent, the older tree's
    packed_code (bulk and RS(32,3)'s decode), packed_verify and
    packed_delta beside this one's, time, device time and host time.
+8. The offload runtime (ops/offload_runtime.py and the EC aggregators of
+   codec/matrix_codec.py) through plugin `tpu` RS(8,3) reed_sol_van with
+   no device argument, at a deployment's size: RBD's 4 MiB object at
+   stripe_unit 4096 (128 stripes of 8 x 4096), option defaults (pipeline
+   depth 2, inflight 256 MiB, launch timeout 20 s).  8a: 64 client writes
+   from 8 submitter threads into an encode aggregator (window 1, then
+   window 8), tickets reaped out of order, parity equal to
+   `encode_array_host`, host-to-host GB/s of each.  8b: a backfill of 64
+   objects for each erasure class of PERF.md §2 through a decode
+   aggregator (window 8), then 16 objects at isa's chunk length 524320 (the
+   packed tier) in two rounds, so the second reuses the first's donated
+   out= buffer.  8c: one scrub chunk of 25 objects, (3200, 11, 4096),
+   submitted object by object to a verify aggregator (window 64, a byte
+   budget of the chunk: the default 64 MiB would split it), one launch a
+   pass, clean and corrupted at every shard position, exact.  8d:
+   EncodePipeline(depth=4) over 32 objects, poll reaping only launches
+   whose CUDA event has fired, flush the rest, exact.  8e: the guard
+   drill: `codec.launch` armed once fails its launch (the reap raises EIO,
+   the kernel is not reached, nothing is recomputed on the host,
+   FALLBACK_LAUNCHES unchanged, DEGRADED), then the cuda probe heals the
+   backend and the next launch runs swar_gf, exact.  8f: with the device turn held, a
+   queued client encode leaves the launch scheduler ahead of a queued
+   background verify.  Every part outside 8e: the aggregators' launches =
+   the change in LAUNCHES (and DECODE_/VERIFY_LAUNCHES) = the change in
+   the kernel's own launch count (swar_gf, packed_code, packed_verify), no
+   fallback, the guard never degraded, the in-flight mempool pools at 0
+   after the drain, one committed flight record a launch.  Printed beside
+   the card's name and power limit: the GB/s of 8a, the medians of the
+   flight records' spans (queue wait, h2d, kernel, d2h) a launch, and the
+   pipeline and padding gauges.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -1826,6 +1856,387 @@ def phase_packed_timing(torch, packed, swar, gf) -> dict:
     return out
 
 
+# Phase 8's deployment sizes: RBD's default 4 MiB object at stripe_unit
+# 4096 (RS(8,3): 32 KiB stripes, 128 an object), 64 client writes from 8
+# submitter threads (256 MiB), a backfill of 64 objects for each erasure
+# class, 16 objects at isa's chunk length (the packed tier), one scrub chunk
+# of 25 objects (osd_scrub_chunk_max), EncodePipeline over 32 objects.
+RT_OBJECTS = 64
+RT_THREADS = 8
+RT_WINDOW = 8
+RT_OBJECT_STRIPES = 128
+RT_L = 4096
+RT_ISA_OBJECTS = 16
+RT_ISA_L = 524320
+RT_SCRUB_OBJECTS = 25
+RT_PIPELINE_OBJECTS = 32
+RT_PIPELINE_DEPTH = 4
+RT_CLASSES = ([0], [9], [0, 9], [0, 5, 10])  # PERF.md §2's four erasure classes
+RT_INFLIGHT_POOLS = ("ec_pipeline_inflight", "verify", "offload_inflight")
+
+
+class RuntimeProbe:
+    """What phase 8 reads around each part: the kernels' own launch counts,
+    the dispatch counters, the fallback gauge, the device guard, the
+    in-flight pools and the flight records committed in the part."""
+
+    def __init__(self, torch, swar, packed, dispatch, fr, guard, led):
+        self.torch, self.swar, self.packed, self.dispatch = torch, swar, packed, dispatch
+        self.fr, self.guard, self.led = fr, guard, led
+
+    def counts(self) -> dict:
+        d = self.dispatch
+        return {"swar_gf": self.swar.launches, **self.packed.launches,
+                "LAUNCHES": d.LAUNCHES.snapshot()["launches"],
+                "DECODE_LAUNCHES": d.DECODE_LAUNCHES.snapshot()["launches"],
+                "VERIFY_LAUNCHES": d.VERIFY_LAUNCHES.snapshot()["launches"],
+                "FALLBACK_LAUNCHES": d.FALLBACK_LAUNCHES.snapshot()["launches"],
+                "degraded_total": self.guard.snapshot()["degraded_total"]}
+
+    def start(self) -> dict:
+        self.torch.cuda.synchronize()
+        self.fr.reset()
+        return self.counts()
+
+    def finish(self, part: str, before: dict, aggs, kernel: str,
+               counter: str | None = None) -> dict:
+        """Drain `aggs`, then hold the part to phase 8's four checks (no
+        fallback, the guard never degraded, the in-flight pools at 0, one
+        committed flight record a launch) and to: the aggregators' launches
+        = the change in LAUNCHES (and in `counter`) = the change in
+        `kernel`'s own launch count."""
+        for agg in aggs:
+            agg.drain()
+        self.torch.cuda.synchronize()
+        after = self.counts()
+        delta = {key: after[key] - before[key] for key in after}
+        launches = sum(int(agg.perf.get("launches")) for agg in aggs)
+        records = [r for r in self.fr.records() if r["group"] != "#raw"]
+        check(launches > 0, f"{part}: no aggregated launch")
+        check(delta["FALLBACK_LAUNCHES"] == 0,
+              f"{part}: {delta['FALLBACK_LAUNCHES']} launches fell back to the host")
+        check(delta["degraded_total"] == 0 and not self.guard.degraded,
+              f"{part}: the device guard degraded ({self.guard.reason})")
+        check(delta["LAUNCHES"] == launches,
+              f"{part}: LAUNCHES moved {delta['LAUNCHES']}, the aggregator launched {launches}")
+        check(delta[kernel] == launches,
+              f"{part}: {kernel} launched {delta[kernel]} times for {launches} launches")
+        if counter is not None:
+            check(delta[counter] == launches,
+                  f"{part}: {counter} moved {delta[counter]} for {launches} launches")
+        held = {pool: self.led.current_bytes(pool) for pool in RT_INFLIGHT_POOLS}
+        check(not any(held.values()), f"{part}: in-flight pools after the drain: {held}")
+        check(len(records) == launches,
+              f"{part}: {len(records)} committed flight records for {launches} launches")
+        check(not any(r["flags"]["fallback"] or r["flags"]["error"] for r in records),
+              f"{part}: a flight record flags a fallback or an error")
+        return {"delta": delta, "launches": launches, "records": records}
+
+
+def span_medians(records) -> dict:
+    """Median of each flight-record span over a part's launches, in ms."""
+    return {span: statistics.median(r[span] for r in records) * 1e3
+            for span in ("queue_wait_s", "h2d_s", "kernel_s", "d2h_s")}
+
+
+def phase_runtime(torch, swar, packed, dispatch, registry, card) -> dict:
+    """The offload runtime at a deployment's size through plugin `tpu`
+    RS(8,3) reed_sol_van on the card: the encode, decode and verify
+    aggregators (8a-8c), EncodePipeline (8d), the guard drill (8e) and the
+    QoS order (8f).  The kernels' launch counts are set to 0 just before
+    and each must be non-zero after."""
+    import threading
+
+    from ceph_tpu_torch.codec import matrix_codec as mc
+    from ceph_tpu_torch.common.fault_injector import global_injector
+    from ceph_tpu_torch.common.mempool import ledger
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.ops.launch_scheduler import CLASS_BY_LANE, launch_scheduler
+
+    ec = registry.instance().factory("tpu", {"k": "8", "m": "3", "technique": "reed_sol_van"})
+    check(ec.device.type == "cuda", f"codec on {ec.device}, want cuda")
+    k, m = ec.k, ec.m
+    mat = ec.distribution_matrix()[k:]
+    guard = device_guard()
+    check(guard.timeout_ms == 20000 and not guard.degraded,
+          f"device guard at {guard.timeout_ms} ms, degraded {guard.degraded}")
+    probe = RuntimeProbe(torch, swar, packed, dispatch, flight_recorder(), guard, ledger())
+    rng = np.random.default_rng(SEED + 80)
+    objs = rng.integers(0, 256, (RT_OBJECTS, RT_OBJECT_STRIPES, k, RT_L), dtype=np.uint8)
+    want_parity = ec.encode_array_host(objs.reshape(-1, k, RT_L)).reshape(
+        RT_OBJECTS, RT_OBJECT_STRIPES, m, RT_L)
+    full = np.concatenate([objs, want_parity], axis=2)  # (objects, stripes, k + m, L)
+    swar.launches = 0
+    for kernel in PACKED_KERNELS:
+        packed.launches[kernel] = 0
+    out: dict = {"spans": {}}
+
+    # 8a: 64 client writes from 8 submitter threads, reaped out of order
+    def write_all(window: int) -> tuple[float, dict, object]:
+        agg = mc.EncodeAggregator(window=window)
+        got: list = [None] * RT_OBJECTS
+        errors: list = []
+
+        def submitter(t: int) -> None:
+            try:
+                tickets = [(i, agg.submit(ec, objs[i])) for i in range(t, RT_OBJECTS, RT_THREADS)]
+                for i, ticket in reversed(tickets):
+                    got[i] = ticket.result()
+            except BaseException as e:  # surfaced after the join
+                errors.append(e)
+
+        before = probe.start()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submitter, args=(t,)) for t in range(RT_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            check(not th.is_alive(), "8a: a submitter thread did not finish")
+        seconds = time.perf_counter() - t0
+        check(not errors, f"8a: a submitter failed: {errors[:1]}")
+        res = probe.finish(f"8a window {window}", before, [agg], "swar_gf")
+        for i in range(RT_OBJECTS):
+            check(np.array_equal(got[i], want_parity[i]),
+                  f"8a window {window}: object {i}'s parity != encode_array_host")
+        return objs.nbytes / seconds / 1e9, res, agg
+
+    gbps1, res1, _ = write_all(1)
+    gbps8, res8, agg8 = write_all(RT_WINDOW)
+    out["spans"]["8a window 1"] = span_medians(res1["records"])
+    out["spans"]["8a window 8"] = span_medians(res8["records"])
+    out["8a"] = {"GBps_window1": gbps1, "GBps_window8": gbps8,
+                 "launches_window1": res1["launches"], "launches_window8": res8["launches"],
+                 "fused_launches": int(agg8.perf.get("fused_launches"))}
+    print(f"[8] 8a: {RT_OBJECTS} writes of 4 MiB ({objs.nbytes >> 20} MiB) from {RT_THREADS} "
+          f"threads, exact: host-to-host {gbps1:.3f} GB/s at window 1 ({res1['launches']} "
+          f"launches), {gbps8:.3f} GB/s at window {RT_WINDOW} ({res8['launches']} launches, "
+          f"{out['8a']['fused_launches']} fused); {card}")
+
+    # 8b: a backfill, 64 objects for each erasure class, reaped out of order
+    dec = mc.DecodeAggregator(window=RT_WINDOW)
+    before = probe.start()
+    tickets = []
+    for erasures in RT_CLASSES:
+        idx = ec.decode_index(erasures)
+        tickets += [(erasures, i, dec.submit(ec, erasures, full[i][:, idx]))
+                    for i in range(RT_OBJECTS)]
+    got = [None] * len(tickets)
+    for j in rng.permutation(len(tickets)):
+        erasures, i, ticket = tickets[j]
+        got[j] = ticket.result()
+        check(np.array_equal(got[j], full[i][:, erasures]),
+              f"8b: decode {erasures} of object {i} != the encoded bytes")
+    res = probe.finish("8b backfill", before, [dec], "swar_gf", "DECODE_LAUNCHES")
+    out["spans"]["8b backfill"] = span_medians(res["records"])
+    for c, erasures in enumerate(RT_CLASSES):  # the host oracle on one object a class
+        j = c * RT_OBJECTS + c
+        want = ec.decode_array_host(erasures, full[c][:, ec.decode_index(erasures)])
+        check(np.array_equal(got[j], want), f"8b: decode {erasures} != decode_array_host")
+    del tickets, got
+    # 16 objects at isa's chunk length: the packed tier, which writes into a
+    # donated out= buffer; two rounds, so the second reuses the first's
+    isa = rng.integers(0, 256, (RT_ISA_OBJECTS, 1, k, RT_ISA_L), dtype=np.uint8)
+    isa_full = np.concatenate(
+        [isa, ec.encode_array_host(isa.reshape(-1, k, RT_ISA_L))[:, None]], axis=2)
+    erasures = RT_CLASSES[-1]
+    idx = ec.decode_index(erasures)
+    check(ec.decode_donatable(erasures, (RT_WINDOW, k, RT_ISA_L)),
+          "8b: the packed tier's decode does not take a donated buffer")
+    dec_isa = mc.DecodeAggregator(window=RT_WINDOW)
+    pipe0 = dispatch.PIPELINE.snapshot()
+    before = probe.start()
+    for first in range(0, RT_ISA_OBJECTS, RT_WINDOW):
+        round_tickets = [(i, dec_isa.submit(ec, erasures, isa_full[i][:, idx]))
+                         for i in range(first, first + RT_WINDOW)]
+        for i, ticket in reversed(round_tickets):
+            check(np.array_equal(ticket.result(), isa_full[i][:, erasures]),
+                  f"8b: packed-tier decode of object {i} != the encoded bytes")
+    check(np.array_equal(isa_full[0][:, erasures],
+                         ec.decode_array_host(erasures, isa_full[0][:, idx])),
+          "8b: packed-tier decode != decode_array_host")
+    res = probe.finish("8b packed tier", before, [dec_isa], "packed_code", "DECODE_LAUNCHES")
+    out["spans"]["8b packed tier"] = span_medians(res["records"])
+    pipe1 = dispatch.PIPELINE.snapshot()
+    reused = pipe1["donation_reuses"] - pipe0["donation_reuses"]
+    live = pipe1["donation_recycled_live"] - pipe0["donation_recycled_live"]
+    check(reused > 0, "8b: no donated out= buffer was reused on the packed tier")
+    check(live == 0, f"8b: {live} live buffers were handed out for donation")
+    out["8b"] = {"donation_reused": reused, "recycled_live": live}
+    print(f"[8] 8b: {RT_OBJECTS} objects x {len(RT_CLASSES)} erasure classes at L={RT_L} and "
+          f"{RT_ISA_OBJECTS} objects at L={RT_ISA_L} decoded exact; donated buffers reused "
+          f"{reused}, live recycled {live}")
+    del isa, isa_full
+
+    # 8c: one scrub chunk, submitted object by object: one verify launch a pass
+    chunk = np.ascontiguousarray(full[:RT_SCRUB_OBJECTS])
+    corrupt = chunk.copy()
+    want_bits = np.zeros(RT_SCRUB_OBJECTS * RT_OBJECT_STRIPES, np.uint8)
+    for pos in range(k + m):  # object pos, stripe pos, shard pos
+        corrupt[pos, pos, pos, (pos * 373) % RT_L] ^= 1 << (pos % 8)
+        want_bits[pos * RT_OBJECT_STRIPES + pos] = verify_expected(mat, k, m, pos)
+    for label, codewords, want in (("clean", chunk, np.zeros_like(want_bits)),
+                                   ("corrupted", corrupt, want_bits)):
+        # the default 64 MiB budget would split the 141 MB chunk into three
+        ver = mc.VerifyAggregator(window=64, max_bytes=codewords.nbytes)
+        before = probe.start()
+        tickets = [ver.submit(ec, codewords[i]) for i in range(RT_SCRUB_OBJECTS)]
+        bitmap = np.concatenate([t.result() for t in reversed(tickets)][::-1])
+        res = probe.finish(f"8c {label}", before, [ver], "packed_verify", "VERIFY_LAUNCHES")
+        check(res["launches"] == 1, f"8c {label}: {res['launches']} verify launches, want 1")
+        check(res["records"][0]["sched_class"] == "background",
+              "8c: the verify launch did not ride the background lane")
+        check(np.array_equal(bitmap, want), f"8c {label}: bitmap not exact")
+        check(np.array_equal(bitmap, ec.verify_array_host(codewords.reshape(-1, k + m, RT_L))),
+              f"8c {label}: bitmap != verify_array_host")
+        out["spans"][f"8c {label}"] = span_medians(res["records"])
+    print(f"[8] 8c: scrub chunk ({RT_SCRUB_OBJECTS * RT_OBJECT_STRIPES}, {k + m}, {RT_L}) "
+          f"submitted per object, one verify launch a pass, clean and corrupted at every "
+          f"shard position, exact")
+    del chunk, corrupt
+
+    # 8d: EncodePipeline(depth=4) over 32 objects: poll never waits on a kernel
+    pipe = mc.EncodePipeline(ec, depth=RT_PIPELINE_DEPTH)
+    raw = objs[:RT_PIPELINE_OBJECTS].reshape(RT_PIPELINE_OBJECTS, -1)
+    real_complete, polling = pipe._complete, [False]
+    unready_reaps = []
+
+    def complete(ticket, chunks, parity_dev, event):
+        if polling[0] and not event.query():  # poll may reap only fired events
+            unready_reaps.append(ticket)
+        return real_complete(ticket, chunks, parity_dev, event)
+
+    pipe._complete = complete
+    before = probe.start()
+    stripes, reaped, poll_s = [], [], []
+    for i in range(RT_PIPELINE_OBJECTS):
+        chunks = ec.encode_prepare(raw[i])
+        stripes.append(chunks)
+        pipe.submit(chunks)
+        polling[0] = True
+        t0 = time.perf_counter()
+        reaped += pipe.poll()
+        poll_s.append(time.perf_counter() - t0)
+        polling[0] = False
+    by_poll = len(reaped)
+    reaped += pipe.flush()
+    torch.cuda.synchronize()
+    delta = {key: val - before[key] for key, val in probe.counts().items()}
+    check(sorted(reaped) == list(range(1, RT_PIPELINE_OBJECTS + 1)),
+          f"8d: tickets reaped {sorted(reaped)}")
+    check(not unready_reaps, f"8d: poll reaped unfinished launches {unready_reaps}")
+    check(delta["swar_gf"] == delta["LAUNCHES"] == RT_PIPELINE_OBJECTS
+          and delta["FALLBACK_LAUNCHES"] == 0,
+          f"8d: launches {delta} for {RT_PIPELINE_OBJECTS} submits")
+    L = len(stripes[0][0])
+    want = ec.encode_array_host(raw.reshape(RT_PIPELINE_OBJECTS, k, L))
+    for i, chunks in enumerate(stripes):
+        for r in range(m):
+            check(np.array_equal(chunks[k + r], want[i, r]),
+                  f"8d: object {i} parity chunk {r} != encode_array_host")
+    out["8d"] = {"reaped_by_poll": by_poll, "poll_ms_max": max(poll_s) * 1e3}
+    print(f"[8] 8d: EncodePipeline(depth={RT_PIPELINE_DEPTH}) over {RT_PIPELINE_OBJECTS} "
+          f"objects (L={L}), exact; {by_poll} reaped by poll, the rest by flush; poll "
+          f"{statistics.median(poll_s) * 1e3:.4f} ms median, {max(poll_s) * 1e3:.4f} ms max")
+
+    # 8e: the guard drill: a faulted launch fails with EIO, the probe heals
+    from ceph_tpu_torch.codec.interface import EcError
+
+    agg = mc.EncodeAggregator(window=0)
+    before = probe.start()
+    global_injector().inject("codec.launch", 5, hits=1)
+    faulted = agg.submit(ec, objs[0])
+    try:
+        faulted.result()
+        check(False, "8e: the faulted launch returned bytes")
+    except EcError as e:
+        check(e.errno == -5 and "InjectedFailure" in str(e),
+              f"8e: the faulted launch raised {e!r}, want EIO from the fault")
+    mid = probe.counts()
+    check(mid["FALLBACK_LAUNCHES"] == before["FALLBACK_LAUNCHES"]
+          and agg.perf.get("host_fallbacks") == 0,
+          "8e: the faulted launch was recomputed on the host")
+    check(mid["swar_gf"] == before["swar_gf"] and mid["LAUNCHES"] == before["LAUNCHES"],
+          "8e: the faulted launch reached the kernel")
+    check(guard.degraded and mid["degraded_total"] - before["degraded_total"] == 1,
+          "8e: the backend is not DEGRADED after the fault")
+    rec = [r for r in flight_recorder().records() if r["group"] != "#raw"][-1]
+    check(rec["flags"]["error"] and not rec["flags"]["fallback"],
+          "8e: the faulted launch's flight record does not flag its error")
+    probes0 = guard.probes
+    check(np.array_equal(agg.submit(ec, objs[1]).result(), want_parity[1]),
+          "8e: the healed launch's parity != encode_array_host")
+    after = probe.counts()
+    check(not guard.degraded and guard.probes == probes0 + 1,
+          f"8e: the probe did not heal the backend ({guard.snapshot()})")
+    check(after["swar_gf"] == mid["swar_gf"] + 1 and after["LAUNCHES"] == mid["LAUNCHES"] + 1
+          and after["FALLBACK_LAUNCHES"] == mid["FALLBACK_LAUNCHES"],
+          "8e: the launch after the heal did not run the kernel")
+    agg.drain()
+    print("[8] 8e: codec.launch armed once: EIO to its reap, no host recompute, "
+          "FALLBACK_LAUNCHES unchanged, DEGRADED; the cuda probe healed it and the "
+          "next launch ran swar_gf, exact")
+
+    # 8f: a queued client encode leaves the scheduler ahead of a queued verify
+    sched = launch_scheduler()
+    enc, ver = mc.EncodeAggregator(window=0), mc.VerifyAggregator(window=0)
+    hold = threading.Event()
+    results: dict = {}
+    before = probe.start()
+    holder = threading.Thread(target=sched.submit,
+                              args=(CLASS_BY_LANE["client"], lambda: hold.wait(60)))
+    holder.start()
+    deadline = time.monotonic() + 60
+    while not sched._busy and time.monotonic() < deadline:
+        time.sleep(0.001)
+    background = threading.Thread(
+        target=lambda: results.update(verify=ver.submit(ec, full[0]).result()))
+    background.start()
+    while sched.queue_depths()["background"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    client = threading.Thread(
+        target=lambda: results.update(encode=enc.submit(ec, objs[2]).result()))
+    client.start()
+    while sched.queue_depths()["client"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    check(sched.queue_depths() == {"client": 1, "recovery": 0, "background": 1},
+          f"8f: queued {sched.queue_depths()}")
+    hold.set()
+    for th in (holder, background, client):
+        th.join(timeout=120)
+        check(not th.is_alive(), "8f: a submitter did not finish")
+    check(np.array_equal(results["encode"], want_parity[2]) and not results["verify"].any(),
+          "8f: the QoS launches' bytes are not exact")
+    recs = {r["kind"]: r for r in flight_recorder().records() if r["group"] != "#raw"}
+    check(recs["encode"]["dispatch_ts"] < recs["verify"]["dispatch_ts"],
+          "8f: the queued background verify left the scheduler before the client encode")
+    for agg in (enc, ver):
+        agg.drain()
+    delta = {key: val - before[key] for key, val in probe.counts().items()}
+    check(delta["FALLBACK_LAUNCHES"] == 0 and delta["degraded_total"] == 0,
+          f"8f: fallback or degraded: {delta}")
+    print("[8] 8f: with the device turn held, a queued client encode left the launch "
+          "scheduler ahead of a queued background verify")
+
+    launches = {"swar_gf": swar.launches, **packed.launches}
+    for kernel in ("swar_gf", "packed_code", "packed_verify"):
+        check(launches[kernel] > 0, f"phase 8 never launched {kernel}")
+    dump = dispatch.perf_dump()
+    gauges = {key: dump[key] for key in sorted(dump)
+              if key.startswith("pipeline.") or key in ("padding_waste_ratio",
+                                                        "fused_launches", "fused_windows")}
+    check(gauges["pipeline.donation_recycled_live"] == 0,
+          "pipeline.donation_recycled_live is not 0")
+    for part, spans in out["spans"].items():
+        print(f"[8] {part}: median per launch (ms): "
+              + ", ".join(f"{span} {ms:.4f}" for span, ms in spans.items()) + f"; {card}")
+    print(f"[8] pipeline and padding gauges: {gauges}; kernel launches {launches}; {card}")
+    out["gauges"] = gauges
+    out["launches"] = launches
+    return out
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1886,6 +2297,7 @@ def main(argv: list[str]) -> int:
     diag_times.update(phase("7c", phase_packed_timing, torch, packed, swar, gf))
     for kernel, row in phase("7c", parent_comparison, args.parent).items():
         diag_times[kernel].update(row)
+    phase(8, phase_runtime, torch, swar, packed, dispatch, registry, card)
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",

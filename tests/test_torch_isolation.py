@@ -54,3 +54,29 @@ def test_plugin_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_offload_runtime_import_leaves_jax_out():
+    """The offload runtime, the EC aggregators and the device guard import
+    neither jax nor the JAX package, and an aggregated CPU encode runs."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import ceph_tpu_torch.ops.offload_runtime\n"
+        "import ceph_tpu_torch.ops.guard\n"
+        "from ceph_tpu_torch.codec import registry\n"
+        "from ceph_tpu_torch.codec.matrix_codec import (\n"
+        "    default_decode_aggregator, default_encode_aggregator, default_verify_aggregator)\n"
+        "ec = registry.instance().factory('tpu', {'k': '4', 'm': '2'}, device='cpu')\n"
+        "data = np.arange(2 * 4 * 4096, dtype=np.uint32).astype(np.uint8).reshape(2, 4, 4096)\n"
+        "parity = default_encode_aggregator().submit(ec, data).result()\n"
+        "assert np.array_equal(parity, ec.encode_array_host(data))\n"
+        "default_decode_aggregator(), default_verify_aggregator()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
