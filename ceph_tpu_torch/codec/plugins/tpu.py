@@ -8,6 +8,7 @@ Plugin shell analog of Ceph's src/erasure-code/isa/ErasureCodePluginIsa.cc
 
 from ceph_tpu_torch.codec.registry import EC_VERSION, ErasureCodePlugin
 from ceph_tpu_torch.codec.rs import VANDERMONDE, ErasureCodeTpuRs
+from ceph_tpu_torch.codec.tracing import instrument_codec
 
 __erasure_code_version__ = EC_VERSION
 
@@ -16,7 +17,9 @@ def _factory(profile, device):
     technique = profile.get("technique") or VANDERMONDE
     ec = ErasureCodeTpuRs(technique=technique, device=device)
     ec.init(profile)
-    return ec
+    # h2d / kernel_launch sub-spans on the device paths when an op trace
+    # is active (codec/tracing.py); free when tracing is off
+    return instrument_codec(ec, "tpu")
 
 
 def __erasure_code_init__(registry):

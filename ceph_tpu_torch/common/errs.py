@@ -7,3 +7,4 @@ EIO = 5
 EINVAL = 22
 EEXIST = 17
 EXDEV = 18
+EOPNOTSUPP = 95

@@ -130,14 +130,34 @@ class FaultInjector:
 
 # The injection-point catalog: every name wired through `faultpoint()`
 # in the port MUST be registered here, so a hook can never be armed
-# under a typo'd name that silently never fires.  The port wires only
-# the device launch so far; the reference's other points come with the
-# modules that check them.
+# under a typo'd name that silently never fires.  The port wires the
+# device launch, the object store's media-error seams and the EC shard
+# sub-read (its EIO mode; the delay mode comes with hedged reads); the
+# reference's other points come with the modules that check them.
 FAULT_POINTS: dict[str, str] = {
     "codec.launch": (
         "device coding-launch submit in LaunchAggregator._launch: the "
         "device dispatch fails and the group re-runs on the byte-"
         "identical host oracle, marking the backend DEGRADED"
+    ),
+    "os.read": (
+        "objectstore read() data path (memstore + bluestore; stat/attr "
+        "lookups stay clean): raises StoreError(EIO), the "
+        "test-erasure-eio.sh disk-error analog"
+    ),
+    "os.write": (
+        "objectstore queue_transaction (every backend, checked before "
+        "any op is applied or staged): raises StoreError(EIO), failing "
+        "the transaction whole — per-op injection would tear it, since "
+        "apply does not roll back"
+    ),
+    "ec.sub_read": (
+        "EC shard-side sub-read in ECBackend.handle_sub_read: the shard "
+        "answers with a per-object EIO, driving redundant-read "
+        "escalation and reconstruction on the primary.  In delay_ms "
+        "mode the shard answers CORRECTLY but late (the reply is "
+        "deferred on the event loop, never blocking it) — the gray "
+        "failure that drives adaptive hedged reads"
     ),
 }
 

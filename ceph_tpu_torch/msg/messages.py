@@ -1,0 +1,127 @@
+"""The typed message catalog of the port — the EC sub-ops.
+
+The port of the part of `ceph_tpu/msg/messages.py` that the EC backend
+sends: the wire structs `Struct`, `PgId` and `ReqId`, and the four EC
+sub-op messages mirroring Ceph's ECMsgTypes (src/osd/ECMsgTypes.h):
+ECSubWrite carries a serialized per-shard transaction (:23-89); ECSubRead
+carries per-object (off,len,flags) plus per-shard subchunk vectors
+(:105-116); ECSubReadReply returns buffers/attrs/errors (:118-129).  The
+type numbers and field orders are the reference's, so a message encodes
+to the reference's bytes.
+"""
+
+from __future__ import annotations
+
+from .message import Message, message_type, PRIO_HIGH
+
+
+class Struct(Message):
+    """A nested wire struct using the same FIELDS machinery as Message
+    (WRITE_CLASS_ENCODER on plain types); never sent standalone."""
+
+
+class PgId(Struct):
+    """spg_t analog: pool + placement seed + shard (-1 = whole PG /
+    replicated)."""
+
+    FIELDS = [("pool", "u64"), ("ps", "u32"), ("shard", "i64")]
+
+    def __init__(self, pool=0, ps=0, shard=-1):
+        super().__init__(pool=pool, ps=ps, shard=shard)
+
+    def key(self) -> tuple[int, int]:
+        return (self.pool, self.ps)
+
+    def with_shard(self, shard: int) -> "PgId":
+        return PgId(self.pool, self.ps, shard)
+
+    def __repr__(self):
+        return f"{self.pool}.{self.ps}s{self.shard}"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, PgId)
+            and (self.pool, self.ps, self.shard)
+            == (other.pool, other.ps, other.shard)
+        )
+
+    def __hash__(self):
+        return hash((self.pool, self.ps, self.shard))
+
+
+class ReqId(Struct):
+    """osd_reqid_t: originating entity + client-unique tid."""
+
+    FIELDS = [("client", "str"), ("tid", "u64")]
+
+    def __init__(self, client="", tid=0):
+        super().__init__(client=client, tid=tid)
+
+    def key(self) -> tuple[str, int]:
+        return (self.client, self.tid)
+
+
+# --- EC sub-ops (ECMsgTypes.h) ----------------------------------------------
+
+
+@message_type(6)
+class MOSDECSubOpWrite(Message):
+    """Primary -> shard write (MOSDECSubOpWrite.h; ECSubWrite at
+    ECMsgTypes.h:23-89).  `txn` is the encoded per-shard ObjectStore
+    transaction; log_entries roll the PG log forward on the shard."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("from_osd", "u32"),
+        ("tid", "u64"),
+        ("reqid", ReqId),
+        ("txn", "bytes"),
+        ("at_version", "u64"),
+        ("log_entries", ("list", "bytes")),
+    ]
+    priority = PRIO_HIGH
+
+
+@message_type(7)
+class MOSDECSubOpWriteReply(Message):
+    FIELDS = [
+        ("pgid", PgId),
+        ("from_osd", "u32"),
+        ("tid", "u64"),
+        ("committed", "bool"),
+    ]
+    priority = PRIO_HIGH
+
+
+@message_type(8)
+class MOSDECSubOpRead(Message):
+    """Primary -> shard read (ECSubRead, ECMsgTypes.h:105-116):
+    per-object extent lists plus CLAY subchunk (offset,count) runs."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("from_osd", "u32"),
+        ("tid", "u64"),
+        # oid -> list of (off, len) extents
+        ("to_read", ("map", "str", ("list", ("list", "u64")))),
+        # oid -> subchunk (offset, count) runs within each chunk
+        ("subchunks", ("map", "str", ("list", ("list", "u64")))),
+        ("attrs_to_read", ("list", "str")),
+    ]
+    priority = PRIO_HIGH
+
+
+@message_type(9)
+class MOSDECSubOpReadReply(Message):
+    """ECSubReadReply (ECMsgTypes.h:118-129): buffers + attrs + errors."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("from_osd", "u32"),
+        ("tid", "u64"),
+        # oid -> list of (off, data) returned extents
+        ("buffers", ("map", "str", ("list", ("list", "bytes")))),
+        ("attrs", ("map", "str", ("map", "str", "bytes"))),
+        ("errors", ("map", "str", "i64")),
+    ]
+    priority = PRIO_HIGH

@@ -1,0 +1,338 @@
+"""Stripe math + batched stripe coding — mirror of `ECUtil`.
+
+The port of `ceph_tpu/stripe/stripe.py`'s offset algebra and its client
+encode and read-decode launches (Ceph's src/osd/ECUtil.{h,cc}).
+`StripeInfo` reproduces stripe_info_t's offset algebra (stripe_width = k x
+chunk_size; byte B of the logical object lives in chunk (B / chunk_size) %
+k of stripe B / stripe_width, ErasureCodeInterface.h:39-58).  The codec
+launches replace Ceph's per-stripe hot loop (`ECUtil::encode` calling
+ec->encode once per stripe, ECUtil.cc:123-162) with ONE device launch over
+the whole stripe batch: the object reshapes to (stripes, k, chunk_size)
+and the kernel treats stripes as the batch axis.
+
+What changes for CUDA: a direct (unaggregated) launch returns a CUDA
+tensor, which has neither the jax array's `is_ready` nor `__array__`.  The
+pending handle records `offload_runtime.completion_event` at launch,
+polls that event in `ready()` and copies with `.cpu()` in `result()`; it
+never synchronizes the device, so a launch overlaps the commits of the
+writes before it.  An aggregator ticket keeps its own event.  The device
+chunk cache branches, the RMW delta launch and the recovery decode
+(`decode_shards_launch`) come with the modules that run them.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..codec.interface import EcError, ErasureCodeInterface
+from ..codec.matrix_codec import MatrixCodecMixin
+from ..common.errs import EINVAL, EIO
+from ..ops.offload_runtime import completion_event
+
+
+def _matrix_fast_path(ec: ErasureCodeInterface) -> bool:
+    """Single-launch device path applies to matrix codecs whose raw chunk
+    order is the logical order (no `mapping=` remap); remapped codecs go
+    through their own chunk-level interface, which is mapping-aware."""
+    return isinstance(ec, MatrixCodecMixin) and not ec.get_chunk_mapping()
+
+
+def _launch_event(handle):
+    """The completion event of a direct launch's CUDA tensor, recorded on
+    the launching thread's current stream; None for a ticket (it keeps
+    its own) or a CPU tensor (computed when its dispatch returned)."""
+    return completion_event(handle) if isinstance(handle, torch.Tensor) else None
+
+
+def _handle_ready(handle, event) -> bool:
+    if isinstance(handle, torch.Tensor):
+        return True if event is None else bool(event.query())
+    is_ready = getattr(handle, "is_ready", None)
+    return True if is_ready is None else bool(is_ready())
+
+
+def _to_host(handle) -> np.ndarray:
+    """Materialize a launch's output as host bytes: a device tensor by
+    `.cpu()` (a copy on the current stream, ordered after the launch), a
+    ticket or array through `np.asarray`."""
+    if isinstance(handle, torch.Tensor):
+        return handle.cpu().numpy()
+    return np.asarray(handle)
+
+
+class StripeInfo:
+    """stripe_info_t: logical <-> chunk offset algebra (ECUtil.h:27-80)."""
+
+    def __init__(self, stripe_width: int, chunk_size: int):
+        assert stripe_width % chunk_size == 0
+        self.stripe_width = stripe_width
+        self.chunk_size = chunk_size
+        self.k = stripe_width // chunk_size
+
+    def logical_to_prev_chunk_offset(self, offset: int) -> int:
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def logical_to_next_chunk_offset(self, offset: int) -> int:
+        return -(-offset // self.stripe_width) * self.chunk_size
+
+    def logical_to_prev_stripe_offset(self, offset: int) -> int:
+        return offset - offset % self.stripe_width
+
+    def logical_to_next_stripe_offset(self, offset: int) -> int:
+        return -(-offset // self.stripe_width) * self.stripe_width
+
+    def aligned_logical_offset_to_chunk_offset(self, offset: int) -> int:
+        assert offset % self.stripe_width == 0
+        return (offset // self.stripe_width) * self.chunk_size
+
+    def aligned_chunk_offset_to_logical_offset(self, offset: int) -> int:
+        assert offset % self.chunk_size == 0
+        return (offset // self.chunk_size) * self.stripe_width
+
+    def offset_len_to_stripe_bounds(self, offset: int, length: int) -> tuple[int, int]:
+        """Smallest stripe-aligned (offset, length) covering the range."""
+        start = self.logical_to_prev_stripe_offset(offset)
+        end = self.logical_to_next_stripe_offset(offset + length)
+        return start, end - start
+
+    def logical_to_chunk_position(self, offset: int) -> tuple[int, int, int]:
+        """(stripe index, chunk index within stripe, offset within chunk)."""
+        stripe, within = divmod(offset, self.stripe_width)
+        chunk, off = divmod(within, self.chunk_size)
+        return stripe, chunk, off
+
+
+class PendingEncode:
+    """A LAUNCHED stripe encode whose device work may still be running.
+
+    On the matrix fast path the parity is a live CUDA tensor (the launch
+    returned while the card works) or an aggregator ticket; `ready()`
+    polls completion without blocking and `result()` materializes the
+    per-shard chunk dict, blocking only until this launch finishes.  This
+    is the device-side half of the AIO-style encode pipeline the reference
+    gets from queued librados AIO in front of `ec_encode_data`
+    (ECBackend.h:536-555 pipeline invariants)."""
+
+    def __init__(self, shaped: np.ndarray, parity, k: int, m: int, want: set[int]):
+        self._shaped = shaped
+        self._parity = parity  # device tensor or ticket (fast path), or None
+        self._event = _launch_event(parity)
+        self._k, self._m = k, m
+        self._want = want
+        self._result: dict[int, np.ndarray] | None = None
+        # the span active at LAUNCH time (codec/tracing.py active_span);
+        # the reap may run from an event-loop callback with no scope, so
+        # the D2H side must remember where it belongs in the trace
+        from ..codec.tracing import active_span
+
+        self._span = active_span()
+
+    def ready(self) -> bool:
+        if self._result is not None:
+            return True
+        return _handle_ready(self._parity, self._event)
+
+    def launched(self) -> bool:
+        """False while the parity sits in an EncodeAggregator window (the
+        device hasn't been asked yet — only a flush will make it ready).
+        Plain device tensors are launched by construction."""
+        if self._result is not None:
+            return True
+        return bool(getattr(self._parity, "launched", True))
+
+    def result(self) -> dict[int, np.ndarray]:
+        if self._result is None:
+            from ..codec.tracing import wait_span
+
+            with wait_span(self._span):
+                parity = _to_host(self._parity)  # blocks until launch done
+            self._span = None
+            out: dict[int, np.ndarray] = {}
+            for i in range(self._k):
+                out[i] = np.ascontiguousarray(self._shaped[:, i, :]).reshape(-1)
+            for i in range(self._m):
+                out[self._k + i] = np.ascontiguousarray(parity[:, i, :]).reshape(-1)
+            self._result = {i: out[i] for i in self._want}
+            self._parity = self._shaped = self._event = None
+        return self._result
+
+
+def encode_launch(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    data: bytes | np.ndarray,
+    want: set[int] | None = None,
+    aggregator=None,
+) -> PendingEncode:
+    """Launch a batched stripe encode WITHOUT materializing the parity.
+
+    Matrix codecs dispatch one device launch and return immediately with a
+    live handle; layered/array codecs (lrc, clay) compute eagerly (their
+    chunk-level interfaces materialize internally) and the PendingEncode is
+    born ready.
+
+    With an `aggregator` (codec.matrix_codec.EncodeAggregator), the stripe
+    batch is SUBMITTED instead of launched: concurrent small encodes from
+    different writes coalesce into one padded device dispatch when the
+    aggregation window fills or a barrier flushes (the PendingEncode's
+    handle is the aggregator ticket, same poll/materialize surface)."""
+    raw = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray)) else np.asarray(data, dtype=np.uint8).ravel()
+    if raw.size % sinfo.stripe_width:
+        raise EcError(EINVAL, f"length {raw.size} not stripe aligned")
+    k = ec.get_data_chunk_count()
+    n = ec.get_chunk_count()
+    m = n - k
+    assert k == sinfo.k
+    stripes = raw.size // sinfo.stripe_width
+    shaped = raw.reshape(stripes, k, sinfo.chunk_size)
+    if want is None:
+        want = set(range(n))
+    if _matrix_fast_path(ec) and m > 0:
+        if aggregator is not None:
+            return PendingEncode(shaped, aggregator.submit(ec, shaped), k, m, want)
+        return PendingEncode(shaped, ec.encode_array(shaped), k, m, want)
+    shards = [np.empty((stripes, sinfo.chunk_size), dtype=np.uint8) for _ in range(n)]
+    for s in range(stripes):
+        chunks = ec.encode(set(range(n)), shaped[s].reshape(-1))
+        for i in range(n):
+            shards[i][s] = chunks[i]
+    pend = PendingEncode(shaped, None, 0, 0, want)
+    pend._result = {i: shards[i].reshape(-1) for i in want}
+    return pend
+
+
+def encode(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    data: bytes | np.ndarray,
+    want: set[int] | None = None,
+) -> dict[int, np.ndarray]:
+    """Batched stripe encode: object -> per-shard concatenated chunks.
+
+    `data` length must be a multiple of stripe_width (the caller pads, as
+    ECTransaction does before encode_and_write).  Matrix codecs take the
+    single-launch path; layered/array codecs (lrc, clay) fall back to
+    per-stripe encode_chunks, still one python loop over stripes but device
+    work batched inside each codec.
+    """
+    return encode_launch(sinfo, ec, data, want).result()
+
+
+class PendingDecode:
+    """A LAUNCHED (or aggregator-windowed) batched stripe decode whose
+    device work may still be running — the decode twin of PendingEncode.
+
+    `handle` is a live device tensor or a DecodeAggregator ticket;
+    `assemble(rec)` turns the materialized (stripes, nerrs, chunk) rows
+    into the caller's result shape.  Codecs without a device fast path
+    decode eagerly and the PendingDecode is born ready (`result=`)."""
+
+    def __init__(self, handle, assemble, result=None):
+        self._handle = handle
+        self._assemble = assemble
+        self._result = result
+        self._event = _launch_event(handle)
+        # the span active at LAUNCH time, so a reap from an event-loop
+        # callback attributes its wait to the right place in the trace
+        from ..codec.tracing import active_span
+
+        self._span = active_span() if handle is not None else None
+
+    def ready(self) -> bool:
+        if self._result is not None:
+            return True
+        return _handle_ready(self._handle, self._event)
+
+    def launched(self) -> bool:
+        """False while the decode still sits in a DecodeAggregator window
+        (only a flush will make it ready)."""
+        if self._result is not None:
+            return True
+        return bool(getattr(self._handle, "launched", True))
+
+    def result(self):
+        if self._result is None:
+            from ..codec.tracing import wait_span
+
+            with wait_span(self._span):
+                rec = _to_host(self._handle)  # blocks until launch done
+            self._result = self._assemble(rec)
+            self._handle = self._assemble = self._span = self._event = None
+        return self._result
+
+
+def decode_concat_launch(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    shards: Mapping[int, np.ndarray],
+    aggregator=None,
+) -> PendingDecode:
+    """Launch a batched client-read decode WITHOUT materializing the
+    reconstruction; resolves to the logical bytes.  With an `aggregator`
+    (codec.matrix_codec.DecodeAggregator) the survivor batch is SUBMITTED
+    instead of launched, so concurrent same-erasure-pattern degraded
+    reads coalesce into one padded device dispatch."""
+    lengths = {len(v) for v in shards.values()}
+    if len(lengths) != 1:
+        raise EcError(EINVAL, "shards must have equal length")
+    shard_len = lengths.pop()
+    if shard_len % sinfo.chunk_size:
+        raise EcError(EINVAL, f"shard length {shard_len} not chunk aligned")
+    stripes = shard_len // sinfo.chunk_size
+    k = ec.get_data_chunk_count()
+    n = ec.get_chunk_count()
+    have = {
+        i: np.asarray(v, dtype=np.uint8).reshape(stripes, sinfo.chunk_size)
+        for i, v in shards.items()
+    }
+    # Logical data chunk i lives at raw position chunk_index(i).
+    chunk_index = getattr(ec, "chunk_index", lambda i: i)
+    data_raw = [chunk_index(i) for i in range(k)]
+    data = np.empty((stripes, k, sinfo.chunk_size), dtype=np.uint8)
+    missing_raw = [r for r in data_raw if r not in have]
+    for i, r in enumerate(data_raw):
+        if r in have:
+            data[:, i, :] = have[r]
+    if not missing_raw:
+        return PendingDecode(None, None, result=data.reshape(-1))
+    # The decode plan needs the full erasure set (every shard we don't
+    # have), not just the wanted data shards.
+    erasures = [i for i in range(n) if i not in have]
+    if _matrix_fast_path(ec):
+        idx = ec.decode_index(erasures)
+        if any(i not in have for i in idx):
+            raise EcError(EIO, f"missing survivor shards {idx}")
+        survivors = np.stack([have[i] for i in idx], axis=1)  # (S, k, cs)
+        if aggregator is not None:
+            handle = aggregator.submit(ec, erasures, survivors)
+        else:
+            handle = ec.decode_array(erasures, survivors)
+
+        def _assemble(rec: np.ndarray) -> np.ndarray:
+            for p, e in enumerate(erasures):
+                if e < k:
+                    data[:, e, :] = rec[:, p, :]
+            return data.reshape(-1)
+
+        return PendingDecode(handle, _assemble)
+    for s in range(stripes):
+        decoded = ec.decode(
+            set(missing_raw), {i: buf[s] for i, buf in have.items()}
+        )
+        for i, r in enumerate(data_raw):
+            if r in decoded:
+                data[s, i, :] = decoded[r]
+    return PendingDecode(None, None, result=data.reshape(-1))
+
+
+def decode_concat(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    shards: Mapping[int, np.ndarray],
+) -> np.ndarray:
+    """Batched client-read decode: per-shard chunk streams -> logical bytes
+    (mirror of ECUtil::decode's concat overload, ECUtil.cc:12-48)."""
+    return decode_concat_launch(sinfo, ec, shards).result()

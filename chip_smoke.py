@@ -166,6 +166,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the card's name and power limit: the GB/s of 8a, the medians of the
    flight records' spans (queue wait, h2d, kernel, d2h) a launch, and the
    pipeline and padding gauges.
+9. The EC write path end to end (osd/ec_backend.py and the modules under
+   it): an in-process cluster of 11 OSDs, one port ECBackend each over a
+   MemStore holding one shard of one PG, messages through a pumped queue,
+   the codec from `build_pg_backend` with no device argument, encodes and
+   decodes through the default aggregators.  Pool rbd (RBD's data pool,
+   RS(8,3), stripe unit 4096, allow_ec_overwrites): 9a 64 WRITEFULLs of 4
+   MiB at QD1 (write, pump) and QD8 (8 writes a pump, encode window 8:
+   one launch a batch), with the wall time split by stage; 9b 256
+   unaligned RMW writes of 4-64 KiB in batches of 8, each batch with one
+   overlapping pair on one object; 9c every object read whole against the
+   model, and every shard against `encode_array_host` of the model; 9d
+   every object read with the holes of each erasure class of PERF.md §2
+   (decode window 8, 8 objects a read), and four holes giving -EIO from
+   osd.4.  Pool rgw (append-only, the hinfo path): 9e 16 objects of 4
+   stripe-aligned 1 MiB appends, every shard's hinfo equal to its crc32c
+   (the C++ library; the table version on one object's shards), then one
+   byte of shard 0 flipped on 4 objects, each read back exact by
+   redundant-read escalation with 4 crc mismatches logged.  Every part:
+   each commit fires once and no failure, nothing left in flight or
+   pinned after the barrier, the in-flight pools at 0, the aggregators'
+   launches = the change in LAUNCHES (DECODE_LAUNCHES) = the change in
+   the tier's kernel count (swar_gf), no fallback, the guard never
+   degraded, one committed flight record a launch; under 90 s.  Printed
+   beside the card's name and power limit: MB/s of 9a, RMW writes/s with
+   p50 and p99 submit-to-commit latency, read and degraded-read GB/s,
+   the median `ec_encode_latency`, the flight spans' medians, and the
+   stage split of 9a (QD8) and 9e.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -178,12 +205,14 @@ import argparse
 import collections
 import ctypes
 import functools
+import inspect
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2237,6 +2266,518 @@ def phase_runtime(torch, swar, packed, dispatch, registry, card) -> dict:
     return out
 
 
+# Phase 9's deployments, both plugin `tpu` RS(8,3) reed_sol_van at
+# osd_pool_erasure_code_stripe_unit 4096 (32 KiB stripes): RBD's data pool
+# on EC with allow_ec_overwrites (Ceph's "Erasure Coding with Overwrites"),
+# 64 objects of RBD's 4 MiB, written whole at QD1 and QD8, then 256 RMW
+# writes of 4-64 KiB in batches of 8; and RGW's append-only EC data pool
+# (the hinfo path), 16 objects of 4 appends of 1 MiB.
+BK_K, BK_M, BK_SU = 8, 3, 4096
+BK_OBJECTS = 64
+BK_OBJECT_BYTES = 4 << 20
+BK_QD = 8
+BK_RMW_WRITES = 256
+BK_RMW_BYTES = (4 << 10, 64 << 10)
+BK_RGW_OBJECTS = 16
+BK_RGW_APPENDS = 4
+BK_RGW_APPEND = 1 << 20
+BK_CORRUPT = 4
+BK_EIO_HOLES = [0, 1, 2, 3]
+BK_PROFILE = {"plugin": "tpu", "k": str(BK_K), "m": str(BK_M), "technique": "reed_sol_van"}
+
+
+class BkCluster:
+    """Phase 9's in-process cluster (the harness of tests/test_ec_backend.py):
+    one port ECBackend per OSD over a MemStore, each OSD holding one shard
+    of one PG, the primary on OSD 0, messages through a pumped queue.  The
+    codecs come from build_pg_backend with no device argument."""
+
+    def __init__(self, pool_id: int, name: str, overwrites: bool):
+        from ceph_tpu_torch.msg.messages import PgId, ReqId
+        from ceph_tpu_torch.os.memstore import MemStore
+        from ceph_tpu_torch.os.transaction import Transaction
+        from ceph_tpu_torch.osd import osdmap
+        from ceph_tpu_torch.osd.ec_transaction import PGTransaction
+        from ceph_tpu_torch.osd.pg_backend import PGListener, build_pg_backend, shard_coll
+        from ceph_tpu_torch.osd.pg_log import Eversion
+
+        cluster = self
+        self.ReqId, self.PGTransaction, self.PG_NONE = ReqId, PGTransaction, osdmap.PG_NONE
+
+        class Listener(PGListener):
+            def __init__(self, osd):
+                self.osd, self.pgid, self.version = osd, cluster.pgid, 0
+                self.log, self.clog, self.hists = [], [], collections.defaultdict(list)
+
+            def whoami(self):
+                return self.osd
+
+            def whoami_shard(self):
+                return self.osd
+
+            def acting(self):
+                return cluster.acting
+
+            def epoch(self):
+                return 1
+
+            def next_version(self):
+                self.version += 1
+                return Eversion(1, self.version)
+
+            def send_shard(self, osd, msg):
+                cluster.queue.append((osd, msg))
+
+            def append_log(self, entry):
+                self.log.append(entry)
+
+            def clog_error(self, msg):
+                self.clog.append(msg)
+
+            def perf_hist(self, name, value):
+                self.hists[name].append(value)
+
+        n = BK_K + BK_M
+        self.pool = osdmap.PgPool(
+            id=pool_id, name=name, type=osdmap.POOL_TYPE_ERASURE, size=n, min_size=BK_K + 1,
+            pg_num=1, erasure_code_profile="ec83", stripe_width=BK_K * BK_SU,
+            flags=osdmap.FLAG_EC_OVERWRITES if overwrites else 0, application=name)
+        self.pgid = PgId(pool_id, 0, -1)
+        self.acting = list(range(n))
+        self.queue: list = []
+        self.commits: collections.Counter = collections.Counter()
+        self.failures: list = []
+        self.latency: dict = {}
+        self.colls = [shard_coll(self.pgid, s) for s in range(n)]
+        self.stores, self.listeners, self.backends = [], [], []
+        for osd in range(n):
+            store = MemStore()
+            store.mount()
+            store.queue_transaction(Transaction().create_collection(self.colls[osd]))
+            listener = Listener(osd)
+            self.backends.append(build_pg_backend(self.pool, {"ec83": dict(BK_PROFILE)},
+                                                  listener, store))
+            self.stores.append(store)
+            self.listeners.append(listener)
+        self.submitted = 0
+
+    @property
+    def primary(self):
+        return self.backends[0]
+
+    def pump(self) -> None:
+        """Deliver queued messages until quiescent, reaping the launched
+        encodes first (no event loop here: flush_encodes is the barrier)."""
+        while True:
+            for b in self.backends:
+                b.flush_encodes()
+            if not self.queue:
+                return
+            osd, msg = self.queue.pop(0)
+            if osd != self.PG_NONE:
+                self.backends[osd].handle_message(msg)
+
+    def submit(self, pgt) -> int:
+        self.submitted += 1
+        tag = self.submitted
+        t0 = time.perf_counter()
+
+        def on_commit():
+            self.commits[tag] += 1
+            self.latency[tag] = time.perf_counter() - t0
+
+        self.primary.submit_transaction(pgt, self.ReqId("client.9", tag), on_commit,
+                                        lambda err: self.failures.append((tag, err)))
+        return tag
+
+    def writefull(self, oid: str, data: bytes) -> int:
+        return self.submit(self.PGTransaction(oid, truncate=len(data)).write(0, data))
+
+    def read(self, reads: dict, backend=None) -> dict:
+        out: dict = {}
+        (backend or self.primary).objects_read_and_reconstruct(reads, out.update)
+        self.pump()
+        check(set(out) == set(reads), f"reads {sorted(reads)} completed {sorted(out)}")
+        return out
+
+    def shard(self, s: int, oid: str) -> bytes:
+        return bytes(self.stores[s]._colls[self.colls[s]][oid].data)
+
+    def settled(self, part: str, led) -> None:
+        """Every commit fired once, nothing failed, and after the final
+        barrier no backend holds an op, a pin or an in-flight pool byte."""
+        for b in self.backends:
+            b.flush_encodes()
+        check(not self.failures, f"{part}: on_failure fired: {self.failures[:4]}")
+        check(len(self.commits) == self.submitted
+              and all(v == 1 for v in self.commits.values()),
+              f"{part}: {len(self.commits)} of {self.submitted} writes committed, "
+              f"repeats {[t for t, v in self.commits.items() if v != 1][:4]}")
+        for b in self.backends:
+            check(not b.in_flight and not b._encode_pipe and not b.waiting_reads
+                  and not b.read_ops and not b._projected and b.extent_cache.empty(),
+                  f"{part}: osd.{b.listener.osd} still holds ops or pins")
+        held = {pool: led.current_bytes(pool) for pool in RT_INFLIGHT_POOLS}
+        check(not any(held.values()), f"{part}: in-flight pools after the drain: {held}")
+
+
+class StageClock:
+    """Exclusive wall time of the write path's stages: each wrapped call's
+    time less the wrapped calls inside it (per thread).  Installed around
+    one part only, then removed."""
+
+    def __init__(self):
+        self.totals: collections.Counter = collections.Counter()
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._undo: list = []
+
+    def _timed(self, stage: str, fn):
+        def timed(*args, **kwargs):
+            stack = self._local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                with self._lock:
+                    self.totals[stage] += dt - inner
+                if stack:
+                    stack[-1] += dt
+        return timed
+
+    def wrap(self, owner, attr: str, stage: str) -> None:
+        """Time `owner.attr` (a class's method or classmethod, inherited
+        or its own, or a name in a module's namespace dict) as `stage`."""
+        if isinstance(owner, dict):
+            orig = owner[attr]
+            owner[attr] = self._timed(stage, orig)
+            self._undo.append(lambda: owner.__setitem__(attr, orig))
+            return
+        static = inspect.getattr_static(owner, attr)
+        own = attr in vars(owner)
+        if isinstance(static, classmethod):
+            setattr(owner, attr, classmethod(self._timed(stage, static.__func__)))
+        else:
+            setattr(owner, attr, self._timed(stage, static))
+        self._undo.append((lambda: setattr(owner, attr, static)) if own
+                          else (lambda: delattr(owner, attr)))
+
+    def install(self) -> "StageClock":
+        from ceph_tpu_torch.ops.offload_runtime import LaunchAggregator
+        from ceph_tpu_torch.os.memstore import MemStore
+        from ceph_tpu_torch.os.transaction import Transaction
+        from ceph_tpu_torch.osd import ec_backend
+        from ceph_tpu_torch.stripe import stripe
+        from ceph_tpu_torch.stripe.hashinfo import HashInfo
+
+        for owner, attr, stage in (
+            (ec_backend.ECBackend, "submit_transaction", "submit"),
+            (vars(ec_backend), "launch_encode", "merge"),
+            (vars(stripe), "encode_launch", "dispatch"),
+            (LaunchAggregator, "_launch", "dispatch"),
+            (stripe.PendingEncode, "result", "reap"),
+            (vars(ec_backend), "finish_transactions", "finish_transactions"),
+            (Transaction, "tobytes", "txn_codec"),
+            (Transaction, "frombytes", "txn_codec"),
+            (MemStore, "queue_transaction", "apply"),
+            (HashInfo, "append", "hinfo_crc"),
+            (HashInfo, "verify_chunk", "hinfo_crc"),
+            (BkCluster, "pump", "pump"),
+        ):
+            self.wrap(owner, attr, stage)
+        return self
+
+    def remove(self) -> None:
+        while self._undo:
+            self._undo.pop()()
+
+    def shares(self, wall: float) -> dict:
+        out = {stage: t / wall for stage, t in sorted(self.totals.items())}
+        out["other"] = 1.0 - sum(out.values())
+        return out
+
+
+def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
+    """The port's ECBackend on the card at a deployment's size (9a-9e):
+    client writes, RMW overwrites, whole, degraded and corrupted reads
+    through the default encode and decode aggregators onto swar_gf."""
+    from ceph_tpu_torch.codec import matrix_codec as mc
+    from ceph_tpu_torch.common.mempool import ledger
+    from ceph_tpu_torch.common.options import OPTIONS
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.osd.ec_transaction import HINFO_ATTR
+    from ceph_tpu_torch.stripe.hashinfo import HashInfo
+    from ceph_tpu_torch.utils import crc32c as crc_mod
+
+    t_phase = time.perf_counter()
+    led, fr, guard = ledger(), flight_recorder(), device_guard()
+    enc_agg, dec_agg = mc.default_encode_aggregator(), mc.default_decode_aggregator()
+    probe = RuntimeProbe(torch, swar, packed, dispatch, fr, guard, led)
+    rbd = BkCluster(1, "rbd", overwrites=True)
+    ec = rbd.primary.ec
+    check(ec.device.type == "cuda", f"the backend's codec is on {ec.device}, want cuda")
+    sw = rbd.pool.stripe_width
+    stripes = BK_OBJECT_BYTES // sw
+    tier = mc._DeviceCoder.tier((stripes, BK_K, BK_SU))
+    kernel = {"swar": "swar_gf", "packed": "packed_code"}.get(tier)
+    check(kernel == "swar_gf", f"the backend's chunk {BK_SU} takes the {tier} tier")
+    rng = np.random.default_rng(SEED + 90)
+    model = rng.integers(0, 256, (BK_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+    oids = [f"rbd_data.{i:016x}" for i in range(BK_OBJECTS)]
+    out: dict = {"spans": {}}
+    swar.launches = 0
+    for name in PACKED_KERNELS:
+        packed.launches[name] = 0
+
+    def part(label: str, before: dict, aggs0: tuple, decodes: int | None = None) -> dict:
+        """The launch checks of one part: the aggregators' launches = the
+        change in LAUNCHES (DECODE_LAUNCHES for the decodes) = the change
+        in the tier's kernel count; no fallback, no degrade; one committed
+        flight record a launch."""
+        torch.cuda.synchronize()
+        delta = {key: val - before[key] for key, val in probe.counts().items()}
+        enc = int(enc_agg.perf.get("launches")) - aggs0[0]
+        dec = int(dec_agg.perf.get("launches")) - aggs0[1]
+        records = [r for r in fr.records() if r["group"] != "#raw"]
+        check(delta["LAUNCHES"] == enc + dec and delta["DECODE_LAUNCHES"] == dec,
+              f"{label}: LAUNCHES +{delta['LAUNCHES']}, DECODE_LAUNCHES "
+              f"+{delta['DECODE_LAUNCHES']} for {enc} encode and {dec} decode launches")
+        check(delta[kernel] == enc + dec,
+              f"{label}: {kernel} launched {delta[kernel]} times for {enc + dec} launches")
+        check(delta["FALLBACK_LAUNCHES"] == 0 and delta["degraded_total"] == 0
+              and not guard.degraded, f"{label}: fallback or degraded: {delta}")
+        check(len(records) == enc + dec,
+              f"{label}: {len(records)} committed flight records for {enc + dec} launches")
+        check(not any(r["flags"]["fallback"] or r["flags"]["error"] for r in records),
+              f"{label}: a flight record flags a fallback or an error")
+        if decodes is not None:
+            check((dec > 0) == (decodes > 0) and dec <= decodes,
+                  f"{label}: {dec} decode launches for {decodes} decodes")
+        return {"enc": enc, "dec": dec, "records": records}
+
+    def aggs0():
+        return int(enc_agg.perf.get("launches")), int(dec_agg.perf.get("launches"))
+
+    # 9a: 64 WRITEFULLs of 4 MiB at QD1 (write, pump), then at QD8 (8 writes,
+    # one pump; encode window 8: one launch a batch)
+    for qd, window in ((1, int(OPTIONS["ec_tpu_aggregate_window"].default)), (BK_QD, BK_QD)):
+        if qd > 1:
+            model = rng.integers(0, 256, (BK_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+        enc_agg.configure(window=window)
+        clock = StageClock().install() if qd > 1 else None
+        before, a0 = probe.start(), aggs0()
+        rbd.listeners[0].hists.clear()
+        t0 = time.perf_counter()
+        for first in range(0, BK_OBJECTS, qd):
+            for i in range(first, first + qd):
+                rbd.writefull(oids[i], model[i].tobytes())
+            rbd.pump()
+        wall = time.perf_counter() - t0
+        if clock is not None:
+            clock.remove()
+        enc_agg.configure(window=int(OPTIONS["ec_tpu_aggregate_window"].default))
+        res = part(f"9a QD{qd}", before, a0)
+        rbd.settled(f"9a QD{qd}", led)
+        check(res["enc"] == BK_OBJECTS // qd,
+              f"9a QD{qd}: {res['enc']} encode launches, want {BK_OBJECTS // qd}")
+        out["spans"][f"9a QD{qd}"] = span_medians(res["records"])
+        out[f"9a_QD{qd}_MBps"] = model.nbytes / wall / 1e6
+        out[f"9a_QD{qd}_encode_latency_ms"] = statistics.median(
+            rbd.listeners[0].hists["ec_encode_latency"]) * 1e3
+        if clock is not None:
+            out["9a_split"] = clock.shares(wall)
+        print(f"[9] 9a: {BK_OBJECTS} WRITEFULLs of 4 MiB at QD{qd}: "
+              f"{out[f'9a_QD{qd}_MBps']:.1f} MB/s (first submit to last commit), "
+              f"{res['enc']} encode launches, ec_encode_latency median "
+              f"{out[f'9a_QD{qd}_encode_latency_ms']:.3f} ms; {card}")
+    print(f"[9] 9a QD{BK_QD} wall-time split: "
+          + ", ".join(f"{s} {v:.3f}" for s, v in out["9a_split"].items()) + f"; {card}")
+
+    # 9b: 256 RMW writes of 4-64 KiB, unaligned, batches of 8 with one
+    # overlapping pair on one object each; the stripes served from an
+    # earlier write's pin are counted (ROADMAP.md C5: a range partly pinned)
+    from ceph_tpu_torch.osd.ec_backend import ECBackend
+    from ceph_tpu_torch.osd.extent_cache import ExtentCache
+
+    pins = collections.Counter()
+    real_present, real_runs = ExtentCache.present, ECBackend._unpinned_runs
+
+    def present(cache, oid, off, ln):
+        got = real_present(cache, oid, off, ln)
+        pins["served from a pin" if got is not None else "not pinned"] += 1
+        return got
+
+    def unpinned_runs(backend, op, off, ln):
+        runs = real_runs(backend, op, off, ln)
+        pins["partly pinned ranges"] += runs != [(off, ln)]
+        return runs
+
+    ExtentCache.present, ECBackend._unpinned_runs = present, unpinned_runs
+    before, a0 = probe.start(), aggs0()
+    tags = []
+    t0 = time.perf_counter()
+    for _ in range(BK_RMW_WRITES // BK_QD):
+        batch = []
+        for j in range(BK_QD):
+            if j == 1:  # overlaps write 0 of the batch
+                i, off0, ln0 = batch[0]
+                ln = int(rng.integers(*BK_RMW_BYTES))
+                off = max(0, min(BK_OBJECT_BYTES - ln, off0 + int(rng.integers(-ln + 1, ln0))))
+            else:
+                i = int(rng.integers(BK_OBJECTS))
+                ln = int(rng.integers(*BK_RMW_BYTES))
+                off = int(rng.integers(0, BK_OBJECT_BYTES - ln))
+            if off % sw == 0:
+                off += 1
+            if (off + ln) % sw == 0:
+                ln -= 1
+            batch.append((i, off, ln))
+        for i, off, ln in batch:
+            patch = rng.integers(0, 256, ln, dtype=np.uint8)
+            model[i, off:off + ln] = patch
+            tags.append(rbd.submit(rbd.PGTransaction(oids[i]).write(off, patch.tobytes())))
+        rbd.pump()
+    wall = time.perf_counter() - t0
+    ExtentCache.present, ECBackend._unpinned_runs = real_present, real_runs
+    check(pins["served from a pin"] > 0, f"9b: no RMW read was served from a pin: {pins}")
+    res = part("9b", before, a0)
+    rbd.settled("9b", led)
+    check(res["enc"] == BK_RMW_WRITES, f"9b: {res['enc']} encode launches for "
+          f"{BK_RMW_WRITES} writes")
+    lat = sorted(rbd.latency[t] for t in tags)
+    out["spans"]["9b"] = span_medians(res["records"])
+    out["9b"] = {"writes_per_s": BK_RMW_WRITES / wall,
+                 "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[int(len(lat) * 0.99)] * 1e3,
+                 "pins": dict(pins)}
+    print(f"[9] 9b: {BK_RMW_WRITES} RMW writes of 4-64 KiB in batches of {BK_QD}: "
+          f"{out['9b']['writes_per_s']:.1f} writes/s, submit to commit p50 "
+          f"{out['9b']['p50_ms']:.3f} ms p99 {out['9b']['p99_ms']:.3f} ms; RMW read ranges "
+          f"{dict(pins)}; {card}")
+
+    # 9c: every object read back whole, and every shard against the host oracle
+    def read_all(label: str, holes: list) -> float:
+        saved = list(rbd.acting)
+        for h in holes:
+            rbd.acting[h] = rbd.PG_NONE
+        reader = rbd.backends[next(o for o in rbd.acting if o != rbd.PG_NONE)]
+        t0 = time.perf_counter()
+        for first in range(0, BK_OBJECTS, BK_QD):
+            got = rbd.read({oids[i]: [(0, BK_OBJECT_BYTES)]
+                            for i in range(first, first + BK_QD)}, reader)
+            for i in range(first, first + BK_QD):
+                err, bufs = got[oids[i]]
+                check(err == 0 and bufs[0] == model[i].tobytes(),
+                      f"{label}: object {i} read back err {err}, not the model's bytes")
+        seconds = time.perf_counter() - t0
+        rbd.acting[:] = saved
+        return model.nbytes / seconds / 1e9
+
+    before, a0 = probe.start(), aggs0()
+    out["9c_GBps"] = read_all("9c", [])
+    part("9c", before, a0, decodes=0)
+    for i in range(BK_OBJECTS):
+        shaped = model[i].reshape(stripes, BK_K, BK_SU)
+        parity = ec.encode_array_host(shaped)
+        for s in range(BK_K + BK_M):
+            want = shaped[:, s] if s < BK_K else parity[:, s - BK_K]
+            check(rbd.shard(s, oids[i]) == want.tobytes(),
+                  f"9c: object {i} shard {s} != encode_array_host of the model")
+    print(f"[9] 9c: {BK_OBJECTS} objects read whole, exact, {out['9c_GBps']:.3f} GB/s; every "
+          f"shard equal to encode_array_host of the model; {card}")
+
+    # 9d: degraded reads, each erasure class; four holes are EIO
+    dec_agg.configure(window=BK_QD)
+    out["9d_GBps"] = {}
+    for holes in RT_CLASSES:
+        before, a0 = probe.start(), aggs0()
+        submits0 = int(dec_agg.perf.get("submits"))
+        gbps = read_all(f"9d {holes}", holes)
+        decodes = BK_OBJECTS if any(h < BK_K for h in holes) else 0
+        res = part(f"9d {holes}", before, a0, decodes=decodes)
+        check(int(dec_agg.perf.get("submits")) - submits0 == decodes,
+              f"9d {holes}: {int(dec_agg.perf.get('submits')) - submits0} decode submits, "
+              f"want {decodes}")
+        out["9d_GBps"][str(holes)] = gbps
+        if res["records"]:
+            out["spans"][f"9d {holes}"] = span_medians(res["records"])
+        print(f"[9] 9d: holes {holes}: {BK_OBJECTS} objects exact, {gbps:.3f} GB/s, "
+              f"{res['dec']} decode launches ({kernel}) for {decodes} decodes; {card}")
+    dec_agg.configure(window=int(OPTIONS["ec_tpu_decode_aggregate_window"].default))
+    saved = list(rbd.acting)
+    for h in BK_EIO_HOLES:
+        rbd.acting[h] = rbd.PG_NONE
+    err, bufs = rbd.read({oids[0]: [(0, BK_OBJECT_BYTES)]}, rbd.backends[4])[oids[0]]
+    rbd.acting[:] = saved
+    check(err == -5 and bufs == [], f"9d: holes {BK_EIO_HOLES} read gave {err}, want -EIO")
+    rbd.settled("9d", led)
+    print(f"[9] 9d: holes {BK_EIO_HOLES} from osd.4: -EIO")
+
+    # 9e: the hinfo path on pool rgw: stripe-aligned appends, crc-checked reads
+    rgw = BkCluster(2, "rgw", overwrites=False)
+    rgw_oids = [f"rgw.bucket.{i}" for i in range(BK_RGW_OBJECTS)]
+    rgw_model = rng.integers(0, 256, (BK_RGW_OBJECTS, BK_RGW_APPENDS * BK_RGW_APPEND),
+                             dtype=np.uint8)
+    before, a0 = probe.start(), aggs0()
+    clock = StageClock().install()
+    t0 = time.perf_counter()
+    for a in range(BK_RGW_APPENDS):
+        for i, oid in enumerate(rgw_oids):
+            off = a * BK_RGW_APPEND
+            rgw.submit(rgw.PGTransaction(oid).write(off, rgw_model[i, off:off + BK_RGW_APPEND]
+                                                   .tobytes()))
+        rgw.pump()
+    wall = time.perf_counter() - t0
+    clock.remove()
+    out["9e_split"] = clock.shares(wall)
+    out["9e_MBps"] = rgw_model.nbytes / wall / 1e6
+    for i, oid in enumerate(rgw_oids):
+        blobs = {rgw.stores[s].getattr(rgw.colls[s], oid, HINFO_ATTR) for s in range(11)}
+        check(len(blobs) == 1, f"9e: {oid}'s shards disagree on hinfo")
+        hinfo = HashInfo.decode(blobs.pop())
+        for s in range(BK_K + BK_M):
+            data = rgw.shard(s, oid)
+            check(hinfo.get_total_chunk_size() == len(data)
+                  and hinfo.get_chunk_hash(s) == crc_mod.crc32c(data, HashInfo.SEED),
+                  f"9e: {oid} shard {s}'s hinfo != the C++ crc32c of the shard")
+            if i == 0:  # the table version runs at about 1 MB/s: one object's shards
+                check(hinfo.get_chunk_hash(s) == crc_mod._crc32c_py(HashInfo.SEED, data),
+                      f"9e: {oid} shard {s}'s hinfo != the table crc32c of the shard")
+    for i in range(BK_CORRUPT):
+        good = rgw.shard(0, rgw_oids[i])
+        rgw.stores[0]._write(rgw.colls[0], rgw_oids[i], 4096 * i + 7,
+                             bytes([good[4096 * i + 7] ^ 0x5A]))
+    got = rgw.read({oid: [(0, rgw_model.shape[1])] for oid in rgw_oids[:BK_CORRUPT]})
+    for i in range(BK_CORRUPT):
+        err, bufs = got[rgw_oids[i]]
+        check(err == 0 and bufs[0] == rgw_model[i].tobytes(),
+              f"9e: corrupted object {i} read back err {err}, not the model's bytes")
+    mismatches = sum("crc mismatch" in e for e in rgw.listeners[0].clog)
+    check(mismatches == BK_CORRUPT, f"9e: {mismatches} crc mismatches logged, want {BK_CORRUPT}")
+    res = part("9e", before, a0, decodes=BK_CORRUPT)
+    rgw.settled("9e", led)
+    out["spans"]["9e"] = span_medians(res["records"])
+    print(f"[9] 9e: pool rgw, {BK_RGW_OBJECTS} objects of {BK_RGW_APPENDS} x 1 MiB appends, "
+          f"{out['9e_MBps']:.1f} MB/s; every shard's hinfo = its crc32c (C++, and the table "
+          f"version on one object); {BK_CORRUPT} corrupted shards escalated around, "
+          f"{mismatches} crc mismatches logged, {res['dec']} decode launches; {card}")
+    print("[9] 9e wall-time split: "
+          + ", ".join(f"{s} {v:.3f}" for s, v in out["9e_split"].items()) + f"; {card}")
+
+    check(swar.launches > 0, "phase 9 never launched swar_gf")
+    out["launches"] = {"swar_gf": swar.launches, **packed.launches}
+    for label, spans in out["spans"].items():
+        print(f"[9] {label}: flight spans, median per launch (ms): "
+              + ", ".join(f"{span} {ms:.4f}" for span, ms in spans.items()) + f"; {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] < 90, f"phase 9 took {out['seconds']:.1f} s, over its 90 s")
+    print(f"[9] phase 9 numbers: {json.dumps({k: v for k, v in out.items() if k != 'spans'})}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2298,6 +2839,7 @@ def main(argv: list[str]) -> int:
     for kernel, row in phase("7c", parent_comparison, args.parent).items():
         diag_times[kernel].update(row)
     phase(8, phase_runtime, torch, swar, packed, dispatch, registry, card)
+    phase(9, phase_backend, torch, swar, packed, dispatch, registry, card)
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",

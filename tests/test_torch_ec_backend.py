@@ -1,0 +1,697 @@
+"""The port's ECBackend write pipeline and reconstructing reads on the CPU
+(`device="cpu"`), held against the JAX package's under JAX_PLATFORMS=cpu.
+
+One in-process cluster harness, built from either package's modules (one
+backend per OSD over a MemStore, messages through a pumped queue, as
+tests/test_ec_backend.py builds it), runs the reference's write/read,
+overwrite and span tests for both packages.  A seeded differential test
+then drives the same random operations through a cluster of each package
+and compares, after every pump, every store's collections byte for byte
+(data and xattrs), every listener's log entries, every message sent (by
+`tobytes()`), every commit and failure callback and every read result.
+The reference is pinned to what the port has: no device chunk cache, no
+RMW delta path, and dispatch width 1 (its tests run on an 8-device CPU
+mesh)."""
+
+import asyncio
+import importlib
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import ceph_tpu.osd.ec_backend as j_ecb
+from ceph_tpu.ops.device_cache import device_chunk_cache
+from ceph_tpu.parallel import dispatch as jshard
+
+from ceph_tpu_torch.codec.interface import EcError
+from ceph_tpu_torch.common.errs import EIO, EOPNOTSUPP
+from ceph_tpu_torch.common.fault_injector import global_injector
+from ceph_tpu_torch.ops import dispatch
+from ceph_tpu_torch.ops.guard import device_guard
+
+from torch_leak_gate import port_leak_gate  # noqa: F401  (autouse)
+
+PKGS = ("jax", "torch")
+ROOT = {"jax": "ceph_tpu", "torch": "ceph_tpu_torch"}
+
+
+@pytest.fixture(autouse=True)
+def _pin_reference():
+    cache = device_chunk_cache()
+    max_bytes = cache.max_bytes
+    cache.configure(max_bytes=0)
+    delta = j_ecb._RMW_DELTA
+    j_ecb.configure_rmw_delta(False)
+    settings = jshard.settings()
+    jshard.configure(devices=1)
+    yield
+    cache.configure(max_bytes=max_bytes)
+    j_ecb._RMW_DELTA = delta
+    jshard.configure(*settings)
+    global_injector().clear()
+    g = device_guard()
+    g.mark_healthy()
+    g.configure(timeout_ms=20000, probe_interval_ms=2000)
+
+
+_MODS: dict[str, SimpleNamespace] = {}
+
+
+def mods(pkg: str) -> SimpleNamespace:
+    """The modules a cluster of package `pkg` is built from."""
+    if pkg not in _MODS:
+        root = ROOT[pkg]
+        imp = lambda name: importlib.import_module(f"{root}.{name}")  # noqa: E731
+        ns = SimpleNamespace(
+            messages=imp("msg.messages"),
+            memstore=imp("os.memstore"),
+            objectstore=imp("os.objectstore"),
+            transaction=imp("os.transaction"),
+            ec_transaction=imp("osd.ec_transaction"),
+            osdmap=imp("osd.osdmap"),
+            pg_backend=imp("osd.pg_backend"),
+            pg_log=imp("osd.pg_log"),
+            stripe=imp("stripe"),
+            tracer=imp("common.tracer"),
+        )
+        ns.Listener = _listener_class(ns)
+        _MODS[pkg] = ns
+    return _MODS[pkg]
+
+
+def _listener_class(m):
+    class Listener(m.pg_backend.PGListener):
+        def __init__(self, cluster, osd, shard, pgid):
+            self.cluster = cluster
+            self.osd = osd
+            self.shard = shard
+            self.pgid = pgid
+            self.version = 0
+            self.log = []
+            self.clog = []
+            self.hists = []
+
+        def whoami(self):
+            return self.osd
+
+        def whoami_shard(self):
+            return self.shard
+
+        def acting(self):
+            return self.cluster.acting
+
+        def epoch(self):
+            return 1
+
+        def next_version(self):
+            self.version += 1
+            return m.pg_log.Eversion(1, self.version)
+
+        def send_shard(self, osd, msg):
+            self.cluster.sent.append((osd, type(msg).__name__, msg.tobytes()))
+            self.cluster.queue.append((osd, msg))
+
+        def append_log(self, entry):
+            self.log.append(entry)
+
+        def get_shard_missing(self, oid):
+            return self.cluster.missing.get(oid, set())
+
+        def clog_error(self, msg):
+            self.clog.append(msg)
+
+        def perf_hist(self, name, value):
+            self.hists.append(name)
+
+    return Listener
+
+
+class Cluster:
+    """One backend per OSD over MemStores, with a pumped message queue."""
+
+    def __init__(self, pkg, k=4, m=2, stripe_unit=4096, overwrites=False, fast_read=False):
+        self.pkg = pkg
+        self.m = mods(pkg)
+        om = self.m.osdmap
+        self.pool = om.PgPool(
+            id=1,
+            name="ecpool",
+            type=om.POOL_TYPE_ERASURE,
+            size=k + m,
+            pg_num=1,
+            erasure_code_profile="prof",
+            stripe_width=k * stripe_unit,
+            flags=om.FLAG_EC_OVERWRITES if overwrites else 0,
+            fast_read=fast_read,
+        )
+        profiles = {"prof": {"plugin": "tpu", "k": str(k), "m": str(m)}}
+        self.pgid = self.m.messages.PgId(1, 0, -1)
+        self.acting = list(range(k + m))
+        self.queue = []
+        self.sent = []
+        self.missing = {}
+        self.stores, self.listeners, self.backends = [], [], []
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        for osd in range(k + m):
+            store = self.m.memstore.MemStore()
+            store.mount()
+            listener = self.m.Listener(self, osd, osd, self.pgid)
+            backend = self.m.pg_backend.build_pg_backend(
+                self.pool, profiles, listener, store, **kw
+            )
+            coll = self.m.pg_backend.shard_coll(self.pgid, osd)
+            store.queue_transaction(self.m.transaction.Transaction().create_collection(coll))
+            self.stores.append(store)
+            self.listeners.append(listener)
+            self.backends.append(backend)
+
+    @property
+    def sw(self):
+        return self.pool.stripe_width
+
+    @property
+    def primary(self):
+        return self.backends[next(o for o in self.acting if o != self.m.osdmap.PG_NONE)]
+
+    def coll(self, shard):
+        return self.m.pg_backend.shard_coll(self.pgid, shard)
+
+    def deliver(self):
+        """Deliver queued messages (no encode barrier)."""
+        while self.queue:
+            osd, msg = self.queue.pop(0)
+            if osd == self.m.osdmap.PG_NONE or not 0 <= osd < len(self.backends):
+                continue
+            self.backends[osd].handle_message(msg)
+
+    def pump(self):
+        steps = 0
+        while True:
+            for b in self.backends:
+                b.flush_encodes()
+            if not self.queue:
+                return steps
+            osd, msg = self.queue.pop(0)
+            if osd == self.m.osdmap.PG_NONE or not 0 <= osd < len(self.backends):
+                continue
+            self.backends[osd].handle_message(msg)
+            steps += 1
+            assert steps < 100000, "message storm"
+
+    def submit(self, pgt, reqid, events, tag):
+        self.primary.submit_transaction(
+            pgt,
+            self.m.messages.ReqId("client", reqid),
+            lambda: events.append((tag, "commit")),
+            lambda err: events.append((tag, "fail", err)),
+        )
+
+    def pgt(self, oid, **kw):
+        return self.m.ec_transaction.PGTransaction(oid, **kw)
+
+    def write(self, oid, off, data, pump=True):
+        done = []
+        self.primary.submit_transaction(
+            self.pgt(oid).write(off, data),
+            self.m.messages.ReqId("client", 1),
+            lambda: done.append(1),
+        )
+        if pump:
+            self.pump()
+            assert done, "write did not commit"
+        return done
+
+    def read_raw(self, oid, extents, backend=None):
+        out = {}
+        (backend or self.primary).objects_read_and_reconstruct(
+            {oid: list(extents)}, lambda res: out.update(res)
+        )
+        self.pump()
+        assert oid in out, "read did not complete"
+        return out[oid]
+
+    def read(self, oid, off, length):
+        err, bufs = self.read_raw(oid, [(off, length)])
+        assert err == 0, f"read failed: {err}"
+        return bufs[0]
+
+    def hinfo(self, shard, oid):
+        blob = self.stores[shard].getattr(
+            self.coll(shard), oid, self.m.ec_transaction.HINFO_ATTR
+        )
+        return self.m.stripe.HashInfo.decode(blob)
+
+    def state(self):
+        """Every store's collections (data, xattrs, omap), byte for byte."""
+        return [
+            {
+                coll: {
+                    oid: (bytes(o.data), dict(o.xattrs), dict(o.omap))
+                    for oid, o in objs.items()
+                }
+                for coll, objs in store._colls.items()
+            }
+            for store in self.stores
+        ]
+
+    def logs(self):
+        return [[e.tobytes() for e in lst.log] for lst in self.listeners]
+
+    def quiescent(self):
+        for b in self.backends:
+            assert not b.in_flight and not b._encode_pipe
+            assert not b.waiting_reads and not b.read_ops
+            assert b.extent_cache.empty() and not b._projected
+
+
+def payload(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, n).astype(np.uint8).tobytes()
+
+
+# -- the reference's write/read tests, for both packages ------------------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+class TestEcWriteRead:
+    def test_append_and_read(self, pkg):
+        c = Cluster(pkg)
+        data = payload(3 * c.sw)
+        c.write("obj", 0, data)
+        assert c.read("obj", 0, len(data)) == data
+        assert c.read("obj", 100, 5000) == data[100:5100]
+        c.quiescent()
+
+    def test_shard_layout_and_hinfo(self, pkg):
+        c = Cluster(pkg)
+        data = payload(2 * c.sw)
+        c.write("obj", 0, data)
+        for s in range(6):
+            chunk = c.stores[s].read(c.coll(s), "obj", 0, 0)
+            assert len(chunk) == 2 * c.sw // 4
+            assert c.hinfo(s, "obj").verify_chunk(s, chunk)
+
+    def test_sequential_appends_chain_hinfo(self, pkg):
+        c = Cluster(pkg)
+        d1, d2 = payload(c.sw, 1), payload(2 * c.sw, 2)
+        c.write("obj", 0, d1)
+        c.write("obj", c.sw, d2)
+        assert c.read("obj", 0, 3 * c.sw) == d1 + d2
+        assert c.hinfo(3, "obj").get_total_chunk_size() == 3 * c.sw // 4
+
+    def test_full_rewrite_restarts_hinfo_chain(self, pkg):
+        c = Cluster(pkg)
+        d1, d2 = payload(c.sw, 1), payload(c.sw, 2)
+        c.write("obj", 0, d1)
+        c.write("obj", 0, d2)
+        assert c.read("obj", 0, c.sw) == d2
+        assert c.hinfo(0, "obj").verify_chunk(0, c.stores[0].read(c.coll(0), "obj", 0, 0))
+
+    def test_unaligned_append_rejected_without_overwrites(self, pkg):
+        c = Cluster(pkg)
+        err_type = EcError if pkg == "torch" else importlib.import_module(
+            "ceph_tpu.codec.interface"
+        ).EcError
+        with pytest.raises(err_type):
+            c.write("obj", 17, b"x" * 100, pump=False)
+
+    def test_degraded_read(self, pkg):
+        c = Cluster(pkg)
+        data = payload(2 * c.sw)
+        c.write("obj", 0, data)
+        c.acting[1] = c.acting[5] = c.m.osdmap.PG_NONE
+        assert c.read("obj", 0, len(data)) == data
+        c.quiescent()
+
+    def test_too_many_failures_is_eio(self, pkg):
+        c = Cluster(pkg)
+        data = payload(c.sw)
+        c.write("obj", 0, data)
+        for s in (0, 1, 2):
+            c.acting[s] = c.m.osdmap.PG_NONE
+        err, bufs = c.read_raw("obj", [(0, len(data))], backend=c.backends[3])
+        assert err == -EIO and bufs == []
+
+    def test_corrupt_shard_escalates_to_redundant_read(self, pkg):
+        c = Cluster(pkg)
+        data = payload(c.sw)
+        c.write("obj", 0, data)
+        good = c.stores[0].read(c.coll(0), "obj", 0, 0)
+        c.stores[0]._write(c.coll(0), "obj", 0, bytes([good[0] ^ 0xFF]) + good[1:])
+        assert c.read("obj", 0, len(data)) == data
+        assert any("crc mismatch" in e for e in c.listeners[0].clog)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+class TestEcOverwrites:
+    def test_rmw_partial_stripe(self, pkg):
+        c = Cluster(pkg, overwrites=True)
+        base = payload(2 * c.sw)
+        c.write("obj", 0, base)
+        patch = payload(300, seed=9)
+        c.write("obj", 1000, patch)
+        expect = bytearray(base)
+        expect[1000:1300] = patch
+        assert c.read("obj", 0, len(base)) == bytes(expect)
+        with pytest.raises(c.m.objectstore.StoreError):
+            c.stores[0].getattr(c.coll(0), "obj", c.m.ec_transaction.HINFO_ATTR)
+
+    def test_overwrite_spanning_stripes(self, pkg):
+        c = Cluster(pkg, overwrites=True)
+        base = payload(4 * c.sw)
+        c.write("obj", 0, base)
+        patch = payload(2 * c.sw + 777, seed=3)
+        off = c.sw - 123
+        c.write("obj", off, patch)
+        expect = bytearray(base)
+        expect[off : off + len(patch)] = patch
+        assert c.read("obj", 0, len(base)) == bytes(expect)
+
+    def test_pipelined_overlapping_writes(self, pkg):
+        c = Cluster(pkg, overwrites=True)
+        base = payload(c.sw)
+        c.write("obj", 0, base)
+        events = []
+        p1, p2 = payload(200, seed=5), payload(200, seed=6)
+        c.submit(c.pgt("obj").write(100, p1), 1, events, 1)
+        c.submit(c.pgt("obj").write(200, p2), 2, events, 2)
+        c.pump()
+        assert events == [(1, "commit"), (2, "commit")]
+        expect = bytearray(base)
+        expect[100:300] = p1
+        expect[200:400] = p2
+        assert c.read("obj", 0, len(base)) == bytes(expect)
+        c.quiescent()
+
+    def test_encode_pipeline_overlaps_launch_with_commit(self, pkg):
+        c = Cluster(pkg, overwrites=True)
+        base = payload(c.sw)
+        c.write("obj", 0, base)
+        events = []
+        p1 = payload(c.sw, seed=7)
+        c.submit(c.pgt("obj").write(0, p1), 10, events, 1)
+        c.submit(c.pgt("obj2").write(0, payload(c.sw, seed=9)), 11, events, 2)
+        assert [op.pgt.oid for op in c.primary._encode_pipe] == ["obj", "obj2"]
+        assert all(op.encoded for op in c.primary._encode_pipe)
+        assert events == []
+        assert all(not op.pending_commits for op in c.primary._encode_pipe)
+        c.pump()
+        assert events == [(1, "commit"), (2, "commit")]
+        assert c.read("obj", 0, len(base)) == p1
+
+    def test_truncate_unaligned(self, pkg):
+        c = Cluster(pkg, overwrites=True)
+        base = payload(2 * c.sw)
+        c.write("obj", 0, base)
+        t = c.sw + 500
+        events = []
+        c.submit(c.pgt("obj", truncate=t), 3, events, 1)
+        c.pump()
+        assert events == [(1, "commit")]
+        assert c.read("obj", 0, t) == base[:t]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+class TestTracing:
+    def _traced(self, pkg):
+        c = Cluster(pkg, k=2, m=1)
+        tracer = c.m.tracer.Tracer("osd.test")
+        c.listeners[0].tracer = tracer
+        return c, tracer
+
+    def test_degraded_read_span_tree(self, pkg):
+        c, tracer = self._traced(pkg)
+        data = bytes(range(256)) * 64
+        c.write("obj", 0, data)
+        tracer.clear()
+        c.missing["obj"] = {1}
+        err, bufs = c.read_raw("obj", [(0, len(data))])
+        assert err == 0 and bufs[0] == data
+        spans = {s["span_id"]: s for s in tracer.export()}
+        reads = [s for s in spans.values() if s["name"] == "ec:read"]
+        assert len(reads) == 1 and reads[0]["end"] is not None
+        events = [e["name"] for e in reads[0]["events"]]
+        assert any(e.startswith("sub-reads to shards") for e in events)
+        assert any(e.startswith("reply from shard") for e in events)
+        assert "read complete" in events
+        recon = [s for s in spans.values() if s["name"] == "ec:reconstruct"]
+        assert len(recon) == 1 and recon[0]["parent_id"] == reads[0]["span_id"]
+        assert recon[0]["end"] is not None
+        assert "1" not in recon[0]["tags"]["have"].split(",")
+
+    def test_write_span_commits_per_shard(self, pkg):
+        c, tracer = self._traced(pkg)
+        c.write("w", 0, b"x" * 8192)
+        spans = [s for s in tracer.export() if s["name"] == "ec:write"]
+        assert len(spans) == 1 and spans[0]["end"] is not None
+        events = [e["name"] for e in spans[0]["events"]]
+        assert "start ec write" in events and "all shards committed" in events
+        assert sum(1 for e in events if e.startswith("commit from shard")) == 3
+
+
+# -- the differential test ---------------------------------------------------------------
+
+
+class Model:
+    """The logical bytes every committed write leaves, updated at submit
+    (same-object writes apply in submit order)."""
+
+    def __init__(self):
+        self.objs: dict[str, bytearray] = {}
+
+    def write(self, oid, off, data):
+        buf = self.objs.setdefault(oid, bytearray())
+        if len(buf) < off:
+            buf.extend(b"\x00" * (off - len(buf)))
+        buf[off : off + len(data)] = data
+
+    def truncate(self, oid, t):
+        buf = self.objs.setdefault(oid, bytearray())
+        if len(buf) > t:
+            del buf[t:]
+        else:
+            buf.extend(b"\x00" * (t - len(buf)))
+
+
+def _random_ops(rng, n, sw, k, m, overwrites):
+    """`n` seeded operations, grouped into batches submitted before one
+    pump each: appends, WRITEFULLs, overwrites, truncates, deletes,
+    reads and degraded reads over four objects."""
+    model = Model()
+    oids = ["a", "b", "c", "d"]
+    batches, batch = [], []
+    for _ in range(n):
+        oid = oids[int(rng.integers(len(oids)))]
+        size = len(model.objs.get(oid, b""))
+        padded = -(-size // sw) * sw
+        kinds = ["append", "writefull", "read", "delete", "degraded"]
+        if overwrites:
+            kinds += ["overwrite", "overwrite", "truncate"]
+        kind = kinds[int(rng.integers(len(kinds)))]
+        if kind in ("read", "degraded") and size == 0:
+            kind = "append"
+        if kind == "append":
+            ln = int(rng.integers(1, 3 * sw)) if overwrites else sw * int(rng.integers(1, 4))
+            off = size if overwrites else padded
+            data = rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
+            model.write(oid, off, data)
+            batch.append(("write", oid, off, data, None))
+        elif kind == "writefull":
+            ln = int(rng.integers(1, 4 * sw)) if overwrites else sw * int(rng.integers(1, 4))
+            data = rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
+            model.objs[oid] = bytearray(data)
+            batch.append(("write", oid, 0, data, ln))
+        elif kind == "overwrite":
+            off = int(rng.integers(0, max(size, 1) + sw))
+            ln = int(rng.integers(1, 2 * sw))
+            data = rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
+            model.write(oid, off, data)
+            batch.append(("write", oid, off, data, None))
+        elif kind == "truncate":
+            t = int(rng.integers(0, size + sw))
+            model.truncate(oid, t)
+            batch.append(("truncate", oid, t))
+        elif kind == "delete":
+            model.objs.pop(oid, None)
+            batch.append(("delete", oid))
+        else:
+            off = int(rng.integers(0, size))
+            ln = int(rng.integers(1, size - off + 1))
+            holes = []
+            if kind == "degraded":
+                # up to m shards other than the primary's go dark
+                nh = int(rng.integers(1, m + 1))
+                holes = sorted(int(s) for s in rng.choice(np.arange(1, k + m), nh, replace=False))
+            batch.append(("read", oid, [(0, size), (off, ln)], holes,
+                          bytes(model.objs[oid])))
+            batches.append(batch)
+            batch = []
+            continue
+        if rng.integers(3) == 0:
+            batches.append(batch)
+            batch = []
+    if batch:
+        batches.append(batch)
+    return batches
+
+
+def _run_batch(c, batch, events, results, reqid):
+    for op in batch:
+        reqid += 1
+        if op[0] == "write":
+            _, oid, off, data, truncate = op
+            c.submit(c.pgt(oid, truncate=truncate).write(off, data), reqid, events, reqid)
+        elif op[0] == "truncate":
+            c.submit(c.pgt(op[1], truncate=op[2]), reqid, events, reqid)
+        elif op[0] == "delete":
+            c.submit(c.pgt(op[1], delete=True), reqid, events, reqid)
+        else:
+            _, oid, extents, holes, expect = op
+            c.pump()
+            saved = list(c.acting)
+            for h in holes:
+                c.acting[h] = c.m.osdmap.PG_NONE
+            err, bufs = c.read_raw(oid, extents)
+            c.acting[:] = saved
+            results.append((err, bufs))
+            assert err == 0 and bufs[0] == expect
+            assert bufs[1] == expect[extents[1][0] : extents[1][0] + extents[1][1]]
+    c.pump()
+    return reqid
+
+
+@pytest.mark.parametrize(
+    "k,m,overwrites,fast_read,seed",
+    [(4, 2, True, False, 1), (4, 2, False, False, 2), (8, 3, True, False, 3),
+     (8, 3, False, False, 4), (4, 2, True, True, 5)],
+)
+def test_seeded_operations_match_reference(k, m, overwrites, fast_read, seed):
+    """40 seeded operations through a cluster of each package: after every
+    pump the stores, logs, messages, callbacks and read results agree.
+    With `fast_read` every available shard is read and the first k win."""
+    clusters = {
+        pkg: Cluster(pkg, k=k, m=m, overwrites=overwrites, fast_read=fast_read)
+        for pkg in PKGS
+    }
+    batches = _random_ops(
+        np.random.default_rng(seed), 40, clusters["jax"].sw, k, m, overwrites
+    )
+    state = {pkg: ([], [], 0) for pkg in PKGS}
+    for batch in batches:
+        for pkg, c in clusters.items():
+            events, results, reqid = state[pkg]
+            state[pkg] = (events, results, _run_batch(c, batch, events, results, reqid))
+        j, t = clusters["jax"], clusters["torch"]
+        assert t.state() == j.state()
+        assert t.logs() == j.logs()
+        assert t.sent == j.sent
+        assert state["torch"][:2] == state["jax"][:2]
+    events = state["torch"][0]
+    assert all(e[1] == "commit" for e in events) and len(events) > 10
+    assert len(state["torch"][1]) >= 5
+    for c in clusters.values():
+        c.quiescent()
+
+
+# -- the event-loop drain, and the port's failed-launch contract ---------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_event_loop_drain_reaps_without_flush(pkg):
+    """Writes submitted under a running event loop are reaped by
+    `_schedule_drain`'s callbacks: no `flush_encodes` is ever called."""
+    c = Cluster(pkg, overwrites=True)
+    datas = [payload(c.sw + 1000 * i, seed=i) for i in range(4)]
+    events = []
+
+    async def main():
+        for i, d in enumerate(datas):
+            c.submit(c.pgt(f"o{i}").write(0, d), i, events, i)
+        deadline = time.monotonic() + 20
+        while len(events) < len(datas) and time.monotonic() < deadline:
+            await asyncio.sleep(0.002)
+            c.deliver()
+
+    asyncio.run(main())
+    assert sorted(events) == [(i, "commit") for i in range(4)]
+    for i, d in enumerate(datas):
+        assert c.read(f"o{i}", 0, len(d)) == d
+    c.quiescent()
+
+
+def test_failed_launch_fails_the_write_and_its_dependants():
+    """A failed encode launch raises EIO at the reap (the port has no host
+    recompute): the op and every later same-object write that has not fanned
+    out get on_failure(-EIO), the pins are released, the projection rolls
+    back, no store is written, and once a probe heals the guard the next
+    write commits."""
+    c = Cluster("torch", overwrites=True)
+    base = payload(c.sw)
+    c.write("obj", 0, base)
+    before = c.state()
+    fb0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    device_guard().configure(probe_interval_ms=10_000_000)
+    global_injector().inject("codec.launch", 5, hits=1)
+    events = []
+    c.submit(c.pgt("obj").write(0, payload(c.sw, seed=1)), 2, events, 1)
+    c.submit(c.pgt("obj").write(100, payload(300, seed=2)), 3, events, 2)
+    c.pump()
+    assert events == [(1, "fail", -EIO), (2, "fail", -EIO)]
+    assert c.state() == before
+    assert c.primary.extent_cache.empty() and not c.primary._projected
+    assert not c.primary.in_flight and not c.primary._encode_pipe
+    assert any("encode launch for obj failed" in e for e in c.listeners[0].clog)
+    assert device_guard().degraded
+    device_guard().configure(probe_interval_ms=1)
+    time.sleep(0.01)
+    assert device_guard().maybe_probe(lambda: None) is True
+    patch = payload(300, seed=3)
+    c.submit(c.pgt("obj").write(100, patch), 4, events, 3)
+    c.pump()
+    assert events[-1] == (3, "commit")
+    expect = bytearray(base)
+    expect[100:400] = patch
+    assert c.read("obj", 0, c.sw) == bytes(expect)
+    assert dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fb0
+    c.quiescent()
+
+
+def test_unported_paths_raise_eopnotsupp():
+    """Recovery and replicated pools are not ported yet: they raise
+    EOPNOTSUPP instead of running on something else."""
+    c = Cluster("torch")
+    with pytest.raises(EcError) as e:
+        c.primary.recover_object("obj", {1}, lambda err: None)
+    assert e.value.errno == -EOPNOTSUPP
+    m = mods("torch")
+    pool = m.osdmap.PgPool(id=2, name="rep", type=m.osdmap.POOL_TYPE_REPLICATED, size=3)
+    with pytest.raises(EcError) as e:
+        m.pg_backend.build_pg_backend(pool, {}, c.listeners[0], c.stores[0], device="cpu")
+    assert e.value.errno == -EOPNOTSUPP
+
+
+def test_partly_pinned_rmw_read_keeps_the_earlier_write():
+    """Two pipelined RMWs on one object: the second's read range spans a
+    stripe the first has pinned and one it has not.  The pinned stripe
+    comes from the pin, the other from the shards, and both writes read
+    back.  (The reference reads the whole range from the shards, before
+    the first write's sub-writes apply, and loses the first write: the
+    one place the two packages differ, ROADMAP.md C5.)"""
+    got = {}
+    for pkg in PKGS:
+        c = Cluster(pkg, overwrites=True)
+        base = payload(6 * c.sw)
+        c.write("obj", 0, base)
+        events = []
+        p1, p2 = payload(100, seed=1), payload(c.sw + 200, seed=2)
+        c.submit(c.pgt("obj").write(3 * c.sw + 10, p1), 1, events, 1)
+        c.submit(c.pgt("obj").write(3 * c.sw + 500, p2), 2, events, 2)
+        c.pump()
+        assert events == [(1, "commit"), (2, "commit")]
+        expect = bytearray(base)
+        expect[3 * c.sw + 10 : 3 * c.sw + 110] = p1
+        expect[3 * c.sw + 500 : 3 * c.sw + 500 + len(p2)] = p2
+        got[pkg] = c.read("obj", 0, len(base)) == bytes(expect)
+        c.quiescent()
+    assert got == {"torch": True, "jax": False}

@@ -27,7 +27,7 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) >= 15
     for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu",
-                   "bitmatrix.cu", "packed_gf.cu"):
+                   "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc"):
         assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
 
 
@@ -72,6 +72,63 @@ def test_offload_runtime_import_leaves_jax_out():
         "parity = default_encode_aggregator().submit(ec, data).result()\n"
         "assert np.array_equal(parity, ec.encode_array_host(data))\n"
         "default_decode_aggregator(), default_verify_aggregator()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ec_backend_import_leaves_jax_out():
+    """The EC backend, the stripe module and the modules under them import
+    neither jax nor the JAX package: an RS(4,2) cluster of 6 backends on
+    the CPU writes and reads back one object."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.osd.ec_backend\n"
+        "import ceph_tpu_torch.stripe.stripe\n"
+        "from ceph_tpu_torch.msg.messages import PgId, ReqId\n"
+        "from ceph_tpu_torch.os.memstore import MemStore\n"
+        "from ceph_tpu_torch.os.transaction import Transaction\n"
+        "from ceph_tpu_torch.osd.ec_transaction import PGTransaction\n"
+        "from ceph_tpu_torch.osd.osdmap import POOL_TYPE_ERASURE, PgPool\n"
+        "from ceph_tpu_torch.osd.pg_backend import PGListener, build_pg_backend, shard_coll\n"
+        "from ceph_tpu_torch.osd.pg_log import Eversion\n"
+        "queue, acting, pgid = [], list(range(6)), PgId(1, 0, -1)\n"
+        "class L(PGListener):\n"
+        "    def __init__(self, osd): self.osd, self.pgid, self.v = osd, pgid, 0\n"
+        "    def whoami(self): return self.osd\n"
+        "    def whoami_shard(self): return self.osd\n"
+        "    def acting(self): return acting\n"
+        "    def epoch(self): return 1\n"
+        "    def next_version(self):\n"
+        "        self.v += 1\n"
+        "        return Eversion(1, self.v)\n"
+        "    def send_shard(self, osd, msg): queue.append((osd, msg))\n"
+        "pool = PgPool(id=1, name='p', type=POOL_TYPE_ERASURE, size=6, pg_num=1,\n"
+        "              erasure_code_profile='p', stripe_width=4 * 4096)\n"
+        "backends = []\n"
+        "for osd in range(6):\n"
+        "    store = MemStore()\n"
+        "    store.queue_transaction(Transaction().create_collection(shard_coll(pgid, osd)))\n"
+        "    backends.append(build_pg_backend(\n"
+        "        pool, {'p': {'plugin': 'tpu', 'k': '4', 'm': '2'}}, L(osd), store, device='cpu'))\n"
+        "def pump():\n"
+        "    while True:\n"
+        "        for b in backends: b.flush_encodes()\n"
+        "        if not queue: return\n"
+        "        osd, msg = queue.pop(0)\n"
+        "        backends[osd].handle_message(msg)\n"
+        "data, done, out = bytes(range(256)) * 256, [], {}\n"
+        "backends[0].submit_transaction(PGTransaction('o').write(0, data), ReqId('c', 1),\n"
+        "                               lambda: done.append(1))\n"
+        "pump()\n"
+        "backends[0].objects_read_and_reconstruct({'o': [(0, len(data))]}, out.update)\n"
+        "pump()\n"
+        "assert done == [1] and out['o'] == (0, [data]), out\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
