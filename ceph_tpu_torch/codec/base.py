@@ -69,6 +69,18 @@ class ErasureCode(ErasureCodeInterface):
             raise EcError(EINVAL, f"could not convert {name}={profile[name]} to int") from e
 
     @staticmethod
+    def to_bool(name: str, profile: Profile, default: str) -> bool:
+        if not profile.get(name):
+            profile[name] = default
+        return profile[name] in ("yes", "true")
+
+    @staticmethod
+    def to_string(name: str, profile: Profile, default: str) -> str:
+        if not profile.get(name):
+            profile[name] = default
+        return profile[name]
+
+    @staticmethod
     def sanity_check_k_m(k: int, m: int) -> None:
         """ErasureCode.cc:84-95."""
         if k < 2:

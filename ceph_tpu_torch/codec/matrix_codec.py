@@ -1,8 +1,9 @@
-"""Generic GF(2^8) matrix-codec machinery: the RS encode/decode path.
+"""Generic GF(2^8) matrix-codec machinery shared by every matrix technique.
 
-The port of the part of `ceph_tpu/codec/matrix_codec.py` that the `tpu`
-plugin's encode, decode, deep-scrub verify and RMW delta run:
-`_DeviceCoder`, the plan cache (with its hit/miss totals),
+The port of `ceph_tpu/codec/matrix_codec.py`: `_DeviceCoder`, the plan
+cache (with its hit/miss totals, the raw-matrix decode coders of SHEC's
+searched inverses and the GF(2) decode plans of jerasure's bit-matrix
+techniques, all in one decode LRU), the host decode-plan memo,
 `MatrixCodecMixin`, the EC aggregators of the offload runtime
 (`EncodeAggregator`, `DecodeAggregator`, `VerifyAggregator` and their
 process-wide `default_*_aggregator` services) and `EncodePipeline`.  Any
@@ -30,6 +31,7 @@ import torch
 from ..common.errs import EINVAL, EIO
 from ..common.lockdep import make_lock
 from ..gf import expand_matrix, isa_decode_matrix, xor_matmul_host_batch
+from ..gf.gf2 import gf2_inv, gf2_matmul
 from ..ops.dispatch import lead_stripes, record_launch
 from ..ops.packed_gf import (
     PACKED_MIN_BYTES,
@@ -53,6 +55,14 @@ from ..ops.xor_mm import xor_matmul, xor_reduce
 from .interface import EcError
 
 DECODE_LRU_CAPACITY = 2516
+
+# Host-oracle decode-plan memo (decode_array_host): expanded bit-matrices
+# keyed by (distribution matrix, erasure pattern), bounded like the decode
+# LRU but kept apart from PLAN_CACHE, so the host oracle never builds a
+# device operand.
+_HOST_DECODE_CAPACITY = 256
+_HOST_DECODE_PLANS: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+_HOST_DECODE_LOCK = make_lock("host_decode")
 
 
 def dense_aligned(data: torch.Tensor) -> torch.Tensor:
@@ -97,10 +107,18 @@ class _DeviceCoder:
 
     __slots__ = ("bm", "plan", "packed", "decode")
 
-    def __init__(self, gf_rows: np.ndarray, device: torch.device, decode: bool = False):
+    def __init__(
+        self,
+        gf_rows: np.ndarray,
+        device: torch.device,
+        decode: bool = False,
+        bm: torch.Tensor | None = None,
+    ):
         self.plan = CodingPlan(gf_rows, device=device, decode=decode)
         self.packed = PackedPlan(gf_rows, decode=decode)
-        self.bm = torch.from_numpy(expand_matrix(gf_rows)).to(device)
+        if bm is None:
+            bm = torch.from_numpy(expand_matrix(gf_rows)).to(device)
+        self.bm = bm
         self.decode = decode
 
     @staticmethod
@@ -189,6 +207,79 @@ class _GlobalPlanCache:
             self._decode_key(dist_matrix, erasures, k), dist_matrix, erasures, k
         )
 
+    def _lru_put(self, key, value) -> None:
+        with self._lock:
+            self._decode[key] = value
+            self._decode.move_to_end(key)
+            while len(self._decode) > DECODE_LRU_CAPACITY:
+                self._decode.popitem(last=False)
+
+    def lru_coder(self, matrix: np.ndarray, device: torch.device) -> _DeviceCoder:
+        """Coding operator on `device` for a decode-time matrix, bounded by
+        the decode LRU (SHEC's searched inverses and other raw-matrix
+        decode paths)."""
+        key = (str(device), matrix.shape, matrix.tobytes(), "#raw")
+        with self._lock:
+            coder = self._decode_coders.get(key)
+            if coder is not None:
+                self._hits += 1
+                self._decode_coders.move_to_end(key)
+                return coder
+            self._misses += 1
+        bm = self.lru_bit_matrix(matrix, device)
+        coder = _DeviceCoder(matrix, device, decode=True, bm=bm)  # built outside the lock
+        with self._lock:
+            self._decode_coders[key] = coder
+            self._decode_coders.move_to_end(key)
+            while len(self._decode_coders) > DECODE_LRU_CAPACITY:
+                self._decode_coders.popitem(last=False)
+        return coder
+
+    def lru_bit_matrix(self, matrix: np.ndarray, device: torch.device) -> torch.Tensor:
+        """Bit-matrix on `device` for a decode-time matrix, bounded by the
+        decode LRU, stored beside the signature-keyed plans so the decode
+        tables stay within DECODE_LRU_CAPACITY, as Ceph's cache does."""
+        key = (str(device), matrix.shape, matrix.tobytes(), "#raw")
+        with self._lock:
+            cached = self._decode.get(key)
+            if cached is not None:
+                self._decode.move_to_end(key)
+                return cached[0]
+        bm = torch.from_numpy(expand_matrix(matrix)).to(device)
+        self._lru_put(key, (bm, []))
+        return bm
+
+    def gf2_decode_plan(
+        self, bitmatrix: np.ndarray, k: int, w: int, erasures: list[int]
+    ) -> tuple[np.ndarray, list[int]]:
+        """Decode plan for a packetized GF(2) bit-matrix RAID-6 code
+        (liberation family): (decode matrix (len(erasures)*w, k*w),
+        decode_index), host numpy.  Shares the one decode LRU."""
+        n = k + bitmatrix.shape[0] // w
+        erased = set(erasures)
+        decode_index = [c for c in range(n) if c not in erased][:k]
+        if len(decode_index) < k:
+            raise EcError(EIO, f"not enough survivors for erasures {erasures}")
+        key = (bitmatrix.shape, bitmatrix.tobytes(), "#gf2", tuple(erasures))
+        with self._lock:
+            cached = self._decode.get(key)
+            if cached is not None:
+                self._decode.move_to_end(key)
+                return cached
+        # full generator: data identity rows then the coding rows (the
+        # bitmatrix already carries both the P-identity and Q blocks)
+        full = np.zeros((n * w, k * w), dtype=np.uint8)
+        full[: k * w] = np.eye(k * w, dtype=np.uint8)
+        full[k * w :] = bitmatrix
+        survivors = np.vstack([full[c * w : (c + 1) * w] for c in decode_index])
+        inv = gf2_inv(survivors)
+        if inv is None:
+            raise EcError(EIO, f"singular decode matrix for erasures {erasures}")
+        erased_rows = np.vstack([full[c * w : (c + 1) * w] for c in erasures])
+        plan = (gf2_matmul(erased_rows, inv), decode_index)
+        self._lru_put(key, plan)
+        return plan
+
     def _decode_entry(
         self, key: tuple, dist_matrix: np.ndarray, erasures: list[int], k: int
     ) -> tuple[np.ndarray, list[int]]:
@@ -200,11 +291,7 @@ class _GlobalPlanCache:
         entry = isa_decode_matrix(dist_matrix, erasures, k)
         if entry is None:
             raise EcError(EIO, f"singular decode matrix for erasures {erasures}")
-        with self._lock:
-            self._decode[key] = entry
-            self._decode.move_to_end(key)
-            while len(self._decode) > DECODE_LRU_CAPACITY:
-                self._decode.popitem(last=False)
+        self._lru_put(key, entry)
         return entry
 
     def _decode_key(
@@ -660,11 +747,27 @@ class MatrixCodecMixin:
 
     def decode_array_host(self, erasures: list[int], survivors) -> np.ndarray:
         """Byte-identical HOST oracle of decode_array (pure numpy), from the
-        same isa_decode_matrix Gaussian the cached coder was built from."""
-        c, _ = PLAN_CACHE.decode_plan(self.distribution_matrix(), list(erasures), self.k)
-        return xor_matmul_host_batch(
-            expand_matrix(c), np.asarray(survivors, dtype=np.uint8)
-        )
+        same isa_decode_matrix Gaussian the cached coder was built from.
+        Plans are memoized host-side (`_HOST_DECODE_PLANS`): a recovery
+        repeats one erasure pattern across many launches and must not pay
+        the O(k^3) inversion each time."""
+        dist = self.distribution_matrix()
+        key = (dist.shape, dist.tobytes(), tuple(erasures))
+        with _HOST_DECODE_LOCK:
+            bm = _HOST_DECODE_PLANS.get(key)
+            if bm is not None:
+                _HOST_DECODE_PLANS.move_to_end(key)
+        if bm is None:
+            plan = isa_decode_matrix(dist, list(erasures), self.k)
+            if plan is None:
+                raise EcError(EIO, f"singular decode matrix for erasures {erasures}")
+            bm = expand_matrix(plan[0])
+            with _HOST_DECODE_LOCK:
+                _HOST_DECODE_PLANS[key] = bm
+                _HOST_DECODE_PLANS.move_to_end(key)
+                while len(_HOST_DECODE_PLANS) > _HOST_DECODE_CAPACITY:
+                    _HOST_DECODE_PLANS.popitem(last=False)
+        return xor_matmul_host_batch(bm, np.asarray(survivors, dtype=np.uint8))
 
     def decode_index(self, erasures: list[int]) -> list[int]:
         _, idx = PLAN_CACHE.decode_plan(self.distribution_matrix(), erasures, self.k)

@@ -131,9 +131,10 @@ class FaultInjector:
 # The injection-point catalog: every name wired through `faultpoint()`
 # in the port MUST be registered here, so a hook can never be armed
 # under a typo'd name that silently never fires.  The port wires the
-# device launch, the object store's media-error seams and the EC shard
-# sub-read (its EIO mode; the delay mode comes with hedged reads); the
-# reference's other points come with the modules that check them.
+# device launch, the object store's media-error seams, the EC shard
+# sub-read (its EIO mode; the delay mode comes with hedged reads) and the
+# recovery push; the JAX package's other points come with the modules
+# that check them.
 FAULT_POINTS: dict[str, str] = {
     "codec.launch": (
         "device coding-launch submit in LaunchAggregator._launch: the "
@@ -158,6 +159,14 @@ FAULT_POINTS: dict[str, str] = {
         "mode the shard answers CORRECTLY but late (the reply is "
         "deferred on the event loop, never blocking it) — the gray "
         "failure that drives adaptive hedged reads"
+    ),
+    "ec.recover_push": (
+        "EC recovery push receive in ECBackend.handle_recovery_push: "
+        "the target drops the PushOp on the floor, exactly as a dying "
+        "target would — the primary's stalled-push retry "
+        "(retry_stalled_pushes, osd_recovery_push_retry_sec) re-sends "
+        "the pending shards so a wedged push cannot stall a "
+        "recovery-storm wave forever"
     ),
 }
 

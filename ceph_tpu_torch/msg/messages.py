@@ -1,13 +1,14 @@
-"""The typed message catalog of the port — the EC sub-ops.
+"""The typed message catalog of the port — the EC sub-ops and recovery pushes.
 
 The port of the part of `ceph_tpu/msg/messages.py` that the EC backend
-sends: the wire structs `Struct`, `PgId` and `ReqId`, and the four EC
+sends: the wire structs `Struct`, `PgId`, `ReqId` and `PushOp`, the four EC
 sub-op messages mirroring Ceph's ECMsgTypes (src/osd/ECMsgTypes.h):
 ECSubWrite carries a serialized per-shard transaction (:23-89); ECSubRead
 carries per-object (off,len,flags) plus per-shard subchunk vectors
-(:105-116); ECSubReadReply returns buffers/attrs/errors (:118-129).  The
-type numbers and field orders are the reference's, so a message encodes
-to the reference's bytes.
+(:105-116); ECSubReadReply returns buffers/attrs/errors (:118-129) — and
+the recovery pushes MOSDPGPush / MOSDPGPushReply (src/messages/
+MOSDPGPush.h).  The type numbers and field orders are the JAX package's,
+so a message encodes to its bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +60,24 @@ class ReqId(Struct):
 
     def key(self) -> tuple[str, int]:
         return (self.client, self.tid)
+
+
+class PushOp(Struct):
+    """Recovery push payload (osd_types.h PushOp, carried by MOSDPGPush)."""
+
+    FIELDS = [
+        ("oid", "str"),
+        ("data", "bytes"),
+        ("attrs", ("map", "str", "bytes")),
+        ("version", "u64"),
+        ("omap", ("map", "str", "bytes")),
+    ]
+
+    def __init__(self, oid="", data=b"", attrs=None, version=0, omap=None):
+        super().__init__(
+            oid=oid, data=data, attrs=attrs or {}, version=version,
+            omap=omap or {},
+        )
 
 
 # --- EC sub-ops (ECMsgTypes.h) ----------------------------------------------
@@ -125,3 +144,28 @@ class MOSDECSubOpReadReply(Message):
         ("errors", ("map", "str", "i64")),
     ]
     priority = PRIO_HIGH
+
+
+# --- recovery pushes --------------------------------------------------------
+
+
+@message_type(22)
+class MOSDPGPush(Message):
+    """Recovery pushes (src/messages/MOSDPGPush.h; the WRITING stage)."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("pushes", ("list", PushOp)),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+    ]
+
+
+@message_type(23)
+class MOSDPGPushReply(Message):
+    FIELDS = [
+        ("pgid", PgId),
+        ("oids", ("list", "str")),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+    ]

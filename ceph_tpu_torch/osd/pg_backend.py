@@ -5,9 +5,10 @@ The port of `ceph_tpu/osd/pg_backend.py` (Ceph's src/osd/PGBackend.{h,cc}):
 (PGBackend.cc:570-607, plugin name from `profile["plugin"]`) on the
 caller's device, `cuda` unless it asks for `cpu`.  The Listener is the
 PG's callback surface (PGBackend::Listener): identity, acting set, version
-allocation, log append, missing tracking, and the transport hook.  The
-replicated backend and the recovery pushes' apply come with the OSD
-daemons and recovery; until then a replicated pool raises EOPNOTSUPP.
+allocation, log append, missing tracking, and the transport hook.
+`PGBackend._apply_pushes` writes recovery pushes.  The replicated backend
+comes with the OSD daemons; until then a replicated pool raises
+EOPNOTSUPP.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from ..codec.interface import EcError
 from ..codec.registry import ErasureCodePluginRegistry
 from ..common.errs import EINVAL, EOPNOTSUPP
 from ..msg.message import Message
-from ..msg.messages import PgId, ReqId
+from ..msg.messages import PgId, PushOp, ReqId
 from ..os.objectstore import ObjectStore
+from ..os.transaction import Transaction
 from ..osd.osdmap import PG_NONE, PgPool
 from ..stripe import StripeInfo
 from .pg_log import LogEntry, LOG_DELETE, LOG_MODIFY
@@ -156,6 +158,26 @@ class PGBackend(abc.ABC):
     def flush_encodes(self) -> None:
         """Drain any launched-but-undispatched device encodes (EC encode
         pipeline); a no-op for backends without one."""
+
+    def _apply_pushes(self, coll: str, pushes: list[PushOp]) -> list[str]:
+        """Write pushed objects + attrs locally (shared by EC shard pushes
+        and replicated whole-object pushes); returns the recovered oids."""
+        txn = Transaction()
+        oids: list[str] = []
+        for push in pushes:
+            oids.append(push.oid)
+            txn.remove(coll, push.oid)
+            txn.touch(coll, push.oid)
+            txn.write(coll, push.oid, 0, push.data)
+            for name, val in push.attrs.items():
+                txn.setattr(coll, push.oid, name, val)
+            omap = getattr(push, "omap", None)
+            if omap:
+                txn.omap_setkeys(coll, push.oid, dict(omap))
+        self.store.queue_transaction(txn)
+        for oid in oids:
+            self.listener.on_local_recover(oid)
+        return oids
 
 
 def build_pg_backend(

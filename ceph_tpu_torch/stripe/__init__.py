@@ -2,6 +2,6 @@
 integrity digests."""
 
 from .hashinfo import HashInfo
-from .stripe import StripeInfo, decode_concat, encode
+from .stripe import StripeInfo, decode_concat, decode_shards, encode
 
-__all__ = ["HashInfo", "StripeInfo", "decode_concat", "encode"]
+__all__ = ["HashInfo", "StripeInfo", "decode_concat", "decode_shards", "encode"]

@@ -1,7 +1,8 @@
 """Stripe math + batched stripe coding — mirror of `ECUtil`.
 
 The port of `ceph_tpu/stripe/stripe.py`'s offset algebra and its client
-encode and read-decode launches (Ceph's src/osd/ECUtil.{h,cc}).
+encode, read-decode and recovery-decode launches (Ceph's
+src/osd/ECUtil.{h,cc}).
 `StripeInfo` reproduces stripe_info_t's offset algebra (stripe_width = k x
 chunk_size; byte B of the logical object lives in chunk (B / chunk_size) %
 k of stripe B / stripe_width, ErasureCodeInterface.h:39-58).  The codec
@@ -16,8 +17,8 @@ pending handle records `offload_runtime.completion_event` at launch,
 polls that event in `ready()` and copies with `.cpu()` in `result()`; it
 never synchronizes the device, so a launch overlaps the commits of the
 writes before it.  An aggregator ticket keeps its own event.  The device
-chunk cache branches, the RMW delta launch and the recovery decode
-(`decode_shards_launch`) come with the modules that run them.
+chunk cache branches and the RMW delta launch come with the modules that
+run them.
 """
 
 from __future__ import annotations
@@ -336,3 +337,74 @@ def decode_concat(
     """Batched client-read decode: per-shard chunk streams -> logical bytes
     (mirror of ECUtil::decode's concat overload, ECUtil.cc:12-48)."""
     return decode_concat_launch(sinfo, ec, shards).result()
+
+
+def decode_shards_launch(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    shards: Mapping[int, np.ndarray],
+    need: set[int],
+    aggregator=None,
+) -> PendingDecode:
+    """Launch a recovery decode WITHOUT materializing the rebuilt shards;
+    resolves to {shard: stream} for `need`.  Matrix codecs take one batched
+    launch: with an `aggregator` the survivor batch is SUBMITTED, so
+    per-object decodes during recovery and backfill — where ONE erasure
+    pattern repeats across every object in the PG — coalesce into one
+    padded device launch when the window fills or a barrier flushes
+    (ECBackend.flush_decodes / any ticket reap).  Other codecs (jerasure's
+    bit-matrix techniques, LRC, CLAY read whole) decode stripe by stripe
+    through `ec.decode`, eagerly, and the PendingDecode is born ready."""
+    lengths = {len(v) for v in shards.values()}
+    if len(lengths) != 1:
+        raise EcError(EINVAL, "shards must have equal length")
+    shard_len = lengths.pop()
+    stripes = shard_len // sinfo.chunk_size
+    have = {
+        i: np.asarray(v, dtype=np.uint8).reshape(stripes, sinfo.chunk_size)
+        for i, v in shards.items()
+    }
+    missing = sorted(i for i in need if i not in have)
+    out = {i: have[i].reshape(-1) for i in need if i in have}
+    if not missing:
+        return PendingDecode(None, None, result=out)
+    if _matrix_fast_path(ec):
+        erasures = [i for i in range(ec.get_chunk_count()) if i not in have]
+        idx = ec.decode_index(erasures)
+        if any(i not in have for i in idx):
+            raise EcError(EIO, f"missing survivor shards {idx}")
+        survivors = np.stack([have[i] for i in idx], axis=1)
+        if aggregator is not None:
+            handle = aggregator.submit(ec, erasures, survivors)
+        else:
+            handle = ec.decode_array(erasures, survivors)
+
+        def _assemble(rec: np.ndarray) -> dict[int, np.ndarray]:
+            for p, e in enumerate(erasures):
+                if e in need:
+                    out[e] = np.ascontiguousarray(rec[:, p, :]).reshape(-1)
+            return out
+
+        return PendingDecode(handle, _assemble)
+    rebuilt = {e: np.empty((stripes, sinfo.chunk_size), dtype=np.uint8) for e in missing}
+    for s in range(stripes):
+        decoded = ec.decode(
+            set(missing), {i: buf[s] for i, buf in have.items()}
+        )
+        for e in missing:
+            rebuilt[e][s] = decoded[e]
+    for e in missing:
+        out[e] = rebuilt[e].reshape(-1)
+    return PendingDecode(None, None, result=out)
+
+
+def decode_shards(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    shards: Mapping[int, np.ndarray],
+    need: set[int],
+) -> dict[int, np.ndarray]:
+    """Recovery decode: rebuild whole target shards (data or parity) from
+    surviving shard streams (ECUtil::decode's per-shard overload,
+    ECUtil.cc:50-121)."""
+    return decode_shards_launch(sinfo, ec, shards, need).result()

@@ -193,6 +193,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    p50 and p99 submit-to-commit latency, read and degraded-read GB/s,
    the median `ec_encode_latency`, the flight spans' medians, and the
    stage split of 9a (QD8) and 9e.
+10. Recovery and the other codecs.  Phase 1 also builds
+   csrc/gf2_plane.cu (ptxas's registers; fails on a spill).  10a:
+   `gf2_plane_matmul` (jerasure's bit-matrix techniques) against its plain
+   version (`gf2_plane_matmul_reference`) and a numpy oracle, byte for
+   byte, for the encode matrices of liberation (k = 4, 7; w = 7),
+   blaum_roth (k = 4, w = 6) and liber8tion (k = 4, 8) and the decode plan
+   of every one- and two-erasure pattern of liberation k = 4, at packets of
+   4, 8, 32, 2048 and 2052 bytes and 1, 3 and 256 super-packets, and on two
+   strided views; then timed (median of 20 runs of 5 calls) at liberation
+   k = 7, w = 7, (2048, 49, 2048), beside its bound and its plain version.
+   10b: the Ceph documentation's example profile of every plugin
+   (jerasure reed_sol_van, cauchy_good and liberation, isa, shec, lrc,
+   clay, xor) built with no device argument: 16 objects of 4 MiB through
+   `encode`, then every erasure set up to m that `minimum_to_decode`
+   accepts through `decode`, each equal to the same call on
+   device="cpu"; the launches of swar_gf, packed_code, the xor_matmul tier
+   and gf2_plane_matmul printed by plugin (gf2_plane_matmul's counts set
+   to 0 just before and read just after: the `kernels` line's launches).
+   10c: recovery through ECBackend on 11 OSDs (phase 9's pool rbd, RS(8,3),
+   stripe unit 4096): 64 objects of 4 MiB written, then for each loss of
+   [3], [9], [0] (the primary's own), [3, 9] and [0, 5, 10] the shards
+   wiped and marked missing, `recover_object` for all 64 and the queue
+   drained, the barrier only when it runs dry (decode window 8): every
+   rebuilt shard and its attrs equal the
+   bytes before the loss, every callback 0, fewer decode launches than
+   objects (each a swar_gf launch and a clean flight record, no fallback);
+   printed: MB/s of logical and of rebuilt shard bytes, the median
+   `ec_decode_latency`, the decode launches and the flight spans.  10d:
+   CLAY k = 4, m = 2, d = 5 on 6 OSDs, 16 objects of 4 MiB, shard 1 lost and
+   recovered exact from fragments, fewer than 4 whole chunks an object
+   read from the helpers (d helpers x 1/q of a chunk = 2.5).
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -206,6 +237,7 @@ import collections
 import ctypes
 import functools
 import inspect
+import itertools
 import json
 import os
 import re
@@ -443,7 +475,7 @@ def count_prefix(ops, prefix: str) -> int:
     return sum(n for op, n in ops.items() if op.startswith(prefix))
 
 
-def phase_env(torch, swar, gf, diag, kern_exp, packed, nvcc):
+def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
     kern_exp2, kern_exp3, kern_exp4 = diag[:3]
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -461,8 +493,13 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, nvcc):
         packed.build_library()
         return packed.build_info
 
+    def gf2_plane_info():
+        xor_mm.build_library()
+        return xor_mm.build_info
+
     jobs = {"swar_gf": swar_gf_info, "copy_floor": lambda: kern_exp4.build().info,
-            "bitmatrix": lambda: kern_exp.build().info, "packed_gf": packed_gf_info}
+            "bitmatrix": lambda: kern_exp.build().info, "packed_gf": packed_gf_info,
+            "gf2_plane": gf2_plane_info}
     for label, mat in baked_matrices(gf):
         jobs[f"swar_baked {label}"] = lambda mat=mat: kern_exp2.make_swar(mat, 128).build().info
         jobs[f"swar3_baked {label}"] = (
@@ -522,6 +559,10 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, nvcc):
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
     check_packed_build(infos["packed_gf"])
+    lines = ptxas_lines(infos["gf2_plane"], "gf2_plane_kernel")
+    check("ptxas" not in infos["gf2_plane"] or len(lines) >= 2, "no ptxas lines for gf2_plane")
+    check(not any("spill" in line and not re.search(r"\b0 bytes spill stores", line)
+                  for line in lines), f"gf2_plane_kernel spills: {lines}")
     for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
                    GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
@@ -2292,7 +2333,7 @@ class BkCluster:
     of one PG, the primary on OSD 0, messages through a pumped queue.  The
     codecs come from build_pg_backend with no device argument."""
 
-    def __init__(self, pool_id: int, name: str, overwrites: bool):
+    def __init__(self, pool_id: int, name: str, overwrites: bool, profile: dict | None = None):
         from ceph_tpu_torch.msg.messages import PgId, ReqId
         from ceph_tpu_torch.os.memstore import MemStore
         from ceph_tpu_torch.os.transaction import Transaction
@@ -2337,14 +2378,20 @@ class BkCluster:
             def perf_hist(self, name, value):
                 self.hists[name].append(value)
 
-        n = BK_K + BK_M
+            def get_shard_missing(self, oid):
+                return cluster.missing.get(oid, set())
+
+        profile = dict(profile or BK_PROFILE)
+        k = int(profile["k"])
+        n = k + int(profile["m"])
         self.pool = osdmap.PgPool(
-            id=pool_id, name=name, type=osdmap.POOL_TYPE_ERASURE, size=n, min_size=BK_K + 1,
-            pg_num=1, erasure_code_profile="ec83", stripe_width=BK_K * BK_SU,
+            id=pool_id, name=name, type=osdmap.POOL_TYPE_ERASURE, size=n, min_size=k + 1,
+            pg_num=1, erasure_code_profile="ec", stripe_width=k * BK_SU,
             flags=osdmap.FLAG_EC_OVERWRITES if overwrites else 0, application=name)
         self.pgid = PgId(pool_id, 0, -1)
         self.acting = list(range(n))
         self.queue: list = []
+        self.missing: dict = {}
         self.commits: collections.Counter = collections.Counter()
         self.failures: list = []
         self.latency: dict = {}
@@ -2355,7 +2402,7 @@ class BkCluster:
             store.mount()
             store.queue_transaction(Transaction().create_collection(self.colls[osd]))
             listener = Listener(osd)
-            self.backends.append(build_pg_backend(self.pool, {"ec83": dict(BK_PROFILE)},
+            self.backends.append(build_pg_backend(self.pool, {"ec": dict(profile)},
                                                   listener, store))
             self.stores.append(store)
             self.listeners.append(listener)
@@ -2376,6 +2423,22 @@ class BkCluster:
             osd, msg = self.queue.pop(0)
             if osd != self.PG_NONE:
                 self.backends[osd].handle_message(msg)
+
+    def drain(self) -> None:
+        """Deliver queued messages until quiescent with the barrier
+        (flush_encodes, which also reaps the recovery decodes) only when the
+        queue runs dry: the recovery decodes of the objects whose reads
+        complete in one delivery round share aggregated launches, as they do
+        on an OSD's event loop."""
+        while True:
+            while self.queue:
+                osd, msg = self.queue.pop(0)
+                if osd != self.PG_NONE:
+                    self.backends[osd].handle_message(msg)
+            for b in self.backends:
+                b.flush_encodes()
+            if not self.queue:
+                return
 
     def submit(self, pgt) -> int:
         self.submitted += 1
@@ -2415,7 +2478,8 @@ class BkCluster:
               f"repeats {[t for t, v in self.commits.items() if v != 1][:4]}")
         for b in self.backends:
             check(not b.in_flight and not b._encode_pipe and not b.waiting_reads
-                  and not b.read_ops and not b._projected and b.extent_cache.empty(),
+                  and not b.read_ops and not b._projected and b.extent_cache.empty()
+                  and not b.recovery_ops and not b._decode_pipe,
                   f"{part}: osd.{b.listener.osd} still holds ops or pins")
         held = {pool: led.current_bytes(pool) for pool in RT_INFLIGHT_POOLS}
         check(not any(held.values()), f"{part}: in-flight pools after the drain: {held}")
@@ -2778,6 +2842,337 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
     return out
 
 
+# Phase 10's shapes and deployments.  10a: the GF(2) plane product at
+# jerasure's packet sizes (the corpus's 32, test_jerasure.py's 8, the
+# default 2048 and two that are not multiples of 16) and its timing shape,
+# liberation k = 7, w = 7 at packetsize 2048 over 2048 super-packets.
+# 10b: the Ceph documentation's example profile of each plugin, 16 RBD
+# objects of 4 MiB each.  10c: phase 9's pool rbd, 64 objects of 4 MiB, and
+# the five losses (one data shard, one parity, the primary's own, two, and
+# three with the primary's); the recovery decodes in windows of 8 objects.
+# 10d: a CLAY pool (k = 4, m = 2, d = 5) of 6 OSDs, 16 objects, shard 1 lost.
+G2_PACKETS = (4, 8, 32, 2048, 2052)
+G2_STRIPES = (1, 3, 256)
+G2_TIMING = (7, 7, 2048, 2048)  # liberation k, w, packetsize, super-packets
+PL_OBJECTS = 16
+PL_PROFILES = [
+    ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "4", "m": "2"}),
+    ("jerasure", {"technique": "liberation", "k": "4", "m": "2", "w": "7",
+                  "packetsize": "2048"}),
+    ("isa", {"k": "8", "m": "3"}),
+    ("shec", {"k": "4", "m": "3", "c": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay", {"k": "4", "m": "2", "d": "5"}),
+    ("xor", {"k": "4"}),
+]
+RC_OBJECTS = 64
+RC_LOSSES = ([3], [9], [0], [3, 9], [0, 5, 10])
+RC_WINDOW = 8
+CL_PROFILE = {"plugin": "clay", "k": "4", "m": "2", "d": "5"}
+CL_OBJECTS = 16
+CL_LOST = 1
+
+
+def gf2_host_oracle(bm: np.ndarray, planes: np.ndarray) -> np.ndarray:
+    """(S, Q, P) planes -> (S, R, P): each output packet the XOR of the
+    packets its row selects (numpy)."""
+    out = np.zeros((planes.shape[0], bm.shape[0], planes.shape[2]), dtype=np.uint8)
+    for r in range(bm.shape[0]):
+        sel = np.nonzero(bm[r])[0]
+        if sel.size:
+            out[:, r] = np.bitwise_xor.reduce(planes[:, sel], axis=1)
+    return out
+
+
+def phase_gf2_plane(torch, gf2, xor_mm, PLAN_CACHE, card) -> dict:
+    """10a: gf2_plane_matmul on the card against its plain version and the
+    numpy oracle, byte for byte, then timed beside its bound."""
+    rng = np.random.default_rng(SEED + 100)
+    mats = {
+        "liberation-4-7": gf2.liberation_bitmatrix(4, 7),
+        "liberation-7-7": gf2.liberation_bitmatrix(7, 7),
+        "blaum_roth-4-6": gf2.blaum_roth_bitmatrix(4, 6),
+        "liber8tion-4": gf2.liber8tion_bitmatrix(4),
+        "liber8tion-8": gf2.liber8tion_bitmatrix(8),
+    }
+    for r in (1, 2):
+        for er in itertools.combinations(range(6), r):
+            dec, _ = PLAN_CACHE.gf2_decode_plan(mats["liberation-4-7"], 4, 7, list(er))
+            mats[f"liberation-4-7-decode{list(er)}"] = dec
+    cases, launches0 = 0, xor_mm.gf2_plane_matmul.launches
+    for label, bm in mats.items():
+        for P in G2_PACKETS:
+            for S in G2_STRIPES:
+                host = rng.integers(0, 256, (S, bm.shape[1], P), dtype=np.uint8)
+                dev = torch.from_numpy(host).cuda()
+                got = xor_mm.gf2_plane_matmul(bm, dev)
+                plain = xor_mm.gf2_plane_matmul_reference(bm, dev)
+                torch.cuda.synchronize()
+                check(torch.equal(got, plain), f"10a {label} P={P} S={S}: kernel != plain")
+                pick = [0, S - 1]
+                check(np.array_equal(got[pick].cpu().numpy(), gf2_host_oracle(bm, host[pick])),
+                      f"10a {label} P={P} S={S}: kernel != numpy oracle")
+                cases += 1
+    # a strided view: every other plane of a wider batch, a 16-byte-aligned
+    # packet slice (the 16-byte path), then a 4-byte-aligned one
+    bm = mats["liberation-4-7"]
+    wide = torch.from_numpy(rng.integers(0, 256, (5, 2 * bm.shape[1], 2100),
+                                         dtype=np.uint8)).cuda()
+    for lo, hi in ((16, 2064), (4, 2056)):
+        view = wide[:, ::2, lo:hi]
+        got = xor_mm.gf2_plane_matmul(bm, view)
+        check(torch.equal(got, xor_mm.gf2_plane_matmul_reference(bm, view)),
+              f"10a strided view [:, ::2, {lo}:{hi}]: kernel != plain")
+        check(np.array_equal(got.cpu().numpy(), gf2_host_oracle(bm, view.cpu().numpy())),
+              f"10a strided view [:, ::2, {lo}:{hi}]: kernel != numpy oracle")
+        cases += 1
+    check(xor_mm.gf2_plane_matmul.launches - launches0 == cases,
+          f"10a: {xor_mm.gf2_plane_matmul.launches - launches0} launches for {cases} calls")
+    print(f"[10] 10a: gf2_plane_matmul exact against its plain version and the numpy oracle "
+          f"on {cases} cases ({len(mats)} matrices x P {G2_PACKETS} x S {G2_STRIPES}, and "
+          f"two strided views)")
+    k, w, P, S = G2_TIMING
+    bm = gf2.liberation_bitmatrix(k, w)
+    R, Q = bm.shape
+    planes = torch.from_numpy(rng.integers(0, 256, (S, Q, P), dtype=np.uint8)).cuda()
+    ms = time_ms(torch, lambda: xor_mm.gf2_plane_matmul(bm, planes))
+    plain_ms = time_ms(torch, lambda: xor_mm.gf2_plane_matmul_reference(bm, planes),
+                       warmup=1, reps=3)
+    moved = (Q + R) * S * P
+    ops = int(bm.sum()) * S * P // 4
+    bound_ms, bound_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (ops / INT32_OPS_PER_S * 1e3, "operations"))
+    print(f"[10] 10a: gf2_plane_matmul (S, Q, P) = ({S}, {Q}, {P}), R = {R}, nnz = "
+          f"{int(bm.sum())}: {ms:.4f} ms (median of 20 runs of {CALLS_PER_RUN} calls), "
+          f"{moved / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms ({bound_by}: {moved} bytes, "
+          f"{ops} XORs), {bound_ms / ms:.3f} of bound; plain version {plain_ms:.3f} ms; {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "max_abs_err": 0}
+
+
+def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
+    """10b: every plugin's documented example profile on the card: 16
+    objects of 4 MiB through encode, then every erasure set up to m that
+    minimum_to_decode accepts through decode, each equal to the same call
+    on device="cpu"; the kernels' launches by plugin."""
+    from ceph_tpu_torch.codec import matrix_codec as mc
+
+    rng = np.random.default_rng(SEED + 101)
+    objects = [rng.integers(0, 256, BK_OBJECT_BYTES, dtype=np.uint8).tobytes()
+               for _ in range(PL_OBJECTS)]
+    xm_calls = collections.Counter()
+    real_xor_matmul = mc.xor_matmul
+
+    def counted_xor_matmul(bm, data):
+        xm_calls["n"] += 1
+        return real_xor_matmul(bm, data)
+
+    out = {}
+    swar.launches = 0
+    for name in PACKED_KERNELS:
+        packed.launches[name] = 0
+    xor_mm.gf2_plane_matmul.launches = 0
+    mc.xor_matmul = counted_xor_matmul
+    try:
+        for plugin, prof in PL_PROFILES:
+            label = f"{plugin} " + " ".join(f"{k}={v}" for k, v in prof.items())
+            before = (swar.launches, packed.launches["packed_code"], xm_calls["n"],
+                      xor_mm.gf2_plane_matmul.launches)
+            t0 = time.perf_counter()
+            ec = registry.instance().factory(plugin, dict(prof))
+            check(ec.device.type == "cuda", f"10b {label}: codec on {ec.device}")
+            cpu = registry.instance().factory(plugin, dict(prof), device="cpu")
+            n = ec.get_chunk_count()
+            encoded = []
+            for obj in objects:
+                enc = ec.encode(set(range(n)), obj)
+                want = cpu.encode(set(range(n)), obj)
+                for i in range(n):
+                    check(np.array_equal(enc[i], want[i]), f"10b {label}: shard {i} of an "
+                          "object encodes differently on cuda and cpu")
+                encoded.append(enc)
+            patterns = []
+            for r in range(1, ec.get_coding_chunk_count() + 1):
+                for er in itertools.combinations(range(n), r):
+                    try:
+                        ec.minimum_to_decode(set(er), set(range(n)) - set(er))
+                    except Exception:  # noqa: BLE001  (not decodable: skipped)
+                        continue
+                    patterns.append(set(er))
+            for j, er in enumerate(patterns):
+                enc = encoded[j % PL_OBJECTS]
+                avail = {i: c for i, c in enc.items() if i not in er}
+                got = ec.decode(er, dict(avail), len(enc[0]))
+                want = cpu.decode(er, dict(avail), len(enc[0]))
+                for e in er:
+                    check(np.array_equal(got[e], want[e]) and np.array_equal(got[e], enc[e]),
+                          f"10b {label}: erasures {sorted(er)} decode differently on cuda "
+                          "and cpu, or not to the encoded chunk")
+            torch.cuda.synchronize()
+            launches = {
+                "swar_gf": swar.launches - before[0],
+                "packed_code": packed.launches["packed_code"] - before[1],
+                "xor_matmul": xm_calls["n"] - before[2],
+                "gf2_plane_matmul": xor_mm.gf2_plane_matmul.launches - before[3],
+            }
+            out[label] = {"patterns": len(patterns), "chunk": len(encoded[0][0]),
+                          "seconds": time.perf_counter() - t0, "launches": launches}
+            print(f"[10] 10b {label}: {PL_OBJECTS} objects of 4 MiB (chunk "
+                  f"{len(encoded[0][0])}) encoded, {len(patterns)} erasure sets decoded, "
+                  f"cuda = cpu byte for byte; launches {launches}; "
+                  f"{out[label]['seconds']:.2f} s")
+    finally:
+        mc.xor_matmul = real_xor_matmul
+    lib = out["jerasure technique=liberation k=4 m=2 w=7 packetsize=2048"]["launches"]
+    check(lib["gf2_plane_matmul"] > 0, "10b: liberation never launched gf2_plane_matmul")
+    out["gf2_plane_matmul_launches"] = xor_mm.gf2_plane_matmul.launches
+    return out
+
+
+def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
+    """10c: recovery through ECBackend on 11 OSDs (pool rbd), five losses,
+    64 objects of 4 MiB each; 10d: CLAY repair from fragments on 6 OSDs."""
+    from ceph_tpu_torch.codec import matrix_codec as mc
+    from ceph_tpu_torch.common.mempool import ledger
+    from ceph_tpu_torch.common.options import OPTIONS
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+
+    t_phase = time.perf_counter()
+    led, fr, guard = ledger(), flight_recorder(), device_guard()
+    dec_agg = mc.default_decode_aggregator()
+    probe = RuntimeProbe(torch, swar, packed, dispatch, fr, guard, led)
+    rng = np.random.default_rng(SEED + 102)
+    rbd = BkCluster(3, "rbd", overwrites=True)
+    oids = [f"rbd_data.{i:016x}" for i in range(RC_OBJECTS)]
+    model = rng.integers(0, 256, (RC_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+    for first in range(0, RC_OBJECTS, BK_QD):
+        for i in range(first, first + BK_QD):
+            rbd.writefull(oids[i], model[i].tobytes())
+        rbd.pump()
+    rbd.settled("10c writes", led)
+    out: dict = {"losses": {}}
+    chunk_bytes = BK_OBJECT_BYTES // BK_K
+    dec_agg.configure(window=RC_WINDOW)
+    try:
+        for lost in RC_LOSSES:
+            before_bytes = {}
+            for oid in oids:
+                for s in lost:
+                    coll = rbd.colls[s]
+                    before_bytes[(oid, s)] = (rbd.shard(s, oid),
+                                              rbd.stores[s].getattrs(coll, oid))
+                    rbd.stores[s]._remove(coll, oid)
+                rbd.missing[oid] = set(lost)
+            rbd.listeners[0].hists.clear()
+            before, launches0 = probe.start(), int(dec_agg.perf.get("launches"))
+            results = []
+            t0 = time.perf_counter()
+            for oid in oids:
+                rbd.primary.recover_object(oid, set(lost), results.append)
+            rbd.drain()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            delta = {key: val - before[key] for key, val in probe.counts().items()}
+            dec = int(dec_agg.perf.get("launches")) - launches0
+            records = [r for r in fr.records() if r["group"] != "#raw"]
+            rbd.missing.clear()
+            label = f"10c loss {lost}"
+            check(results == [0] * RC_OBJECTS, f"{label}: callbacks {collections.Counter(results)}")
+            for (oid, s), (data, attrs) in before_bytes.items():
+                check(rbd.shard(s, oid) == data, f"{label}: {oid} shard {s} rebuilt wrong")
+                check(rbd.stores[s].getattrs(rbd.colls[s], oid) == attrs,
+                      f"{label}: {oid} shard {s}'s attrs differ after recovery")
+            check(0 < dec < RC_OBJECTS, f"{label}: {dec} decode launches for {RC_OBJECTS} objects")
+            check(delta["DECODE_LAUNCHES"] == dec and delta["swar_gf"] == dec,
+                  f"{label}: DECODE_LAUNCHES +{delta['DECODE_LAUNCHES']}, swar_gf "
+                  f"+{delta['swar_gf']} for {dec} decode launches")
+            check(delta["FALLBACK_LAUNCHES"] == 0 and delta["degraded_total"] == 0
+                  and not guard.degraded, f"{label}: fallback or degraded: {delta}")
+            check(len(records) == dec and not any(
+                r["flags"]["fallback"] or r["flags"]["error"] for r in records),
+                f"{label}: {len(records)} clean flight records for {dec} launches")
+            rbd.settled(label, led)
+            hist = rbd.listeners[0].hists["ec_decode_latency"]
+            row = {
+                "logical_MBps": model.nbytes / wall / 1e6,
+                "rebuilt_MBps": RC_OBJECTS * len(lost) * chunk_bytes / wall / 1e6,
+                "decode_latency_ms": statistics.median(hist) * 1e3,
+                "decode_launches": dec,
+                "seconds": wall,
+                "spans": span_medians(records),
+            }
+            out["losses"][str(lost)] = row
+            print(f"[10] {label}: {RC_OBJECTS} objects recovered exact, attrs too, every "
+                  f"callback 0; {row['logical_MBps']:.1f} MB/s logical, "
+                  f"{row['rebuilt_MBps']:.1f} MB/s of rebuilt shards (first recover_object to "
+                  f"last callback, {wall:.3f} s); ec_decode_latency median "
+                  f"{row['decode_latency_ms']:.3f} ms; {dec} decode launches (swar_gf); flight "
+                  "spans median per launch (ms): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in row["spans"].items()) + f"; {card}")
+    finally:
+        dec_agg.configure(window=int(OPTIONS["ec_tpu_decode_aggregate_window"].default))
+
+    # 10d: CLAY repair from fragments
+    clay = BkCluster(4, "clay", overwrites=False, profile=CL_PROFILE)
+    ec = clay.primary.ec
+    check(ec.device.type == "cuda" and ec.get_sub_chunk_count() == 8,
+          f"10d: the clay codec is on {ec.device} with {ec.get_sub_chunk_count()} sub-chunks")
+    cl_oids = [f"clay.{i}" for i in range(CL_OBJECTS)]
+    cl_model = rng.integers(0, 256, (CL_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+    t0 = time.perf_counter()
+    for first in range(0, CL_OBJECTS, BK_QD):
+        for i in range(first, min(first + BK_QD, CL_OBJECTS)):
+            clay.writefull(cl_oids[i], cl_model[i].tobytes())
+        clay.pump()
+    write_s = time.perf_counter() - t0
+    clay.settled("10d writes", led)
+    before = {oid: clay.shard(CL_LOST, oid) for oid in cl_oids}
+    for oid in cl_oids:
+        clay.stores[CL_LOST]._remove(clay.colls[CL_LOST], oid)
+        clay.missing[oid] = {CL_LOST}
+    helper_bytes = collections.Counter()
+    primary = clay.primary
+    real_reply = primary.handle_sub_read_reply
+
+    def counted_reply(msg):
+        for oid, exts in msg.buffers.items():
+            helper_bytes[oid] += sum(len(data) for _off, data in exts)
+        return real_reply(msg)
+
+    primary.handle_sub_read_reply = counted_reply
+    results = []
+    t0 = time.perf_counter()
+    try:
+        for oid in cl_oids:
+            primary.recover_object(oid, {CL_LOST}, results.append)
+        clay.drain()
+    finally:
+        del primary.handle_sub_read_reply
+    repair_s = time.perf_counter() - t0
+    clay.missing.clear()
+    check(results == [0] * CL_OBJECTS, f"10d: callbacks {results}")
+    for oid in cl_oids:
+        check(clay.shard(CL_LOST, oid) == before[oid], f"10d: {oid} shard {CL_LOST} rebuilt wrong")
+    clay.settled("10d", led)
+    chunk = len(before[cl_oids[0]])
+    chunks_read = [helper_bytes[oid] / chunk for oid in cl_oids]
+    check(max(chunks_read) < 4, f"10d: repairs read {max(chunks_read):.3f} chunks an object, "
+          "not under 4 (the fragment path did not run)")
+    out["clay"] = {"chunks_read": max(chunks_read), "write_s": write_s, "repair_s": repair_s,
+                   "repair_MBps": cl_model.nbytes / repair_s / 1e6}
+    print(f"[10] 10d: clay k=4 m=2 d=5, {CL_OBJECTS} objects of 4 MiB written in {write_s:.2f} "
+          f"s; shard {CL_LOST} lost and repaired exact from fragments, "
+          f"{max(chunks_read):.3f} chunks read from helpers an object (k = 4 whole chunks "
+          f"without the repair plan), {repair_s:.3f} s, {out['clay']['repair_MBps']:.1f} MB/s "
+          f"logical; {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[10] phase 10c-d numbers: "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'losses'})}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2808,7 +3203,10 @@ def main(argv: list[str]) -> int:
         from ceph_tpu_torch.ops import dispatch
         from ceph_tpu_torch.ops import packed_gf as packed
         from ceph_tpu_torch.ops import swar_gf as swar
+        from ceph_tpu_torch.ops import xor_mm
         from ceph_tpu_torch.ops._nvcc import nvcc_path
+        from ceph_tpu_torch.gf import gf2
+        from ceph_tpu_torch.codec.matrix_codec import PLAN_CACHE
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -2820,7 +3218,7 @@ def main(argv: list[str]) -> int:
         print(f"[{n}] phase {n}: {time.perf_counter() - t0:.2f} s", flush=True)
         return result
 
-    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed,
+    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed, xor_mm,
                               nvcc_path())
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches = phase(3, phase_main_path, torch, swar, registry, gf)
@@ -2840,6 +3238,9 @@ def main(argv: list[str]) -> int:
         diag_times[kernel].update(row)
     phase(8, phase_runtime, torch, swar, packed, dispatch, registry, card)
     phase(9, phase_backend, torch, swar, packed, dispatch, registry, card)
+    gf2_row = phase("10a", phase_gf2_plane, torch, gf2, xor_mm, PLAN_CACHE, card)
+    plugins = phase("10b", phase_plugins, torch, swar, packed, xor_mm, registry, card)
+    phase("10c", phase_recovery, torch, swar, packed, dispatch, registry, card)
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -2875,6 +3276,15 @@ def main(argv: list[str]) -> int:
             "max_abs_err": errs[kernel],
             **diag_times[kernel],
         })
+    kernels.append({
+        "name": "gf2_plane_matmul",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf2_plane.cu",
+        "replaces": "ceph_tpu/ops/xor_mm.py:79",
+        "launches": plugins["gf2_plane_matmul_launches"],
+        **gf2_row,
+        "source_sha256": infos["gf2_plane"]["source_sha256"],
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

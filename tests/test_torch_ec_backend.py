@@ -1,5 +1,6 @@
-"""The port's ECBackend write pipeline and reconstructing reads on the CPU
-(`device="cpu"`), held against the JAX package's under JAX_PLATFORMS=cpu.
+"""The port's ECBackend write pipeline, reconstructing reads and recovery on
+the CPU (`device="cpu"`), held against the JAX package's under
+JAX_PLATFORMS=cpu.
 
 One in-process cluster harness, built from either package's modules (one
 backend per OSD over a MemStore, messages through a pumped queue, as
@@ -8,7 +9,9 @@ overwrite and span tests for both packages.  A seeded differential test
 then drives the same random operations through a cluster of each package
 and compares, after every pump, every store's collections byte for byte
 (data and xattrs), every listener's log entries, every message sent (by
-`tobytes()`), every commit and failure callback and every read result.
+`tobytes()`), every commit and failure callback and every read result; a
+second one loses shards (the primary's among them) and recovers them, and
+compares the same, MOSDPGPush messages included.
 The reference is pinned to what the port has: no device chunk cache, no
 RMW delta path, and dispatch width 1 (its tests run on an 8-device CPU
 mesh)."""
@@ -92,6 +95,8 @@ def _listener_class(m):
             self.log = []
             self.clog = []
             self.hists = []
+            self.recovered_local = []
+            self.recovered_global = []
 
         def whoami(self):
             return self.osd
@@ -125,13 +130,20 @@ def _listener_class(m):
         def perf_hist(self, name, value):
             self.hists.append(name)
 
+        def on_local_recover(self, oid):
+            self.recovered_local.append(oid)
+
+        def on_global_recover(self, oid):
+            self.recovered_global.append(oid)
+
     return Listener
 
 
 class Cluster:
     """One backend per OSD over MemStores, with a pumped message queue."""
 
-    def __init__(self, pkg, k=4, m=2, stripe_unit=4096, overwrites=False, fast_read=False):
+    def __init__(self, pkg, k=4, m=2, stripe_unit=4096, overwrites=False, fast_read=False,
+                 plugin="tpu", **profile_extra):
         self.pkg = pkg
         self.m = mods(pkg)
         om = self.m.osdmap
@@ -146,7 +158,7 @@ class Cluster:
             flags=om.FLAG_EC_OVERWRITES if overwrites else 0,
             fast_read=fast_read,
         )
-        profiles = {"prof": {"plugin": "tpu", "k": str(k), "m": str(m)}}
+        profiles = {"prof": {"plugin": plugin, "k": str(k), "m": str(m), **profile_extra}}
         self.pgid = self.m.messages.PgId(1, 0, -1)
         self.acting = list(range(k + m))
         self.queue = []
@@ -264,6 +276,31 @@ class Cluster:
             assert not b.in_flight and not b._encode_pipe
             assert not b.waiting_reads and not b.read_ops
             assert b.extent_cache.empty() and not b._projected
+            assert not b.recovery_ops and not b._decode_pipe
+
+    def lose(self, oid, shards):
+        """Wipe `shards`' copies of `oid` and mark them missing; returns
+        their (bytes, xattrs) before the loss."""
+        before = {}
+        for s in shards:
+            before[s] = (
+                self.stores[s].read(self.coll(s), oid, 0, 0),
+                self.stores[s].getattrs(self.coll(s), oid),
+            )
+            self.stores[s]._remove(self.coll(s), oid)
+        self.missing[oid] = set(shards)
+        return before
+
+    def recover(self, oids, shards, pump=True):
+        """recover_object for every oid; returns the callbacks' errnos."""
+        res = []
+        for oid in oids:
+            self.primary.recover_object(oid, set(shards), res.append)
+        if pump:
+            self.pump()
+            for oid in oids:
+                self.missing.pop(oid, None)
+        return res
 
 
 def payload(n, seed=0):
@@ -658,12 +695,9 @@ def test_failed_launch_fails_the_write_and_its_dependants():
 
 
 def test_unported_paths_raise_eopnotsupp():
-    """Recovery and replicated pools are not ported yet: they raise
+    """Replicated pools are not ported yet: building their backend raises
     EOPNOTSUPP instead of running on something else."""
     c = Cluster("torch")
-    with pytest.raises(EcError) as e:
-        c.primary.recover_object("obj", {1}, lambda err: None)
-    assert e.value.errno == -EOPNOTSUPP
     m = mods("torch")
     pool = m.osdmap.PgPool(id=2, name="rep", type=m.osdmap.POOL_TYPE_REPLICATED, size=3)
     with pytest.raises(EcError) as e:
@@ -695,3 +729,194 @@ def test_partly_pinned_rmw_read_keeps_the_earlier_write():
         got[pkg] = c.read("obj", 0, len(base)) == bytes(expect)
         c.quiescent()
     assert got == {"torch": True, "jax": False}
+
+
+# -- recovery ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+@pytest.mark.parametrize("lost", [[1], [2, 5], [0]], ids=["data", "parity+data", "primary"])
+def test_recover_lost_shards(pkg, lost):
+    """The reference's recovery tests, for both packages: lost shards (the
+    primary's own among them) are rebuilt byte for byte with their attrs;
+    the target notes a local recover and the primary a global one."""
+    c = Cluster(pkg)
+    c.write("obj", 0, payload(3 * c.sw))
+    before = c.lose("obj", lost)
+    assert c.recover(["obj"], lost) == [0]
+    for s, (data, attrs) in before.items():
+        assert c.stores[s].read(c.coll(s), "obj", 0, 0) == data
+        assert c.stores[s].getattrs(c.coll(s), "obj") == attrs
+        assert "obj" in c.listeners[s].recovered_local
+    assert c.listeners[0].recovered_global == ["obj"]
+    c.quiescent()
+
+
+def _recovery_scenario(pkg, k, m, seed):
+    """Writes, then losses of one shard, two shards and the primary's own,
+    each recovered for every object in one pump; returns the cluster."""
+    c = Cluster(pkg, k=k, m=m)
+    rng = np.random.default_rng(seed)
+    oids = [f"obj{i}" for i in range(5)]
+    for oid in oids:
+        c.write(oid, 0, rng.integers(0, 256, int(rng.integers(1, 4)) * c.sw,
+                                     dtype=np.uint8).tobytes())
+    losses = [[1], [0], [k, 1], [0, k + m - 1]] + ([[2, 0, k]] if m > 2 else [])
+    results, trail = [], []
+    for lost in losses:
+        before = {oid: c.lose(oid, lost) for oid in oids}
+        results.append(c.recover(oids, lost))
+        trail.append((c.state(), list(c.sent)))
+        for oid, snap in before.items():
+            for s, (data, attrs) in snap.items():
+                assert c.stores[s].read(c.coll(s), oid, 0, 0) == data
+                assert c.stores[s].getattrs(c.coll(s), oid) == attrs
+    c.quiescent()
+    return results, trail, c
+
+
+@pytest.mark.parametrize("k,m,seed", [(4, 2, 11), (8, 3, 12)])
+def test_seeded_recovery_matches_reference(k, m, seed):
+    """Seeded writes, then losses (one shard, the primary's own, two, and
+    three on 11 OSDs) recovered through a cluster of each package: every
+    callback is 0, and after every recovery the stores, the messages sent
+    (MOSDPGPush and MOSDPGPushReply among them, by `tobytes()`) and the
+    logs agree byte for byte."""
+    got = {pkg: _recovery_scenario(pkg, k, m, seed) for pkg in PKGS}
+    (jres, jtrail, jc), (tres, ttrail, tc) = got["jax"], got["torch"]
+    assert tres == jres and all(r == [0] * 5 for r in tres)
+    assert ttrail == jtrail
+    assert tc.logs() == jc.logs()
+    kinds = {name for _osd, name, _raw in tc.sent}
+    assert {"MOSDPGPush", "MOSDPGPushReply"} <= kinds
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_clay_repair_reads_fragments(pkg):
+    """CLAY k=4, m=2, d=5: one lost shard is repaired from sub-chunk
+    fragments (d helpers x 1/q of a chunk each, not k whole chunks), and
+    the rebuilt shard is exact."""
+    c = Cluster(pkg, plugin="clay", d="5")
+    ec = c.primary.ec
+    assert ec.get_sub_chunk_count() == 8
+    obj = payload(3 * c.sw, seed=4)
+    c.write("obj", 0, obj)
+    assert c.read("obj", 0, len(obj)) == obj
+    before = c.lose("obj", [1])
+    sent0 = len(c.sent)
+    assert c.recover(["obj"], [1]) == [0]
+    assert c.stores[1].read(c.coll(1), "obj", 0, 0) == before[1][0]
+    replies = [raw for _osd, name, raw in c.sent[sent0:] if name == "MOSDECSubOpReadReply"]
+    chunk = c.sw // 4
+    shard_bytes = 3 * chunk
+    payload_bytes = sum(len(raw) for raw in replies)
+    assert len(replies) == 5
+    assert payload_bytes < 4 * shard_bytes  # 5 helpers x half a chunk = 2.5 chunks
+    c.quiescent()
+
+
+def test_clay_repair_matches_reference():
+    """The same CLAY repair through both packages: stores and messages
+    agree byte for byte."""
+    out = {}
+    for pkg in PKGS:
+        c = Cluster(pkg, plugin="clay", d="5")
+        for i in range(3):
+            c.write(f"o{i}", 0, payload((i + 1) * c.sw, seed=20 + i))
+        for lost in ([1], [5], [0]):
+            for i in range(3):
+                c.lose(f"o{i}", lost)
+            assert c.recover([f"o{i}" for i in range(3)], lost) == [0, 0, 0]
+        out[pkg] = (c.state(), c.sent)
+    assert out["torch"] == out["jax"]
+
+
+def test_recovery_inflight_counts_the_decode_pipe():
+    """recovery_inflight: objects mid-recovery, and those parked on the
+    decode pipeline awaiting their (aggregated) launch's reap."""
+    c = Cluster("torch")
+    for i in range(3):
+        c.write(f"o{i}", 0, payload(c.sw, seed=i))
+    for i in range(3):
+        c.lose(f"o{i}", [2])
+    res = c.recover([f"o{i}" for i in range(3)], [2], pump=False)
+    assert c.primary.recovery_inflight() == {"recovering": 3, "decoding": 0}
+    c.deliver()  # the reads complete; each decode is launched, not reaped
+    assert c.primary.recovery_inflight() == {"recovering": 3, "decoding": 3}
+    assert all(r.state == "DECODING" for r in c.primary.recovery_ops.values())
+    c.pump()
+    assert res == [0, 0, 0]
+    assert c.primary.recovery_inflight() == {"recovering": 0, "decoding": 0}
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_dropped_push_self_heals_via_retry(pkg):
+    """ec.recover_push drops a PushOp at the target: the recovery parks in
+    WRITING until retry_stalled_pushes re-sends it; a grace <= 0 retries
+    nothing."""
+    c = Cluster(pkg, k=2, m=1)
+    c.write("obj", 0, b"x" * 5000 + payload(3192))
+    before = c.lose("obj", [2])
+    inj = (global_injector() if pkg == "torch" else importlib.import_module(
+        "ceph_tpu.common.fault_injector").global_injector())
+    inj.inject("ec.recover_push", 5, hits=1)
+    done = []
+    try:
+        c.primary.recover_object("obj", {2}, done.append)
+        c.pump()
+        assert not done
+        rec = c.primary.recovery_ops["obj"]
+        assert rec.state == "WRITING" and rec.pending_pushes == {2}
+        assert c.primary.retry_stalled_pushes(0) == 0
+        time.sleep(0.02)
+        assert c.primary.retry_stalled_pushes(0.01) == 1
+        c.pump()
+    finally:
+        inj.clear("ec.recover_push")
+    assert done == [0]
+    assert c.primary.push_retries == 1
+    assert c.stores[2].read(c.coll(2), "obj", 0, 0) == before[2][0]
+    c.quiescent()
+
+
+def test_failed_recovery_decode_is_eio_and_pushes_nothing():
+    """A failed recovery decode launch (`codec.launch` armed once) completes
+    recover_object with -EIO at the reap: nothing is pushed, nothing is
+    recomputed on the host or stripe by stripe, and the next recovery,
+    once a probe heals the guard, rebuilds the shard."""
+    c = Cluster("torch")
+    c.write("obj", 0, payload(2 * c.sw))
+    before = c.lose("obj", [1])
+    fb0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    device_guard().configure(probe_interval_ms=10_000_000)
+    global_injector().inject("codec.launch", 5, hits=1)
+    sent0 = len(c.sent)
+    assert c.recover(["obj"], [1]) == [-EIO]
+    assert not any(name == "MOSDPGPush" for _o, name, _r in c.sent[sent0:])
+    assert not c.stores[1].exists(c.coll(1), "obj")
+    assert dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fb0
+    c.quiescent()
+    device_guard().configure(probe_interval_ms=1)
+    time.sleep(0.01)
+    assert device_guard().maybe_probe(lambda: None) is True
+    c.missing["obj"] = {1}
+    assert c.recover(["obj"], [1]) == [0]
+    assert c.stores[1].read(c.coll(1), "obj", 0, 0) == before[1][0]
+
+
+def test_clay_fragments_without_a_repair_plan_are_eio():
+    """Fragment reads that do not form CLAY's repair plan (a helper of the
+    lost node's column missing) fail the recovery with EIO: there is no
+    per-stripe decode on another path."""
+    c = Cluster("torch", plugin="clay", d="5")
+    c.write("obj", 0, payload(2 * c.sw, seed=6))
+    backend = c.primary
+    from ceph_tpu_torch.osd.ec_backend import RecoveryOp
+
+    rec = RecoveryOp(oid="obj", missing_on={1}, on_complete=lambda err: None)
+    rec.attrs = c.stores[0].getattrs(c.coll(0), "obj")
+    frag = np.zeros(2 * (c.sw // 4) // 2, dtype=np.uint8)
+    have = {s: frag for s in (2, 3, 4, 5)}  # shard 0, 1's column partner, absent
+    with pytest.raises(EcError) as e:
+        backend._decode_fragmented(rec, have, {1})
+    assert e.value.errno == -EIO

@@ -27,8 +27,13 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) >= 15
     for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu",
-                   "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc"):
+                   "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc", "gf2_plane.cu"):
         assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
+    for module in ("gf/gf2.py", "codec/jerasure.py", "codec/shec.py", "codec/lrc.py",
+                   "codec/clay.py", "codec/plugins/jerasure.py", "codec/plugins/isa.py",
+                   "codec/plugins/xor.py", "codec/plugins/shec.py", "codec/plugins/lrc.py",
+                   "codec/plugins/clay.py"):
+        assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -129,6 +134,36 @@ def test_ec_backend_import_leaves_jax_out():
         "backends[0].objects_read_and_reconstruct({'o': [(0, len(data))]}, out.update)\n"
         "pump()\n"
         "assert done == [1] and out['o'] == (0, [data]), out\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_codec_plugins_import_leaves_jax_out():
+    """Every codec plugin of the port (jerasure with both kinds of
+    technique, isa, xor, shec, lrc, clay) encodes and decodes on the CPU
+    without importing jax or the JAX package."""
+    code = (
+        "import sys\n"
+        "from ceph_tpu_torch.codec import registry\n"
+        "reg = registry.instance()\n"
+        "for name, prof in [('jerasure', {'k': '4', 'm': '2'}),\n"
+        "                   ('jerasure', {'technique': 'liberation', 'k': '4', 'w': '7',\n"
+        "                                 'packetsize': '32'}),\n"
+        "                   ('isa', {'k': '4', 'm': '2'}), ('xor', {'k': '4'}),\n"
+        "                   ('shec', {'k': '4', 'm': '3', 'c': '2'}),\n"
+        "                   ('lrc', {'k': '4', 'm': '2', 'l': '3'}),\n"
+        "                   ('clay', {'k': '4', 'm': '2', 'd': '5'})]:\n"
+        "    ec = reg.factory(name, prof, device='cpu')\n"
+        "    n = ec.get_chunk_count()\n"
+        "    enc = ec.encode(set(range(n)), bytes(range(256)) * 40)\n"
+        "    got = ec.decode({1}, {i: c for i, c in enc.items() if i != 1}, len(enc[0]))\n"
+        "    assert (got[1] == enc[1]).all(), name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

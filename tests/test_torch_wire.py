@@ -1,6 +1,7 @@
 """The port's wire encodings and write planning against the JAX package:
-`Transaction`, `LogEntry`, `Eversion`, `ObjectInfo`, `PgId`, `ReqId` and
-the four EC sub-op messages give the reference's bytes for seeded values,
+`Transaction`, `LogEntry`, `Eversion`, `ObjectInfo`, `PgId`, `ReqId`,
+`PushOp`, the four EC sub-op messages and the recovery pushes
+(`MOSDPGPush`, `MOSDPGPushReply`) give the reference's bytes for seeded values,
 and each package decodes the other's; `get_write_plan` and `merge_writes`
 give the reference's plans and merged bytes on 200 seeded cases; and the
 copied helpers are pinned to the reference (`PgPool`'s fields and
@@ -93,6 +94,20 @@ def _values(seed):
                 errors={"o2": -5} if seed % 2 else {},
             ),
             "object_info": etmod.ObjectInfo(size=ints[2], version=ints[3]),
+            "push_op": m.PushOp(
+                oid=f"obj{ints[4]}", data=blob, attrs={"_": blob[:9], "hinfo_key": blob[9:]},
+                version=ints[5], omap={"k": blob[:3]} if seed % 2 else None,
+            ),
+            "push": m.MOSDPGPush(
+                pgid=pgid,
+                pushes=[m.PushOp(oid=f"o{i}", data=blob[i:], attrs={"_": blob[:i]},
+                                 version=ints[i]) for i in range(1 + seed % 2 * 2)],
+                epoch=ints[6] % 1000, from_osd=ints[7] % 64,
+            ),
+            "push_reply": m.MOSDPGPushReply(
+                pgid=pgid, oids=[f"o{i}" for i in range(1 + seed)],
+                epoch=ints[0] % 1000, from_osd=ints[1] % 64,
+            ),
         }
 
     return build(jmsg, jlog, jtx, jet), build(msg, pg_log, tx, et)
@@ -109,7 +124,7 @@ def _decode(sample, data):
 
 
 KINDS = ["transaction", "log_entry", "pgid", "reqid", "sub_write", "sub_write_reply",
-         "sub_read", "sub_read_reply", "object_info"]
+         "sub_read", "sub_read_reply", "object_info", "push_op", "push", "push_reply"]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -129,7 +144,7 @@ def test_eversion_and_message_type_numbers_match_reference():
         jlog.Eversion(epoch, version).encode(e2)
         assert e1.tobytes() == e2.tobytes()
     for name in ("MOSDECSubOpWrite", "MOSDECSubOpWriteReply", "MOSDECSubOpRead",
-                 "MOSDECSubOpReadReply"):
+                 "MOSDECSubOpReadReply", "MOSDPGPush", "MOSDPGPushReply"):
         ours, ref = getattr(msg, name), getattr(jmsg, name)
         assert (ours.TYPE, ours.VERSION, ours.priority) == (ref.TYPE, ref.VERSION, ref.priority)
         assert [f for f, _ in ours.FIELDS] == [f for f, _ in ref.FIELDS]
@@ -245,7 +260,7 @@ def test_pg_pool_fields_defaults_and_constants_match_reference():
 
 
 def test_new_fault_points_carry_the_reference_texts():
-    for point in ("os.read", "os.write", "ec.sub_read"):
+    for point in ("os.read", "os.write", "ec.sub_read", "ec.recover_push"):
         assert fault_injector.FAULT_POINTS[point] == jfault.FAULT_POINTS[point]
 
 
