@@ -509,9 +509,15 @@ class MempoolLedger:
 
     @staticmethod
     def _trim_device_cache(excess: int) -> int:
-        """Stage 1 trims the device-resident chunk cache, which the port
-        does not have yet (ROADMAP A6): nothing to give back."""
-        return 0
+        try:
+            from ..ops.device_cache import device_chunk_cache
+
+            return device_chunk_cache().trim_for_pressure(excess)
+        except Exception as e:
+            from .log import dout
+
+            dout("osd", 1, f"mempool: device-cache trim failed: {e!r}")
+            return 0
 
     @staticmethod
     def _drop_donation_retention() -> int:

@@ -2,7 +2,8 @@
 
 The port's copy of `ceph_tpu/common/options.py`: the `Option` type and the
 entries the offload runtime reads (the aggregators, the device guard, the
-launch scheduler's QoS lanes, the mempool ledger).  The rest of the table
+launch scheduler's QoS lanes, the mempool ledger) and those of the device
+chunk cache and the RMW delta path.  The rest of the table
 comes with the modules that read it.
 
 Reference: src/common/options/global.yaml.in (~800 typed
@@ -285,6 +286,40 @@ OPTIONS: dict[str, Option] = _opts(
         "Waste is exported as padding_waste_ratio / pad_waste.<label>.  "
         "<= 0 keeps the static buckets only",
         see_also=("ec_tpu_aggregate_window",),
+        runtime=True,
+    ),
+    Option(
+        "ec_tpu_rmw_delta",
+        bool,
+        True,
+        A,
+        "on-device RMW delta-encode path: when every operand "
+        "of a read-modify-write — the k pre-write data chunks AND the m "
+        "parity chunks — is resident in the device chunk cache at the "
+        "op's pre-write generation, parity is updated on the device "
+        "through the GF(2)-linear delta program (parity_new = parity_old "
+        "xor Encode(data_old xor data_new), the same plane program as "
+        "a full encode) — one launch, zero H2D and zero D2H on its "
+        "flight record, byte-identical to the materialize path.  A "
+        "cache miss or a DEGRADED backend takes the materialize path; "
+        "a failed delta launch fails the write with EIO",
+        see_also=("ec_tpu_device_cache_bytes",),
+        runtime=True,
+    ),
+    Option(
+        "ec_tpu_device_cache_bytes",
+        int,
+        32 << 20,
+        A,
+        "device-resident chunk cache bound: recently "
+        "encoded/decoded chunk buffers kept in device memory keyed by "
+        "(object, shard, generation), consulted by the RMW delta path "
+        "and degraded reads BEFORE issuing H2D — a repeated degraded "
+        "read of a hot object serves its missing chunks with one D2H "
+        "copy and no launch.  Invalidated on overwrite and cleared on a "
+        "DEGRADED backend transition; hit/miss/evict counters ride the "
+        "ec_dispatch perf dump (cache.*).  <= 0 disables the cache",
+        see_also=("ec_tpu_pipeline_depth",),
         runtime=True,
     ),
     Option(

@@ -7,8 +7,9 @@ ECSubWrite carries a serialized per-shard transaction (:23-89); ECSubRead
 carries per-object (off,len,flags) plus per-shard subchunk vectors
 (:105-116); ECSubReadReply returns buffers/attrs/errors (:118-129) — and
 the recovery pushes MOSDPGPush / MOSDPGPushReply (src/messages/
-MOSDPGPush.h).  The type numbers and field orders are the JAX package's,
-so a message encodes to its bytes.
+MOSDPGPush.h) and the chunky scrub's MOSDRepScrub / MOSDRepScrubMap.  The
+type numbers and field orders are the JAX package's, so a message encodes
+to its bytes.
 """
 
 from __future__ import annotations
@@ -168,4 +169,40 @@ class MOSDPGPushReply(Message):
         ("oids", ("list", "str")),
         ("epoch", "u32"),
         ("from_osd", "u32"),
+    ]
+
+
+# --- scrub ------------------------------------------------------------------
+
+
+@message_type(27)
+class MOSDRepScrub(Message):
+    """Primary asks a shard for its scrub map over an object chunk
+    (src/messages/MOSDRepScrub.h; chunky scrub in
+    src/osd/scrubber/pg_scrubber.cc)."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+        ("deep", "bool"),
+        ("scrub_tid", "u64"),
+        # chunk boundaries: scrub objects with start <= name < end
+        # ("" end = unbounded)
+        ("chunk_start", "str"),
+        ("chunk_end", "str"),
+    ]
+
+
+@message_type(28)
+class MOSDRepScrubMap(Message):
+    """Shard's scrub map reply (src/messages/MOSDRepScrubMap.h);
+    `scrub_map` is a JSON blob of oid -> {size, digest, ...}."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+        ("scrub_tid", "u64"),
+        ("scrub_map", "bytes"),
     ]

@@ -397,6 +397,10 @@ def perf_dump() -> dict[str, object]:
     out["padding_waste_ratio"] = round(PAD_WASTE.ratio(), 6)
     for label, ratio in sorted(PAD_WASTE.per_label().items()):
         out[f"pad_waste.{label}"] = round(ratio, 6)
-    # the reference's `cache.*` keys (the device-resident chunk cache) come
-    # with that cache (ROADMAP A6)
+    # device-resident chunk cache: hit/miss/evict counters plus the
+    # resident-bytes/entries gauges, as `cache.<counter>` scalars
+    from .device_cache import device_chunk_cache
+
+    for name, val in device_chunk_cache().perf_dump().items():
+        out[f"cache.{name}"] = val
     return out

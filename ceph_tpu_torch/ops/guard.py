@@ -161,9 +161,13 @@ class DeviceGuard:
                 self._last_probe = float("-inf")
                 self._probe_cold = True
             self.reason = reason
-        # the reference also drops the device-resident chunk cache on
-        # this transition (ops/device_cache.py); the port has no such
-        # cache yet (ROADMAP A6)
+        if entered:
+            # the device-resident chunk cache (ops/device_cache.py) holds
+            # buffers a wedged runtime can no longer serve — drop them on
+            # the transition (puts are refused while degraded)
+            from .device_cache import device_chunk_cache
+
+            device_chunk_cache().clear()
 
     def mark_healthy(self) -> None:
         with self._lock:

@@ -33,15 +33,24 @@ its write with EIO (no host recompute): `_fail_encoded_op` aborts it and
 every later write to the object that has not fanned out; a failed
 recovery decode completes `recover_object` with -EIO and pushes nothing.
 
-Not ported yet, each with the module that needs it: the device chunk
-cache, the RMW delta path, the checksum offload of shard writes, deep
-scrub's `scan_shard` and its verify aggregator, adaptive hedged reads,
-laggy-peer planning and the sub-read deadline shed.
+The device chunk cache (ops/device_cache.py): a materialize-path write on
+an overwrites pool seeds its regions' k+m chunks; a reconstruct or a
+recovery decode consults it first and caches what it rebuilds; a cache-hit
+RMW updates parity on the device in one `packed_delta` launch (the RMW
+delta path, `ec_tpu_rmw_delta`).  A failed delta launch fails its write
+with EIO through `_fail_encoded_op` — the reference re-encodes it on the
+materialize path.  Deep scrub (osd/scrubber.py) verifies parity through
+`verify_aggregator`.
+
+Not ported yet, each with the module that needs it: the checksum offload
+of shard writes, adaptive hedged reads, laggy-peer planning and the
+sub-read deadline shed.
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Mapping
@@ -82,8 +91,30 @@ from .ec_transaction import (
     finish_transactions,
     get_write_plan,
     launch_encode,
+    launch_encode_delta,
 )
 from .pg_log import Eversion, LogEntry, LOG_DELETE, LOG_MODIFY
+
+# on-device RMW delta path arm bit (`ec_tpu_rmw_delta`): process-wide like
+# the device cache it composes with.  None = not configured yet — read the
+# option default lazily.
+_RMW_DELTA: bool | None = None
+
+
+def configure_rmw_delta(enabled: bool) -> None:
+    """Arm/disarm the on-device RMW delta-encode path (the
+    `ec_tpu_rmw_delta` observer hook)."""
+    global _RMW_DELTA
+    _RMW_DELTA = bool(enabled)
+
+
+def rmw_delta_enabled() -> bool:
+    global _RMW_DELTA
+    if _RMW_DELTA is None:
+        from ..common.options import OPTIONS
+
+        _RMW_DELTA = bool(OPTIONS["ec_tpu_rmw_delta"].default)
+    return _RMW_DELTA
 
 
 @dataclass
@@ -109,6 +140,16 @@ class Op:
     encode_t0: float = 0.0  # launch time; reap samples ec_encode_latency
     # ec:write span (ECBackend::Op::trace); null span unless a tracer is on
     trace: object = field(default_factory=lambda: null_span())
+    # pre-write device-cache generation, captured at submit BEFORE this op
+    # projects: the RMW read leg reads exactly the committed pre-write
+    # bytes (later same-object writes are tid-ordered behind us), so it may
+    # serve them from the device cache at this generation.  None when an
+    # earlier in-flight write makes the on-disk bytes ambiguous.
+    cache_read_gen: object = None
+    # this op's encode took the on-device delta path: its launch already
+    # committed data + parity into the device cache at the write's
+    # generation, so the reap must not re-seed the cache
+    delta: bool = False
 
 
 @dataclass
@@ -139,6 +180,16 @@ class ReadOp:
     # decoded extents; set by recover_object
     on_complete_raw: Callable[["ReadOp", set[int]], None] | None = None
     trace: object = field(default_factory=lambda: null_span())  # ec:read span
+    # per-oid device-cache generation overrides: the RMW read leg captures
+    # the committed pre-write generation at submit, before its own
+    # projection would make `_cache_generation` return None
+    cache_generations: dict = field(default_factory=dict)
+
+
+# never-reused namespace tokens for the device chunk cache: one per
+# ECBackend instance, so entries from a torn-down cluster / failed-over
+# primary in the same process can never serve another backend's reads
+_CACHE_NS = itertools.count(1)
 
 
 RECOVERY_IDLE = "IDLE"
@@ -188,6 +239,7 @@ class ECBackend(PGBackend):
         fast_read: bool = False,
         aggregator=None,
         decode_aggregator=None,
+        verify_aggregator=None,
     ):
         super().__init__(listener, store)
         self.ec = ec
@@ -202,6 +254,7 @@ class ECBackend(PGBackend):
         from ..codec.matrix_codec import (
             default_decode_aggregator,
             default_encode_aggregator,
+            default_verify_aggregator,
         )
 
         self.encode_aggregator = (
@@ -215,10 +268,21 @@ class ECBackend(PGBackend):
             if decode_aggregator is not None
             else default_decode_aggregator()
         )
+        # Verify triplet: deep-scrub parity recomputes ride compare-only
+        # launches under the background QoS lane (osd/scrubber.py submits)
+        self.verify_aggregator = (
+            verify_aggregator
+            if verify_aggregator is not None
+            else default_verify_aggregator()
+        )
         # the hinfo digests' host library is built (once per source) when
         # a backend is made, as a CUDA codec builds its kernels, so no
         # write or read pays for the compile; a failed build raises here
         crc32c.build_library()
+        # device-resident chunk cache namespace: reads of this PG consult
+        # and fill the process-wide cache under a never-reused token,
+        # keyed further by (oid, shard, offset) and checked by generation
+        self._cache_ns = (next(_CACHE_NS), str(listener.pgid))
         self.extent_cache = ExtentCache()
         self._tid = 0
         self.in_flight: dict[int, Op] = {}  # write tid -> Op
@@ -280,6 +344,32 @@ class ECBackend(PGBackend):
     @property
     def n(self) -> int:
         return self.ec.get_chunk_count()
+
+    # -- device-resident chunk cache -------------------------------------------
+
+    def _chunk_cache(self):
+        """The process-wide device chunk cache when enabled, else None."""
+        from ..ops.device_cache import device_chunk_cache
+
+        cache = device_chunk_cache()
+        return cache if cache.enabled else None
+
+    def _cache_obj(self, oid: str):
+        return (*self._cache_ns, oid)
+
+    def _cache_generation(self, oid: str):
+        """Cache generation for an object's chunks: the committed object
+        version.  None while writes are in flight (projected state) —
+        mid-RMW bytes must never be cached — or when the primary has no
+        local object info to version against.  The RMW read leg is the one
+        exception: `submit_transaction` captures this BEFORE its own
+        projection and threads it through `ReadOp.cache_generations`, so
+        the leg that reads exactly the committed pre-write bytes can still
+        consult the cache."""
+        if oid in self._projected:
+            return None
+        oi = self.get_object_info(oid)
+        return oi.version if oi is not None else None
 
     def _shard_colls(self) -> dict[int, str]:
         return {s: shard_coll(self.listener.pgid, s) for s in range(self.n)}
@@ -404,6 +494,13 @@ class ECBackend(PGBackend):
         op.trace.keyval("oid", pgt.oid)
         op.trace.keyval("tid", tid)
         op.trace.event("start ec write")
+        # device-cache generation for the RMW read leg, captured BEFORE
+        # this op projects: with no earlier in-flight write the read leg
+        # reads exactly the committed pre-write bytes, so it may serve them
+        # from the cache at this generation.  Invalidation happens at
+        # encode dispatch (the moment the bytes change), not here —
+        # invalidating now would destroy the entries the read leg consults.
+        op.cache_read_gen = self._cache_generation(pgt.oid)
         if proj is None:
             proj = self._projected[pgt.oid] = {
                 "size": obj_size,
@@ -530,7 +627,12 @@ class ECBackend(PGBackend):
                 op.read_results[off] = data
             self._encode_and_dispatch(op)
 
-        self.objects_read_and_reconstruct(need, _on_read, parent_span=op.trace)
+        self.objects_read_and_reconstruct(
+            need,
+            _on_read,
+            parent_span=op.trace,
+            cache_generations={op.pgt.oid: op.cache_read_gen},
+        )
 
     def _encode_and_dispatch(self, op: Op) -> None:
         """try_reads_to_commit (ECBackend.cc:1982): LAUNCH the device
@@ -539,20 +641,73 @@ class ECBackend(PGBackend):
         out when the pipeline reaps the op (FIFO), so the next op's RMW
         reads overlap this op's device encode — the overlap Ceph gets from
         queued AIO in front of ec_encode_data."""
+        cache = self._chunk_cache()
         op.encode_t0 = time.monotonic()
-        # scope the launch under ec:write so codec h2d/kernel_launch
-        # sub-spans (codec/tracing.py) and the PendingEncode's reap span
-        # attach to this op's trace
-        with tracer_mod.span_scope(op.trace):
-            stage = launch_encode(
-                op.pgt,
-                op.plan,
-                self.sinfo,
-                self.ec,
-                op.obj_size,
-                op.read_results,
-                aggregator=self.encode_aggregator,
-            )
+        stage = None
+        # on-device RMW delta: when the cache holds EVERY shard of the
+        # written regions at the op's pre-write generation, parity updates
+        # on the device (one launch, zero H2D/D2H on its flight record) and
+        # the cache generation bumps in place — no invalidation, no
+        # materialize launch.  Preconditions: armed, overwrites pool, an
+        # actual RMW (to_read non-empty), an unambiguous pre-write
+        # generation, and no truncate (a size change re-shapes regions).
+        if (
+            cache is not None
+            and rmw_delta_enabled()
+            and self.allows_overwrites
+            and op.plan.to_read
+            and op.cache_read_gen is not None
+            and op.pgt.truncate is None
+        ):
+            try:
+                with tracer_mod.span_scope(op.trace):
+                    stage = launch_encode_delta(
+                        op.pgt,
+                        op.plan,
+                        self.sinfo,
+                        self.ec,
+                        op.obj_size,
+                        op.read_results,
+                        cache,
+                        self._cache_obj(op.pgt.oid),
+                        op.cache_read_gen,
+                        op.version.version,
+                    )
+            except EcError as e:
+                # the delta launch failed: the write fails with EIO and is
+                # not encoded again on the materialize path (the reference
+                # falls back to it).  Its half-committed entries die here;
+                # a device fault has marked the backend DEGRADED, which
+                # cleared the cache already.
+                cache.invalidate_object(self._cache_obj(op.pgt.oid))
+                self._fail_encoded_op(op, e)
+                return
+            if stage is not None:
+                op.delta = True
+                op.trace.event("delta encode launched (cache hit)")
+        if stage is None:
+            # overwrite invalidation: from here on the object's bytes are
+            # changing — this op's RMW read leg (which could still serve
+            # the committed pre-write bytes) is complete, so drop the
+            # now-stale device-resident chunks (the generation bump would
+            # make them miss anyway; this frees device memory eagerly).
+            # Also drops any half-committed new-generation entries of a
+            # delta attempt that missed.
+            if cache is not None:
+                cache.invalidate_object(self._cache_obj(op.pgt.oid))
+            # scope the launch under ec:write so codec h2d/kernel_launch
+            # sub-spans (codec/tracing.py) and the PendingEncode's reap
+            # span attach to this op's trace
+            with tracer_mod.span_scope(op.trace):
+                stage = launch_encode(
+                    op.pgt,
+                    op.plan,
+                    self.sinfo,
+                    self.ec,
+                    op.obj_size,
+                    op.read_results,
+                    aggregator=self.encode_aggregator,
+                )
         op.encode_stage = stage
         op.encoded = True
         op.trace.event("encode launched")
@@ -648,6 +803,19 @@ class ECBackend(PGBackend):
             hinfo = proj["hinfo"]
         else:
             hinfo = self.get_hash_info(op.pgt.oid)
+        # cache seeding: a materialize-path write on an overwrites pool
+        # seeds every region's k+m shard chunks into the device cache at
+        # its generation — the residency the NEXT RMW's delta path hits.
+        # A delta-path op skips it (its launch already committed data and
+        # parity in place, with no host round-trip).
+        cache = self._chunk_cache()
+        seed = (
+            cache is not None
+            and rmw_delta_enabled()
+            and self.allows_overwrites
+            and not op.delta
+            and not op.pgt.delete
+        )
         # the reap may run from a bare event-loop callback (_drain_encode_pipe):
         # re-enter the op's span scope so materialization sub-spans attach
         with tracer_mod.span_scope(op.trace):
@@ -662,6 +830,9 @@ class ECBackend(PGBackend):
                     op.obj_size,
                     hinfo,
                     op.version.version,
+                    chunk_cache=cache if seed else None,
+                    cache_obj=self._cache_obj(op.pgt.oid) if seed else None,
+                    cache_generation=op.version.version if seed else None,
                 )
             except EcError as e:
                 # a failed (aggregated) encode launch surfaces here, at
@@ -774,6 +945,13 @@ class ECBackend(PGBackend):
             o.trace.finish()
             if o.on_failure is not None:
                 o.on_failure(errno)
+        # a delta-path op already committed data + parity into the device
+        # cache at its (now never-to-commit) generation: drop them — stale
+        # generations would miss anyway, but the bytes are dead
+        if any(o.delta for o in doomed):
+            cache = self._chunk_cache()
+            if cache is not None:
+                cache.invalidate_object(self._cache_obj(oid))
         self._kick_waiting_reads()
 
     def _kick_waiting_reads(self) -> None:
@@ -826,11 +1004,14 @@ class ECBackend(PGBackend):
         on_complete_raw: Callable[[ReadOp, set[int]], None] | None = None,
         want_shards: set[int] | None = None,
         parent_span=None,
+        cache_generations: Mapping | None = None,
     ) -> None:
         """Client/RMW/recovery reads with reconstruction
         (ECBackend.cc:2389).  on_complete receives
         {oid: (errno, [bytes per requested extent])}; recovery passes
-        on_complete_raw to consume the gathered shard streams directly."""
+        on_complete_raw to consume the gathered shard streams directly.
+        `cache_generations` overrides the device-cache generation of an
+        object (the RMW read leg's pre-write generation)."""
         fast = self.fast_read if fast_read is None else fast_read
         tid = self._next_tid()
         requests: dict[str, ReadRequest] = {}
@@ -874,6 +1055,7 @@ class ECBackend(PGBackend):
             on_complete=on_complete,
             on_complete_raw=on_complete_raw,
             trace=trace,
+            cache_generations=dict(cache_generations or {}),
         )
         self.read_ops[tid] = rop
         self._send_reads(rop, sources)
@@ -1129,7 +1311,23 @@ class ECBackend(PGBackend):
     ) -> list[tuple[int, int, int, "stripe_mod.PendingDecode"]]:
         """SUBMIT one object's extent decodes (tickets via the shared
         DecodeAggregator) without materializing — phase one of the
-        reconstruct, so concurrent objects coalesce into one launch."""
+        reconstruct, so concurrent objects coalesce into one launch.
+
+        Device-cache consult: the decode launcher checks the chunk cache
+        for the missing chunks FIRST — a repeated degraded read (or the
+        read leg of a degraded RMW cycle, which flows through the same
+        path) of an unchanged object serves from the device with one D2H
+        copy, skipping the survivor H2D and the kernel entirely; a miss
+        caches its reconstruction for next time."""
+        cache = self._chunk_cache()
+        if cache is None:
+            gen = None
+        elif oid in rop.cache_generations:
+            # RMW read leg: the submit-time pre-write generation (our own
+            # projection would make _cache_generation return None)
+            gen = rop.cache_generations[oid]
+        else:
+            gen = self._cache_generation(oid)
         out = []
         for off, ln in req.to_read:
             s_off, s_len = self.sinfo.offset_len_to_stripe_bounds(off, ln)
@@ -1153,7 +1351,10 @@ class ECBackend(PGBackend):
                         pass
                 raise EcError(EIO, f"cannot reconstruct {oid}")
             pend = stripe_mod.decode_concat_launch(
-                self.sinfo, self.ec, shards, aggregator=self.decode_aggregator
+                self.sinfo, self.ec, shards, aggregator=self.decode_aggregator,
+                chunk_cache=cache,
+                cache_key=(self._cache_obj(oid), gen),
+                cache_off=c_off,
             )
             out.append((off, ln, s_off, pend))
         return out
@@ -1294,10 +1495,17 @@ class ECBackend(PGBackend):
             if fragmented:
                 rebuilt = self._decode_fragmented(rec, have, want)
             else:
+                cache = self._chunk_cache()
+                gen = (
+                    self._cache_generation(rec.oid)
+                    if cache is not None else None
+                )
                 with tracer_mod.span_scope(rec.trace):
                     rec.pending_decode = stripe_mod.decode_shards_launch(
                         self.sinfo, self.ec, have, want,
                         aggregator=self.decode_aggregator,
+                        chunk_cache=cache,
+                        cache_key=(self._cache_obj(rec.oid), gen),
                     )
                 rec.decode_t0 = t0
                 rec.state = RECOVERY_DECODING
@@ -1532,6 +1740,32 @@ class ECBackend(PGBackend):
         rec.trace.finish()
         self.listener.on_global_recover(rec.oid)
         rec.on_complete(0)
+
+    # -- scrub support ---------------------------------------------------------
+
+    def scan_shard(self, shard: int) -> dict[str, dict]:
+        """Deep-scrub scan: per-object size + crc32c of the local chunk
+        (be_deep_scrub analog, ECBackend.cc:2518)."""
+        coll = shard_coll(self.listener.pgid, shard)
+        out: dict[str, dict] = {}
+        try:
+            oids = self.store.list_objects(coll)
+        except StoreError:
+            return out
+        for oid in oids:
+            data = self.store.read(coll, oid, 0, 0)
+            hinfo = None
+            try:
+                hinfo = HashInfo.decode(self.store.getattr(coll, oid, HINFO_ATTR))
+            except StoreError:
+                pass
+            digest = crc32c.crc32c(data, HashInfo.SEED)
+            entry = {"size": len(data), "digest": digest}
+            if hinfo is not None:
+                entry["hinfo_digest"] = hinfo.get_chunk_hash(shard)
+                entry["hinfo_size"] = hinfo.get_total_chunk_size()
+            out[oid] = entry
+        return out
 
 
 def _u64b(v: int) -> bytes:

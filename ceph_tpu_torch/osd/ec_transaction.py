@@ -1,9 +1,8 @@
 """ECTransaction — logical object mutation -> k+m per-shard transactions.
 
 The port of `ceph_tpu/osd/ec_transaction.py` (Ceph's
-src/osd/ECTransaction.{h,cc}), less the device-cache seeding, the RMW
-delta launch and the checksum offload, which come with the modules that
-run them.  `WritePlan`
+src/osd/ECTransaction.{h,cc}), less the checksum offload, which comes
+with the module that runs it.  `WritePlan`
 (ECTransaction.h:26-33) captures which stripe-aligned extents must be read
 (partial-stripe overwrites) and which will be written; `generate_transactions`
 (ECTransaction.cc:109) turns the logical write into one ObjectStore
@@ -199,7 +198,10 @@ def merge_writes(
 ) -> dict[int, bytearray]:
     """The RMW merge: per contiguous will_write region, the committed
     pre-write bytes (read_data) overlaid with the mutation's writes,
-    zero-filled past an in-region truncate."""
+    zero-filled past an in-region truncate.  Shared by the materialize
+    path (launch_encode) and the on-device delta path
+    (launch_encode_delta) so both encode exactly the same logical
+    bytes."""
     merged: dict[int, bytearray] = {}
     if pgt.delete:
         return merged
@@ -252,6 +254,41 @@ def launch_encode(
     return EncodeStage(merged=merged, pending=pending)
 
 
+def launch_encode_delta(
+    pgt: PGTransaction,
+    plan: WritePlan,
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    obj_size: int,
+    read_data: dict[int, bytes],
+    cache,
+    cache_obj,
+    old_gen,
+    new_gen,
+) -> EncodeStage | None:
+    """Phase one via the on-device RMW delta path, or None when it does
+    not apply to EVERY region — mixed materialize/delta stages are not
+    worth the bookkeeping, and the all-or-nothing verdict keeps the
+    materialize path trivially correct (the caller invalidates the object
+    and launches through `launch_encode`, dropping any half-committed
+    new-generation cache entries).  A failed delta launch raises
+    EcError(EIO) (stripe.encode_delta_launch)."""
+    merged = merge_writes(pgt, plan, obj_size, read_data)
+    if pgt.delete or not merged:
+        return None
+    pending: dict[int, "stripe_mod.PendingEncode"] = {}
+    for off in sorted(merged):
+        pend = stripe_mod.encode_delta_launch(
+            sinfo, ec, bytes(merged[off]), cache, cache_obj,
+            old_gen, new_gen,
+            sinfo.aligned_logical_offset_to_chunk_offset(off),
+        )
+        if pend is None:
+            return None
+        pending[off] = pend
+    return EncodeStage(merged=merged, pending=pending)
+
+
 def finish_transactions(
     stage: EncodeStage,
     pgt: PGTransaction,
@@ -262,11 +299,21 @@ def finish_transactions(
     obj_size: int,
     hinfo: HashInfo | None,
     version: int,
+    chunk_cache=None,
+    cache_obj=None,
+    cache_generation=None,
 ) -> tuple[dict[int, Transaction], HashInfo | None, dict[int, bytes]]:
     """Phase two: materialize the launched encodes (blocking only until
     THIS op's launches finish) and build the per-shard Transactions +
     hinfo chain.  Must run in submit (tid) order per object — the hinfo
-    chain consumes the materialized parity bytes."""
+    chain consumes the materialized parity bytes.
+
+    With ``chunk_cache``/``cache_obj``/``cache_generation`` set (the
+    ECBackend passes them when the RMW delta path is armed and this op
+    took the MATERIALIZE path), every region's k+m shard chunks seed the
+    device cache at the write's generation, from the host bytes — the
+    residency the NEXT cache-hit RMW deltas against (a delta-path op skips
+    this: its launch already committed data and parity in place)."""
     n = ec.get_chunk_count()
     txns = {s: Transaction() for s in range(n)}
 
@@ -299,6 +346,11 @@ def finish_transactions(
             chunk = np.ascontiguousarray(shards[s]).tobytes()
             txns[s].write(shard_colls[s], pgt.oid, chunk_off, chunk)
             region_appends[off][s] = chunk
+            if chunk_cache is not None:
+                chunk_cache.put(
+                    cache_obj, s, cache_generation, chunk, off=chunk_off,
+                    device=ec.device,
+                )
 
     # Cumulative hinfo: appends chain onto the existing digests; a full
     # rewrite from 0 restarts the chain (stale digests would flag every

@@ -16,9 +16,13 @@ tensor, which has neither the jax array's `is_ready` nor `__array__`.  The
 pending handle records `offload_runtime.completion_event` at launch,
 polls that event in `ready()` and copies with `.cpu()` in `result()`; it
 never synchronizes the device, so a launch overlaps the commits of the
-writes before it.  An aggregator ticket keeps its own event.  The device
-chunk cache branches and the RMW delta launch come with the modules that
-run them.
+writes before it.  An aggregator ticket keeps its own event.
+
+The device chunk cache (ops/device_cache.py) serves a repeated
+reconstruction with one D2H copy and no launch, and the RMW delta launch
+(`encode_delta_launch`) updates cached parity on the device.  Where the
+reference falls back to the materialize path after a delta launch that
+FAILED, the port fails the write: a fault raises EcError(EIO).
 """
 
 from __future__ import annotations
@@ -149,7 +153,19 @@ class PendingEncode:
             from ..codec.tracing import wait_span
 
             with wait_span(self._span):
-                parity = _to_host(self._parity)  # blocks until launch done
+                try:
+                    parity = _to_host(self._parity)  # blocks until launch done
+                except EcError:
+                    raise
+                except Exception as e:
+                    # a direct launch's device error (the delta path's,
+                    # which no aggregator settles) fails the write with EIO
+                    # and marks the backend DEGRADED, as a failed
+                    # aggregated launch does
+                    from ..ops.guard import device_guard
+
+                    device_guard().mark_degraded(f"encode reap failed: {e!r}")
+                    raise EcError(EIO, f"encode launch failed: {e!r}") from e
             self._span = None
             out: dict[int, np.ndarray] = {}
             for i in range(self._k):
@@ -222,6 +238,142 @@ def encode(
     return encode_launch(sinfo, ec, data, want).result()
 
 
+def encode_delta_launch(
+    sinfo: StripeInfo,
+    ec: ErasureCodeInterface,
+    data: bytes | np.ndarray,
+    cache,
+    cache_obj,
+    old_gen,
+    new_gen,
+    cache_off: int,
+    want: set[int] | None = None,
+) -> PendingEncode | None:
+    """RMW encode via the on-device delta path, or None when the path does
+    not apply — the caller then encodes on the materialize path
+    (``encode_launch``), which is byte-identical by construction (the same
+    plane program on both paths).
+
+    Applies when the device chunk cache holds EVERY shard of the region —
+    the k pre-write data chunks AND the m parity chunks — at the op's
+    pre-write generation ``old_gen``.  Then:
+
+    - the NEW data chunks commit to the cache at ``new_gen`` (the only
+      host bytes that move; counted as cache insertions, and the next
+      RMW's read leg wants them resident anyway),
+    - ONE launch of ``packed_delta`` computes parity_new = parity_old ^
+      Encode(data_old ^ data_new) on the device
+      (MatrixCodecMixin.encode_delta_device),
+    - the new parity replaces the cached parity at ``new_gen``
+      (DeviceChunkCache.replace — no copy from the host),
+    - and the committed flight record (group ``#delta``, flags ``delta``
+      + ``cache_hit``) shows h2d_s == 0 and d2h_s == 0: the launch itself
+      staged nothing through the host.
+
+    None (the materialize path) for a miss, a disabled cache, a put the
+    cache refuses, or a DEGRADED backend.  A FAULT — the ``codec.launch``
+    fault point, a DeviceTimeout, a CUDA error, a put that failed — raises
+    EcError(EIO): the write fails, and is not encoded again on the
+    materialize path.  A fault of the device marks the backend DEGRADED,
+    which clears the cache."""
+    if cache is None or old_gen is None or new_gen is None:
+        return None
+    raw = (
+        np.frombuffer(data, dtype=np.uint8)
+        if isinstance(data, (bytes, bytearray))
+        else np.asarray(data, dtype=np.uint8).ravel()
+    )
+    if raw.size % sinfo.stripe_width:
+        return None
+    k = ec.get_data_chunk_count()
+    n = ec.get_chunk_count()
+    m = n - k
+    if not (_matrix_fast_path(ec) and m > 0) or k != sinfo.k:
+        return None
+    from ..ops.guard import device_guard
+
+    if device_guard().degraded:
+        return None
+    stripes = raw.size // sinfo.stripe_width
+    shard_len = stripes * sinfo.chunk_size
+    shaped = raw.reshape(stripes, k, sinfo.chunk_size)
+    if want is None:
+        want = set(range(n))
+    resident = cache.get_resident_many(
+        cache_obj, range(n), old_gen, off=cache_off, length=shard_len
+    )
+    if resident is None:
+        return None
+    import time
+
+    from ..common.fault_injector import faultpoint
+    from ..ops.flight_recorder import flight_recorder, new_record
+
+    def _fit(buf):
+        return buf[:shard_len] if int(buf.numel()) > shard_len else buf
+
+    fr = flight_recorder()
+    rec = new_record(
+        "encode", group="#delta", tickets=1, stripes=stripes,
+        batch=stripes, nbytes=raw.size,
+    )
+    rec["flags"]["delta"] = True
+    rec["flags"]["cache_hit"] = True
+    try:
+        with fr.active_scope(rec):
+            # commit the new data chunks first: their device buffers are
+            # operands of the launch.  A put the cache refuses takes the
+            # materialize path; one that fails raises (strict)
+            new_bufs = []
+            for i in range(k):
+                if not cache.put(
+                    cache_obj, i, new_gen, shaped[:, i, :], off=cache_off,
+                    device=ec.device, strict=True,
+                ):
+                    return None
+                buf = cache.get(cache_obj, i, new_gen, off=cache_off)
+                if buf is None:
+                    return None
+                new_bufs.append(_fit(buf))
+            t0 = time.monotonic()
+            rec["dispatch_ts"] = t0
+            faultpoint("codec.launch")
+            parity = device_guard().call(
+                lambda: ec.encode_delta_device(
+                    [_fit(resident[i]) for i in range(k)],
+                    new_bufs,
+                    [_fit(resident[k + i]) for i in range(m)],
+                    sinfo.chunk_size,
+                ),
+                what="delta dispatch",
+            )
+            # the generation bumps in place: the delta output never leaves
+            # the device — each parity row re-enters the cache at new_gen
+            # with no copy from the host (the next cache-hit RMW deltas
+            # again)
+            for i in range(m):
+                cache.replace(
+                    cache_obj, k + i, new_gen,
+                    parity[:, i, :].reshape(-1), off=cache_off,
+                )
+            # the dispatch is async: kernel_s is the synchronous enqueue
+            # slice; h2d_s and d2h_s stay 0 — this launch staged nothing
+            rec["kernel_s"] = time.monotonic() - t0
+            rec["complete_ts"] = time.monotonic()
+            fr.commit(rec)
+            return PendingEncode(shaped, parity, k, m, want)
+    except Exception as e:
+        # no fallback: a delta launch that failed fails its write (the
+        # reference re-encodes on the materialize path).  The failure is
+        # on the timeline; one that is the device's (not the inputs', as
+        # the aggregators judge it) marks DEGRADED, which clears the cache
+        rec["flags"]["error"] = True
+        fr.commit(rec)
+        if not isinstance(e, (ValueError, TypeError, EcError)):
+            device_guard().mark_degraded(f"delta dispatch failed: {e!r}")
+        raise EcError(EIO, f"delta encode launch failed: {e!r}") from e
+
+
 class PendingDecode:
     """A LAUNCHED (or aggregator-windowed) batched stripe decode whose
     device work may still be running — the decode twin of PendingEncode.
@@ -265,17 +417,36 @@ class PendingDecode:
         return self._result
 
 
+def _cache_on(chunk_cache, cache_key) -> bool:
+    return (
+        chunk_cache is not None
+        and chunk_cache.enabled
+        and cache_key is not None
+        and cache_key[1] is not None
+    )
+
+
 def decode_concat_launch(
     sinfo: StripeInfo,
     ec: ErasureCodeInterface,
     shards: Mapping[int, np.ndarray],
     aggregator=None,
+    chunk_cache=None,
+    cache_key: tuple | None = None,
+    cache_off: int = 0,
 ) -> PendingDecode:
     """Launch a batched client-read decode WITHOUT materializing the
     reconstruction; resolves to the logical bytes.  With an `aggregator`
     (codec.matrix_codec.DecodeAggregator) the survivor batch is SUBMITTED
     instead of launched, so concurrent same-erasure-pattern degraded
-    reads coalesce into one padded device dispatch."""
+    reads coalesce into one padded device dispatch.
+
+    With a `chunk_cache` (ops/device_cache.DeviceChunkCache) and a
+    `cache_key` = (object token, generation), the missing data chunks are
+    consulted on the device FIRST — a full hit serves the reconstruction
+    with one D2H copy and NO launch, NO H2D — and a miss's reconstructed
+    rows are cached at materialize time for the next read of the same
+    generation."""
     lengths = {len(v) for v in shards.values()}
     if len(lengths) != 1:
         raise EcError(EINVAL, "shards must have equal length")
@@ -299,6 +470,19 @@ def decode_concat_launch(
             data[:, i, :] = have[r]
     if not missing_raw:
         return PendingDecode(None, None, result=data.reshape(-1))
+    use_cache = _cache_on(chunk_cache, cache_key)
+    if use_cache:
+        cached = chunk_cache.fetch_many(
+            cache_key[0], missing_raw, cache_key[1], off=cache_off,
+            length=shard_len, kind="decode", stripes=stripes,
+        )
+        if cached is not None:
+            for i, r in enumerate(data_raw):
+                if r not in have:
+                    data[:, i, :] = cached[r][:shard_len].reshape(
+                        stripes, sinfo.chunk_size
+                    )
+            return PendingDecode(None, None, result=data.reshape(-1))
     # The decode plan needs the full erasure set (every shard we don't
     # have), not just the wanted data shards.
     erasures = [i for i in range(n) if i not in have]
@@ -313,6 +497,15 @@ def decode_concat_launch(
             handle = ec.decode_array(erasures, survivors)
 
         def _assemble(rec: np.ndarray) -> np.ndarray:
+            if use_cache:
+                # cache every reconstructed row (data AND parity) so the
+                # next same-generation degraded read / recovery decode of
+                # this object skips its H2D leg entirely
+                for p, e in enumerate(erasures):
+                    chunk_cache.put(
+                        cache_key[0], e, cache_key[1],
+                        rec[:, p, :], off=cache_off, device=ec.device,
+                    )
             for p, e in enumerate(erasures):
                 if e < k:
                     data[:, e, :] = rec[:, p, :]
@@ -345,6 +538,8 @@ def decode_shards_launch(
     shards: Mapping[int, np.ndarray],
     need: set[int],
     aggregator=None,
+    chunk_cache=None,
+    cache_key: tuple | None = None,
 ) -> PendingDecode:
     """Launch a recovery decode WITHOUT materializing the rebuilt shards;
     resolves to {shard: stream} for `need`.  Matrix codecs take one batched
@@ -354,7 +549,10 @@ def decode_shards_launch(
     padded device launch when the window fills or a barrier flushes
     (ECBackend.flush_decodes / any ticket reap).  Other codecs (jerasure's
     bit-matrix techniques, LRC, CLAY read whole) decode stripe by stripe
-    through `ec.decode`, eagerly, and the PendingDecode is born ready."""
+    through `ec.decode`, eagerly, and the PendingDecode is born ready.
+    With a `chunk_cache` and a `cache_key` the missing shards are consulted
+    on the device first (whole shards, offset 0), and a launch's rebuilt
+    rows are cached, as in `decode_concat_launch`."""
     lengths = {len(v) for v in shards.values()}
     if len(lengths) != 1:
         raise EcError(EINVAL, "shards must have equal length")
@@ -368,6 +566,18 @@ def decode_shards_launch(
     out = {i: have[i].reshape(-1) for i in need if i in have}
     if not missing:
         return PendingDecode(None, None, result=out)
+    use_cache = _cache_on(chunk_cache, cache_key)
+    if use_cache:
+        # whole-shard consult (off 0): a recovery decode right after a
+        # full-extent degraded read of the same generation rides the cache
+        cached = chunk_cache.fetch_many(
+            cache_key[0], missing, cache_key[1], off=0, length=shard_len,
+            kind="decode", stripes=stripes,
+        )
+        if cached is not None:
+            for e in missing:
+                out[e] = cached[e][:shard_len]
+            return PendingDecode(None, None, result=out)
     if _matrix_fast_path(ec):
         erasures = [i for i in range(ec.get_chunk_count()) if i not in have]
         idx = ec.decode_index(erasures)
@@ -380,6 +590,12 @@ def decode_shards_launch(
             handle = ec.decode_array(erasures, survivors)
 
         def _assemble(rec: np.ndarray) -> dict[int, np.ndarray]:
+            if use_cache:
+                for p, e in enumerate(erasures):
+                    chunk_cache.put(
+                        cache_key[0], e, cache_key[1],
+                        rec[:, p, :], off=0, device=ec.device,
+                    )
             for p, e in enumerate(erasures):
                 if e in need:
                     out[e] = np.ascontiguousarray(rec[:, p, :]).reshape(-1)

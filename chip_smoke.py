@@ -224,6 +224,44 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    CLAY k = 4, m = 2, d = 5 on 6 OSDs, 16 objects of 4 MiB, shard 1 lost and
    recovered exact from fragments, fewer than 4 whole chunks an object
    read from the helpers (d helpers x 1/q of a chunk = 2.5).
+   Phases 9 and 10 run at the option defaults, so the device chunk cache
+   (32 MiB) and the RMW delta path are on: a write on pool rbd seeds its
+   chunks, a reconstruct or a rebuild the cache serves commits a `#cache`
+   flight record and launches nothing, and a cache-hit RMW launches
+   packed_delta (a `#delta` record); each part counts them beside the
+   aggregators' launches.
+11. Deep scrub, the device chunk cache and the RMW delta path
+   (osd/scrubber.py, ops/device_cache.py, the cache branches of
+   osd/ec_backend.py) on phase 9's harness at the option defaults, launch
+   counts set to 0 just before and read just after (the `kernels` line's
+   launches of packed_verify and packed_delta add these to phase 7b's).
+   11a: PgScrubber deep-scrubs 100 objects of 4 MiB on the append-only
+   pool (RS(8,3), stripe unit 4096, 11 OSDs: the parity verify needs the
+   hinfo digests, which an allow_ec_overwrites pool drops) in 4 scrub
+   chunks of 25, each one packed_verify launch of (3200, 11, 4096) through
+   the backend's verify aggregator, every bitmap equal to
+   `verify_array_host`; GB/s of codewords verified and the verify spans
+   printed.  First one flipped shard byte (caught by its digest, repaired
+   through recover_object) and one data shard corrupted with its hinfo
+   rewritten to match (caught only by the parity verify, `unrepairable`,
+   repair refused) in one repair scrub; then, the forged shard restored,
+   a clean rescrub, the one timed.  11b: 4 hot
+   RBD objects of 4 MiB on pool rbd (22 MiB resident after their
+   WRITEFULLs), 256 seeded overwrites of 4-64 KiB inside a 64 KiB region
+   of each at QD1, with the delta path and then without it
+   (`ec_tpu_rmw_delta` false) on a fresh cluster: packed_delta launches and
+   materialize launches sum to the writes, every delta record has h2d_s
+   == d2h_s == 0, every byte reads back and every shard equals
+   `encode_array_host` of the model; writes/s, p50 and p99 of both.  11c:
+   each hole class of phase 9d read twice on the hot objects from an empty
+   cache: the first decodes, the second is served by one D2H an object
+   with no decode launch and its hits counted.  11d: `codec.launch` armed
+   on a delta dispatch (EIO, DEGRADED, cache and ledger bytes 0, nothing
+   re-encoded, the cuda probe heals, the next write materializes); armed
+   on a verify launch (the deep scrub aborts, never clean); the mempool
+   pressure layer at a target of the tracked bytes (stage 1 trims the
+   cache, the ledger's device_cache bytes fall by what it trimmed).
+   Under 60 s; the phase's and the whole script's times printed.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -250,6 +288,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+T_START = time.perf_counter()
 SEED = 20261016
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet): HBM3 bandwidth, and INT32 issue rate = 64 lanes/SM x 132 SMs x
@@ -2004,9 +2043,10 @@ class RuntimeProbe:
 
 
 def span_medians(records) -> dict:
-    """Median of each flight-record span over a part's launches, in ms."""
+    """Median of each flight-record span over a part's launches, in ms
+    (none when the part launched nothing)."""
     return {span: statistics.median(r[span] for r in records) * 1e3
-            for span in ("queue_wait_s", "h2d_s", "kernel_s", "d2h_s")}
+            for span in ("queue_wait_s", "h2d_s", "kernel_s", "d2h_s") if records}
 
 
 def phase_runtime(torch, swar, packed, dispatch, registry, card) -> dict:
@@ -2394,6 +2434,7 @@ class BkCluster:
         self.missing: dict = {}
         self.commits: collections.Counter = collections.Counter()
         self.failures: list = []
+        self.failed_ok: set = set()  # tags a drill failed on purpose
         self.latency: dict = {}
         self.colls = [shard_coll(self.pgid, s) for s in range(n)]
         self.stores, self.listeners, self.backends = [], [], []
@@ -2467,12 +2508,15 @@ class BkCluster:
         return bytes(self.stores[s]._colls[self.colls[s]][oid].data)
 
     def settled(self, part: str, led) -> None:
-        """Every commit fired once, nothing failed, and after the final
-        barrier no backend holds an op, a pin or an in-flight pool byte."""
+        """Every commit fired once, nothing failed (but the writes a drill
+        failed on purpose, once each), and after the final barrier no
+        backend holds an op, a pin or an in-flight pool byte."""
         for b in self.backends:
             b.flush_encodes()
-        check(not self.failures, f"{part}: on_failure fired: {self.failures[:4]}")
-        check(len(self.commits) == self.submitted
+        check(sorted(t for t, _err in self.failures) == sorted(self.failed_ok)
+              and not self.failed_ok & set(self.commits),
+              f"{part}: on_failure fired: {self.failures[:4]}")
+        check(len(self.commits) == self.submitted - len(self.failed_ok)
               and all(v == 1 for v in self.commits.values()),
               f"{part}: {len(self.commits)} of {self.submitted} writes committed, "
               f"repeats {[t for t, v in self.commits.items() if v != 1][:4]}")
@@ -2600,28 +2644,43 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
     def part(label: str, before: dict, aggs0: tuple, decodes: int | None = None) -> dict:
         """The launch checks of one part: the aggregators' launches = the
         change in LAUNCHES (DECODE_LAUNCHES for the decodes) = the change
-        in the tier's kernel count; no fallback, no degrade; one committed
-        flight record a launch."""
+        in the tier's kernel count, plus one packed_delta launch a delta
+        record; no fallback, no degrade; one committed flight record a
+        launch.  At the option defaults the device chunk cache is on: a
+        reconstruct it serves commits a `#cache` record and launches
+        nothing, and a cache-hit RMW a `#delta` record (zero h2d and d2h)."""
         torch.cuda.synchronize()
         delta = {key: val - before[key] for key, val in probe.counts().items()}
         enc = int(enc_agg.perf.get("launches")) - aggs0[0]
         dec = int(dec_agg.perf.get("launches")) - aggs0[1]
-        records = [r for r in fr.records() if r["group"] != "#raw"]
-        check(delta["LAUNCHES"] == enc + dec and delta["DECODE_LAUNCHES"] == dec,
+        all_records = [r for r in fr.records() if r["group"] != "#raw"]
+        served = [r for r in all_records if r["group"] == "#cache"]
+        deltas = [r for r in all_records if r["group"] == "#delta"]
+        records = [r for r in all_records if r["group"] not in ("#cache", "#delta")]
+        check(delta["LAUNCHES"] == enc + dec + len(deltas)
+              and delta["DECODE_LAUNCHES"] == dec,
               f"{label}: LAUNCHES +{delta['LAUNCHES']}, DECODE_LAUNCHES "
-              f"+{delta['DECODE_LAUNCHES']} for {enc} encode and {dec} decode launches")
-        check(delta[kernel] == enc + dec,
-              f"{label}: {kernel} launched {delta[kernel]} times for {enc + dec} launches")
+              f"+{delta['DECODE_LAUNCHES']} for {enc} encode, {dec} decode and "
+              f"{len(deltas)} delta launches")
+        check(delta[kernel] == enc + dec and delta["packed_delta"] == len(deltas),
+              f"{label}: {kernel} launched {delta[kernel]} times for {enc + dec} launches, "
+              f"packed_delta {delta['packed_delta']} for {len(deltas)} delta records")
         check(delta["FALLBACK_LAUNCHES"] == 0 and delta["degraded_total"] == 0
               and not guard.degraded, f"{label}: fallback or degraded: {delta}")
         check(len(records) == enc + dec,
               f"{label}: {len(records)} committed flight records for {enc + dec} launches")
-        check(not any(r["flags"]["fallback"] or r["flags"]["error"] for r in records),
+        check(not any(r["flags"]["fallback"] or r["flags"]["error"] for r in all_records),
               f"{label}: a flight record flags a fallback or an error")
+        check(all(r["h2d_s"] == 0 and r["kernel_s"] == 0 and r["flags"]["cache_hit"]
+                  for r in served), f"{label}: a cache-served record has h2d or kernel time")
+        check(all(r["h2d_s"] == 0 and r["d2h_s"] == 0 and r["flags"]["delta"]
+                  for r in deltas), f"{label}: a delta record has h2d or d2h time")
         if decodes is not None:
-            check((dec > 0) == (decodes > 0) and dec <= decodes,
-                  f"{label}: {dec} decode launches for {decodes} decodes")
-        return {"enc": enc, "dec": dec, "records": records}
+            check((dec > 0) == (decodes > len(served)) and dec <= decodes,
+                  f"{label}: {dec} decode launches for {decodes} decodes, "
+                  f"{len(served)} served by the cache")
+        return {"enc": enc, "dec": dec, "records": records, "served": len(served),
+                "deltas": len(deltas)}
 
     def aggs0():
         return int(enc_agg.perf.get("launches")), int(dec_agg.perf.get("launches"))
@@ -2710,17 +2769,18 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
     check(pins["served from a pin"] > 0, f"9b: no RMW read was served from a pin: {pins}")
     res = part("9b", before, a0)
     rbd.settled("9b", led)
-    check(res["enc"] == BK_RMW_WRITES, f"9b: {res['enc']} encode launches for "
+    check(res["enc"] + res["deltas"] == BK_RMW_WRITES,
+          f"9b: {res['enc']} encode and {res['deltas']} delta launches for "
           f"{BK_RMW_WRITES} writes")
     lat = sorted(rbd.latency[t] for t in tags)
     out["spans"]["9b"] = span_medians(res["records"])
     out["9b"] = {"writes_per_s": BK_RMW_WRITES / wall,
                  "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[int(len(lat) * 0.99)] * 1e3,
-                 "pins": dict(pins)}
+                 "pins": dict(pins), "delta_writes": res["deltas"]}
     print(f"[9] 9b: {BK_RMW_WRITES} RMW writes of 4-64 KiB in batches of {BK_QD}: "
           f"{out['9b']['writes_per_s']:.1f} writes/s, submit to commit p50 "
           f"{out['9b']['p50_ms']:.3f} ms p99 {out['9b']['p99_ms']:.3f} ms; RMW read ranges "
-          f"{dict(pins)}; {card}")
+          f"{dict(pins)}; {res['deltas']} on the delta path; {card}")
 
     # 9c: every object read back whole, and every shard against the host oracle
     def read_all(label: str, holes: list) -> float:
@@ -2762,14 +2822,16 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
         gbps = read_all(f"9d {holes}", holes)
         decodes = BK_OBJECTS if any(h < BK_K for h in holes) else 0
         res = part(f"9d {holes}", before, a0, decodes=decodes)
-        check(int(dec_agg.perf.get("submits")) - submits0 == decodes,
-              f"9d {holes}: {int(dec_agg.perf.get('submits')) - submits0} decode submits, "
-              f"want {decodes}")
+        check(int(dec_agg.perf.get("submits")) - submits0 + res["served"] == decodes,
+              f"9d {holes}: {int(dec_agg.perf.get('submits')) - submits0} decode submits and "
+              f"{res['served']} reads served by the cache, want {decodes}")
         out["9d_GBps"][str(holes)] = gbps
+        out.setdefault("9d_cache_served", {})[str(holes)] = res["served"]
         if res["records"]:
             out["spans"][f"9d {holes}"] = span_medians(res["records"])
         print(f"[9] 9d: holes {holes}: {BK_OBJECTS} objects exact, {gbps:.3f} GB/s, "
-              f"{res['dec']} decode launches ({kernel}) for {decodes} decodes; {card}")
+              f"{res['dec']} decode launches ({kernel}) for {decodes} decodes, "
+              f"{res['served']} served by the device chunk cache; {card}")
     dec_agg.configure(window=int(OPTIONS["ec_tpu_decode_aggregate_window"].default))
     saved = list(rbd.acting)
     for h in BK_EIO_HOLES:
@@ -3076,7 +3138,11 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
             torch.cuda.synchronize()
             delta = {key: val - before[key] for key, val in probe.counts().items()}
             dec = int(dec_agg.perf.get("launches")) - launches0
-            records = [r for r in fr.records() if r["group"] != "#raw"]
+            all_records = [r for r in fr.records() if r["group"] != "#raw"]
+            # at the option defaults the device chunk cache serves the
+            # rebuild of objects whose chunks the writes seeded
+            served = [r for r in all_records if r["group"] == "#cache"]
+            records = [r for r in all_records if r["group"] != "#cache"]
             rbd.missing.clear()
             label = f"10c loss {lost}"
             check(results == [0] * RC_OBJECTS, f"{label}: callbacks {collections.Counter(results)}")
@@ -3091,8 +3157,10 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
             check(delta["FALLBACK_LAUNCHES"] == 0 and delta["degraded_total"] == 0
                   and not guard.degraded, f"{label}: fallback or degraded: {delta}")
             check(len(records) == dec and not any(
-                r["flags"]["fallback"] or r["flags"]["error"] for r in records),
+                r["flags"]["fallback"] or r["flags"]["error"] for r in all_records),
                 f"{label}: {len(records)} clean flight records for {dec} launches")
+            check(all(r["h2d_s"] == 0 and r["kernel_s"] == 0 for r in served),
+                  f"{label}: a cache-served record has h2d or kernel time")
             rbd.settled(label, led)
             hist = rbd.listeners[0].hists["ec_decode_latency"]
             row = {
@@ -3100,6 +3168,7 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
                 "rebuilt_MBps": RC_OBJECTS * len(lost) * chunk_bytes / wall / 1e6,
                 "decode_latency_ms": statistics.median(hist) * 1e3,
                 "decode_launches": dec,
+                "cache_served": len(served),
                 "seconds": wall,
                 "spans": span_medians(records),
             }
@@ -3108,7 +3177,8 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
                   f"callback 0; {row['logical_MBps']:.1f} MB/s logical, "
                   f"{row['rebuilt_MBps']:.1f} MB/s of rebuilt shards (first recover_object to "
                   f"last callback, {wall:.3f} s); ec_decode_latency median "
-                  f"{row['decode_latency_ms']:.3f} ms; {dec} decode launches (swar_gf); flight "
+                  f"{row['decode_latency_ms']:.3f} ms; {dec} decode launches (swar_gf), "
+                  f"{len(served)} rebuilds served by the device chunk cache; flight "
                   "spans median per launch (ms): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in row["spans"].items()) + f"; {card}")
     finally:
@@ -3170,6 +3240,468 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[10] phase 10c-d numbers: "
           f"{json.dumps({k: v for k, v in out.items() if k != 'losses'})}")
+    return out
+
+
+# Phase 11's deployments, on phase 9's harness (RS(8,3) reed_sol_van,
+# stripe_unit 4096, 11 OSDs, option defaults: the device chunk cache at 32
+# MiB and the RMW delta path on).  11a: deep scrub of 100 objects of 4 MiB,
+# 4 scrub chunks of CHUNK_MAX = 25, on the append-only pool (the parity
+# verify runs on chunks whose hinfo digests travel in the scrub map, and a
+# pool with allow_ec_overwrites keeps no hinfo).  11b: RBD small writes on
+# a hot image region (a database's or a journal's hot blocks): 4 objects of
+# 4 MiB on pool rbd, 256 overwrites of 4-64 KiB inside a 64 KiB region of
+# each, at QD1, with the delta path and again without it.  11c: phase 9d's
+# hole classes, each read twice from an empty cache.  11d: the drills.
+SC_OBJECTS = 100
+HOT_OBJECTS = 4
+HOT_WRITES = 256
+HOT_REGION = 64 << 10
+HOT_BYTES = (4 << 10, 64 << 10)
+
+
+class ScrubCluster(BkCluster):
+    """BkCluster with a PG-shaped scrub host on every OSD: exactly the
+    attributes osd/scrubber.py's PgScrubber reads.  The scrub messages ride
+    the cluster's queue; `request_recovery` runs the backend's
+    recover_object for the shards repair marked missing."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        from types import SimpleNamespace
+
+        from ceph_tpu_torch.osd.scrubber import PgScrubber
+
+        cluster = self
+
+        class Host:
+            def __init__(self, osd):
+                self.osd_id, self.pgid = osd, cluster.pgid
+                self.osd = SimpleNamespace(store=cluster.stores[osd])
+                self.backend, self.pool = cluster.backends[osd], cluster.pool
+                self.peering = SimpleNamespace(osds_missing=lambda oid: {
+                    cluster.acting[s] for s in cluster.missing.get(oid, ())})
+                self.clog, self.recoveries = [], []
+                self.scrubber = PgScrubber(self)
+
+            def whoami(self):
+                return self.osd_id
+
+            def whoami_shard(self):
+                return self.osd_id
+
+            def epoch(self):
+                return 1
+
+            def acting(self):
+                return cluster.acting
+
+            def send_scrub(self, osd, msg):
+                cluster.queue.append((osd, msg))
+
+            send_scrub_reply = send_scrub
+
+            def clog_error(self, text):
+                self.clog.append(text)
+
+            def mark_shard_missing(self, oid, osd):
+                cluster.missing.setdefault(oid, set()).add(cluster.acting.index(osd))
+
+            def request_recovery(self, oid):
+                def done(err):
+                    self.recoveries.append((oid, err))
+                    if err == 0:
+                        cluster.missing.pop(oid, None)
+
+                self.backend.recover_object(oid, set(cluster.missing.get(oid, ())), done)
+
+        self.hosts = [Host(osd) for osd in range(len(self.backends))]
+
+    def pump(self) -> None:
+        from ceph_tpu_torch.msg.messages import MOSDRepScrub
+
+        while True:
+            for b in self.backends:
+                b.flush_encodes()
+            if not self.queue:
+                return
+            osd, msg = self.queue.pop(0)
+            if osd == self.PG_NONE or self.backends[osd].handle_message(msg):
+                continue
+            scrubber = self.hosts[osd].scrubber
+            if isinstance(msg, MOSDRepScrub):
+                scrubber.handle_rep_scrub(msg)
+            else:
+                scrubber.handle_scrub_map(msg)
+
+    def scrub(self, repair: bool = False):
+        out: list = []
+        check(self.hosts[0].scrubber.start(deep=True, repair=repair, on_done=out.append),
+              "a scrub is already running")
+        self.pump()
+        check(len(out) == 1, "the deep scrub did not finish")
+        return out[0]
+
+
+def phase_scrub_cache(torch, swar, packed, dispatch, card) -> dict:
+    """Phase 11: deep scrub through PgScrubber on packed_verify (11a), the
+    RMW delta path on packed_delta (11b), cache-served degraded reads (11c)
+    and the drills (11d), through the port's ECBackend at option defaults.
+    Launch counts are set to 0 just before and read just after."""
+    from ceph_tpu_torch.codec import matrix_codec as mc
+    from ceph_tpu_torch.common.fault_injector import global_injector
+    from ceph_tpu_torch.common.mempool import ledger
+    from ceph_tpu_torch.common.options import OPTIONS
+    from ceph_tpu_torch.ops.device_cache import device_chunk_cache
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.osd import ec_backend
+    from ceph_tpu_torch.osd.ec_transaction import HINFO_ATTR
+    from ceph_tpu_torch.stripe.hashinfo import HashInfo
+    from ceph_tpu_torch.utils.crc32c import crc32c
+
+    t_phase = time.perf_counter()
+    led, fr, guard, cache = ledger(), flight_recorder(), device_guard(), device_chunk_cache()
+    enc_agg, dec_agg = mc.default_encode_aggregator(), mc.default_decode_aggregator()
+    probe = RuntimeProbe(torch, swar, packed, dispatch, fr, guard, led)
+    check(cache.max_bytes == int(OPTIONS["ec_tpu_device_cache_bytes"].default)
+          and ec_backend.rmw_delta_enabled() == bool(OPTIONS["ec_tpu_rmw_delta"].default),
+          "phase 11 runs at the option defaults of the cache and the delta path")
+    rng = np.random.default_rng(SEED + 110)
+    out: dict = {"spans": {}}
+    swar.launches = 0
+    for name in PACKED_KERNELS:
+        packed.launches[name] = 0
+
+    def moved(before: dict) -> dict:
+        torch.cuda.synchronize()
+        return {key: val - before[key] for key, val in probe.counts().items()}
+
+    # 11a: deep scrub, 4 chunks of 25 objects, one packed_verify launch each
+    sc = ScrubCluster(5, "rgw", overwrites=False)
+    ec = sc.primary.ec
+    sc_oids = [f"rgw.scrub.{i:03d}" for i in range(SC_OBJECTS)]
+    sc_model = rng.integers(0, 256, (SC_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+    for first in range(0, SC_OBJECTS, BK_QD):
+        for i in range(first, min(first + BK_QD, SC_OBJECTS)):
+            sc.writefull(sc_oids[i], sc_model[i].tobytes())
+        sc.pump()
+    sc.settled("11a writes", led)
+    vagg = sc.primary.verify_aggregator
+    submitted: list = []
+    real_submit = vagg.submit
+
+    def submit(ec_, codewords):
+        ticket = real_submit(ec_, codewords)
+        submitted.append((codewords, ticket))
+        return ticket
+
+    vagg.submit = submit
+    chunks = -(-SC_OBJECTS // 25)
+    codeword_bytes = SC_OBJECTS * (BK_K + BK_M) * (BK_OBJECT_BYTES // BK_K)
+
+    def deep_scrub(label: str, repair: bool = False):
+        submitted.clear()
+        before, v0 = probe.start(), int(vagg.perf.get("launches"))
+        t0 = time.perf_counter()
+        res = sc.scrub(repair)
+        wall = time.perf_counter() - t0
+        delta = moved(before)
+        launches = int(vagg.perf.get("launches")) - v0
+        check(launches == chunks and delta["VERIFY_LAUNCHES"] == chunks
+              and delta["packed_verify"] == chunks,
+              f"{label}: {launches} verify launches, VERIFY_LAUNCHES +{delta['VERIFY_LAUNCHES']}, "
+              f"packed_verify +{delta['packed_verify']}, want {chunks}")
+        check([tuple(cw.shape) for cw, _t in submitted] == [SCRUB_SHAPE] * chunks,
+              f"{label}: scrub chunks {[tuple(cw.shape) for cw, _t in submitted]}")
+        t_oracle = time.perf_counter()
+        with ThreadPoolExecutor(len(submitted)) as pool:  # numpy's XORs release the GIL
+            oracle = list(pool.map(ec.verify_array_host, [cw for cw, _t in submitted]))
+        for (_cw, ticket), want in zip(submitted, oracle):
+            check(np.array_equal(np.asarray(ticket), want),
+                  f"{label}: a scrub chunk's bitmap != verify_array_host")
+        oracle_s = time.perf_counter() - t_oracle
+        records = [r for r in fr.records() if r["kind"] == "verify"]
+        check(len(records) == chunks and not any(
+            r["flags"]["error"] or r["flags"]["fallback"] for r in records),
+            f"{label}: {len(records)} clean verify records for {chunks} launches")
+        check(delta["FALLBACK_LAUNCHES"] == 0 and not guard.degraded,
+              f"{label}: fallback or degraded")
+        return res, wall, records, oracle_s
+
+    # one shard's bytes flipped (the digest catches it, repair rebuilds it),
+    # one data shard corrupted with its hinfo rewritten to match (only the
+    # parity verify sees it: unrepairable), both in one repair scrub
+    flip, forged = sc_oids[7], sc_oids[SC_OBJECTS * 3 // 5]
+    coll2, coll1 = sc.colls[2], sc.colls[1]
+    good2 = sc.shard(2, flip)
+    sc.stores[2]._write(coll2, flip, 4099, bytes([good2[4099] ^ 0x5A]))
+    good1, hinfo1 = sc.shard(1, forged), sc.stores[1].getattr(coll1, forged, HINFO_ATTR)
+    sc.stores[1]._write(coll1, forged, 77, bytes([good1[77] ^ 0x01]))
+    hinfo = HashInfo.decode(hinfo1)
+    hinfo.cumulative_shard_hashes[1] = crc32c(sc.shard(1, forged), HashInfo.SEED)
+    sc.stores[1]._setattr(coll1, forged, HINFO_ATTR, hinfo.encode())
+    res = deep_scrub("11a repair", repair=True)[0]
+    parity_osds = {sc.acting[s] for s in range(BK_K, BK_K + BK_M)}
+    check(res.inconsistent.get(flip) == {2: "data digest mismatch vs hinfo"},
+          f"11a: flipped shard reported as {res.inconsistent.get(flip)}")
+    check(res.unrepairable == {forged} and res.inconsistent.get(forged)
+          and set(res.inconsistent[forged]) <= parity_osds,
+          f"11a: forged shard: unrepairable {res.unrepairable}, "
+          f"{res.inconsistent.get(forged)}")
+    check(res.repaired == 1 and sc.hosts[0].recoveries == [(flip, 0)]
+          and sc.shard(2, flip) == good2, f"11a: repair gave {res.repaired}, "
+          f"{sc.hosts[0].recoveries}, shard rebuilt {sc.shard(2, flip) == good2}")
+    check(any("refusing auto-repair" in e for e in sc.hosts[0].clog),
+          "11a: repair did not refuse the unrepairable object")
+    print(f"[11] 11a: a flipped byte in shard 2 caught by its digest and repaired through "
+          f"recover_object; a forged shard (hinfo rewritten to match) caught only by the "
+          f"parity verify on osds {sorted(res.inconsistent[forged])}, unrepairable and refused")
+    # the forged shard restored by hand, the rescrub is clean: the timed scrub
+    sc.stores[1]._write(coll1, forged, 0, good1)
+    sc.stores[1]._setattr(coll1, forged, HINFO_ATTR, hinfo1)
+    res, wall, records, oracle_s = deep_scrub("11a rescrub")
+    check(res.clean and res.objects_scrubbed == SC_OBJECTS and not res.unrepairable,
+          f"11a: rescrub gave {res}")
+    out["11a_GBps"] = codeword_bytes / wall / 1e9
+    out["11a_seconds"] = wall
+    out["spans"]["11a verify"] = span_medians(records)
+    print(f"[11] 11a: clean rescrub of {SC_OBJECTS} objects of 4 MiB in {chunks} chunks, one "
+          f"packed_verify launch of {SCRUB_SHAPE} each, every bitmap of both scrubs = "
+          f"verify_array_host (host oracle {oracle_s:.2f} s, outside the scrub's time); "
+          f"{out['11a_GBps']:.3f} GB/s of codewords verified ({wall:.3f} s, scrub maps with "
+          f"base64 chunk bytes included); {card}")
+
+    # 11b: the RMW delta path on a hot image region, with and without it
+    sw = BK_K * BK_SU
+    hot = [f"rbd_data.hot.{i:016x}" for i in range(HOT_OBJECTS)]
+    hot_model0 = rng.integers(0, 256, (HOT_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+    region = [int(rng.integers(0, (BK_OBJECT_BYTES - HOT_REGION) // sw)) * sw
+              for _ in hot]
+    writes = []
+    for _ in range(HOT_WRITES):
+        i = int(rng.integers(HOT_OBJECTS))
+        ln = int(rng.integers(HOT_BYTES[0], HOT_BYTES[1] + 1))
+        off = region[i] + int(rng.integers(0, HOT_REGION - ln + 1))
+        writes.append((i, off, rng.integers(0, 256, ln, dtype=np.uint8)))
+    out["11b"] = {}
+    clusters = {}
+    try:
+        for mode, pool_id in (("delta", 6), ("materialize", 7)):
+            ec_backend.configure_rmw_delta(mode == "delta")
+            cache.clear()
+            c = clusters[mode] = BkCluster(pool_id, "rbd", overwrites=True)
+            model = hot_model0.copy()
+            for i, oid in enumerate(hot):
+                c.writefull(oid, model[i].tobytes())
+            c.pump()
+            c.settled(f"11b {mode} writes", led)
+            resident = cache.perf_dump()["resident_bytes"]
+            if mode == "delta":
+                check(resident == HOT_OBJECTS * (BK_K + BK_M) * (BK_OBJECT_BYTES // BK_K),
+                      f"11b: {resident} bytes resident after seeding the hot objects")
+            before, a0 = probe.start(), int(enc_agg.perf.get("launches"))
+            updates0 = cache.delta_updates
+            tags = []
+            t0 = time.perf_counter()
+            for i, off, patch in writes:
+                model[i, off:off + len(patch)] = patch
+                tags.append(c.submit(c.PGTransaction(hot[i]).write(off, patch.tobytes())))
+                c.pump()
+            wall = time.perf_counter() - t0
+            delta = moved(before)
+            c.settled(f"11b {mode}", led)
+            enc = int(enc_agg.perf.get("launches")) - a0
+            deltas = [r for r in fr.records() if r["group"] == "#delta"]
+            check(enc + len(deltas) == HOT_WRITES,
+                  f"11b {mode}: {enc} materialize and {len(deltas)} delta launches for "
+                  f"{HOT_WRITES} writes")
+            check(delta["packed_delta"] == len(deltas)
+                  and cache.delta_updates - updates0 == BK_M * len(deltas)
+                  and delta["swar_gf"] == enc,
+                  f"11b {mode}: packed_delta +{delta['packed_delta']}, swar_gf "
+                  f"+{delta['swar_gf']}, delta updates +{cache.delta_updates - updates0} for "
+                  f"{len(deltas)} delta and {enc} materialize launches")
+            check(all(r["h2d_s"] == 0 and r["d2h_s"] == 0 and r["flags"]["delta"]
+                      and r["flags"]["cache_hit"] and not r["flags"]["error"] for r in deltas),
+                  f"11b {mode}: a delta record has h2d or d2h time, or an error")
+            check((len(deltas) > 0) == (mode == "delta"),
+                  f"11b {mode}: {len(deltas)} writes took the delta path")
+            got = c.read({oid: [(0, BK_OBJECT_BYTES)] for oid in hot})
+            for i, oid in enumerate(hot):
+                check(got[oid] == (0, [model[i].tobytes()]),
+                      f"11b {mode}: {oid} read back != the model")
+                shaped = model[i].reshape(BK_OBJECT_BYTES // sw, BK_K, BK_SU)
+                parity = ec.encode_array_host(shaped)
+                for s in range(BK_K + BK_M):
+                    want = shaped[:, s] if s < BK_K else parity[:, s - BK_K]
+                    check(c.shard(s, oid) == want.tobytes(),
+                          f"11b {mode}: {oid} shard {s} != encode_array_host of the model")
+            lat = sorted(c.latency[t] for t in tags)
+            row = out["11b"][mode] = {
+                "writes_per_s": HOT_WRITES / wall, "p50_ms": lat[len(lat) // 2] * 1e3,
+                "p99_ms": lat[int(len(lat) * 0.99)] * 1e3, "delta_writes": len(deltas),
+                "materialize_writes": enc}
+            if deltas:
+                out["spans"]["11b delta"] = span_medians(deltas)
+            print(f"[11] 11b {mode}: {HOT_WRITES} overwrites of 4-64 KiB in a 64 KiB hot "
+                  f"region of {HOT_OBJECTS} objects at QD1: {row['writes_per_s']:.1f} writes/s, "
+                  f"p50 {row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms; {len(deltas)} on "
+                  f"the delta path (packed_delta, h2d 0 and d2h 0 on every record), {enc} "
+                  f"materialized; every byte read back and every shard = encode_array_host; "
+                  f"{card}")
+            if mode == "delta":
+                hot_model = model
+    finally:
+        ec_backend.configure_rmw_delta(bool(OPTIONS["ec_tpu_rmw_delta"].default))
+    c = clusters["delta"]
+
+    # 11c: phase 9d's hole classes on the hot objects, each read twice from
+    # an empty cache: the first read decodes and caches the rebuilt rows,
+    # the second is served by one D2H an object, with no decode launch
+    out["11c"] = {}
+    for holes in RT_CLASSES:
+        cache.clear()
+        saved = list(c.acting)
+        for h in holes:
+            c.acting[h] = c.PG_NONE
+        reader = c.backends[next(o for o in c.acting if o != c.PG_NONE)]
+        data_holes = [h for h in holes if h < BK_K]
+        rounds = []
+        for rnd in range(2):
+            before, d0, h0 = probe.start(), int(dec_agg.perf.get("launches")), cache.hits
+            t0 = time.perf_counter()
+            got = c.read({oid: [(0, BK_OBJECT_BYTES)] for oid in hot}, reader)
+            seconds = time.perf_counter() - t0
+            delta = moved(before)
+            dec = int(dec_agg.perf.get("launches")) - d0
+            served = [r for r in fr.records() if r["group"] == "#cache"]
+            for i, oid in enumerate(hot):
+                check(got[oid] == (0, [hot_model[i].tobytes()]),
+                      f"11c {holes} read {rnd}: {oid} != the model")
+            if not data_holes:
+                ok = dec == 0 and not served
+            elif rnd == 0:
+                ok = dec > 0 and not served and delta["swar_gf"] == dec
+            else:
+                ok = (dec == 0 and delta["DECODE_LAUNCHES"] == 0 and delta["swar_gf"] == 0
+                      and len(served) == HOT_OBJECTS
+                      and cache.hits - h0 == HOT_OBJECTS * len(data_holes)
+                      and all(r["h2d_s"] == 0 and r["kernel_s"] == 0 and r["d2h_s"] > 0
+                              for r in served))
+            check(ok, f"11c {holes} read {rnd}: {dec} decode launches, {len(served)} "
+                      f"cache-served records, {cache.hits - h0} hits")
+            rounds.append({"GBps": HOT_OBJECTS * BK_OBJECT_BYTES / seconds / 1e9,
+                           "decode_launches": dec, "served": len(served),
+                           "hits": cache.hits - h0})
+            if served:
+                out["spans"][f"11c {holes}"] = span_medians(served)
+        c.acting[:] = saved
+        out["11c"][str(holes)] = rounds
+        print(f"[11] 11c: holes {holes}: {HOT_OBJECTS} objects read twice, exact; first "
+              f"{rounds[0]['GBps']:.3f} GB/s ({rounds[0]['decode_launches']} decode launches), "
+              f"second {rounds[1]['GBps']:.3f} GB/s ({rounds[1]['decode_launches']} decode "
+              f"launches, {rounds[1]['served']} served by the cache, {rounds[1]['hits']} "
+              f"hits); {card}")
+    c.settled("11c", led)
+
+    # 11d: the drills.  (1) `codec.launch` armed on a delta dispatch: the
+    # write fails with EIO, the backend goes DEGRADED, the cache is empty,
+    # nothing is re-encoded; the probe heals and the next write materializes
+    oid, start = hot[0], region[0]
+    cache.clear()
+    for ln in (HOT_REGION, 4096):  # a materialize that seeds, then a delta on it
+        patch = rng.integers(0, 256, ln, dtype=np.uint8)
+        hot_model[0, start:start + ln] = patch
+        c.submit(c.PGTransaction(oid).write(start, patch.tobytes()))
+        c.pump()
+    check(any(r["group"] == "#delta" for r in fr.records()[-3:]),
+          "11d: the drill's second write did not take the delta path")
+    c.settled("11d setup", led)
+    shards_before = [c.shard(s, oid) for s in range(BK_K + BK_M)]
+    before, a0 = probe.start(), int(enc_agg.perf.get("launches"))
+    global_injector().inject("codec.launch", 5, hits=1)
+    try:
+        c.submit(c.PGTransaction(oid).write(start + 100, b"\x5a" * 300))
+        c.pump()
+    finally:
+        global_injector().clear()
+    delta = moved(before)
+    failed = [r for r in fr.records() if r["group"] == "#delta"]
+    check(c.failures == [(c.submitted, -5)], f"11d: the failed delta gave {c.failures}")
+    check(guard.degraded and cache.perf_dump()["entries"] == 0
+          and led.current_bytes("device_cache") == 0,
+          f"11d: degraded {guard.degraded}, cache {cache.perf_dump()}")
+    check(int(enc_agg.perf.get("launches")) == a0 and delta["packed_delta"] == 0
+          and delta["swar_gf"] == 0 and len(failed) == 1 and failed[0]["flags"]["error"],
+          f"11d: after the failed delta: {delta}, {len(failed)} delta records")
+    check([c.shard(s, oid) for s in range(BK_K + BK_M)] == shards_before,
+          "11d: a shard changed under the failed write")
+    check(guard.maybe_probe() and not guard.degraded, "11d: the cuda probe did not heal")
+    c.failed_ok.add(c.submitted)
+    a0 = int(enc_agg.perf.get("launches"))
+    patch = rng.integers(0, 256, 4096, dtype=np.uint8)
+    hot_model[0, start:start + 4096] = patch
+    c.submit(c.PGTransaction(oid).write(start, patch.tobytes()))
+    c.pump()
+    check(int(enc_agg.perf.get("launches")) == a0 + 1, "11d: the write after the heal "
+          "did not materialize")
+    got = c.read({oid: [(0, BK_OBJECT_BYTES)]})
+    check(got[oid] == (0, [hot_model[0].tobytes()]), "11d: read back after the drill != model")
+    c.settled("11d delta drill", led)
+    print("[11] 11d: codec.launch on a delta dispatch: EIO, DEGRADED, cache and its ledger "
+          "bytes 0, nothing re-encoded, shards untouched; the cuda probe healed and the next "
+          "write materialized")
+    # (2) a failed verify launch aborts the deep scrub
+    global_injector().inject("codec.launch", 5, hits=1)
+    try:
+        submitted.clear()
+        res = sc.scrub()
+    finally:
+        global_injector().clear()
+        del vagg.submit
+    check(res.aborted and not res.clean
+          and any("parity verify reap failed" in e for e in sc.hosts[0].clog),
+          f"11d: failed verify gave {res}")
+    check(guard.degraded and guard.maybe_probe() and not guard.degraded,
+          "11d: the failed verify did not degrade, or the probe did not heal")
+    held = {pool: led.current_bytes(pool) for pool in RT_INFLIGHT_POOLS}
+    check(not any(held.values()), f"11d: in-flight pools after the aborted scrub: {held}")
+    print(f"[11] 11d: codec.launch on a verify launch: the deep scrub aborted after "
+          f"{res.objects_scrubbed} objects, never clean; the probe healed")
+    # (3) mempool pressure: stage 1 trims the cache and the ledger bytes fall
+    for i, oid in enumerate(hot):
+        c.writefull(oid, hot_model[i].tobytes())
+    c.pump()
+    c.settled("11d pressure writes", led)
+    cached0, total0 = led.current_bytes("device_cache"), led.total_device_bytes()
+    trimmed0 = led.pressure_status()["actions"]["cache_trimmed_bytes"]
+    try:
+        led.configure(target_bytes=total0)
+        status = led.check_pressure()
+    finally:
+        led.configure(target_bytes=int(OPTIONS["ec_tpu_hbm_target_bytes"].default))
+        led.check_pressure()
+    trimmed = status["actions"]["cache_trimmed_bytes"] - trimmed0
+    cached1 = led.current_bytes("device_cache")
+    check(cached0 > 0 and status["stage"] >= 1 and trimmed > 0
+          and cached1 == cached0 - trimmed == cache.perf_dump()["resident_bytes"],
+          f"11d: pressure at target {total0}: stage {status['stage']}, trimmed {trimmed}, "
+          f"device_cache {cached0} -> {cached1}")
+    print(f"[11] 11d: pressure (target = the {total0} tracked bytes): stage "
+          f"{status['stage']}, the cache trimmed {trimmed} bytes, ledger device_cache "
+          f"{cached0} -> {cached1}")
+
+    out["launches"] = {"swar_gf": swar.launches, **packed.launches}
+    check(packed.launches["packed_verify"] > 0 and packed.launches["packed_delta"] > 0,
+          f"phase 11 launches {out['launches']}")
+    out["cache"] = cache.perf_dump()
+    for label, spans in out["spans"].items():
+        print(f"[11] {label}: flight spans, median per launch (ms): "
+              + ", ".join(f"{span} {ms:.4f}" for span, ms in spans.items()) + f"; {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[11] phase 11 numbers: {json.dumps({k: v for k, v in out.items() if k != 'spans'})}")
+    check(out["seconds"] < 60, f"phase 11 took {out['seconds']:.1f} s, over its 60 s")
     return out
 
 
@@ -3241,6 +3773,10 @@ def main(argv: list[str]) -> int:
     gf2_row = phase("10a", phase_gf2_plane, torch, gf2, xor_mm, PLAN_CACHE, card)
     plugins = phase("10b", phase_plugins, torch, swar, packed, xor_mm, registry, card)
     phase("10c", phase_recovery, torch, swar, packed, dispatch, registry, card)
+    scrub_cache = phase(11, phase_scrub_cache, torch, swar, packed, dispatch, card)
+    for kernel in ("packed_verify", "packed_delta"):
+        diag_launches[kernel] = {"7b": diag_launches[kernel],
+                                 "11": scrub_cache["launches"][kernel]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -3267,12 +3803,15 @@ def main(argv: list[str]) -> int:
         ("packed_verify", "packed_gf.cu", "ceph_tpu/ops/packed_gf.py:375"),
         ("packed_delta", "packed_gf.cu", "ceph_tpu/ops/packed_gf.py:400"),
     ):
+        launches = diag_launches[kernel]
+        by_path = launches if isinstance(launches, dict) else None
         kernels.append({
             "name": kernel,
             "route": "cuda",
             "source": f"ceph_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": diag_launches[kernel],
+            "launches": sum(by_path.values()) if by_path else launches,
+            **({"launches_by_phase": by_path} if by_path else {}),
             "max_abs_err": errs[kernel],
             **diag_times[kernel],
         })
@@ -3285,6 +3824,7 @@ def main(argv: list[str]) -> int:
         **gf2_row,
         "source_sha256": infos["gf2_plane"]["source_sha256"],
     })
+    print(f"chip_smoke: whole script {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

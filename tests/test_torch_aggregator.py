@@ -18,6 +18,7 @@ import pytest
 from ceph_tpu.codec import matrix_codec as jmc
 from ceph_tpu.codec import registry as jregistry
 from ceph_tpu.ops import flight_recorder as jflight
+from ceph_tpu.ops.device_cache import device_chunk_cache as j_device_chunk_cache
 from ceph_tpu.parallel import dispatch as jshard
 
 from ceph_tpu_torch.codec import matrix_codec as mc
@@ -32,6 +33,7 @@ from ceph_tpu_torch.common.fault_injector import global_injector
 from ceph_tpu_torch.common.mempool import ledger
 from ceph_tpu_torch.ops import dispatch, flight_recorder, offload_runtime, swar_gf
 from ceph_tpu_torch.ops import guard as guard_mod
+from ceph_tpu_torch.ops.device_cache import device_chunk_cache
 from ceph_tpu_torch.ops.guard import device_guard
 from ceph_tpu_torch.ops.offload_runtime import DonationPool
 from ceph_tpu_torch.ops.launch_scheduler import CLASS_BY_LANE, launch_scheduler
@@ -49,9 +51,16 @@ def _clean_state():
     # (its tests run on a virtual 8-device CPU mesh, which would shard)
     settings = jshard.settings()
     jshard.configure(devices=1)
+    # both packages' device chunk caches start empty, so no cache-served
+    # record or eviction of an earlier test's entries lands in this one's
+    caches = (j_device_chunk_cache(), device_chunk_cache())
+    for cache in caches:
+        cache.clear()
     flight_recorder.flight_recorder().reset()
     jflight.flight_recorder().reset()
     yield
+    for cache in caches:
+        cache.clear()
     jshard.configure(*settings)
     global_injector().clear()
     g = device_guard()

@@ -12,9 +12,12 @@ and compares, after every pump, every store's collections byte for byte
 `tobytes()`), every commit and failure callback and every read result; a
 second one loses shards (the primary's among them) and recovers them, and
 compares the same, MOSDPGPush messages included.
-The reference is pinned to what the port has: no device chunk cache, no
-RMW delta path, and dispatch width 1 (its tests run on an 8-device CPU
-mesh)."""
+Both packages are pinned alike: the device chunk cache and the RMW delta
+path off in every case that does not say otherwise, and on, at the
+reference's defaults, in the `_with_cache_and_delta` cases; the reference
+runs at dispatch width 1 (its tests run on an 8-device CPU mesh).  The
+cache changes launches, not messages: stores, logs, messages and reads
+agree byte for byte either way, and so do the two caches' counters."""
 
 import asyncio
 import importlib
@@ -25,13 +28,17 @@ import numpy as np
 import pytest
 
 import ceph_tpu.osd.ec_backend as j_ecb
-from ceph_tpu.ops.device_cache import device_chunk_cache
+from ceph_tpu.common.options import OPTIONS as J_OPTIONS
+from ceph_tpu.ops.device_cache import device_chunk_cache as j_device_chunk_cache
 from ceph_tpu.parallel import dispatch as jshard
 
+import ceph_tpu_torch.osd.ec_backend as t_ecb
 from ceph_tpu_torch.codec.interface import EcError
 from ceph_tpu_torch.common.errs import EIO, EOPNOTSUPP
 from ceph_tpu_torch.common.fault_injector import global_injector
 from ceph_tpu_torch.ops import dispatch
+from ceph_tpu_torch.ops.device_cache import device_chunk_cache as t_device_chunk_cache
+from ceph_tpu_torch.ops.flight_recorder import flight_recorder
 from ceph_tpu_torch.ops.guard import device_guard
 
 from torch_leak_gate import port_leak_gate  # noqa: F401  (autouse)
@@ -40,18 +47,35 @@ PKGS = ("jax", "torch")
 ROOT = {"jax": "ceph_tpu", "torch": "ceph_tpu_torch"}
 
 
+def caches():
+    return {"jax": j_device_chunk_cache(), "torch": t_device_chunk_cache()}
+
+
+def set_cache_and_delta(on: bool) -> None:
+    """Both packages' device chunk cache and RMW delta path, alike: off, or
+    on at the reference's defaults (`ec_tpu_device_cache_bytes`,
+    `ec_tpu_rmw_delta`)."""
+    size = int(J_OPTIONS["ec_tpu_device_cache_bytes"].default) if on else 0
+    delta = bool(J_OPTIONS["ec_tpu_rmw_delta"].default) and on
+    for cache in caches().values():
+        cache.clear()
+        cache.configure(max_bytes=size)
+    j_ecb.configure_rmw_delta(delta)
+    t_ecb.configure_rmw_delta(delta)
+
+
 @pytest.fixture(autouse=True)
 def _pin_reference():
-    cache = device_chunk_cache()
-    max_bytes = cache.max_bytes
-    cache.configure(max_bytes=0)
-    delta = j_ecb._RMW_DELTA
-    j_ecb.configure_rmw_delta(False)
+    saved = {pkg: c.max_bytes for pkg, c in caches().items()}
+    deltas = (j_ecb._RMW_DELTA, t_ecb._RMW_DELTA)
+    set_cache_and_delta(False)
     settings = jshard.settings()
     jshard.configure(devices=1)
     yield
-    cache.configure(max_bytes=max_bytes)
-    j_ecb._RMW_DELTA = delta
+    for pkg, cache in caches().items():
+        cache.clear()
+        cache.configure(max_bytes=saved[pkg])
+    j_ecb._RMW_DELTA, t_ecb._RMW_DELTA = deltas
     jshard.configure(*settings)
     global_injector().clear()
     g = device_guard()
@@ -607,6 +631,34 @@ def test_seeded_operations_match_reference(k, m, overwrites, fast_read, seed):
     """40 seeded operations through a cluster of each package: after every
     pump the stores, logs, messages, callbacks and read results agree.
     With `fast_read` every available shard is read and the first k win."""
+    _seeded_operations(k, m, overwrites, fast_read, seed)
+
+
+SEEDED_CASES = [(4, 2, True, False, 1), (4, 2, False, False, 2), (8, 3, True, False, 3),
+                (8, 3, False, False, 4), (4, 2, True, True, 5)]
+
+
+@pytest.mark.parametrize("k,m,overwrites,fast_read,seed", SEEDED_CASES)
+def test_seeded_operations_match_reference_with_cache_and_delta(
+    k, m, overwrites, fast_read, seed
+):
+    """The same seeded operations with both packages' device chunk cache
+    and RMW delta path on, at the reference's defaults: stores, logs,
+    messages, callbacks and reads agree byte for byte, and so do the two
+    caches' counters (hits, misses, insertions, invalidations, delta
+    updates, served and resident bytes)."""
+    set_cache_and_delta(True)
+    before = {pkg: c.perf_dump() for pkg, c in caches().items()}
+    _seeded_operations(k, m, overwrites, fast_read, seed)
+    moved = {
+        pkg: {key: val - before[pkg].get(key, 0) for key, val in c.perf_dump().items()}
+        for pkg, c in caches().items()
+    }
+    assert moved["torch"] == moved["jax"]
+    assert moved["torch"]["insertions"] > 0
+
+
+def _seeded_operations(k, m, overwrites, fast_read, seed):
     clusters = {
         pkg: Cluster(pkg, k=k, m=m, overwrites=overwrites, fast_read=fast_read)
         for pkg in PKGS
@@ -791,6 +843,186 @@ def test_seeded_recovery_matches_reference(k, m, seed):
     assert {"MOSDPGPush", "MOSDPGPushReply"} <= kinds
 
 
+@pytest.mark.parametrize("k,m,seed", [(4, 2, 11), (8, 3, 12)])
+def test_seeded_recovery_matches_reference_with_cache_and_delta(k, m, seed):
+    """The seeded recoveries with both packages' device chunk cache and
+    RMW delta path on: the recovery decodes consult the cache and cache
+    what they rebuild, and callbacks, stores, messages, logs and the two
+    caches' counters agree."""
+    set_cache_and_delta(True)
+    before = {pkg: c.perf_dump() for pkg, c in caches().items()}
+    got = {pkg: _recovery_scenario(pkg, k, m, seed) for pkg in PKGS}
+    (jres, jtrail, jc), (tres, ttrail, tc) = got["jax"], got["torch"]
+    assert tres == jres and all(r == [0] * 5 for r in tres)
+    assert ttrail == jtrail
+    assert tc.logs() == jc.logs()
+    moved = {
+        pkg: {key: val - before[pkg].get(key, 0) for key, val in c.perf_dump().items()}
+        for pkg, c in caches().items()
+    }
+    assert moved["torch"] == moved["jax"] and moved["torch"]["insertions"] > 0
+
+
+# -- the device chunk cache and the RMW delta path ------------------------------------
+
+
+def _fr(pkg):
+    if pkg == "torch":
+        return flight_recorder()
+    return importlib.import_module("ceph_tpu.ops.flight_recorder").flight_recorder()
+
+
+def _dispatch(pkg):
+    return dispatch if pkg == "torch" else importlib.import_module("ceph_tpu.ops.dispatch")
+
+
+def _last_seq(fr) -> int:
+    recs = fr.records()
+    return recs[-1]["seq"] if recs else -1
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_cache_hit_rmw_takes_the_delta_path(pkg):
+    """A WRITEFULL seeds its region's k+m chunks; an RMW inside that region
+    then finds every operand resident and updates parity on the device:
+    `delta_updates` rises by m, one `#delta` flight record shows h2d_s ==
+    d2h_s == 0, the encode aggregator launches nothing, and the stores
+    equal those of a cluster with the cache and the delta path off."""
+    states = {}
+    for on in (True, False):
+        set_cache_and_delta(on)
+        c = Cluster(pkg, overwrites=True)
+        base = payload(2 * c.sw)
+        c.write("obj", 0, base)
+        cache, fr = caches()[pkg], _fr(pkg)
+        d0, seq0 = cache.delta_updates, _last_seq(fr)
+        agg0 = int(c.primary.encode_aggregator.perf.get("launches"))
+        launches0 = _dispatch(pkg).LAUNCHES.snapshot()["launches"]
+        patch = payload(300, seed=9)
+        c.write("obj", 1000, patch)
+        expect = bytearray(base)
+        expect[1000:1300] = patch
+        assert c.read("obj", 0, len(base)) == bytes(expect)
+        states[on] = c.state()
+        if on:
+            assert cache.delta_updates - d0 == 2
+            recs = [r for r in fr.records() if r["seq"] > seq0 and r["group"] == "#delta"]
+            assert len(recs) == 1
+            assert recs[0]["h2d_s"] == 0 and recs[0]["d2h_s"] == 0
+            assert recs[0]["flags"]["delta"] and recs[0]["flags"]["cache_hit"]
+            assert int(c.primary.encode_aggregator.perf.get("launches")) == agg0
+            assert _dispatch(pkg).LAUNCHES.snapshot()["launches"] - launches0 == 1
+        c.quiescent()
+    assert states[True] == states[False]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_repeated_degraded_read_is_served_from_the_cache(pkg):
+    """The first degraded read launches a decode and caches its rebuilt
+    chunks; the same read again is served by one D2H from the cache: no
+    decode launch, the hits counted, and one `cache_hit` flight record
+    with no H2D and no kernel time."""
+    set_cache_and_delta(True)
+    c = Cluster(pkg)
+    data = payload(2 * c.sw)
+    c.write("obj", 0, data)
+    c.acting[1] = c.m.osdmap.PG_NONE
+    counter = _dispatch(pkg).DECODE_LAUNCHES
+    cache, fr = caches()[pkg], _fr(pkg)
+    dec0 = counter.snapshot()["launches"]
+    assert c.read("obj", 0, len(data)) == data
+    assert counter.snapshot()["launches"] - dec0 == 1
+    hits0, seq0 = cache.hits, _last_seq(fr)
+    assert c.read("obj", 0, len(data)) == data
+    assert counter.snapshot()["launches"] - dec0 == 1
+    assert cache.hits - hits0 == 1
+    recs = [r for r in fr.records() if r["seq"] > seq0]
+    assert len(recs) == 1 and recs[0]["flags"]["cache_hit"] and recs[0]["group"] == "#cache"
+    assert recs[0]["h2d_s"] == 0 and recs[0]["kernel_s"] == 0 and recs[0]["d2h_s"] > 0
+    c.quiescent()
+
+
+def test_failed_delta_launch_is_eio_clears_the_cache_and_is_not_reencoded():
+    """A failed delta launch (`codec.launch` armed once) fails the write
+    with EIO through `_fail_encoded_op`: no store changes, the backend goes
+    DEGRADED, the cache is empty (ledger bytes too), the `#delta` record is
+    flagged, and nothing is encoded on the materialize path.  Once a probe
+    heals the guard, the next write commits."""
+    set_cache_and_delta(True)
+    c = Cluster("torch", overwrites=True)
+    base = payload(2 * c.sw)
+    c.write("obj", 0, base)
+    cache = t_device_chunk_cache()
+    assert cache.perf_dump()["entries"] == 6
+    before = c.state()
+    agg0 = int(c.primary.encode_aggregator.perf.get("launches"))
+    launches0 = dispatch.LAUNCHES.snapshot()["launches"]
+    seq0 = _last_seq(flight_recorder())
+    device_guard().configure(probe_interval_ms=10_000_000)
+    global_injector().inject("codec.launch", 5, hits=1)
+    events = []
+    c.submit(c.pgt("obj").write(1000, payload(300, seed=9)), 2, events, 1)
+    c.pump()
+    assert events == [(1, "fail", -EIO)]
+    assert c.state() == before
+    assert device_guard().degraded
+    dump = cache.perf_dump()
+    assert dump["entries"] == 0 and dump["resident_bytes"] == 0
+    from ceph_tpu_torch.common.mempool import ledger
+
+    assert ledger().current_bytes("device_cache") == 0
+    assert int(c.primary.encode_aggregator.perf.get("launches")) == agg0
+    assert dispatch.LAUNCHES.snapshot()["launches"] == launches0
+    recs = [r for r in flight_recorder().records() if r["seq"] > seq0]
+    assert [(r["group"], r["flags"]["error"]) for r in recs] == [("#delta", True)]
+    assert any("encode launch for obj failed" in e for e in c.listeners[0].clog)
+    c.quiescent()
+    device_guard().configure(probe_interval_ms=1)
+    time.sleep(0.01)
+    assert device_guard().maybe_probe(lambda: None) is True
+    patch = payload(300, seed=3)
+    c.submit(c.pgt("obj").write(1000, patch), 3, events, 2)
+    c.pump()
+    assert events[-1] == (2, "commit")
+    assert int(c.primary.encode_aggregator.perf.get("launches")) == agg0 + 1
+    expect = bytearray(base)
+    expect[1000:1300] = patch
+    assert c.read("obj", 0, len(base)) == bytes(expect)
+    c.quiescent()
+
+
+def test_partly_pinned_rmw_read_keeps_the_earlier_write_with_cache_on():
+    """ROADMAP.md C5 with the cache and the delta path on: the first RMW
+    finds its stripe resident and takes the delta path, and the second
+    RMW's read range spans that pinned (and resident) stripe and one that
+    is not.  The port takes the pinned stripe from the pin and both writes
+    read back; the reference still loses the first write."""
+    got = {}
+    for pkg in PKGS:
+        set_cache_and_delta(True)
+        c = Cluster(pkg, overwrites=True)
+        base = payload(6 * c.sw)
+        c.write("obj", 0, base)
+        seed_patch = payload(50, seed=4)
+        c.write("obj", 3 * c.sw + 3000, seed_patch)  # seeds stripe 3's region
+        cache = caches()[pkg]
+        d0 = cache.delta_updates
+        events = []
+        p1, p2 = payload(100, seed=1), payload(c.sw + 200, seed=2)
+        c.submit(c.pgt("obj").write(3 * c.sw + 10, p1), 1, events, 1)
+        c.submit(c.pgt("obj").write(3 * c.sw + 500, p2), 2, events, 2)
+        c.pump()
+        assert events == [(1, "commit"), (2, "commit")]
+        assert cache.delta_updates - d0 == 2  # p1 took the delta path
+        expect = bytearray(base)
+        expect[3 * c.sw + 3000 : 3 * c.sw + 3050] = seed_patch
+        expect[3 * c.sw + 10 : 3 * c.sw + 110] = p1
+        expect[3 * c.sw + 500 : 3 * c.sw + 500 + len(p2)] = p2
+        got[pkg] = c.read("obj", 0, len(base)) == bytes(expect)
+        c.quiescent()
+    assert got == {"torch": True, "jax": False}
+
+
 @pytest.mark.parametrize("pkg", PKGS)
 def test_clay_repair_reads_fragments(pkg):
     """CLAY k=4, m=2, d=5: one lost shard is repaired from sub-chunk
@@ -920,3 +1152,23 @@ def test_clay_fragments_without_a_repair_plan_are_eio():
     with pytest.raises(EcError) as e:
         backend._decode_fragmented(rec, have, {1})
     assert e.value.errno == -EIO
+
+
+def test_delta_write_traces_no_h2d_span():
+    """A traced cache-hit RMW: its ec:write span notes the delta launch,
+    and no `h2d` span fires (the resident operands reach the kernel
+    without a copy), where the WRITEFULL that seeded the cache staged its
+    bytes through one."""
+    set_cache_and_delta(True)
+    c = Cluster("torch", k=2, m=1, overwrites=True)
+    tracer = c.m.tracer.Tracer("osd.test")
+    c.listeners[0].tracer = tracer
+    c.write("obj", 0, payload(2 * c.sw))
+    assert any(s["name"] == "h2d" for s in tracer.export())
+    tracer.clear()
+    c.write("obj", 100, payload(300, seed=5))
+    spans = tracer.export()
+    (write,) = [s for s in spans if s["name"] == "ec:write"]
+    assert "delta encode launched (cache hit)" in [e["name"] for e in write["events"]]
+    assert not any(s["name"] == "h2d" for s in spans)
+    c.quiescent()

@@ -32,7 +32,7 @@ def test_port_files_found():
     for module in ("gf/gf2.py", "codec/jerasure.py", "codec/shec.py", "codec/lrc.py",
                    "codec/clay.py", "codec/plugins/jerasure.py", "codec/plugins/isa.py",
                    "codec/plugins/xor.py", "codec/plugins/shec.py", "codec/plugins/lrc.py",
-                   "codec/plugins/clay.py"):
+                   "codec/plugins/clay.py", "ops/device_cache.py", "osd/scrubber.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -164,6 +164,33 @@ def test_codec_plugins_import_leaves_jax_out():
         "    enc = ec.encode(set(range(n)), bytes(range(256)) * 40)\n"
         "    got = ec.decode({1}, {i: c for i, c in enc.items() if i != 1}, len(enc[0]))\n"
         "    assert (got[1] == enc[1]).all(), name\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_scrub_and_device_cache_import_leaves_jax_out():
+    """The device chunk cache and the scrubber import neither jax nor the
+    JAX package: a CPU cache puts, fetches and invalidates, and a
+    ScrubResult is made."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from ceph_tpu_torch.ops.device_cache import DeviceChunkCache, device_chunk_cache\n"
+        "from ceph_tpu_torch.osd.scrubber import CHUNK_MAX, PgScrubber, ScrubResult\n"
+        "from ceph_tpu_torch.ops import dispatch\n"
+        "cache = DeviceChunkCache(max_bytes=1 << 16)\n"
+        "data = np.arange(4096, dtype=np.uint32).astype(np.uint8)\n"
+        "assert cache.put('o', 0, 1, data, device='cpu')\n"
+        "assert (cache.fetch_many('o', [0], 1)[0] == data).all()\n"
+        "assert cache.invalidate_object('o') == 1\n"
+        "assert ScrubResult().clean and CHUNK_MAX == 25\n"
+        "assert 'cache.hits' in dispatch.perf_dump() and device_chunk_cache().enabled\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -58,12 +58,18 @@ def _cpu_codec(k=4, m=2):
 
 def test_option_table_is_the_runtime_slice():
     names = set(options.OPTIONS)
-    assert len(names) == 23
+    assert len(names) == 25
     for lane in ("client", "recovery", "background"):
         for knob in ("res", "wgt", "lim"):
             assert f"ec_tpu_sched_{lane}_{knob}" in names
     assert {"ec_tpu_pipeline_depth", "ec_tpu_inflight_max_bytes", "ec_tpu_launch_timeout_ms",
-            "ec_tpu_hbm_target_bytes", "ec_tpu_verify_aggregate_window"} <= names
+            "ec_tpu_hbm_target_bytes", "ec_tpu_verify_aggregate_window",
+            "ec_tpu_device_cache_bytes", "ec_tpu_rmw_delta"} <= names
+
+
+def test_option_see_also_names_options_of_the_table():
+    for opt in options.OPTIONS.values():
+        assert set(opt.see_also) <= set(options.OPTIONS), opt.name
 
 
 @pytest.mark.parametrize("name", sorted(options.OPTIONS))
@@ -290,10 +296,13 @@ def test_track_buffer_frees_on_gc_and_skips_host_arrays():
 
 
 def test_pressure_stages_and_clear():
+    from ceph_tpu_torch.ops.device_cache import device_chunk_cache
+
+    device_chunk_cache().clear()
     led = MempoolLedger(target_bytes=1000)
     h = led.alloc("ec_pipeline_inflight", 1100)
     status = led.check_pressure()
-    # stage 1 (the device chunk cache) has nothing to trim in the port
+    # stage 1 trims the device chunk cache, which is empty here
     assert status["stage"] == 3 and led.donation_capped and led.depth_clamped
     assert status["actions"]["cache_trimmed_bytes"] == 0
     h.free()
@@ -476,10 +485,8 @@ def test_dispatch_perf_dump_keys_match_reference():
     assert all(np.array_equal(a, b) for a, b in zip(ours, ref))
 
     def keys(dump):
-        # the device chunk cache's keys come with that cache (ROADMAP A6);
         # pad_waste labels and devices_per_launch widths depend on history
-        return {k for k in dump if not k.startswith(("cache.", "pad_waste.",
-                                                     "devices_per_launch."))}
+        return {k for k in dump if not k.startswith(("pad_waste.", "devices_per_launch."))}
 
     assert keys(dispatch.perf_dump()) == keys(jdispatch.perf_dump())
     dump = dispatch.perf_dump()

@@ -157,3 +157,84 @@ def test_crc32c_library_lands_in_the_build_dir():
     assert any(p.name.startswith("libcrc32c_host_") for p in crc_mod.BUILD_DIR.iterdir())
     assert not any(p.name.startswith(".libcrc32c_host_") for p in crc_mod.BUILD_DIR.iterdir())
     assert crc_mod.hw_available() in (True, False) and lib is crc_mod.build_library()
+
+
+# -- the device chunk cache branches and the RMW delta launch ----------------------------
+
+
+def _cache_pair(max_bytes=1 << 20):
+    from ceph_tpu.ops.device_cache import DeviceChunkCache as JCache
+
+    from ceph_tpu_torch.ops.device_cache import DeviceChunkCache
+
+    return DeviceChunkCache(max_bytes=max_bytes), JCache(max_bytes=max_bytes)
+
+
+@pytest.mark.parametrize("k,m,stripes", [(4, 2, 1), (8, 3, 3)])
+def test_encode_delta_launch_matches_reference_and_materialize(k, m, stripes):
+    """With every shard of a region resident at the old generation, the
+    delta launch's new parity equals the reference's delta, the
+    materialize path's encode of the new bytes, and the host oracle; both
+    caches end with the same counters (k puts, m replaces), and a miss
+    returns None in both."""
+    ours, ref = _pair(k, m)
+    cs = 4096
+    sinfo, jsinfo = stripe.StripeInfo(k * cs, cs), jstripe.StripeInfo(k * cs, cs)
+    rng = np.random.default_rng(40 + k)
+    old = rng.integers(0, 256, stripes * k * cs, dtype=np.uint8)
+    new = rng.integers(0, 256, stripes * k * cs, dtype=np.uint8)
+    old_shards = stripe.encode(sinfo, ours, old)
+    cache, jcache = _cache_pair()
+    for s in range(k + m):
+        assert cache.put("o", s, 1, old_shards[s], off=cs, device="cpu")
+        assert jcache.put("o", s, 1, old_shards[s], off=cs)
+    assert stripe.encode_delta_launch(sinfo, ours, new, cache, "o", 9, 2, cs) is None
+    assert jstripe.encode_delta_launch(jsinfo, ref, new, jcache, "o", 9, 2, cs) is None
+    launches0 = dispatch.LAUNCHES.snapshot()["launches"]
+    got = stripe.encode_delta_launch(sinfo, ours, new, cache, "o", 1, 2, cs).result()
+    want = jstripe.encode_delta_launch(jsinfo, ref, new, jcache, "o", 1, 2, cs).result()
+    assert dispatch.LAUNCHES.snapshot()["launches"] - launches0 == 1
+    materialized = stripe.encode(sinfo, ours, new)
+    oracle = ours.encode_array_host(new.reshape(stripes, k, cs))
+    for s in range(k + m):
+        assert np.array_equal(got[s], np.asarray(want[s])), s
+        assert np.array_equal(got[s], materialized[s]), s
+        if s >= k:
+            assert np.array_equal(got[s], oracle[:, s - k].reshape(-1)), s
+    assert cache.perf_dump() == jcache.perf_dump()
+    assert cache.perf_dump()["delta_updates"] == m
+    for s in range(k + m):
+        assert bytes(cache.get("o", s, 2, off=cs).numpy()) == materialized[s].tobytes()
+
+
+@pytest.mark.parametrize("lost", [[1], [0, 5]])
+def test_decode_launches_consult_and_fill_the_cache(lost):
+    """decode_concat_launch and decode_shards_launch with a cache: the first
+    call misses, launches and caches every rebuilt row; the same call again
+    is served from the cache with no launch.  Bytes and both caches'
+    counters equal the reference's."""
+    ours, ref = _pair(4, 2)
+    cs = 4096
+    sinfo, jsinfo = stripe.StripeInfo(4 * cs, cs), jstripe.StripeInfo(4 * cs, cs)
+    data = np.random.default_rng(7).integers(0, 256, 2 * 4 * cs, dtype=np.uint8)
+    shards = stripe.encode(sinfo, ours, data)
+    have = {s: v for s, v in shards.items() if s not in lost}
+    cache, jcache = _cache_pair()
+    for rnd in range(2):
+        dec0 = dispatch.DECODE_LAUNCHES.snapshot()["launches"]
+        got = stripe.decode_concat_launch(sinfo, ours, have, chunk_cache=cache,
+                                          cache_key=("o", 3), cache_off=0).result()
+        want = jstripe.decode_concat_launch(jsinfo, ref, have, chunk_cache=jcache,
+                                            cache_key=("o", 3), cache_off=0).result()
+        assert got.tobytes() == np.asarray(want).tobytes() == data.tobytes()
+        rebuilt = stripe.decode_shards_launch(sinfo, ours, have, set(lost), chunk_cache=cache,
+                                              cache_key=("o", 3)).result()
+        jrebuilt = jstripe.decode_shards_launch(jsinfo, ref, have, set(lost),
+                                                chunk_cache=jcache, cache_key=("o", 3)).result()
+        for s in lost:
+            assert np.array_equal(rebuilt[s], shards[s])
+            assert np.array_equal(rebuilt[s], np.asarray(jrebuilt[s]))
+        assert cache.perf_dump() == jcache.perf_dump()
+        launched = dispatch.DECODE_LAUNCHES.snapshot()["launches"] - dec0
+        assert launched == (1 if rnd == 0 else 0)
+    assert cache.perf_dump()["hits"] > 0 and cache.perf_dump()["served_bytes"] > 0

@@ -1,7 +1,8 @@
 """The port's wire encodings and write planning against the JAX package:
 `Transaction`, `LogEntry`, `Eversion`, `ObjectInfo`, `PgId`, `ReqId`,
-`PushOp`, the four EC sub-op messages and the recovery pushes
-(`MOSDPGPush`, `MOSDPGPushReply`) give the reference's bytes for seeded values,
+`PushOp`, the four EC sub-op messages, the recovery pushes
+(`MOSDPGPush`, `MOSDPGPushReply`) and the scrub messages (`MOSDRepScrub`,
+`MOSDRepScrubMap`) give the reference's bytes for seeded values,
 and each package decodes the other's; `get_write_plan` and `merge_writes`
 give the reference's plans and merged bytes on 200 seeded cases; and the
 copied helpers are pinned to the reference (`PgPool`'s fields and
@@ -108,6 +109,17 @@ def _values(seed):
                 pgid=pgid, oids=[f"o{i}" for i in range(1 + seed)],
                 epoch=ints[0] % 1000, from_osd=ints[1] % 64,
             ),
+            "rep_scrub": m.MOSDRepScrub(
+                pgid=pgid, epoch=ints[2] % 1000, from_osd=ints[3] % 64,
+                deep=bool(seed % 2), scrub_tid=ints[4],
+                chunk_start=f"rbd_data.{ints[5]:016x}",
+                chunk_end=f"rbd_data.{ints[6]:016x}" if seed % 2 else "",
+            ),
+            "rep_scrub_map": m.MOSDRepScrubMap(
+                pgid=pgid, epoch=ints[7] % 1000, from_osd=ints[0] % 64,
+                scrub_tid=ints[1],
+                scrub_map=b'{"o1": {"size": %d, "digest": %d}}' % (ints[2], ints[3]) + blob,
+            ),
         }
 
     return build(jmsg, jlog, jtx, jet), build(msg, pg_log, tx, et)
@@ -124,7 +136,8 @@ def _decode(sample, data):
 
 
 KINDS = ["transaction", "log_entry", "pgid", "reqid", "sub_write", "sub_write_reply",
-         "sub_read", "sub_read_reply", "object_info", "push_op", "push", "push_reply"]
+         "sub_read", "sub_read_reply", "object_info", "push_op", "push", "push_reply",
+         "rep_scrub", "rep_scrub_map"]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -144,7 +157,8 @@ def test_eversion_and_message_type_numbers_match_reference():
         jlog.Eversion(epoch, version).encode(e2)
         assert e1.tobytes() == e2.tobytes()
     for name in ("MOSDECSubOpWrite", "MOSDECSubOpWriteReply", "MOSDECSubOpRead",
-                 "MOSDECSubOpReadReply", "MOSDPGPush", "MOSDPGPushReply"):
+                 "MOSDECSubOpReadReply", "MOSDPGPush", "MOSDPGPushReply",
+                 "MOSDRepScrub", "MOSDRepScrubMap"):
         ours, ref = getattr(msg, name), getattr(jmsg, name)
         assert (ours.TYPE, ours.VERSION, ours.priority) == (ref.TYPE, ref.VERSION, ref.priority)
         assert [f for f, _ in ours.FIELDS] == [f for f, _ in ref.FIELDS]
