@@ -2,8 +2,10 @@
 
 The port's copy of `ceph_tpu/common/options.py`: the `Option` type and the
 entries the offload runtime reads (the aggregators, the device guard, the
-launch scheduler's QoS lanes, the mempool ledger) and those of the device
-chunk cache and the RMW delta path.  The rest of the table
+launch scheduler's QoS lanes, the mempool ledger), those of the device
+chunk cache and the RMW delta path, and those of the object stores
+(`osd_objectstore`, `osd_data`, BlueStore's compression and checksum
+offload).  The rest of the table
 comes with the modules that read it.
 
 Reference: src/common/options/global.yaml.in (~800 typed
@@ -351,6 +353,60 @@ OPTIONS: dict[str, Option] = _opts(
         "0 disables pressure evaluation entirely",
         see_also=("ec_tpu_mempool_debug", "ec_tpu_device_cache_bytes",
                   "ec_tpu_pipeline_depth"),
+        runtime=True,
+    ),
+    # --- objectstore --------------------------------------------------------
+    Option("osd_objectstore", str, "memstore", A,
+           "objectstore backend: memstore | filestore | bluestore"),
+    Option("osd_data", str, "", A,
+           "data directory for persistent stores (empty = in-memory)"),
+    Option("bluestore_compression_algorithm", str, "none", A,
+           "blob compression: none | zlib | zstd | device "
+           "(src/compressor plugin family; bluestore_compression_algorithm; "
+           "`device` is the batched byte-plane transpose + zero-run "
+           "elision plugin riding the offload runtime, compressor/device.py)"),
+    Option("bluestore_compression_required_ratio", float, 0.875, A,
+           "store compressed only when compressed/raw <= this ratio"),
+    Option(
+        "bluestore_csum_offload",
+        bool,
+        False,
+        A,
+        "compute BlueStore per-block crc32c on the device through the "
+        "offload runtime (ops/checksum_offload.py ChecksumAggregator, "
+        "background lane): large-write stored-form checksums and batched "
+        "read-verify ride coalesced launches of the crc32c kernel.  A "
+        "failed or refused launch fails the store transaction or read "
+        "with EIO; nothing is recomputed on the host.  Off = every "
+        "checksum on the host table loop",
+        see_also=("bluestore_csum_offload_window",
+                  "bluestore_csum_offload_max_bytes"),
+        runtime=True,
+    ),
+    Option(
+        "bluestore_csum_offload_window",
+        int,
+        64,
+        A,
+        "checksum/compressor offload aggregation window: same-length "
+        "block batches held before a coalesced device launch "
+        "(ChecksumAggregator / CompressAggregator).  <= 1 launches every "
+        "submission immediately.  Store reaps drain the window, so the "
+        "value trades no durability, only launch count",
+        see_also=("bluestore_csum_offload",
+                  "bluestore_csum_offload_max_bytes"),
+        runtime=True,
+    ),
+    Option(
+        "bluestore_csum_offload_max_bytes",
+        int,
+        64 << 20,
+        A,
+        "input-byte budget per checksum/compressor aggregation group: a "
+        "group launches as soon as its queued block bytes reach this, "
+        "whatever the window (bounds device memory held by deferred "
+        "csum/compress launches)",
+        see_also=("bluestore_csum_offload_window",),
         runtime=True,
     ),
 )

@@ -1275,9 +1275,11 @@ def offload_services() -> tuple[str, ...]:
 
 def _import_builtin_services() -> None:
     """Import the modules whose import side effects register the
-    built-in services: the EC trio.  The reference's csum and compress
-    services come with their modules (ROADMAP A7)."""
+    built-in services: the EC trio, then compress and csum, registered in
+    the reference's order."""
     from ..codec import matrix_codec  # noqa: F401  (encode/decode/verify)
+    from ..compressor import device  # noqa: F401  (compress)
+    from . import checksum_offload  # noqa: F401  (csum)
 
 
 def offload_perf_dump() -> dict[str, object]:

@@ -2,10 +2,12 @@
 plane product of jerasure's bit-matrix codes.
 
 The port of `ceph_tpu/ops/xor_mm.py`.  The JAX package computes
-`xor_matmul`, `xor_reduce` and `encode_full` in plain jnp outside any
-Pallas kernel, so plain torch is their port; `gf2_plane_matmul`, an
-XLA-jitted program that carries every byte of a liberation, blaum_roth or
-liber8tion pool, is a hand kernel here (csrc/gf2_plane.cu).
+`xor_matmul` and `encode_full` in plain jnp outside any Pallas kernel, so
+plain torch is their port; `gf2_plane_matmul`, an XLA-jitted program that
+carries every byte of a liberation, blaum_roth or liber8tion pool, and
+`xor_reduce`, the jitted XOR fold that carries the m = 1 parities and the
+single-erasure decodes, are hand kernels here (csrc/gf2_plane.cu,
+csrc/xor_reduce.cu).
 
 - `xor_matmul` applies an (8m, 8k) GF(2) bit-matrix (gf.bitslice.expand_matrix
   of the (m, k) coding matrix, a runtime operand) to (..., k, L) uint8
@@ -16,7 +18,11 @@ liber8tion pool, is a hand kernel here (csrc/gf2_plane.cu).
   product is plain float32 whatever the process had set.
 - `xor_reduce` is the XOR fold over the chunk axis: the m == 1 parity and
   the single-erasure decode path of codecs whose first parity row is all
-  ones (Ceph's `region_xor`, isa/xor_op.cc).
+  ones (Ceph's `region_xor`, isa/xor_op.cc).  A CPU tensor takes
+  `xor_reduce_plain`; a CUDA tensor launches csrc/xor_reduce.cu (one
+  launch, any lead shape, a strided view read in place by its strides) or
+  raises.  `xor_reduce.launches` counts the kernel's launches; the callers
+  record the dispatch (`record_launch`) where the reference's do.
 - `gf2_plane_matmul` applies an (R, Q) 0/1 matrix to (..., Q, P) uint8
   planes: output packet r is the XOR of the input packets row r selects
   (jerasure_schedule_encode's packet loop, with the stripes as a batch
@@ -44,6 +50,7 @@ from . import _nvcc
 torch.backends.cuda.matmul.allow_tf32 = False
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gf2_plane.cu"
+XOR_REDUCE_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "xor_reduce.cu"
 
 
 def _bit_shifts(device: torch.device) -> torch.Tensor:
@@ -65,12 +72,68 @@ def xor_matmul(bit_matrix: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return (bits << shifts.to(torch.int32)).sum(dim=-2).to(torch.uint8)
 
 
-def xor_reduce(data: torch.Tensor) -> torch.Tensor:
-    """XOR-fold chunks: (..., k, L) uint8 -> (..., L) uint8."""
+def xor_reduce_plain(data: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the XOR fold: (..., k, L) uint8 -> (..., L)."""
     acc = data[..., 0, :].clone()
     for j in range(1, data.shape[-2]):
         acc ^= data[..., j, :]
     return acc
+
+
+_XOR_LIB: ctypes.CDLL | None = None
+xor_reduce_build_info: dict = {}
+
+
+def build_xor_reduce_library() -> ctypes.CDLL:
+    """Compile csrc/xor_reduce.cu for sm_90a into the build directory (once
+    per source content) and load it.  A failed build raises."""
+    global _XOR_LIB
+    if _XOR_LIB is None:
+        built = _nvcc.build("xor_reduce", XOR_REDUCE_SOURCE, {"xor_reduce_launch": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p,
+        ]})
+        xor_reduce_build_info.update(built.info)
+        _XOR_LIB = built.lib
+    return _XOR_LIB
+
+
+def xor_reduce(data: torch.Tensor) -> torch.Tensor:
+    """XOR-fold chunks: (..., k, L) uint8 -> (..., L) uint8 on data's device.
+
+    A CPU tensor takes `xor_reduce_plain`; a CUDA tensor launches
+    csrc/xor_reduce.cu on the current stream or raises (1 <= k <= 255)."""
+    if data.dtype != torch.uint8 or data.dim() < 2:
+        raise TypeError(f"xor_reduce: want (..., k, L) uint8, got {data.dtype} "
+                        f"{tuple(data.shape)}")
+    if data.device.type == "cpu":
+        return xor_reduce_plain(data)
+    if data.device.type != "cuda":
+        raise ValueError(f"xor_reduce: unsupported device {data.device}")
+    *lead, k, L = data.shape
+    if not 1 <= k <= 255:
+        raise ValueError(f"xor_reduce: k = {k} chunks, the kernel takes 1 to 255")
+    if data.stride(-1) != 1 and L > 1:
+        data = data.contiguous()
+    flat = data.reshape(-1, k, L)  # a view where the lead axes merge
+    S = flat.shape[0]
+    stride_s = flat.stride(0) if S > 1 else 0
+    stride_k = flat.stride(1) if k > 1 else 0
+    out = torch.empty((S, L), dtype=torch.uint8, device=data.device)
+    if S and L:
+        align = L | stride_s | stride_k | flat.data_ptr()
+        vec = 16 if align % 16 == 0 else (4 if align % 4 == 0 else 1)
+        lib = build_xor_reduce_library()
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.xor_reduce_launch(flat.data_ptr(), out.data_ptr(), S, k, L,
+                                        stride_s, stride_k, vec, stream)
+        if err != 0:
+            raise RuntimeError(f"xor_reduce: kernel launch failed (cudaError {err})")
+        with _LAUNCH_LOCK:
+            xor_reduce.launches += 1
+    return out.view(*lead, L)
 
 
 def encode_full(bit_matrix: torch.Tensor, data: torch.Tensor, *, k: int, m: int) -> torch.Tensor:
@@ -205,3 +268,4 @@ def gf2_plane_matmul(bit_matrix, planes: torch.Tensor) -> torch.Tensor:
 
 
 gf2_plane_matmul.launches = 0  # kernel launches (plain-version calls excluded)
+xor_reduce.launches = 0  # kernel launches (plain-version calls excluded)

@@ -1,8 +1,7 @@
 """ECTransaction — logical object mutation -> k+m per-shard transactions.
 
 The port of `ceph_tpu/osd/ec_transaction.py` (Ceph's
-src/osd/ECTransaction.{h,cc}), less the checksum offload, which comes
-with the module that runs it.  `WritePlan`
+src/osd/ECTransaction.{h,cc}).  `WritePlan`
 (ECTransaction.h:26-33) captures which stripe-aligned extents must be read
 (partial-stripe overwrites) and which will be written; `generate_transactions`
 (ECTransaction.cc:109) turns the logical write into one ObjectStore
@@ -302,6 +301,7 @@ def finish_transactions(
     chunk_cache=None,
     cache_obj=None,
     cache_generation=None,
+    csum_submit=None,
 ) -> tuple[dict[int, Transaction], HashInfo | None, dict[int, bytes]]:
     """Phase two: materialize the launched encodes (blocking only until
     THIS op's launches finish) and build the per-shard Transactions +
@@ -313,7 +313,16 @@ def finish_transactions(
     took the MATERIALIZE path), every region's k+m shard chunks seed the
     device cache at the write's generation, from the host bytes — the
     residency the NEXT cache-hit RMW deltas against (a delta-path op skips
-    this: its launch already committed data and parity in place)."""
+    this: its launch already committed data and parity in place).
+
+    With ``csum_submit`` set (the store advertises csum offload), each
+    freshly materialized shard chunk's per-block checksums are submitted
+    into the SAME offload launch window the encode was reaped in —
+    ``csum_submit(chunk, chunk_off)`` returns a ticket (or None) that
+    rides the shard Transaction as the write's ``csums`` hint.  As in the
+    reference, the hint does not survive `Transaction.tobytes`, so a
+    shard store that receives the transaction as a message computes its
+    own checksums (ROADMAP §C records the dead launches)."""
     n = ec.get_chunk_count()
     txns = {s: Transaction() for s in range(n)}
 
@@ -344,7 +353,14 @@ def finish_transactions(
         region_appends[off] = {}
         for s in range(n):
             chunk = np.ascontiguousarray(shards[s]).tobytes()
-            txns[s].write(shard_colls[s], pgt.oid, chunk_off, chunk)
+            csums = (
+                csum_submit(chunk, chunk_off)
+                if csum_submit is not None
+                else None
+            )
+            txns[s].write(
+                shard_colls[s], pgt.oid, chunk_off, chunk, csums=csums
+            )
             region_appends[off][s] = chunk
             if chunk_cache is not None:
                 chunk_cache.put(

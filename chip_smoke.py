@@ -262,6 +262,40 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    pressure layer at a target of the tracked bytes (stage 1 trims the
    cache, the ledger's device_cache bytes fall by what it trimmed).
    Under 60 s; the phase's and the whole script's times printed.
+12. BlueStore under the EC write path, with the checksum service and the
+   device compressor (os/bluestore.py, ops/checksum_offload.py,
+   compressor/device.py) and their three kernels, csrc/crc32c.cu,
+   csrc/compress_transform.cu and csrc/xor_reduce.cu (phase 1 builds them
+   with the others and prints their ptxas registers and spills; phase 3
+   counts the xor_reduce launches of its single erasures under the all-ones
+   parity row, and 10b those of plugin xor).  12a: each kernel against its
+   plain version and its host oracle, byte for byte, on dense rows and on a
+   misaligned strided view: crc32c at L in {1, 3, 63, 64, 100, 4095, 4096,
+   4097, 65536} and S in {1, 7, 1408, 11264} (up to 64 MiB of rows; the
+   plain version, whose bit planes take 32 bytes a byte, up to 4 MiB);
+   the transform at Lp in {64, 128, 192, 4032, 4096, 4160, 65536}; xor_reduce
+   at k in {1, 2, 8, 11}, lead shapes of rank 1 and 2.  12b: each kernel
+   at its bulk shape ((65536, 4096); (256, 8, 131072) for xor_reduce) and
+   at the path's ((11264, 4096) and (128, 4096); (1, 8, 524288)), median of
+   20 runs of 5 calls, beside its bound and plain version, and the
+   transpose alone beside the transform.  12c: phase 9's pool rbd (RS(8,3),
+   stripe unit 4096, 11 OSDs) over in-memory BlueStores, 64 WRITEFULLs of
+   4 MiB at QD1 and QD8, the checksum offload off and then on (fresh
+   clusters); MB/s, crc32c launches a write, the blocks the stores
+   checksum and those `_csum_submit` submits apart, the csum service's
+   flight spans; every object read back whole (csum-verified), and every
+   shard's block image and KV records equal with the offload off and on.
+   12d: the same with `bluestore_compression_algorithm = device` at
+   Ceph's default required ratio 0.875, objects of half random pages and
+   half record pages (64-byte records, 16 nonzero bytes each): the share
+   of blocks stored compressed, stored over logical bytes, transform
+   launches, MB/s; every stored blob equal to the host oracle's, every
+   object read back.  12e: an on-disk BlueStore (umount and mount, WAL
+   replay after a simulated crash, a flipped byte is EIO with the offload
+   on); `codec.launch` armed on the stores' csum and then compress
+   launches: the write fails with EIO, no shard commits, the backend goes
+   DEGRADED with no host recompute, the cuda probe heals it and the next
+   write commits.  Under 60 s.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -536,9 +570,26 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
         xor_mm.build_library()
         return xor_mm.build_info
 
+    def xor_reduce_info():
+        xor_mm.build_xor_reduce_library()
+        return xor_mm.xor_reduce_build_info
+
+    def crc32c_info():
+        from ceph_tpu_torch.ops import checksum_offload
+
+        checksum_offload.build_library()
+        return checksum_offload.build_info
+
+    def compress_transform_info():
+        from ceph_tpu_torch.compressor import device
+
+        device.build_library()
+        return device.build_info
+
     jobs = {"swar_gf": swar_gf_info, "copy_floor": lambda: kern_exp4.build().info,
             "bitmatrix": lambda: kern_exp.build().info, "packed_gf": packed_gf_info,
-            "gf2_plane": gf2_plane_info}
+            "gf2_plane": gf2_plane_info, "xor_reduce": xor_reduce_info,
+            "crc32c": crc32c_info, "compress_transform": compress_transform_info}
     for label, mat in baked_matrices(gf):
         jobs[f"swar_baked {label}"] = lambda mat=mat: kern_exp2.make_swar(mat, 128).build().info
         jobs[f"swar3_baked {label}"] = (
@@ -598,10 +649,13 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
                 check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
     check_packed_build(infos["packed_gf"])
-    lines = ptxas_lines(infos["gf2_plane"], "gf2_plane_kernel")
-    check("ptxas" not in infos["gf2_plane"] or len(lines) >= 2, "no ptxas lines for gf2_plane")
-    check(not any("spill" in line and not re.search(r"\b0 bytes spill stores", line)
-                  for line in lines), f"gf2_plane_kernel spills: {lines}")
+    for label, kernel in (("gf2_plane", "gf2_plane_kernel"), ("xor_reduce", "xor_reduce_kernel"),
+                          ("crc32c", "crc32c_kernel"),
+                          ("compress_transform", "transform_kernel")):
+        lines = ptxas_lines(infos[label], kernel)
+        check("ptxas" not in infos[label] or len(lines) >= 2, f"no ptxas lines for {label}")
+        check(not any("spill" in line and not re.search(r"\b0 bytes spill stores", line)
+                      for line in lines), f"{kernel} spills: {lines}")
     for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
                    GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
@@ -776,13 +830,18 @@ def check_views(torch, swar, registry, gf) -> None:
 
 
 def phase_main_path(torch, swar, registry, gf):
-    """RS(8,3) encode + decode of 32 x 4 MiB objects through plugin `tpu`."""
+    """RS(8,3) encode + decode of 32 x 4 MiB objects through plugin `tpu`;
+    returns the launches of swar_gf and of xor_reduce (the single erasures
+    under the all-ones parity row)."""
+    from ceph_tpu_torch.ops import xor_mm
+
     rng = np.random.default_rng(SEED)
     n_obj, obj_size = 32, 4 << 20
     objects = [rng.integers(0, 256, obj_size, dtype=np.uint8).tobytes()
                for _ in range(n_obj)]
     swar.launches = 0
-    expected = 0
+    xor_mm.xor_reduce.launches = 0
+    expected = expected_xor = 0
     t0 = time.perf_counter()
     for tech in ("reed_sol_van", "cauchy"):
         ec = registry.instance().factory("tpu", {"k": "8", "m": "3", "technique": tech})
@@ -809,6 +868,8 @@ def phase_main_path(torch, swar, registry, gf):
                           f"{tech} object {n}: decode {erasures} chunk {e}")
                 if not ec._use_xor_decode(sorted(erasures)):
                     expected += 1
+                else:
+                    expected_xor += 1
             avail = {i: enc[i] for i in range(km) if i not in patterns[3]}
             whole = ec.decode_concat(avail)
             expected += 1
@@ -816,12 +877,15 @@ def phase_main_path(torch, swar, registry, gf):
                   f"{tech} object {n}: decode_concat != object")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = swar.launches
+    launches, xor_launches = swar.launches, xor_mm.xor_reduce.launches
     print(f"[3] main path: 2 techniques x {n_obj} objects x 4 MiB, "
           f"encode + 4 erasure classes + decode_concat, exact; {seconds:.2f} s host clock")
-    print(f"[3] swar_gf launches {launches}, kernel-tier calls {expected}")
+    print(f"[3] swar_gf launches {launches}, kernel-tier calls {expected}; xor_reduce "
+          f"launches {xor_launches}, single erasures under the all-ones row {expected_xor}")
     check(launches == expected, f"launches {launches} != kernel-tier calls {expected}")
-    return launches
+    check(xor_launches == expected_xor > 0,
+          f"xor_reduce launches {xor_launches} != xor decodes {expected_xor}")
+    return launches, xor_launches
 
 
 def phase_bulk(torch, swar, registry, gf, card, kern_exp4, kern_exp2, nvcc):
@@ -2369,11 +2433,13 @@ BK_PROFILE = {"plugin": "tpu", "k": str(BK_K), "m": str(BK_M), "technique": "ree
 
 class BkCluster:
     """Phase 9's in-process cluster (the harness of tests/test_ec_backend.py):
-    one port ECBackend per OSD over a MemStore, each OSD holding one shard
-    of one PG, the primary on OSD 0, messages through a pumped queue.  The
-    codecs come from build_pg_backend with no device argument."""
+    one port ECBackend per OSD over a MemStore (or what `make_store` makes),
+    each OSD holding one shard of one PG, the primary on OSD 0, messages
+    through a pumped queue.  The codecs come from build_pg_backend with no
+    device argument."""
 
-    def __init__(self, pool_id: int, name: str, overwrites: bool, profile: dict | None = None):
+    def __init__(self, pool_id: int, name: str, overwrites: bool, profile: dict | None = None,
+                 make_store=None):
         from ceph_tpu_torch.msg.messages import PgId, ReqId
         from ceph_tpu_torch.os.memstore import MemStore
         from ceph_tpu_torch.os.transaction import Transaction
@@ -2439,7 +2505,7 @@ class BkCluster:
         self.colls = [shard_coll(self.pgid, s) for s in range(n)]
         self.stores, self.listeners, self.backends = [], [], []
         for osd in range(n):
-            store = MemStore()
+            store = MemStore() if make_store is None else make_store()
             store.mount()
             store.queue_transaction(Transaction().create_collection(self.colls[osd]))
             listener = Listener(osd)
@@ -3035,12 +3101,13 @@ def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
     for name in PACKED_KERNELS:
         packed.launches[name] = 0
     xor_mm.gf2_plane_matmul.launches = 0
+    xor_mm.xor_reduce.launches = 0
     mc.xor_matmul = counted_xor_matmul
     try:
         for plugin, prof in PL_PROFILES:
             label = f"{plugin} " + " ".join(f"{k}={v}" for k, v in prof.items())
             before = (swar.launches, packed.launches["packed_code"], xm_calls["n"],
-                      xor_mm.gf2_plane_matmul.launches)
+                      xor_mm.gf2_plane_matmul.launches, xor_mm.xor_reduce.launches)
             t0 = time.perf_counter()
             ec = registry.instance().factory(plugin, dict(prof))
             check(ec.device.type == "cuda", f"10b {label}: codec on {ec.device}")
@@ -3077,6 +3144,7 @@ def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
                 "packed_code": packed.launches["packed_code"] - before[1],
                 "xor_matmul": xm_calls["n"] - before[2],
                 "gf2_plane_matmul": xor_mm.gf2_plane_matmul.launches - before[3],
+                "xor_reduce": xor_mm.xor_reduce.launches - before[4],
             }
             out[label] = {"patterns": len(patterns), "chunk": len(encoded[0][0]),
                           "seconds": time.perf_counter() - t0, "launches": launches}
@@ -3088,7 +3156,10 @@ def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
         mc.xor_matmul = real_xor_matmul
     lib = out["jerasure technique=liberation k=4 m=2 w=7 packetsize=2048"]["launches"]
     check(lib["gf2_plane_matmul"] > 0, "10b: liberation never launched gf2_plane_matmul")
+    xor_plugin = next(row for label, row in out.items() if label.startswith("xor "))
+    check(xor_plugin["launches"]["xor_reduce"] > 0, "10b: plugin xor never launched xor_reduce")
     out["gf2_plane_matmul_launches"] = xor_mm.gf2_plane_matmul.launches
+    out["xor_reduce_launches"] = xor_mm.xor_reduce.launches
     return out
 
 
@@ -3705,6 +3776,509 @@ def phase_scrub_cache(torch, swar, packed, dispatch, card) -> dict:
     return out
 
 
+# Phase 12's shapes and deployments.  12a: crc32c at the lengths BlueStore's
+# stored forms take (a raw block, compressed forms of any length, ragged
+# tails) and 1 to 11264 rows, checked against the host oracle up to
+# CRC_ORACLE_BYTES of rows and against the plain version (whose bit planes
+# take 32 bytes a row byte) up to CRC_PLAIN_BYTES, which takes in 12c's QD8
+# window; the transform at the CPU tests' padded lengths and 65536;
+# xor_reduce at phase 3's single-erasure decode and the plugins' k.  12b:
+# the bulk shapes and the path's, each kernel's output again held against
+# its plain version: a 4 MiB object's shard write is 128 blocks of 4096
+# (one store launch), and 8 objects of 11 shards (12c's QD8 window) 11264.
+# 12c-12e: phase 9's pool rbd (RS(8,3), stripe unit 4096, 11 OSDs) over
+# in-memory BlueStores, 64 objects of 4 MiB.
+CRC_LENGTHS = (1, 3, 63, 64, 100, 4095, 4096, 4097, 65536)
+CRC_STRIPES = (1, 7, 128, 1408, 11264)
+CRC_ORACLE_BYTES = 64 << 20
+CRC_PLAIN_BYTES = 48 << 20
+XFORM_LPS = (64, 128, 192, 4032, 4096, 4160, 65536)
+XFORM_STRIPES = (1, 7, 128, 1408)
+XOR_KS = (1, 2, 8, 11)
+CRC_BULK = (65536, 4096)
+CRC_PATH = ((11264, 4096), (128, 4096))
+XFORM_BULK = (65536, 4096)
+XFORM_PATH = ((128, 4096),)
+XOR_BULK = BULK
+XOR_PATH = ((1, 8, 524288),)
+BS_OBJECTS = 64
+BS_QD = 8
+BS_RATIO = 0.875  # Ceph's default bluestore_compression_required_ratio
+BS_DRILL_BYTES = 1 << 20
+
+
+def bluestore_kernel_checks(torch, co, dev, xor_mm) -> dict:
+    """12a: each kernel against its plain version and its host oracle, byte
+    for byte; returns the largest difference of each (0 when exact)."""
+    rng = np.random.default_rng(SEED + 120)
+    cuda = torch.device("cuda")
+    err = {"crc32c": 0, "compress_transform": 0, "xor_reduce": 0}
+    cases = 0
+    for L in CRC_LENGTHS:
+        for S in CRC_STRIPES:
+            if S * L > CRC_ORACLE_BYTES:
+                continue
+            host = rng.integers(0, 256, (S, L + 5), dtype=np.uint8)
+            rows = torch.from_numpy(host).to(cuda)
+            for label, view, hview in (("dense", rows[:, :L].contiguous(), host[:, :L]),
+                                       ("strided+3", rows[:, 3:L + 3], host[:, 3:L + 3])):
+                got = co.crc32c_device(view).cpu().numpy()
+                want = co.crc32c_host_rows(hview).astype(np.int64)
+                err["crc32c"] = max(err["crc32c"], int(np.abs(got - want).max()))
+                check(np.array_equal(got, want), f"12a crc32c ({S}, {L}) {label} != crc32c")
+                if S * L <= CRC_PLAIN_BYTES:
+                    plain = co.crc32c_plain(view).cpu().numpy()
+                    err["crc32c"] = max(err["crc32c"], int(np.abs(got - plain).max()))
+                    check(np.array_equal(got, plain), f"12a crc32c ({S}, {L}) {label} != plain")
+                cases += 1
+    for Lp in XFORM_LPS:
+        for S in XFORM_STRIPES:
+            host = rng.integers(0, 256, (S, Lp + 64), dtype=np.uint8)
+            host[:, (np.arange(Lp + 64) % 64) >= 20] = 0  # zero planes: flags vary
+            host[::4] = 0
+            rows = torch.from_numpy(host).to(cuda)
+            for label, view, hview in (("dense", rows[:, :Lp].contiguous(), host[:, :Lp]),
+                                       ("strided+1", rows[:, 1:Lp + 1], host[:, 1:Lp + 1])):
+                got = dev.transform_rows_device(view)
+                want = dev.transform_rows(np.ascontiguousarray(hview))
+                plain = dev.transform_rows_plain(view)
+                for other, name in ((torch.from_numpy(want).to(cuda), "transform_rows"),
+                                    (plain, "plain")):
+                    diff = int((got.int() - other.int()).abs().max())
+                    err["compress_transform"] = max(err["compress_transform"], diff)
+                    check(diff == 0, f"12a transform ({S}, {Lp}) {label} != {name}")
+                cases += 1
+    for k in XOR_KS:
+        for shape in ((1, k, 524288), (64, k, 4096), (3, k, 4100), (2, 3, k, 131072)):
+            host = rng.integers(0, 256, (*shape[:-2], k + 2, shape[-1] + 3), dtype=np.uint8)
+            data = torch.from_numpy(host).to(cuda)
+            L = shape[-1]
+            for label, view, hview in (
+                    ("dense", data[..., :k, :L].contiguous(), host[..., :k, :L]),
+                    ("chunk subset", data[..., 1:k + 1, :L], host[..., 1:k + 1, :L]),
+                    ("misaligned", data[..., :k, 1:L + 1], host[..., :k, 1:L + 1])):
+                got = xor_mm.xor_reduce(view)
+                want = torch.from_numpy(np.bitwise_xor.reduce(hview, axis=-2)).to(cuda)
+                plain = xor_mm.xor_reduce_plain(view)
+                for other, name in ((want, "numpy"), (plain, "plain")):
+                    diff = int((got.int() - other.int()).abs().max())
+                    err["xor_reduce"] = max(err["xor_reduce"], diff)
+                    check(diff == 0, f"12a xor_reduce {tuple(view.shape)} {label} != {name}")
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"[12] 12a: {cases} cases, crc32c at L {CRC_LENGTHS} x S {CRC_STRIPES} (dense and "
+          f"a misaligned strided view), the transform at Lp {XFORM_LPS}, xor_reduce at k "
+          f"{XOR_KS} (dense, a chunk subset, a misaligned view): every kernel = its plain "
+          f"version = its host oracle, byte for byte")
+    return err
+
+
+def bluestore_timing(torch, co, dev, xor_mm, card, err) -> dict:
+    """12b: each kernel at the bulk and the path shapes, median of 20 runs
+    of 5 calls between CUDA events, beside its bound and its plain version
+    (the crc32c plain version, a bit-plane product, at 3 runs of 5).  Each
+    kernel's output at each shape is held against its plain version's,
+    byte for byte, and the difference goes into `err`."""
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 121)
+    out = {}
+
+    def same(kernel, label, got, plain):
+        diff = int((got.long() - plain.long()).abs().max())
+        err[kernel] = max(err[kernel], diff)
+        check(diff == 0, f"12b {label}: kernel != plain")
+
+    for S, L in (CRC_BULK, *CRC_PATH):
+        rows = torch.from_numpy(rng.integers(0, 256, (S, L), dtype=np.uint8)).to(cuda)
+        same("crc32c", f"crc32c {S}x{L}", co.crc32c_device(rows), co.crc32c_plain(rows))
+        ms = time_ms(torch, lambda: co.crc32c_device(rows))
+        plain = time_ms(torch, lambda: co.crc32c_plain(rows), warmup=1, reps=3)
+        bound = (S * L + 4 * S) / HBM_BYTES_PER_S * 1e3
+        out[f"crc32c {S}x{L}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                                  "bound_by": "bytes", "library_ms": None}
+    for S, Lp in (XFORM_BULK, *XFORM_PATH):
+        rows = torch.from_numpy(rng.integers(0, 256, (S, Lp), dtype=np.uint8)).to(cuda)
+        same("compress_transform", f"compress_transform {S}x{Lp}",
+             dev.transform_rows_device(rows), dev.transform_rows_plain(rows))
+        ms = time_ms(torch, lambda: dev.transform_rows_device(rows))
+        plain = time_ms(torch, lambda: dev.transform_rows_plain(rows))
+        floor = time_ms(torch, lambda: rows.view(S, Lp // 64, 64).transpose(1, 2).contiguous())
+        bound = (2 * Lp + Lp // 64) * S / HBM_BYTES_PER_S * 1e3
+        out[f"compress_transform {S}x{Lp}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "transpose_floor_ms": floor}
+    for shape in (XOR_BULK, *XOR_PATH):
+        S, k, L = shape
+        data = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+        same("xor_reduce", f"xor_reduce {S}x{k}x{L}",
+             xor_mm.xor_reduce(data), xor_mm.xor_reduce_plain(data))
+        ms = time_ms(torch, lambda: xor_mm.xor_reduce(data))
+        plain = time_ms(torch, lambda: xor_mm.xor_reduce_plain(data))
+        bound = (k + 1) * S * L / HBM_BYTES_PER_S * 1e3
+        out[f"xor_reduce {S}x{k}x{L}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                                         "bound_by": "bytes", "library_ms": None}
+    for label, row in out.items():
+        extra = (f", the transpose alone (x.view(S, Lp // 64, 64).transpose(1, 2)"
+                 f".contiguous(), the floor of its data movement, not the same function) "
+                 f"{row['transpose_floor_ms']:.4f} ms" if "transpose_floor_ms" in row else "")
+        print(f"[12] 12b: {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.3f} of it), plain {row['plain_ms']:.4f} ms"
+              f"{extra}; {card}")
+    return out
+
+
+def _onode_blocks(store) -> list:
+    from ceph_tpu_torch.os.bluestore import Onode
+
+    return [e for (prefix, _key), blob in store.db._data.items() if prefix == "O"
+            for e in Onode.decode(blob).blocks.values()]
+
+
+def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
+    """Phase 12: BlueStore under the EC write path, with the checksum
+    service and the device compressor (12a-12e)."""
+    from ceph_tpu_torch.common.fault_injector import global_injector
+    from ceph_tpu_torch.common.mempool import ledger
+    from ceph_tpu_torch.compressor import device as dev
+    from ceph_tpu_torch.ops import checksum_offload as co
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.os.bluestore import BLOCK, BlueStore, SimulatedCrash
+    from ceph_tpu_torch.os.objectstore import StoreError
+    from ceph_tpu_torch.os.transaction import Transaction
+    from ceph_tpu_torch.osd.ec_backend import ECBackend
+
+    t_phase = time.perf_counter()
+    led, fr, guard = ledger(), flight_recorder(), device_guard()
+    out: dict = {"errs": bluestore_kernel_checks(torch, co, dev, xor_mm)}
+    out["times"] = bluestore_timing(torch, co, dev, xor_mm, card, out["errs"])
+    csum_agg, comp_agg = co.default_csum_aggregator(), dev.default_compress_aggregator()
+    rng = np.random.default_rng(SEED + 122)
+    # QD8 writes other bytes than QD1 (an identical overwrite skips its csums)
+    models = {qd: rng.integers(0, 256, (BS_OBJECTS, BK_OBJECT_BYTES), dtype=np.uint8)
+              for qd in (1, BS_QD)}
+    model = models[BS_QD]
+    oids = [f"rbd_data.{i:016x}" for i in range(BS_OBJECTS)]
+
+    fused = collections.Counter()
+    real_submit = ECBackend._csum_submit
+
+    def counted_submit(backend, chunk, chunk_off):
+        ticket = real_submit(backend, chunk, chunk_off)
+        if ticket is not None:
+            fused["tickets"] += 1
+            fused["blocks"] += len(chunk) // BLOCK
+        return ticket
+
+    def launches() -> dict:
+        return {"crc32c": co.crc32c_device.launches,
+                "compress_transform": dev.transform_rows_device.launches,
+                "csum_agg": int(csum_agg.perf.get("launches")),
+                "csum_submits": int(csum_agg.perf.get("submits")),
+                "compress_agg": int(comp_agg.perf.get("launches")),
+                "FALLBACK": dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]}
+
+    def settled(c, label):
+        # the fused submissions no store reaps sit in the csum window or in
+        # launched groups nothing settles: drain them before the pool check
+        csum_agg.drain()
+        comp_agg.drain()
+        c.settled(label, led)
+
+    def read_all(c, label):
+        for first in range(0, BS_OBJECTS, 16):
+            got = c.read({oid: [(0, BK_OBJECT_BYTES)] for oid in oids[first:first + 16]})
+            for i in range(first, first + 16):
+                check(got[oids[i]] == (0, [model[i].tobytes()]),
+                      f"{label}: {oids[i]} did not read back")
+
+    # 12c: 64 WRITEFULLs of 4 MiB at QD1 and then QD8 on a fresh cluster of 11
+    # BlueStores, the checksum offload off and then on
+    images = {}
+    co.crc32c_device.launches = 0
+    run_launches = {"crc32c": 0}
+    ECBackend._csum_submit = counted_submit
+    fr.configure(capacity=4096)  # a QD1 pass commits about 11 csum records a write
+    try:
+        for offload in (False, True):
+            c = BkCluster(3, "rbd", overwrites=True,
+                          make_store=lambda: BlueStore(None, csum_offload=offload))
+            for qd in (1, BS_QD):
+                fused.clear()
+                before = launches()
+                fr.reset()
+                t0 = time.perf_counter()
+                for first in range(0, BS_OBJECTS, qd):
+                    for i in range(first, first + qd):
+                        c.writefull(oids[i], models[qd][i].tobytes())
+                    c.pump()
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                label = f"12c offload {'on' if offload else 'off'} QD{qd}"
+                settled(c, label)
+                moved = {k: v - before[k] for k, v in launches().items()}
+                csum_records = [r for r in fr.records()
+                                if r["group"].startswith("csum_aggregator")]
+                check(moved["FALLBACK"] == 0 and not guard.degraded, f"{label}: {moved}")
+                check(moved["crc32c"] == moved["csum_agg"] == len(csum_records),
+                      f"{label}: crc32c {moved['crc32c']} launches, the aggregator "
+                      f"{moved['csum_agg']}, {len(csum_records)} flight records")
+                check((moved["crc32c"] > 0) == offload and (fused["tickets"] > 0) == offload,
+                      f"{label}: {moved['crc32c']} crc32c launches, {fused['tickets']} "
+                      "fused submissions")
+                store_blocks = (BK_OBJECT_BYTES // BK_K // BLOCK) * (BK_K + BK_M)
+                row = {"MBps": model.nbytes / wall / 1e6,
+                       "csum_launches_per_write": moved["crc32c"] / BS_OBJECTS,
+                       "fused_submissions_per_write": fused["tickets"] / BS_OBJECTS,
+                       "fused_blocks_per_write": fused["blocks"] / BS_OBJECTS,
+                       "store_blocks_per_write": store_blocks,
+                       "rows_per_launch": statistics.median(
+                           r["batch"] for r in csum_records) if csum_records else 0,
+                       "spans": span_medians(csum_records)}
+                out[label] = row
+                print(f"[12] {label}: {BS_OBJECTS} WRITEFULLs of 4 MiB, {row['MBps']:.1f} "
+                      f"MB/s; crc32c launches a write {row['csum_launches_per_write']:.2f} "
+                      f"(median {row['rows_per_launch']} rows a launch); the stores checksum "
+                      f"{store_blocks} blocks a write, `_csum_submit` submits "
+                      f"{row['fused_blocks_per_write']:.0f} more that no store reads; csum "
+                      f"spans (ms) {row['spans']}; {card}")
+                if offload:
+                    run_launches["crc32c"] += moved["crc32c"]
+            before = launches()
+            read_all(c, f"12c offload {'on' if offload else 'off'}")
+            moved = {k: v - before[k] for k, v in launches().items()}
+            check((moved["crc32c"] > 0) == offload,
+                  f"12c reads: {moved['crc32c']} crc32c launches with offload {offload}")
+            images[offload] = [(s._block_f.getvalue(), dict(s.db._data)) for s in c.stores]
+            print(f"[12] 12c offload {'on' if offload else 'off'}: every object read back "
+                  f"whole, csum-verified ({moved['crc32c']} crc32c launches)")
+            del c
+    finally:
+        ECBackend._csum_submit = real_submit
+        fr.configure(capacity=512)
+    check(images[False] == images[True],
+          "12c: a shard's block image or KV records differ with the offload off and on")
+    out["launches"] = {"crc32c": run_launches["crc32c"]}
+    print("[12] 12c: every shard's block image and KV records are the same with the "
+          "checksum offload off and on")
+
+    # 12d: device compression at the default required ratio, objects of half
+    # random 4 KiB pages and half record pages (64-byte records, 16 nonzero
+    # bytes each)
+    pages = model.reshape(BS_OBJECTS, -1, BLOCK)
+    records = pages.reshape(BS_OBJECTS, -1, BLOCK // 64, 64)
+    is_record = rng.random(pages.shape[:2]) < 0.5
+    records[..., 16:][is_record] = 0
+    records[..., :16][is_record] |= 1  # the 16 record bytes are nonzero
+    dev.transform_rows_device.launches = 0
+    before = launches()
+    c = BkCluster(4, "rbd", overwrites=True,
+                  make_store=lambda: BlueStore(None, compression="device",
+                                               compression_required_ratio=BS_RATIO))
+    t0 = time.perf_counter()
+    for first in range(0, BS_OBJECTS, BS_QD):
+        for i in range(first, first + BS_QD):
+            c.writefull(oids[i], model[i].tobytes())
+        c.pump()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    settled(c, "12d")
+    moved = {k: v - before[k] for k, v in launches().items()}
+    out["launches"]["compress_transform"] = moved["compress_transform"]
+    check(moved["compress_transform"] == moved["compress_agg"] > 0 and moved["FALLBACK"] == 0,
+          f"12d: {moved}")
+    blocks = [e for s in c.stores for e in _onode_blocks(s)]
+    compressed = sum(1 for e in blocks if e[2])
+    stored = sum(e[2] or BLOCK for e in blocks)
+    oracle = dev.DeviceCompressor()
+    checked = 0
+    for s, store in enumerate(c.stores):
+        for oid in oids:
+            o = store._peek_onode(c.colls[s], oid)
+            for bidx, (poff, _crc, clen) in o.blocks.items():
+                if clen:
+                    image = store.read(c.colls[s], oid, bidx * BLOCK, BLOCK)
+                    check(store._block_read(poff, clen) == oracle.compress(image),
+                          f"12d: shard {s} {oid} block {bidx}'s blob != the host oracle's")
+                    checked += 1
+    read_all(c, "12d")
+    row = {"MBps": model.nbytes / wall / 1e6, "compressed_share": compressed / len(blocks),
+           "stored_over_logical": stored / (len(blocks) * BLOCK),
+           "transform_launches": moved["compress_transform"]}
+    out["12d"] = row
+    print(f"[12] 12d: device compression at ratio {BS_RATIO}, {BS_OBJECTS} objects of 4 MiB "
+          f"(half record pages): {row['MBps']:.1f} MB/s, {compressed} of {len(blocks)} "
+          f"blocks stored compressed ({row['compressed_share']:.3f}), stored/logical "
+          f"{row['stored_over_logical']:.3f}, {row['transform_launches']} transform "
+          f"launches; all {checked} blobs = assemble_blob(transform_rows(...)); every "
+          f"object read back; {card}")
+    del c
+
+    # 12e: the drills.  (1) an on-disk BlueStore: umount and mount, WAL replay
+    # after a simulated crash, a flipped byte is EIO with the offload on
+    import tempfile
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ceph_tpu_torch",
+                             "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    data = rng.integers(0, 256, BS_DRILL_BYTES, dtype=np.uint8).tobytes()
+    with tempfile.TemporaryDirectory(dir=build_dir) as path:
+        s = BlueStore(path, csum_offload=True)
+        s.mount()
+        s.queue_transaction(Transaction().create_collection("c"))
+        s.queue_transaction(Transaction().write("c", "o", 0, data))
+        s.umount()
+        s = BlueStore(path, csum_offload=True)
+        s.mount()
+        check(s.read("c", "o") == data, "12e: the remounted store did not read back")
+        s._crash_point = "after_commit"
+        try:
+            s.queue_transaction(Transaction().write("c", "o", 5000, b"\x77" * 20000))
+            check(False, "12e: the crash point did not fire")
+        except SimulatedCrash:
+            pass
+        s._block_f.close()
+        s.db.close()
+        expect = bytearray(data)
+        expect[5000:25000] = b"\x77" * 20000
+        s = BlueStore(path, csum_offload=True)
+        s.mount()
+        check(s.read("c", "o") == bytes(expect), "12e: WAL replay did not finish the write")
+        poff = s._peek_onode("c", "o").blocks[100][0]
+        s.umount()
+        with open(os.path.join(path, "block"), "r+b") as f:
+            f.seek(poff + 1234)
+            byte = f.read(1)
+            f.seek(poff + 1234)
+            f.write(bytes([byte[0] ^ 0x01]))
+        s = BlueStore(path, csum_offload=True)
+        s.mount()
+        l0 = co.crc32c_device.launches
+        try:
+            s.read("c", "o")
+            check(False, "12e: a flipped block byte read back")
+        except StoreError as e:
+            check(e.errno == -5, f"12e: the flipped byte gave {e}")
+        check(co.crc32c_device.launches > l0, "12e: the read verify launched no crc32c")
+        s.umount()
+    print("[12] 12e: on-disk BlueStore: umount/mount, WAL replay after a simulated crash, "
+          "a flipped block byte is EIO through the crc32c kernel")
+    # (2) `codec.launch` armed on the stores' csum and compress launches
+    for what, kw in (("csum", {"csum_offload": True}), ("compress", {"compression": "device"})):
+        c = BkCluster(5, "rbd", overwrites=True, make_store=lambda kw=kw: BlueStore(None, **kw))
+        c.writefull(oids[0], model[0].tobytes())
+        c.pump()
+        before = [(s._block_f.getvalue(), dict(s.db._data)) for s in c.stores]
+        fb0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+        for store in c.stores:
+            def armed(txn, on_commit=None, real=store.queue_transaction):
+                global_injector().inject("codec.launch", 5)
+                return real(txn, on_commit)
+
+            store.queue_transaction = armed
+        try:
+            tag = c.writefull(oids[0], model[1].tobytes())
+            c.pump()
+        finally:
+            global_injector().clear()
+            for store in c.stores:
+                del store.queue_transaction
+        check(c.failures == [(tag, -5)], f"12e {what}: the write gave {c.failures}")
+        check(guard.degraded, f"12e {what}: the backend is not DEGRADED")
+        check([(s._block_f.getvalue(), dict(s.db._data)) for s in c.stores] == before,
+              f"12e {what}: a shard committed under the failed write")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fb0,
+              f"12e {what}: a launch fell back to the host")
+        check(guard.maybe_probe() and not guard.degraded, f"12e {what}: the probe did not heal")
+        c.failed_ok.add(tag)
+        c.writefull(oids[0], model[2].tobytes())
+        c.pump()
+        settled(c, f"12e {what}")
+        got = c.read({oids[0]: [(0, BK_OBJECT_BYTES)]})
+        check(got[oids[0]] == (0, [model[2].tobytes()]), f"12e {what}: read back != model")
+        print(f"[12] 12e: codec.launch armed on the stores' {what} launches: the write failed "
+              f"with EIO, no shard committed, DEGRADED, no host recompute; the cuda probe "
+              f"healed and the next write committed and read back")
+        del c
+    # (3) writes torn across their shards: only shard 5's store fails its
+    # csum launch, after shards 0-4 committed.  Transient: the next
+    # shard's launch probes the card, which heals, so only shard 5 failed
+    # it, and the primary sends it the write again inside the same pump.
+    # Lasting (the probe fails too): shards 6-10 are refused as well and
+    # left out of reads, the write is held, and once the probe heals the
+    # guard the primary sends it to shards 5-10 again.  Both commit and
+    # read back.
+    import ceph_tpu_torch.ops.guard as guard_mod
+
+    c = BkCluster(5, "rbd", overwrites=True,
+                  make_store=lambda: BlueStore(None, csum_offload=True))
+    c.writefull(oids[0], model[0].tobytes())
+    c.pump()
+    store = c.stores[5]
+
+    def armed(txn, on_commit=None, real=store.queue_transaction):
+        if armed.left:
+            armed.left -= 1
+            global_injector().inject("codec.launch", 5, hits=1)
+        return real(txn, on_commit)
+
+    def failing_probe():
+        raise RuntimeError("probe held failing by drill 12e")
+
+    store.queue_transaction = armed
+    real_probe, interval = guard_mod._default_probe, guard.probe_interval_ms
+    torn_parts = {}
+    try:
+        armed.left = 1
+        tag = c.writefull(oids[0], model[1].tobytes())
+        c.pump()
+        check(not armed.left and c.commits[tag] == 1 and not c.failures
+              and c.primary.sub_write_retries == 1 and not guard.degraded,
+              f"12e transient torn write: commits {dict(c.commits)}, failures {c.failures}, "
+              f"{c.primary.sub_write_retries} re-sent, degraded {guard.degraded}")
+        torn_parts["transient"] = {"re_sent": c.primary.sub_write_retries}
+        armed.left = 1
+        guard_mod._default_probe = failing_probe
+        guard.configure(probe_interval_ms=10**9)
+        tag = c.writefull(oids[0], model[2].tobytes())
+        c.pump()
+        check(not armed.left and guard.degraded and not c.commits[tag] and not c.failures,
+              f"12e lasting torn write: commits {dict(c.commits)}, failures {c.failures}")
+        (op,) = c.primary.in_flight.values()
+        check(op.torn_shards == set(range(5, 11)), f"12e torn: torn shards {op.torn_shards}")
+        check(c.primary._available_shards(oids[0]) == set(range(5)),
+              "12e torn: a read may take a shard that holds the old version")
+        guard_mod._default_probe = real_probe
+        guard.configure(probe_interval_ms=1)
+        time.sleep(0.01)
+        c.pump()
+    finally:
+        global_injector().clear()
+        guard_mod._default_probe = real_probe
+        guard.configure(probe_interval_ms=interval)
+        del store.queue_transaction
+    check(not guard.degraded and c.commits[tag] == 1 and not c.failures,
+          f"12e lasting torn write after the heal: commits {dict(c.commits)}")
+    check(c.primary.sub_write_retries == 7, f"12e torn: {c.primary.sub_write_retries} re-sent")
+    torn_parts["lasting"] = {"re_sent": c.primary.sub_write_retries - 1}
+    check(not any(b._sub_write_fences for b in c.backends), "12e torn: a shard stayed fenced")
+    settled(c, "12e torn")
+    got = c.read({oids[0]: [(0, BK_OBJECT_BYTES)]})
+    check(got[oids[0]] == (0, [model[2].tobytes()]), "12e torn: read back != model")
+    out["torn"] = torn_parts
+    print("[12] 12e: a csum launch failed on shard 5 of 11 after shards 0-4 committed. "
+          "Transient (the next launch's probe healed): the write went to shard 5 again in "
+          "the same pump and committed. Lasting (probe failing): shards 5-10 refused and "
+          "left out of reads, the write held; the cuda probe healed, the write went to "
+          "shards 5-10 again, committed and read back")
+    del c
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[12] phase 12 numbers: "
+          f"{json.dumps({k: v for k, v in out.items() if k not in ('times',)}, default=str)}")
+    check(out["seconds"] < 60, f"phase 12 took {out['seconds']:.1f} s, over its 60 s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -3753,7 +4327,7 @@ def main(argv: list[str]) -> int:
     name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed, xor_mm,
                               nvcc_path())
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
-    launches = phase(3, phase_main_path, torch, swar, registry, gf)
+    launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4, kern_exp2,
                  nvcc_path())
     errs = phase("5a", phase_diag_checks, torch, swar, gf, diag)
@@ -3774,6 +4348,7 @@ def main(argv: list[str]) -> int:
     plugins = phase("10b", phase_plugins, torch, swar, packed, xor_mm, registry, card)
     phase("10c", phase_recovery, torch, swar, packed, dispatch, registry, card)
     scrub_cache = phase(11, phase_scrub_cache, torch, swar, packed, dispatch, card)
+    bluestore = phase(12, phase_bluestore, torch, xor_mm, dispatch, card)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
                                  "11": scrub_cache["launches"][kernel]}
@@ -3824,11 +4399,37 @@ def main(argv: list[str]) -> int:
         **gf2_row,
         "source_sha256": infos["gf2_plane"]["source_sha256"],
     })
+    times = bluestore["times"]
+    for kernel, source, replaces, shape, by_phase in (
+        ("xor_reduce", "xor_reduce.cu", "ceph_tpu/ops/xor_mm.py:107",
+         "x".join(map(str, XOR_BULK)),
+         {"3": xor_launches, "10b": plugins["xor_reduce_launches"]}),
+        ("crc32c", "crc32c.cu", "ceph_tpu/ops/checksum_offload.py:118",
+         "x".join(map(str, CRC_BULK)), {"12c": bluestore["launches"]["crc32c"]}),
+        ("compress_transform", "compress_transform.cu", "ceph_tpu/compressor/device.py:56",
+         "x".join(map(str, XFORM_BULK)),
+         {"12d": bluestore["launches"]["compress_transform"]}),
+    ):
+        check(all(n > 0 for n in by_phase.values()), f"{kernel}: main-path launches {by_phase}")
+        row = {key: val for key, val in times[f"{kernel} {shape}"].items()
+               if key != "transpose_floor_ms"}
+        kernels.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"ceph_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": bluestore["errs"][kernel],
+            **row,
+            "source_sha256": infos[kernel]["source_sha256"],
+        })
     print(f"chip_smoke: whole script {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -94,6 +94,7 @@ def mods(pkg: str) -> SimpleNamespace:
         ns = SimpleNamespace(
             messages=imp("msg.messages"),
             memstore=imp("os.memstore"),
+            bluestore=imp("os.bluestore"),
             objectstore=imp("os.objectstore"),
             transaction=imp("os.transaction"),
             ec_transaction=imp("osd.ec_transaction"),
@@ -164,10 +165,11 @@ def _listener_class(m):
 
 
 class Cluster:
-    """One backend per OSD over MemStores, with a pumped message queue."""
+    """One backend per OSD over MemStores (or, with `bluestore`, in-memory
+    BlueStores made with those keywords), with a pumped message queue."""
 
     def __init__(self, pkg, k=4, m=2, stripe_unit=4096, overwrites=False, fast_read=False,
-                 plugin="tpu", **profile_extra):
+                 plugin="tpu", bluestore=None, **profile_extra):
         self.pkg = pkg
         self.m = mods(pkg)
         om = self.m.osdmap
@@ -191,7 +193,10 @@ class Cluster:
         self.stores, self.listeners, self.backends = [], [], []
         kw = {"device": "cpu"} if pkg == "torch" else {}
         for osd in range(k + m):
-            store = self.m.memstore.MemStore()
+            if bluestore is None:
+                store = self.m.memstore.MemStore()
+            else:
+                store = self.m.bluestore.BlueStore(None, **bluestore, **kw)
             store.mount()
             listener = self.m.Listener(self, osd, osd, self.pgid)
             backend = self.m.pg_backend.build_pg_backend(
@@ -280,7 +285,17 @@ class Cluster:
         return self.m.stripe.HashInfo.decode(blob)
 
     def state(self):
-        """Every store's collections (data, xattrs, omap), byte for byte."""
+        """Every store's collections (data, xattrs, omap), byte for byte;
+        for BlueStores also the block image and the KV records."""
+        if isinstance(self.stores[0], self.m.bluestore.BlueStore):
+            return [
+                (store._block_f.getvalue(), dict(store.db._data), {
+                    coll: {oid: (store.read(coll, oid), store.getattrs(coll, oid),
+                                 store.omap_get(coll, oid))
+                           for oid in store.list_objects(coll)}
+                    for coll in store.list_collections()})
+                for store in self.stores
+            ]
         return [
             {
                 coll: {
@@ -538,9 +553,12 @@ class Model:
 def _random_ops(rng, n, sw, k, m, overwrites):
     """`n` seeded operations, grouped into batches submitted before one
     pump each: appends, WRITEFULLs, overwrites, truncates, deletes,
-    reads and degraded reads over four objects."""
+    reads and degraded reads over four objects.  A read also says whether
+    its object grew by a truncate since its last WRITEFULL or delete (the
+    reference's defect C10, ROADMAP §C)."""
     model = Model()
     oids = ["a", "b", "c", "d"]
+    grown = set()
     batches, batch = [], []
     for _ in range(n):
         oid = oids[int(rng.integers(len(oids)))]
@@ -562,6 +580,7 @@ def _random_ops(rng, n, sw, k, m, overwrites):
             ln = int(rng.integers(1, 4 * sw)) if overwrites else sw * int(rng.integers(1, 4))
             data = rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
             model.objs[oid] = bytearray(data)
+            grown.discard(oid)
             batch.append(("write", oid, 0, data, ln))
         elif kind == "overwrite":
             off = int(rng.integers(0, max(size, 1) + sw))
@@ -571,10 +590,13 @@ def _random_ops(rng, n, sw, k, m, overwrites):
             batch.append(("write", oid, off, data, None))
         elif kind == "truncate":
             t = int(rng.integers(0, size + sw))
+            if t > size:
+                grown.add(oid)
             model.truncate(oid, t)
             batch.append(("truncate", oid, t))
         elif kind == "delete":
             model.objs.pop(oid, None)
+            grown.discard(oid)
             batch.append(("delete", oid))
         else:
             off = int(rng.integers(0, size))
@@ -585,7 +607,7 @@ def _random_ops(rng, n, sw, k, m, overwrites):
                 nh = int(rng.integers(1, m + 1))
                 holes = sorted(int(s) for s in rng.choice(np.arange(1, k + m), nh, replace=False))
             batch.append(("read", oid, [(0, size), (off, ln)], holes,
-                          bytes(model.objs[oid])))
+                          bytes(model.objs[oid]), oid in grown))
             batches.append(batch)
             batch = []
             continue
@@ -597,7 +619,11 @@ def _random_ops(rng, n, sw, k, m, overwrites):
     return batches
 
 
-def _run_batch(c, batch, events, results, reqid):
+def _run_batch(c, batch, events, results, reqid, defect_c10=False):
+    """Submit one batch and pump.  With `defect_c10`, a degraded read of an
+    object grown by a truncate may fail with EIO, as the reference's does
+    (ROADMAP §C, C10); the differential still holds both packages to the
+    same result."""
     for op in batch:
         reqid += 1
         if op[0] == "write":
@@ -608,7 +634,7 @@ def _run_batch(c, batch, events, results, reqid):
         elif op[0] == "delete":
             c.submit(c.pgt(op[1], delete=True), reqid, events, reqid)
         else:
-            _, oid, extents, holes, expect = op
+            _, oid, extents, holes, expect, grown = op
             c.pump()
             saved = list(c.acting)
             for h in holes:
@@ -616,6 +642,8 @@ def _run_batch(c, batch, events, results, reqid):
             err, bufs = c.read_raw(oid, extents)
             c.acting[:] = saved
             results.append((err, bufs))
+            if defect_c10 and grown and holes and err == -EIO:
+                continue
             assert err == 0 and bufs[0] == expect
             assert bufs[1] == expect[extents[1][0] : extents[1][0] + extents[1][1]]
     c.pump()
@@ -658,9 +686,37 @@ def test_seeded_operations_match_reference_with_cache_and_delta(
     assert moved["torch"]["insertions"] > 0
 
 
-def _seeded_operations(k, m, overwrites, fast_read, seed):
+def _c10_tags(batches):
+    """Tags of the writes and truncates to an object grown by a truncate
+    since its last WRITEFULL or delete: the ops whose RMW read may fail
+    with EIO in both packages (ROADMAP §C, C10)."""
+    model, grown, tags, tag = Model(), set(), set(), 0
+    for batch in batches:
+        for op in batch:
+            tag += 1
+            kind, oid = op[0], op[1]
+            if kind in ("write", "truncate") and oid in grown:
+                tags.add(tag)
+            if kind == "write" and op[4] is not None:
+                model.objs[oid] = bytearray(op[3])
+                grown.discard(oid)
+            elif kind == "write":
+                model.write(oid, op[2], op[3])
+            elif kind == "truncate":
+                if op[2] > len(model.objs.get(oid, b"")):
+                    grown.add(oid)
+                model.truncate(oid, op[2])
+            elif kind == "delete":
+                model.objs.pop(oid, None)
+                grown.discard(oid)
+    return tags
+
+
+def _seeded_operations(k, m, overwrites, fast_read, seed, bluestore=None, stripe_unit=4096):
+    defect_c10 = bluestore is not None
     clusters = {
-        pkg: Cluster(pkg, k=k, m=m, overwrites=overwrites, fast_read=fast_read)
+        pkg: Cluster(pkg, k=k, m=m, stripe_unit=stripe_unit, overwrites=overwrites,
+                     fast_read=fast_read, bluestore=bluestore)
         for pkg in PKGS
     }
     batches = _random_ops(
@@ -670,14 +726,17 @@ def _seeded_operations(k, m, overwrites, fast_read, seed):
     for batch in batches:
         for pkg, c in clusters.items():
             events, results, reqid = state[pkg]
-            state[pkg] = (events, results, _run_batch(c, batch, events, results, reqid))
+            state[pkg] = (events, results,
+                          _run_batch(c, batch, events, results, reqid, defect_c10))
         j, t = clusters["jax"], clusters["torch"]
         assert t.state() == j.state()
         assert t.logs() == j.logs()
         assert t.sent == j.sent
         assert state["torch"][:2] == state["jax"][:2]
     events = state["torch"][0]
-    assert all(e[1] == "commit" for e in events) and len(events) > 10
+    c10 = _c10_tags(batches) if defect_c10 else set()
+    assert all(e[1] == "commit" or (e[0] in c10 and e[2] == -EIO) for e in events)
+    assert len(events) > 10
     assert len(state["torch"][1]) >= 5
     for c in clusters.values():
         c.quiescent()
@@ -1171,4 +1230,197 @@ def test_delta_write_traces_no_h2d_span():
     (write,) = [s for s in spans if s["name"] == "ec:write"]
     assert "delta encode launched (cache hit)" in [e["name"] for e in write["events"]]
     assert not any(s["name"] == "h2d" for s in spans)
+    c.quiescent()
+
+
+# -- BlueStore shards: the checksum service, the device compressor and fault C8 -------
+
+
+def _offload_perf():
+    from ceph_tpu.compressor.device import default_compress_aggregator as j_compress
+    from ceph_tpu.ops.checksum_offload import default_csum_aggregator as j_csum
+
+    from ceph_tpu_torch.compressor.device import default_compress_aggregator as t_compress
+    from ceph_tpu_torch.ops.checksum_offload import default_csum_aggregator as t_csum
+
+    return {pkg: {name: agg().perf.get("launches") for name, agg in aggs.items()}
+            for pkg, aggs in (("jax", {"csum": j_csum, "compress": j_compress}),
+                              ("torch", {"csum": t_csum, "compress": t_compress}))}
+
+
+@pytest.mark.parametrize("k,m,overwrites,seed,su", [(4, 2, True, 21, 16384),
+                                                    (8, 3, False, 22, 4096),
+                                                    (8, 3, True, 24, 4096)])
+@pytest.mark.parametrize("store", [{"csum_offload": True}, {"compression": "device"},
+                                   {"csum_offload": True, "compression": "device"}],
+                         ids=["csum_offload", "device_compression", "both"])
+def test_seeded_operations_on_bluestore_match_reference(monkeypatch, k, m, overwrites, seed,
+                                                        su, store):
+    """The seeded differential over in-memory BlueStore shards (6 and 11
+    OSDs): stores (block images and KV records), logs, messages, callbacks
+    and reads agree after every pump, and so do the checksum and compress
+    launches, those of the EC-transaction fusion (`_csum_submit`) counted
+    apart.  At a 16 KiB stripe unit the shard writes reach the device
+    compressor's offload size; at Ceph's 4096 they take its host path."""
+    fused = {"jax": 0, "torch": 0}
+    for pkg, cls in (("jax", j_ecb.ECBackend), ("torch", t_ecb.ECBackend)):
+        orig = cls._csum_submit
+
+        def counting(self, chunk, chunk_off, orig=orig, pkg=pkg):
+            ticket = orig(self, chunk, chunk_off)
+            fused[pkg] += ticket is not None
+            return ticket
+
+        monkeypatch.setattr(cls, "_csum_submit", counting)
+    before = _offload_perf()
+    _seeded_operations(k, m, overwrites, False, seed, bluestore=store, stripe_unit=su)
+    after = _offload_perf()
+    moved = {pkg: {n: after[pkg][n] - before[pkg][n] for n in after[pkg]} for pkg in PKGS}
+    assert moved["torch"] == moved["jax"]
+    assert fused["torch"] == fused["jax"]
+    if store.get("csum_offload"):
+        assert fused["torch"] > 0 and moved["torch"]["csum"] > 0
+    if store.get("compression") == "device" and su == 16384:
+        assert moved["torch"]["compress"] > 0
+
+
+@pytest.mark.parametrize("store", [{"csum_offload": True}, {"compression": "device"}],
+                         ids=["csum", "compress"])
+def test_failed_store_launch_fails_the_write_with_eio(store):
+    """Fault C8 through the backend: `codec.launch` armed once the encode
+    is reaped fails every shard store's checksum or compress launch (the
+    probe cannot heal without a card), so every sub-write replies
+    uncommitted, the write gets on_failure(-EIO), no shard commits or logs
+    anything, and once a probe heals the guard the next write commits."""
+    c = Cluster("torch", overwrites=True, bluestore=store)
+    base = bytes(payload(8 * c.sw)[: 4 * c.sw]) + bytes(4 * c.sw)
+    c.write("obj", 0, base)
+    before, logs = c.state(), c.logs()
+    fb0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    for st in c.stores:
+        orig = st.queue_transaction
+
+        def armed(txn, on_commit=None, orig=orig):
+            global_injector().inject("codec.launch", 5)
+            return orig(txn, on_commit)
+
+        st.queue_transaction = armed
+    events = []
+    c.submit(c.pgt("obj").write(0, payload(8 * c.sw, seed=4)), 2, events, 1)
+    c.pump()
+    global_injector().clear()
+    for st in c.stores:
+        del st.queue_transaction
+    assert events == [(1, "fail", -EIO)]
+    assert device_guard().degraded
+    assert c.logs() == logs
+    assert any("sub-write on shard" in e for e in c.listeners[0].clog)
+    assert dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fb0
+    device_guard().configure(probe_interval_ms=1)
+    time.sleep(0.01)
+    assert device_guard().maybe_probe(lambda: None) is True
+    assert c.state() == before
+    data = payload(8 * c.sw, seed=5)
+    c.submit(c.pgt("obj").write(0, data), 3, events, 2)
+    c.pump()
+    assert events[-1] == (2, "commit")
+    assert c.read("obj", 0, len(data)) == data
+    c.quiescent()
+
+
+def _logical_state(c):
+    """Every shard's objects (bytes, xattrs, omap), without the block
+    image or the KV records: a store that failed a transaction keeps the
+    blocks it allocated while staging until its next mount, so a shard
+    that applies a write on its second try lays it out elsewhere."""
+    return [
+        {coll: {oid: (st.read(coll, oid), st.getattrs(coll, oid), st.omap_get(coll, oid))
+                for oid in st.list_objects(coll)}
+         for coll in st.list_collections()}
+        for st in c.stores
+    ]
+
+
+@pytest.mark.parametrize("heal", ["at_fault", "later"])
+@pytest.mark.parametrize("shard", [1, 3, 5])
+@pytest.mark.parametrize("store", [{"csum_offload": True}, {"compression": "device"}],
+                         ids=["csum", "compress"])
+def test_partly_applied_sub_write_rolls_forward(store, shard, heal):
+    """Fault C8 after some shards committed: only `shard`'s store fails
+    its launch, so the shards before it in the fan-out hold the new
+    version.  A second write to the object is already fanned out.  With
+    the guard healed at once (`at_fault`), the shards after it commit
+    both writes; `shard` is fenced against the second until the primary
+    sends it the first again, so both roll forward in order.  Left
+    DEGRADED (`later`), every later shard is refused too: nothing
+    commits, the first write waits with its failed shards left out of
+    reads, so a read returns a whole version or EIO, and once the probe
+    heals the guard it commits.  The second write commits too (on the
+    shards its data needed no launch, it may hold before the heal), or fails
+    with EIO where it applied nowhere.  Either way the shards end equal
+    to a cluster that took the committed writes without a fault, and no
+    shard is left fenced."""
+    c = Cluster("torch", overwrites=True, bluestore=store)
+    control = Cluster("torch", overwrites=True, bluestore=store)
+    old = payload(8 * c.sw, seed=3)
+    writes = {1: (0, payload(8 * c.sw, seed=4)), 2: (c.sw + 100, payload(3 * c.sw, seed=6))}
+    for cl in (c, control):
+        cl.write("obj", 0, old)
+    st = c.stores[shard]
+
+    def armed(txn, on_commit=None, orig=st.queue_transaction):
+        if not armed.fired:
+            armed.fired = True
+            global_injector().inject("codec.launch", EIO, 1)
+            try:
+                return orig(txn, on_commit)
+            finally:
+                assert device_guard().degraded
+                if heal == "at_fault":
+                    device_guard().mark_healthy()
+        return orig(txn, on_commit)
+
+    armed.fired = False
+    st.queue_transaction = armed
+    events = []
+    try:
+        for tag, (off, data) in writes.items():
+            c.submit(c.pgt("obj").write(off, data), tag + 1, events, tag)
+        c.pump()
+        assert armed.fired
+        if heal == "later":
+            assert not any(e[1] == "commit" for e in events)
+            assert device_guard().degraded
+            first = c.primary.in_flight[min(c.primary.in_flight)]
+            assert first.torn_shards == set(range(shard, 6))
+            assert any("re-sending once the device" in e for e in c.listeners[0].clog)
+            both = bytearray(writes[1][1])
+            both[writes[2][0]:writes[2][0] + len(writes[2][1])] = writes[2][1]
+            err, bufs = c.read_raw("obj", [(0, len(old))])
+            assert err == -EIO or bufs[0] in (old, writes[1][1], bytes(both))
+            device_guard().mark_healthy()
+            c.pump()
+    finally:
+        global_injector().clear()
+        device_guard().mark_healthy()
+        del st.queue_transaction
+    assert sorted(e[0] for e in events) == [1, 2]
+    assert (1, "commit") in events
+    if heal == "at_fault":
+        assert (2, "commit") in events
+    want = bytearray(old)
+    ctl_events = []
+    for tag, (off, data) in writes.items():
+        if (tag, "commit") in events:
+            control.submit(control.pgt("obj").write(off, data), tag + 1, ctl_events, tag)
+            want[off:off + len(data)] = data
+        else:
+            assert (tag, "fail", -EIO) in events
+    control.pump()
+    assert sorted(ctl_events) == sorted(e for e in events if e[1] == "commit")
+    assert c.read("obj", 0, len(old)) == bytes(want)
+    assert _logical_state(c) == _logical_state(control)
+    assert c.logs() == control.logs()
+    assert c.primary.sub_write_retries >= 6 - shard if heal == "later" else 2
+    assert not any(b._sub_write_fences for b in c.backends)
     c.quiescent()

@@ -27,12 +27,16 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) >= 15
     for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu",
-                   "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc", "gf2_plane.cu"):
+                   "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc", "gf2_plane.cu",
+                   "xor_reduce.cu", "crc32c.cu", "compress_transform.cu"):
         assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
     for module in ("gf/gf2.py", "codec/jerasure.py", "codec/shec.py", "codec/lrc.py",
                    "codec/clay.py", "codec/plugins/jerasure.py", "codec/plugins/isa.py",
                    "codec/plugins/xor.py", "codec/plugins/shec.py", "codec/plugins/lrc.py",
-                   "codec/plugins/clay.py", "ops/device_cache.py", "osd/scrubber.py"):
+                   "codec/plugins/clay.py", "ops/device_cache.py", "osd/scrubber.py",
+                   "os/kv.py", "os/bluestore.py", "os/filestore.py", "compressor/__init__.py",
+                   "compressor/registry.py", "compressor/device.py",
+                   "ops/checksum_offload.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -191,6 +195,33 @@ def test_scrub_and_device_cache_import_leaves_jax_out():
         "assert cache.invalidate_object('o') == 1\n"
         "assert ScrubResult().clean and CHUNK_MAX == 25\n"
         "assert 'cache.hits' in dispatch.perf_dump() and device_chunk_cache().enabled\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_bluestore_and_offload_services_import_leaves_jax_out():
+    """The device compressor, the checksum service and BlueStore import
+    neither jax nor the JAX package: a CPU BlueStore with the checksum
+    offload and the device compressor writes and reads back an object."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.compressor.device\n"
+        "import ceph_tpu_torch.os.bluestore\n"
+        "from ceph_tpu_torch.ops.offload_runtime import offload_services\n"
+        "from ceph_tpu_torch.os import BlueStore, Transaction\n"
+        "s = BlueStore(None, compression='device', csum_offload=True, device='cpu')\n"
+        "s.mount()\n"
+        "s.queue_transaction(Transaction().create_collection('c'))\n"
+        "data = (bytes(range(16)) + bytes(48)) * 1024\n"
+        "s.queue_transaction(Transaction().write('c', 'o', 0, data))\n"
+        "assert s.read('c', 'o') == data\n"
+        "assert sorted(offload_services()) == ['compress', 'csum', 'decode', 'encode', 'verify']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

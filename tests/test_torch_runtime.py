@@ -4,7 +4,11 @@ ledger, the dmClock scheduler, the flight recorder, the launch scheduler,
 the device guard and the dispatch gauges), each pinned to the JAX package's
 copy: the same inputs give the same results, exactly."""
 
+import ast
 import gc
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -34,8 +38,8 @@ from ceph_tpu_torch.osd import scheduler
 
 from torch_leak_gate import port_leak_gate  # noqa: F401  (autouse)
 
-# the reference's services that the port has not ported yet (ROADMAP A7)
-UNPORTED_SERVICES = ("csum", "compress")
+# the reference's services that the port has not ported yet: none since A7
+UNPORTED_SERVICES = ()
 
 
 @pytest.fixture(autouse=True)
@@ -58,13 +62,16 @@ def _cpu_codec(k=4, m=2):
 
 def test_option_table_is_the_runtime_slice():
     names = set(options.OPTIONS)
-    assert len(names) == 25
+    assert len(names) == 32
     for lane in ("client", "recovery", "background"):
         for knob in ("res", "wgt", "lim"):
             assert f"ec_tpu_sched_{lane}_{knob}" in names
     assert {"ec_tpu_pipeline_depth", "ec_tpu_inflight_max_bytes", "ec_tpu_launch_timeout_ms",
             "ec_tpu_hbm_target_bytes", "ec_tpu_verify_aggregate_window",
             "ec_tpu_device_cache_bytes", "ec_tpu_rmw_delta"} <= names
+    assert {"osd_objectstore", "osd_data", "bluestore_compression_algorithm",
+            "bluestore_compression_required_ratio", "bluestore_csum_offload",
+            "bluestore_csum_offload_window", "bluestore_csum_offload_max_bytes"} <= names
 
 
 def test_option_see_also_names_options_of_the_table():
@@ -495,9 +502,25 @@ def test_dispatch_perf_dump_keys_match_reference():
 
 
 def test_offload_registry_and_perf_dump_match_reference():
+    # Registration follows import order, and a test process imports the
+    # service modules in whatever order its test files do.  So the order
+    # is compared in a fresh process, where each package's offload_services
+    # imports its built-in services itself.
+    code = (
+        "from ceph_tpu.ops import offload_runtime as j\n"
+        "from ceph_tpu_torch.ops import offload_runtime as t\n"
+        "print(repr((t.offload_services(), j.offload_services())))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=os.path.dirname(os.path.dirname(__file__)),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    fresh, jfresh = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert fresh == ("encode", "decode", "verify", "compress", "csum")
+    assert tuple(s for s in jfresh if s not in UNPORTED_SERVICES) == fresh
     services = offload_runtime.offload_services()
-    assert services == ("encode", "decode", "verify")
-    assert tuple(s for s in jruntime.offload_services() if s not in UNPORTED_SERVICES) == services
+    assert sorted(services) == sorted(fresh)
     assert offload_runtime.service_aggregator("encode") is matrix_codec.default_encode_aggregator()
     assert offload_runtime.service("verify").lane == "background"
     again = offload_runtime.register_service("encode", lambda: None)
@@ -508,6 +531,6 @@ def test_offload_registry_and_perf_dump_match_reference():
     ref = jruntime.offload_perf_dump()
     ref_keys = {k for k in ref if k.split(".")[0] not in UNPORTED_SERVICES}
     assert set(ours) == ref_keys
-    assert ours["services"] == 3
+    assert ours["services"] == 5
     agg = matrix_codec.default_verify_aggregator()
     assert (agg.window, agg.max_bytes, agg.pipeline_depth) == (64, 64 << 20, 2)
