@@ -14,8 +14,9 @@ per aggregation window through the shared offload runtime
   `compress` path, as in the reference).
 - `transform_rows_plain` is the same transform in plain torch.
 - `transform_rows_device` is the kernel wrapper: a CUDA tensor launches
-  csrc/compress_transform.cu (`transform_rows_device.launches` counts) or
-  raises; a CPU tensor takes `transform_rows_plain`.
+  csrc/compress_transform.cu (`transform_rows_device.launches` counts, and
+  `.path_launches` by the path its C entry chose) or raises; a
+  CPU tensor takes `transform_rows_plain`.
 
 A failed or refused transform launch raises EcError(EIO) at the reap; the
 store transaction that needed it fails whole, and nothing is recomputed on
@@ -88,10 +89,13 @@ def build_library() -> ctypes.CDLL:
     raises."""
     global _LIB
     if _LIB is None:
-        built = _nvcc.build("compress_transform", SOURCE, {"compress_transform_launch": [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]})
+        built = _nvcc.build("compress_transform", SOURCE, {
+            "compress_transform_launch": [
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ],
+            "compress_transform_path": [ctypes.c_longlong],
+        })
         build_info.update(built.info)
         _LIB = built.lib
     return _LIB
@@ -123,6 +127,9 @@ def transform_rows_device(rows: torch.Tensor) -> torch.Tensor:
     if rows.stride(1) != 1:
         rows = rows.contiguous()
     lib = build_library()
+    # the C entry's choice by Lp alone: "tiles" (64x64-byte tiles transposed
+    # in registers, one warp a tile) or "general" (one block a row)
+    path = "tiles" if lib.compress_transform_path(Lp) else "general"
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.compress_transform_launch(rows.data_ptr(), S, Lp,
@@ -132,10 +139,12 @@ def transform_rows_device(rows: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"transform_rows_device: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
         transform_rows_device.launches += 1
+        transform_rows_device.path_launches[path] += 1
     return out
 
 
 transform_rows_device.launches = 0  # kernel launches (plain-version calls excluded)
+transform_rows_device.path_launches = {"tiles": 0, "general": 0}
 
 
 def assemble_blob(transformed: np.ndarray, orig_len: int) -> bytes:

@@ -125,13 +125,34 @@ def crc32c_host_rows(blocks: np.ndarray) -> np.ndarray:
 # -- the kernel's operand ---------------------------------------------------------
 #
 # csrc/crc32c.cu applies 32x32 GF(2) operators on the 32-bit linear CRC
-# register as four 256-entry byte tables each (x -> XOR of t_k[byte k of x]).
-# Rows of the operand, in the order the kernel indexes them:
-#   0..15    L16: byte p (p = 0..15) of a 16-byte vector, from the zero state
-#   16..19   S512: 512 zero bytes
-#   20..39   S16, S32, S64, S128, S256 (the warp's fold tree)
-#   40..103  U_z for z = 0..15: the inverse of z zero bytes (a row's tail)
-KERNEL_TABLES = 104
+# register as the XOR of tables indexed by fields of the operator's input:
+# 5-bit fields for the hot loop's two operators (a table of 32 words sits
+# in the 32 banks of shared memory, so any 32 reads of one are one
+# wavefront), 4-bit nibbles for the two the loop does not run.  The
+# operand is one flat uint32 array, in the order the kernel reads it:
+#   (word 0)    52 tables x 32: L32, field f (bits 5f .. 5f + 4) of a lane's
+#               32-byte piece (two 16-byte vectors), from the zero state
+#   OP_S        7 tables x 32: S1024, 1024 zero bytes, by 5-bit field
+#   OP_FOLD     32 lanes x 8 nibble tables x 16: F_i, the 32 (31 - i) zero
+#               bytes that follow lane i's last piece in its row
+#   OP_UNSHIFT  16 x 8 nibble tables x 16: U_z for z = 0..15, the inverse of
+#               z zero bytes (a row's tail)
+# Each block copies the L32, S1024 and U_z tables into shared memory as they
+# are and lays OP_FOLD out once per lane, entry e of table t for lane l at
+# word (t * 16 + e) * 32 + l (`kernel_image` builds the same image on the
+# host for the tests).
+FIELD_BITS = 5
+PIECE_BYTES = 32                                   # a lane's bytes a step
+L_TABLES = -(-8 * PIECE_BYTES // FIELD_BITS)       # 52
+S_TABLES = -(-32 // FIELD_BITS)                    # 7
+OP_S = L_TABLES << FIELD_BITS
+OP_FOLD = OP_S + (S_TABLES << FIELD_BITS)
+OP_UNSHIFT = OP_FOLD + 32 * 8 * 16
+KERNEL_WORDS = OP_UNSHIFT + 16 * 8 * 16            # 8032
+# the image's regions, in words from its 2048-byte aligned base
+IMG_FOLD, IMG_L = 0, 8 * 512
+IMG_S = IMG_L + OP_S
+IMG_UNSHIFT = IMG_S + (S_TABLES << FIELD_BITS)
 _TABLES_LOCK = threading.Lock()
 _HOST_TABLES: np.ndarray | None = None
 _DEVICE_TABLES: dict[str, torch.Tensor] = {}
@@ -145,14 +166,20 @@ def _zero_steps(c: np.ndarray, n: int) -> np.ndarray:
     return c
 
 
-def _byte_tables(columns: np.ndarray) -> np.ndarray:
-    """(4, 256) byte tables of the operator whose image of bit e is
-    columns[e]."""
-    bits = (np.arange(256, dtype=np.uint32)[:, None] >> np.arange(8, dtype=np.uint32)) & 1
-    out = np.zeros((4, 256), dtype=np.uint32)
-    for k in range(4):
-        cols = columns[8 * k: 8 * k + 8]
-        out[k] = np.bitwise_xor.reduce(np.where(bits.astype(bool), cols[None, :], 0), axis=1)
+def _field_tables(columns: np.ndarray, bits: int) -> np.ndarray:
+    """(ceil(n / bits), 2**bits) tables of the operator whose image of input
+    bit b is columns[b] (n = len(columns)): table f, entry e = the image of
+    e << (bits f), the bits past the input's end left out."""
+    n = len(columns)
+    nt = -(-n // bits)
+    cols = np.zeros(nt * bits, dtype=np.uint32)
+    cols[:n] = columns
+    sel = ((np.arange(1 << bits, dtype=np.uint32)[:, None] >> np.arange(bits, dtype=np.uint32))
+           & 1).astype(bool)
+    out = np.zeros((nt, 1 << bits), dtype=np.uint32)
+    for f in range(nt):
+        out[f] = np.bitwise_xor.reduce(np.where(sel, cols[None, bits * f: bits * f + bits], 0),
+                                       axis=1)
     return out
 
 
@@ -172,22 +199,44 @@ def _gf2_inverse(columns: np.ndarray) -> np.ndarray:
 
 
 def kernel_tables() -> np.ndarray:
-    """The kernel's operand, (KERNEL_TABLES, 256) uint32, built once."""
+    """The kernel's operand, (KERNEL_WORDS,) uint32, built once: the tables
+    of L32 (a lane's PIECE_BYTES-byte piece, by FIELD_BITS-bit field) and of
+    S1024 (32 PIECE_BYTES zero bytes, by field), then F (per lane) and U_z,
+    by nibble."""
     global _HOST_TABLES
     with _TABLES_LOCK:
         if _HOST_TABLES is not None:
             return _HOST_TABLES
     basis = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
-    rows = [_zero_steps(_TABLE, 15 - p)[None, :] for p in range(16)]
-    for n in (512, 16, 32, 64, 128, 256):
-        rows.append(_byte_tables(_zero_steps(basis, n)))
-    for z in range(16):
-        rows.append(_byte_tables(_gf2_inverse(_zero_steps(basis, z))))
-    tables = np.ascontiguousarray(np.concatenate(rows, axis=0), dtype=np.uint32)
-    assert tables.shape == (KERNEL_TABLES, 256)
+    # bit j of the piece is bit j % 8 of byte j // 8, followed by the piece's
+    # PIECE_BYTES - 1 - j // 8 other bytes
+    piece = np.concatenate([_zero_steps(_TABLE, PIECE_BYTES - 1 - p)[1 << np.arange(8)]
+                            for p in range(PIECE_BYTES)])
+    fold = np.empty((32, 8, 16), dtype=np.uint32)
+    cols = basis
+    for lane in range(31, -1, -1):
+        fold[lane] = _field_tables(cols, 4)
+        cols = _zero_steps(cols, PIECE_BYTES)
+    unshift = np.stack([_field_tables(_gf2_inverse(_zero_steps(basis, z)), 4)
+                        for z in range(16)])
+    tables = np.concatenate([
+        _field_tables(piece, FIELD_BITS).ravel(),
+        _field_tables(_zero_steps(basis, 32 * PIECE_BYTES), FIELD_BITS).ravel(),
+        fold.ravel(), unshift.ravel()]).astype(np.uint32)
+    assert tables.shape == (KERNEL_WORDS,)
     with _TABLES_LOCK:
         _HOST_TABLES = tables
     return tables
+
+
+def kernel_image(op: np.ndarray) -> np.ndarray:
+    """The shared-memory image csrc/crc32c.cu builds from its operand, in
+    words: F laid out once per lane (entry e of table t for lane l at word
+    (t * 16 + e) * 32 + l), then L32, S1024 and U_z as they are."""
+    i = np.arange(8 * 512)
+    t, e, lane = i >> 9, (i >> 5) & 15, i & 31
+    fold = op[OP_FOLD + (lane * 8 + t) * 16 + e]
+    return np.concatenate([fold, op[:OP_FOLD], op[OP_UNSHIFT:]]).astype(np.uint32)
 
 
 def _device_tables(device: torch.device) -> torch.Tensor:
@@ -234,9 +283,9 @@ def crc32c_device(blocks: torch.Tensor) -> torch.Tensor:
         return crc32c_plain(blocks)
     if blocks.device.type != "cuda":
         raise ValueError(f"crc32c_device: unsupported device {blocks.device}")
-    out = torch.zeros(S, dtype=torch.int64, device=blocks.device)
     if S == 0 or L == 0:
-        return out
+        return torch.zeros(S, dtype=torch.int64, device=blocks.device)
+    out = torch.empty(S, dtype=torch.int64, device=blocks.device)  # the kernel writes every row
     if blocks.stride(1) != 1:
         blocks = blocks.contiguous()
     tables = _device_tables(blocks.device)

@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--parent DIR]
 
 With --parent, phase 7c also times the packed kernels of the older
-checkout at DIR beside this one's (parent, this, this, parent), each in a
-process of its own.
+checkout at DIR beside this one's, and phase 12b its crc32c and transform
+kernels (parent, this, this, parent), each in a process of its own.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -271,14 +271,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    parity row, and 10b those of plugin xor).  12a: each kernel against its
    plain version and its host oracle, byte for byte, on dense rows and on a
    misaligned strided view: crc32c at L in {1, 3, 63, 64, 100, 4095, 4096,
-   4097, 65536} and S in {1, 7, 1408, 11264} (up to 64 MiB of rows; the
-   plain version, whose bit planes take 32 bytes a byte, up to 4 MiB);
-   the transform at Lp in {64, 128, 192, 4032, 4096, 4160, 65536}; xor_reduce
-   at k in {1, 2, 8, 11}, lead shapes of rank 1 and 2.  12b: each kernel
-   at its bulk shape ((65536, 4096); (256, 8, 131072) for xor_reduce) and
-   at the path's ((11264, 4096) and (128, 4096); (1, 8, 524288)), median of
-   20 runs of 5 calls, beside its bound and plain version, and the
-   transpose alone beside the transform.  12c: phase 9's pool rbd (RS(8,3),
+   4097, 65536} and S in {1, 7, 128, 1408, 11264} (up to 64 MiB of rows;
+   the plain version, whose bit planes take 32 bytes a byte, up to 48
+   MiB), and on zero-heavy, all-zero and constant rows (the patterns whose
+   table reads broadcast) at L in {4096, 4097, 65536}; the transform at Lp
+   in {64, 128, 192, 4032, 4096, 4160, 65536, 8192, 262144} (up to 96 MiB
+   of rows; each launch counted on the path the C entry chose, tiles
+   exactly where Lp % 4096 == 0); xor_reduce at k in
+   {1, 2, 8, 11}, lead shapes of rank 1 and 2.  Phase 1 prints ptxas's
+   registers of crc32c_kernel and transform_tiles_kernel, the SASS of
+   crc32c's step loop (fails unless it reads each of its 59 tables once)
+   and the tile kernel's PRMT/LDGSTS/STG.E.128, and fails on local memory
+   in either.  12b: each kernel at its bulk shape
+   ((65536, 4096); (256, 8, 131072) for xor_reduce) and at the path's
+   ((11264, 4096) and (128, 4096); (1, 8, 524288)), median of 20 runs of
+   5 calls, beside its bound and plain version, and the transpose alone
+   beside the transform; crc32c also on zero-heavy bulk rows, the
+   transform's general path at (65536, 4160); with --parent, the older
+   tree's two kernels at those shapes, in turns with this one's.  12d
+   checks that every transform launch of BlueStore's 4 KiB blocks took
+   the tile path.  12c: phase 9's pool rbd (RS(8,3),
    stripe unit 4096, 11 OSDs) over in-memory BlueStores, 64 WRITEFULLs of
    4 MiB at QD1 and QD8, the checksum offload off and then on (fresh
    clusters); MB/s, crc32c launches a write, the blocks the stores
@@ -651,11 +663,13 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
     check_packed_build(infos["packed_gf"])
     for label, kernel in (("gf2_plane", "gf2_plane_kernel"), ("xor_reduce", "xor_reduce_kernel"),
                           ("crc32c", "crc32c_kernel"),
-                          ("compress_transform", "transform_kernel")):
+                          ("compress_transform", "transform_kernel"),
+                          ("compress_transform", "transform_tiles_kernel")):
         lines = ptxas_lines(infos[label], kernel)
         check("ptxas" not in infos[label] or len(lines) >= 2, f"no ptxas lines for {label}")
         check(not any("spill" in line and not re.search(r"\b0 bytes spill stores", line)
                       for line in lines), f"{kernel} spills: {lines}")
+    check_bluestore_sass(nvcc, infos)
     for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
                    GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
         for line in ptxas_lines(infos["bitmatrix"], kernel):
@@ -673,6 +687,43 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
             and re.search(r"\b0 bytes spill loads", line))]
         check(not spills, f"{family} instances spill: {spills}")
     return name, card, infos
+
+
+def check_bluestore_sass(nvcc: str, infos: dict) -> None:
+    """The redesigned crc32c and transform kernels as compiled: ptxas's
+    registers of each; crc32c's innermost loop (one 1 KiB warp step: an LDS
+    for each of its 52 L32 and 7 S1024 tables) and its opcode mix; the tile
+    kernel's PRMT, LDGSTS, LDS and 16-byte stores.  Fails on local memory
+    in either, or on a step loop that does not read its 59 tables."""
+    from ceph_tpu_torch.ops import checksum_offload as co
+
+    for label, kernel in (("crc32c", "crc32c_kernel"),
+                          ("compress_transform", "transform_tiles_kernel")):
+        for line in ptxas_lines(infos[label], kernel):
+            print(f"[1]   ptxas {kernel}: {line}")
+    loops = sass_loops(nvcc, infos["crc32c"]["library"], "crc32c_kernel")
+    if loops is None:
+        print("[1] SASS: no cuobjdump in the toolkit, crc32c and the tiles not counted")
+        return
+    tables = co.L_TABLES + co.S_TABLES
+    step = min((loop for loop in loops
+                if count_prefix(collections.Counter(loop), "LDS") >= tables), key=len, default=None)
+    check(step is not None, f"crc32c_kernel: no loop with {tables} LDS "
+                            f"({[len(x) for x in loops]} instructions)")
+    mix = collections.Counter(step)
+    lds = count_prefix(mix, "LDS")
+    print(f"[1] crc32c_kernel step loop (1 KiB a warp): {len(step)} instructions, {lds} LDS "
+          f"({len(step) - lds} others); " + ", ".join(f"{op} {n}" for op, n in mix.most_common(8)))
+    check(lds == tables, f"crc32c_kernel: {lds} LDS in its step loop, want {tables}")
+    for label, kernel in (("crc32c", "crc32c_kernel"),
+                          ("compress_transform", "transform_tiles_kernelILb1E")):
+        ops = sass_opcodes(nvcc, infos[label]["library"], kernel)
+        local = count_prefix(ops, "LDL") + count_prefix(ops, "STL")
+        print(f"[1] {kernel} SASS: {sum(ops.values())} instructions, {local} local; "
+              f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LDGSTS')} LDGSTS, "
+              f"{count_prefix(ops, 'LDS')} LDS, {count_prefix(ops, 'STG.E.128')} STG.E.128, "
+              f"{count_prefix(ops, 'SHFL')} SHFL, {count_prefix(ops, 'REDUX')} REDUX")
+        check(local == 0, f"{kernel}: {local} local-memory instructions")
 
 
 def check_swar_gf_build(nvcc: str, info: dict) -> None:
@@ -1828,24 +1879,22 @@ def packed_compare(torch, packed, gf) -> dict:
     return out
 
 
-def parent_comparison(parent: str | None) -> dict:
-    """`packed_compare` of an older tree (`parent`, the root of a checkout of
-    it) beside this one's, in turns (parent, this, this, parent), each in a
-    process of its own so both trees' ceph_tpu_torch are imported under
-    their own name.  Returns, per kernel, the parent's best ms and device
-    ms (empty without a parent)."""
-    if parent is None:
-        print("[7] parent comparison: not run (no --parent DIR)")
-        return {}
+def timing_turns(parent: str, flag: str, tag: str, card: str = "") -> list[dict]:
+    """`chip_smoke.py <flag> ROOT` for an older tree (`parent`, the root of a
+    checkout of it) and this one in turns (parent, this, this, parent), each
+    in a process of its own so both trees' ceph_tpu_torch are imported under
+    their own name.  Prints each timed name's four results and the
+    change/parent ratio of the best of each side; returns the four JSON
+    results."""
     runs = []
     here = os.path.dirname(os.path.abspath(__file__))
     for root in (parent, here, here, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--packed-timing-of",
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
                                os.path.abspath(root)], capture_output=True, text=True,
                               timeout=600)
         lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
         check(proc.returncode == 0 and lines,
-              f"packed timing of {root} failed: {proc.stderr.strip()[-2000:]}")
+              f"{flag} {root} failed: {proc.stderr.strip()[-2000:]}")
         runs.append(json.loads(lines[-1]))
     label = ("parent", "change", "change", "parent")
     for name in runs[0]:
@@ -1854,12 +1903,73 @@ def parent_comparison(parent: str | None) -> dict:
             + (f", host {r[name]['host_us']:.1f} us" if "host_us" in r[name] else "")
             for who, r in zip(label, runs))
         best = lambda rs, key: min(r[name][key] for r in rs)
-        print(f"[7] {name} parent/change: {cells}; change/parent "
+        print(f"[{tag}] {name} parent/change: {cells}; change/parent "
               f"{best(runs[1:3], 'ms') / best(runs[::3], 'ms'):.3f}x (ms), "
-              f"{best(runs[1:3], 'device_ms') / best(runs[::3], 'device_ms'):.3f}x (device)")
+              f"{best(runs[1:3], 'device_ms') / best(runs[::3], 'device_ms'):.3f}x (device)"
+              + (f"; {card}" if card else ""))
+    return runs
+
+
+def parent_minima(runs: list[dict], names) -> dict:
     return {name: {"parent_ms": min(r[name]["ms"] for r in runs[::3]),
                    "parent_device_ms": min(r[name]["device_ms"] for r in runs[::3])}
-            for name in ("packed_code", "packed_verify", "packed_delta")}
+            for name in names}
+
+
+def parent_comparison(parent: str | None) -> dict:
+    """`packed_compare` of an older tree beside this one's (`timing_turns`).
+    Returns, per kernel, the parent's best ms and device ms (empty without
+    a parent)."""
+    if parent is None:
+        print("[7] parent comparison: not run (no --parent DIR)")
+        return {}
+    runs = timing_turns(parent, "--packed-timing-of", "7")
+    return parent_minima(runs, ("packed_code", "packed_verify", "packed_delta"))
+
+
+def bluestore_compare(torch, co, dev) -> dict:
+    """One tree's crc32c and transform kernels (this checkout's, or an older
+    one's through --bluestore-timing-of) at 12b's shapes: ms (`time_ms`) and
+    device ms (`device_ms`) of crc32c at CRC_BULK on random and on
+    zero-heavy rows and at CRC_PATH, and of the transform at XFORM_BULK,
+    XFORM_PATH and XFORM_GENERAL, on random rows.  Uses only the wrappers
+    every tree since the two kernels landed has."""
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED + 124)
+    rand = lambda *shape: torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                                        generator=gen)
+    out = {}
+
+    def timed(name, fn):
+        out[name] = {"ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn)}
+
+    for S, L in (CRC_BULK, *CRC_PATH):
+        rows = rand(S, L)
+        timed(f"crc32c {S}x{L}", lambda: co.crc32c_device(rows))
+        if (S, L) == CRC_BULK:
+            rows[torch.rand((S, L), device=cuda, generator=gen) < 0.875] = 0
+            timed(f"crc32c {S}x{L} zero-heavy", lambda: co.crc32c_device(rows))
+        del rows
+    for S, Lp in (XFORM_BULK, *XFORM_PATH, XFORM_GENERAL):
+        rows = rand(S, Lp)
+        timed(f"compress_transform {S}x{Lp}", lambda: dev.transform_rows_device(rows))
+        del rows
+    return out
+
+
+def bluestore_parent_comparison(parent: str | None, card: str) -> dict:
+    """12b's kernels of an older tree beside this one's (`timing_turns` of
+    `bluestore_compare`).  Returns, per timed name, the parent's best ms and
+    device ms (empty without a parent)."""
+    if parent is None:
+        print("[12] 12b parent comparison: not run (no --parent DIR)")
+        return {}
+    import torch
+
+    torch.cuda.empty_cache()
+    runs = timing_turns(parent, "--bluestore-timing-of", "12", card)
+    return parent_minima(runs, runs[0])
 
 
 def verify_host_steps(torch, packed, plan, cw, calls: int = 2000) -> dict:
@@ -3792,19 +3902,34 @@ CRC_LENGTHS = (1, 3, 63, 64, 100, 4095, 4096, 4097, 65536)
 CRC_STRIPES = (1, 7, 128, 1408, 11264)
 CRC_ORACLE_BYTES = 64 << 20
 CRC_PLAIN_BYTES = 48 << 20
-XFORM_LPS = (64, 128, 192, 4032, 4096, 4160, 65536)
+XFORM_LPS = (64, 128, 192, 4032, 4096, 4160, 65536, 8192, 262144)
 XFORM_STRIPES = (1, 7, 128, 1408)
+XFORM_MAX_BYTES = 96 << 20  # rows of a checked transform shape
+CRC_PATTERN_LENGTHS = (4096, 4097, 65536)
+CRC_PATTERN_STRIPES = (128, 1408)
 XOR_KS = (1, 2, 8, 11)
 CRC_BULK = (65536, 4096)
 CRC_PATH = ((11264, 4096), (128, 4096))
 XFORM_BULK = (65536, 4096)
 XFORM_PATH = ((128, 4096),)
+XFORM_GENERAL = (65536, 4160)  # the general path (Lp % 4096 != 0), timed
 XOR_BULK = BULK
 XOR_PATH = ((1, 8, 524288),)
 BS_OBJECTS = 64
 BS_QD = 8
 BS_RATIO = 0.875  # Ceph's default bluestore_compression_required_ratio
 BS_DRILL_BYTES = 1 << 20
+
+
+def crc_patterns(rng, S: int, L: int):
+    """(name, (S, L) uint8 rows) of the data patterns that make table reads
+    broadcast: zero-heavy (7 bytes of 8 zero, every 4th row all zero), all
+    zero, and one constant byte."""
+    heavy = rng.integers(0, 256, (S, L), dtype=np.uint8)
+    heavy[rng.random((S, L)) < 0.875] = 0
+    heavy[::4] = 0
+    return (("zero-heavy", heavy), ("zeros", np.zeros((S, L), np.uint8)),
+            ("constant 0x5a", np.full((S, L), 0x5A, np.uint8)))
 
 
 def bluestore_kernel_checks(torch, co, dev, xor_mm) -> dict:
@@ -3831,15 +3956,48 @@ def bluestore_kernel_checks(torch, co, dev, xor_mm) -> dict:
                     err["crc32c"] = max(err["crc32c"], int(np.abs(got - plain).max()))
                     check(np.array_equal(got, plain), f"12a crc32c ({S}, {L}) {label} != plain")
                 cases += 1
+    # the data patterns whose table reads broadcast (all lanes at one entry)
+    for L in CRC_PATTERN_LENGTHS:
+        for S in CRC_PATTERN_STRIPES:
+            if S * L > CRC_ORACLE_BYTES:
+                continue
+            for pattern, host in crc_patterns(rng, S, L + 5):
+                rows = torch.from_numpy(host).to(cuda)
+                for label, view, hview in (("dense", rows[:, :L].contiguous(), host[:, :L]),
+                                           ("strided+3", rows[:, 3:L + 3], host[:, 3:L + 3])):
+                    got = co.crc32c_device(view).cpu().numpy()
+                    want = co.crc32c_host_rows(hview).astype(np.int64)
+                    err["crc32c"] = max(err["crc32c"], int(np.abs(got - want).max()))
+                    check(np.array_equal(got, want),
+                          f"12a crc32c ({S}, {L}) {pattern} {label} != crc32c")
+                    if S * L <= CRC_PLAIN_BYTES:
+                        plain = co.crc32c_plain(view).cpu().numpy()
+                        err["crc32c"] = max(err["crc32c"], int(np.abs(got - plain).max()))
+                        check(np.array_equal(got, plain),
+                              f"12a crc32c ({S}, {L}) {pattern} {label} != plain")
+                    cases += 1
+    # the C entry chooses the transform's path by Lp alone: tiles exactly
+    # where Lp % 4096 == 0
+    lib = dev.build_library()
+    for Lp in (64 * 4097, 4096 * 3, 1 << 29):
+        check(lib.compress_transform_path(Lp) == (Lp % 4096 == 0),
+              f"12a transform path of Lp {Lp}: the C entry says {lib.compress_transform_path(Lp)}")
     for Lp in XFORM_LPS:
+        want_path = "tiles" if Lp % 4096 == 0 else "general"
         for S in XFORM_STRIPES:
+            if S * Lp > XFORM_MAX_BYTES:
+                continue
             host = rng.integers(0, 256, (S, Lp + 64), dtype=np.uint8)
             host[:, (np.arange(Lp + 64) % 64) >= 20] = 0  # zero planes: flags vary
             host[::4] = 0
             rows = torch.from_numpy(host).to(cuda)
             for label, view, hview in (("dense", rows[:, :Lp].contiguous(), host[:, :Lp]),
                                        ("strided+1", rows[:, 1:Lp + 1], host[:, 1:Lp + 1])):
+                paths = dict(dev.transform_rows_device.path_launches)
                 got = dev.transform_rows_device(view)
+                check(dev.transform_rows_device.path_launches[want_path]
+                      == paths[want_path] + 1, f"12a transform ({S}, {Lp}) {label}: "
+                      f"not one launch on the {want_path} path")
                 want = dev.transform_rows(np.ascontiguousarray(hview))
                 plain = dev.transform_rows_plain(view)
                 for other, name in ((torch.from_numpy(want).to(cuda), "transform_rows"),
@@ -3867,7 +4025,9 @@ def bluestore_kernel_checks(torch, co, dev, xor_mm) -> dict:
                 cases += 1
     torch.cuda.synchronize()
     print(f"[12] 12a: {cases} cases, crc32c at L {CRC_LENGTHS} x S {CRC_STRIPES} (dense and "
-          f"a misaligned strided view), the transform at Lp {XFORM_LPS}, xor_reduce at k "
+          f"a misaligned strided view) and on zero-heavy and constant rows at L "
+          f"{CRC_PATTERN_LENGTHS} x S {CRC_PATTERN_STRIPES}, the transform at Lp {XFORM_LPS} "
+          f"(tiles where Lp % 4096 == 0, dense and strided+1), xor_reduce at k "
           f"{XOR_KS} (dense, a chunk subset, a misaligned view): every kernel = its plain "
           f"version = its host oracle, byte for byte")
     return err
@@ -3896,7 +4056,20 @@ def bluestore_timing(torch, co, dev, xor_mm, card, err) -> dict:
         bound = (S * L + 4 * S) / HBM_BYTES_PER_S * 1e3
         out[f"crc32c {S}x{L}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                                   "bound_by": "bytes", "library_ms": None}
-    for S, Lp in (XFORM_BULK, *XFORM_PATH):
+    # the same bulk rows, 7 bytes of 8 zero: the parent's byte tables ran
+    # such rows faster (broadcast reads); the 5-bit tables take no notice
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED + 123)
+    S, L = CRC_BULK
+    rows = torch.randint(0, 256, (S, L), dtype=torch.uint8, device=cuda, generator=gen)
+    rows[torch.rand((S, L), device=cuda, generator=gen) < 0.875] = 0
+    same("crc32c", f"crc32c {S}x{L} zero-heavy", co.crc32c_device(rows), co.crc32c_plain(rows))
+    out[f"crc32c {S}x{L} zero-heavy"] = {
+        "ms": time_ms(torch, lambda: co.crc32c_device(rows)), "plain_ms": None,
+        "bound_ms": (S * L + 4 * S) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None}
+    del rows
+    for S, Lp in (XFORM_BULK, *XFORM_PATH, XFORM_GENERAL):
         rows = torch.from_numpy(rng.integers(0, 256, (S, Lp), dtype=np.uint8)).to(cuda)
         same("compress_transform", f"compress_transform {S}x{Lp}",
              dev.transform_rows_device(rows), dev.transform_rows_plain(rows))
@@ -3921,9 +4094,12 @@ def bluestore_timing(torch, co, dev, xor_mm, card, err) -> dict:
         extra = (f", the transpose alone (x.view(S, Lp // 64, 64).transpose(1, 2)"
                  f".contiguous(), the floor of its data movement, not the same function) "
                  f"{row['transpose_floor_ms']:.4f} ms" if "transpose_floor_ms" in row else "")
-        print(f"[12] 12b: {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_ms'] / row['ms']:.3f} of it), plain {row['plain_ms']:.4f} ms"
-              f"{extra}; {card}")
+        plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f} ms"
+        path = ((" (tiles path)" if dev.build_library().compress_transform_path(
+                    int(label.split("x")[-1])) else " (general path)")
+                if label.startswith("compress_transform") else "")
+        print(f"[12] 12b: {label}{path}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.3f} of it), plain {plain}{extra}; {card}")
     return out
 
 
@@ -4071,6 +4247,7 @@ def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
     records[..., 16:][is_record] = 0
     records[..., :16][is_record] |= 1  # the 16 record bytes are nonzero
     dev.transform_rows_device.launches = 0
+    tiles0 = dev.transform_rows_device.path_launches["tiles"]
     before = launches()
     c = BkCluster(4, "rbd", overwrites=True,
                   make_store=lambda: BlueStore(None, compression="device",
@@ -4087,6 +4264,9 @@ def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
     out["launches"]["compress_transform"] = moved["compress_transform"]
     check(moved["compress_transform"] == moved["compress_agg"] > 0 and moved["FALLBACK"] == 0,
           f"12d: {moved}")
+    tiles = dev.transform_rows_device.path_launches["tiles"] - tiles0
+    check(tiles == moved["compress_transform"],
+          f"12d: {tiles} of {moved['compress_transform']} transform launches on the tile path")
     blocks = [e for s in c.stores for e in _onode_blocks(s)]
     compressed = sum(1 for e in blocks if e[2])
     stored = sum(e[2] or BLOCK for e in blocks)
@@ -4287,6 +4467,9 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--packed-timing-of", metavar="DIR",
                         help="only time the packed kernels of the checkout at DIR and print "
                              "one JSON line (what --parent runs)")
+    parser.add_argument("--bluestore-timing-of", metavar="DIR",
+                        help="only time the crc32c and transform kernels of the checkout at "
+                             "DIR and print one JSON line (what --parent runs)")
     args = parser.parse_args(argv)
     import torch
 
@@ -4301,6 +4484,15 @@ def main(argv: list[str]) -> int:
         from ceph_tpu_torch.ops import packed_gf as packed
         check(packed.__file__.startswith(root + os.sep), f"{packed.__file__} is not under {root}")
         print(json.dumps(packed_compare(torch, packed, gf)))
+        return 0
+    if args.bluestore_timing_of:
+        root = os.path.abspath(args.bluestore_timing_of)
+        sys.path.insert(0, root)
+        from ceph_tpu_torch.compressor import device as dev
+        from ceph_tpu_torch.ops import checksum_offload as co
+        for module in (co, dev):
+            check(module.__file__.startswith(root + os.sep), f"{module.__file__} is not under {root}")
+        print(json.dumps(bluestore_compare(torch, co, dev)))
         return 0
     try:
         from ceph_tpu_torch import gf
@@ -4349,6 +4541,9 @@ def main(argv: list[str]) -> int:
     phase("10c", phase_recovery, torch, swar, packed, dispatch, registry, card)
     scrub_cache = phase(11, phase_scrub_cache, torch, swar, packed, dispatch, card)
     bluestore = phase(12, phase_bluestore, torch, xor_mm, dispatch, card)
+    for label, row in phase("12b", bluestore_parent_comparison, args.parent, card).items():
+        if label in bluestore["times"]:
+            bluestore["times"][label].update(row)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
                                  "11": scrub_cache["launches"][kernel]}

@@ -4,9 +4,11 @@ held against the JAX package's under JAX_PLATFORMS=cpu.
 The copies of the reference's jax-free helpers (`_contribution_matrix`,
 `_zero_const`, `crc32c_host_rows`) are pinned to its output; the plain
 version equals the reference's `crc32c_device` on JAX's CPU backend and the
-host oracle; a numpy walk of csrc/crc32c.cu's decomposition (its operand
-tables, the masked aligned vectors, the lane interleave, the fold tree and
-the tail's inverse shift) gives crc32c at every length and alignment;
+host oracle; a numpy walk of csrc/crc32c.cu's decomposition (its
+shared-memory image of 5-bit and nibble tables and the addresses it reads
+them at, the masked aligned vectors, two vectors a lane a step, each
+lane's fold shift and the tail's inverse shift) gives crc32c at every
+length and alignment;
 `checksum_blocks` and the aggregator launch, record and count as the
 reference's do (the reference at dispatch width 1, deltas compared); and a
 failed or refused launch is EIO with the backend DEGRADED and nothing
@@ -68,46 +70,84 @@ def test_plain_matches_reference_device_and_host(S, L):
     assert np.array_equal(ours.numpy(), host.astype(np.int64))
 
 
-def _apply(tables, t0, c):
-    return (int(tables[t0][c & 255]) ^ int(tables[t0 + 1][(c >> 8) & 255])
-            ^ int(tables[t0 + 2][(c >> 16) & 255]) ^ int(tables[t0 + 3][c >> 24]))
+def _tables(image, w, bits, to, stride, n, base):
+    """XOR of lookups 0 .. n - 1 the way the kernel's `look` makes them, for
+    every lane at once: field f (bits `bits` f ..) of the little-endian
+    words w (a list of per-lane arrays) moved to bit `to` of the byte
+    address ((x & mask) | base) + f stride (a funnel shift where it
+    straddles two words), and that word of the image read."""
+    out = np.zeros_like(w[0])
+    mask = ((1 << bits) - 1) << to
+    for f in range(n):
+        word, off = divmod(bits * f, 32)
+        if off + bits > 32 and word + 1 < len(w):
+            x = ((w[word + 1] << 32 | w[word]) >> (off - to)) & 0xFFFFFFFF
+        elif off >= to:
+            x = w[word] >> (off - to)
+        else:
+            x = (w[word] << (to - off)) & 0xFFFFFFFF
+        out ^= image[(((x & mask) | base) + f * stride) >> 2]
+    return out
 
 
 def kernel_walk(buf: bytes, base: int, L: int) -> int:
     """crc32c of buf[base:base + L] computed the way csrc/crc32c.cu walks
-    a row whose address is `base` modulo 16."""
-    tables = tco.kernel_tables()
+    a row whose address is `base` modulo 16: the shared-memory image built
+    from the operand as the kernel builds it, every lookup through the
+    kernel's address, the 32 lanes side by side, each taking two vectors
+    of every 64."""
+    image = tco.kernel_image(tco.kernel_tables()).astype(np.int64)
+    lanes = np.arange(32, dtype=np.int64)
     end = base + L
     abase, aend = base & ~15, (end + 15) & ~15
     nvec, head, tail = (aend - abase) // 16, base - abase, aend - end
-    pad = (32 - nvec % 32) % 32
-    accs = []
-    for lane in range(32):
-        acc = 0
-        for j in range(lane, nvec + pad, 32):
-            acc = _apply(tables, 16, acc)
-            a = j - pad
-            if a < 0:
-                continue
-            v = bytearray(buf[abase + 16 * a: abase + 16 * a + 16])
-            lo, hi = (head if a == 0 else 0), (16 - tail if a == nvec - 1 else 16)
-            for p in range(16):
-                acc ^= int(tables[p][v[p] if lo <= p < hi else 0])
-        accs.append(acc)
-    for level in range(5):
-        d = 1 << level
-        accs = [_apply(tables, 20 + 4 * level, accs[i]) ^ accs[i + d] if i % (2 * d) == 0
-                else accs[i] for i in range(32)]
-    return _apply(tables, 40 + 4 * tail, accs[0]) ^ tco._zero_const(L)
+    lead = (64 - nvec % 64) % 64
+    masked = np.zeros(16 * nvec, dtype=np.uint8)
+    masked[head:16 * nvec - tail] = np.frombuffer(buf, dtype=np.uint8)[base:end]
+    words = np.concatenate([np.zeros((lead, 4), dtype=np.int64),
+                            masked.view("<u4").reshape(nvec, 4).astype(np.int64)])
+    acc = np.zeros(32, dtype=np.int64)
+    for step in range((nvec + lead) // 64):
+        piece = words[64 * step: 64 * step + 64].reshape(32, 8)  # lane i: vectors 2i, 2i + 1
+        acc = (_tables(image, [acc], 5, 2, 128, tco.S_TABLES, 4 * tco.IMG_S)
+               ^ _tables(image, list(piece.T), 5, 2, 128, tco.L_TABLES, 4 * tco.IMG_L))
+    fold = _tables(image, [acc], 4, 7, 2048, 8, 4 * tco.IMG_FOLD + 4 * lanes)
+    lin = int(np.bitwise_xor.reduce(fold))
+    u = image[tco.IMG_UNSHIFT + 128 * tail:]
+    r = 0
+    for k in range(8):
+        r ^= int(u[16 * k + ((lin >> (4 * k)) & 15)])
+    return r ^ tco._zero_const(L)
 
 
 @pytest.mark.parametrize("L", [1, 3, 15, 16, 17, 100, 511, 512, 513, 4095, 4096, 4097])
 def test_kernel_decomposition_gives_crc32c(L):
     """The kernel's arithmetic, walked in numpy over its operand: every
     length, at every alignment of the row's start modulo 16."""
-    assert tco.kernel_tables().shape == (tco.KERNEL_TABLES, 256)
+    op = tco.kernel_tables()
+    assert op.shape == (tco.KERNEL_WORDS,) and op.dtype == np.uint32
+    assert tco.kernel_image(op).shape == (tco.IMG_UNSHIFT + 16 * 8 * 16,)
     buf = np.random.default_rng(L).integers(0, 256, L + 48, dtype=np.uint8).tobytes()
     for base in (0, 1, 5, 15, 16, 31):
+        assert kernel_walk(buf, base, L) == crc32c(buf[base:base + L]), base
+
+
+@pytest.mark.parametrize("pattern", ["zero", "constant", "zero-heavy"])
+@pytest.mark.parametrize("L", [1024, 4097])
+def test_kernel_decomposition_on_broadcast_rows(pattern, L):
+    """The kernel's arithmetic on the rows whose table reads broadcast
+    (every lane reads one entry): all zero, one constant byte, and random
+    bytes among long zero runs."""
+    rng = np.random.default_rng(L)
+    if pattern == "zero":
+        data = np.zeros(L + 48, dtype=np.uint8)
+    elif pattern == "constant":
+        data = np.full(L + 48, 0xA7, dtype=np.uint8)
+    else:
+        data = rng.integers(0, 256, L + 48, dtype=np.uint8)
+        data[rng.random(L + 48) < 0.95] = 0
+    buf = data.tobytes()
+    for base in (0, 7, 16):
         assert kernel_walk(buf, base, L) == crc32c(buf[base:base + L]), base
 
 
