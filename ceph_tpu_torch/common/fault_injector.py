@@ -132,9 +132,9 @@ class FaultInjector:
 # in the port MUST be registered here, so a hook can never be armed
 # under a typo'd name that silently never fires.  The port wires the
 # device launch, the object store's media-error seams, the EC shard
-# sub-read (its EIO mode; the delay mode comes with hedged reads) and the
-# recovery push; the JAX package's other points come with the modules
-# that check them.
+# sub-read (its EIO mode; the delay mode comes with hedged reads), the
+# recovery push and the PG's peering-message receive; the JAX package's
+# other points come with the modules that check them.
 FAULT_POINTS: dict[str, str] = {
     "codec.launch": (
         "device coding-launch submit in LaunchAggregator._launch: the "
@@ -167,6 +167,13 @@ FAULT_POINTS: dict[str, str] = {
         "(retry_stalled_pushes, osd_recovery_push_retry_sec) re-sends "
         "the pending shards so a wedged push cannot stall a "
         "recovery-storm wave forever"
+    ),
+    "peering.msg": (
+        "peering message receive in PG.handle_peering_message: the "
+        "query/notify/log message is dropped before the state machine "
+        "sees it, wedging peering mid-storm; the tick-driven re-kick "
+        "(PeeringState.tick restarts a primary stuck in GetInfo/GetLog) "
+        "re-queries and self-heals"
     ),
 }
 

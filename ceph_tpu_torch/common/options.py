@@ -5,7 +5,8 @@ entries the offload runtime reads (the aggregators, the device guard, the
 launch scheduler's QoS lanes, the mempool ledger), those of the device
 chunk cache and the RMW delta path, and those of the object stores
 (`osd_objectstore`, `osd_data`, BlueStore's compression and checksum
-offload).  The rest of the table
+offload), and those the placement-group layer reads (recovery, backfill
+and log-trim bounds).  The rest of the table
 comes with the modules that read it.
 
 Reference: src/common/options/global.yaml.in (~800 typed
@@ -409,4 +410,21 @@ OPTIONS: dict[str, Option] = _opts(
         see_also=("bluestore_csum_offload_window",),
         runtime=True,
     ),
+    # --- OSD: the placement-group layer (osd/pg.py) --------------------------
+    Option("osd_recovery_max_active", int, 3, A,
+           "max concurrent recovery ops per OSD"),
+    Option("osd_recovery_push_retry_sec", float, 5.0, A,
+           "re-send pending recovery PushOps whose target has not "
+           "acked for this many seconds (ECBackend.retry_stalled_pushes, "
+           "tick-driven): a push a dying target dropped cannot park its "
+           "RecoveryOp in WRITING forever.  Re-applying a landed push is "
+           "idempotent.  <= 0 disables the retry", runtime=True),
+    Option("osd_max_backfills", int, 1, A, "max concurrent backfills",
+           runtime=True),
+    Option("osd_min_pg_log_entries", int, 250, A,
+           "entries kept after a trim (PGLog floor)"),
+    Option("osd_max_pg_log_entries", int, 500, A,
+           "trim threshold (PGLog ceiling)"),
+    Option("osd_backfill_scan_max", int, 64, A,
+           "objects per backfill scan chunk", runtime=True),
 )

@@ -1,15 +1,19 @@
-"""The typed message catalog of the port — the EC sub-ops and recovery pushes.
+"""The typed message catalog of the port — what the placement-group layer sends.
 
-The port of the part of `ceph_tpu/msg/messages.py` that the EC backend
-sends: the wire structs `Struct`, `PgId`, `ReqId` and `PushOp`, the four EC
-sub-op messages mirroring Ceph's ECMsgTypes (src/osd/ECMsgTypes.h):
-ECSubWrite carries a serialized per-shard transaction (:23-89); ECSubRead
-carries per-object (off,len,flags) plus per-shard subchunk vectors
-(:105-116); ECSubReadReply returns buffers/attrs/errors (:118-129) — and
-the recovery pushes MOSDPGPush / MOSDPGPushReply (src/messages/
-MOSDPGPush.h) and the chunky scrub's MOSDRepScrub / MOSDRepScrubMap.  The
-type numbers and field orders are the JAX package's, so a message encodes
-to its bytes.
+The port of the part of `ceph_tpu/msg/messages.py` that the PGs and their
+backends send: the wire structs `Struct`, `PgId`, `OSDOp`, `ReqId` and
+`PushOp`; the client op and its reply (MOSDOp, MOSDOpReply); the map
+publication MOSDMap; the four EC sub-op messages mirroring Ceph's
+ECMsgTypes (src/osd/ECMsgTypes.h): ECSubWrite carries a serialized
+per-shard transaction (:23-89); ECSubRead carries per-object
+(off,len,flags) plus per-shard subchunk vectors (:105-116); ECSubReadReply
+returns buffers/attrs/errors (:118-129); the peering messages MOSDPGQuery,
+MOSDPGNotify and MOSDPGLog; the recovery pushes MOSDPGPush / MOSDPGPushReply
+(src/messages/MOSDPGPush.h) and the replicated backend's MOSDRepOp,
+MOSDRepOpReply and MOSDPGPull; the chunky scrub's MOSDRepScrub /
+MOSDRepScrubMap; and the backfill reservation MBackfillReserve.  The type
+numbers and field orders are the JAX package's, so a message encodes to its
+bytes.
 """
 
 from __future__ import annotations
@@ -51,6 +55,54 @@ class PgId(Struct):
         return hash((self.pool, self.ps, self.shard))
 
 
+class OSDOp(Struct):
+    """One client sub-operation (osd_types.h OSDOp / do_osd_ops codes)."""
+
+    # op codes (CEPH_OSD_OP_* analog)
+    READ = 1
+    WRITE = 2
+    WRITEFULL = 3
+    DELETE = 4
+    STAT = 5
+    TRUNCATE = 6
+    APPEND = 7
+    GETXATTR = 8
+    SETXATTR = 9
+    PGLS = 10  # list objects in the PG (rados ls; PrimaryLogPG do_pgnls)
+    ROLLBACK = 11     # roll head back to a snap's clone (off = snap id)
+    LIST_SNAPS = 12   # dump the object's SnapSet
+    WATCH = 13        # register/unregister a watch (off = cookie, len = 1/0)
+    NOTIFY = 14       # notify watchers (data = payload, off = timeout ms)
+    COPY_FROM = 15    # copy another object's content (name = src oid)
+    CACHE_FLUSH = 16  # write a dirty cache-tier object back to the base pool
+    CACHE_EVICT = 17  # drop a clean object from the cache tier
+    CALL = 18         # object-class method (name = "cls.method", data = input)
+    GETXATTRS = 19    # bulk-dump all client xattrs (copy-get attr leg)
+    RMXATTR = 20      # remove one client xattr (CEPH_OSD_OP_RMXATTR)
+    # omap (CEPH_OSD_OP_OMAP*): str->bytes KV attached to the object,
+    # replicated pools only (the reference rejects omap on EC pools too)
+    OMAPGETKEYS = 21  # -> encoded str list
+    OMAPGETVALS = 22  # -> encoded kv map (whole omap)
+    OMAPSETVALS = 23  # data = encoded kv map to merge
+    OMAPRMKEYS = 24   # data = encoded str list
+    OMAPCLEAR = 25
+    CMPXATTR = 26     # guard: xattr vs data per `off` mode; -ECANCELED on miss
+    LIST_WATCHERS = 27  # dump the object's watch table (rados listwatchers)
+    ZERO = 28         # zero an extent (CEPH_OSD_OP_ZERO)
+    WRITESAME = 29    # tile `data` across [off, off+len) (CEPH_OSD_OP_WRITESAME)
+
+    FIELDS = [
+        ("op", "u8"),
+        ("off", "u64"),
+        ("len", "u64"),
+        ("data", "bytes"),
+        ("name", "str"),  # xattr name for *XATTR ops
+    ]
+
+    def __init__(self, op=0, off=0, len=0, data=b"", name=""):
+        super().__init__(op=op, off=off, len=len, data=data, name=name)
+
+
 class ReqId(Struct):
     """osd_reqid_t: originating entity + client-unique tid."""
 
@@ -79,6 +131,78 @@ class PushOp(Struct):
             oid=oid, data=data, attrs=attrs or {}, version=version,
             omap=omap or {},
         )
+
+
+# --- client I/O --------------------------------------------------------------
+
+
+@message_type(4)
+class MOSDOp(Message):
+    """Client op to the primary (src/messages/MOSDOp.h).
+
+    Snapshot plumbing rides the op like the reference's: writes carry the
+    client's SnapContext (`snap_seq` + descending `snaps`, the
+    self-managed-snap model) so the PG can clone-on-first-write; reads
+    carry `snap_id` (0 = head, CEPH_NOSNAP analog inverted for
+    compactness) to address a snapshot's clone."""
+
+    FIELDS = [
+        ("reqid", ReqId),
+        ("pgid", PgId),
+        ("oid", "str"),
+        ("ops", ("list", OSDOp)),
+        ("epoch", "u32"),
+        ("snap_seq", "u64"),
+        ("snaps", ("list", "u64")),
+        ("snap_id", "u64"),
+    ]
+
+    def __init__(
+        self,
+        reqid=None,
+        pgid=None,
+        oid="",
+        ops=None,
+        epoch=0,
+        snap_seq=0,
+        snaps=None,
+        snap_id=0,
+    ):
+        super().__init__(
+            reqid=reqid,
+            pgid=pgid,
+            oid=oid,
+            ops=ops or [],
+            epoch=epoch,
+            snap_seq=snap_seq,
+            snaps=snaps or [],
+            snap_id=snap_id,
+        )
+
+
+@message_type(5)
+class MOSDOpReply(Message):
+    """src/messages/MOSDOpReply.h."""
+
+    FIELDS = [
+        ("reqid", ReqId),
+        ("result", "i64"),
+        ("outdata", ("list", "bytes")),  # per-op output
+        ("version", "u64"),
+        ("epoch", "u32"),
+    ]
+
+
+@message_type(13)
+class MOSDMap(Message):
+    """Map publication (src/messages/MOSDMap.h): full maps and/or
+    incrementals keyed by epoch."""
+
+    FIELDS = [
+        ("fsid", "str"),
+        ("maps", ("map", "u32", "bytes")),
+        ("incrementals", ("map", "u32", "bytes")),
+    ]
 
 
 # --- EC sub-ops (ECMsgTypes.h) ----------------------------------------------
@@ -147,6 +271,51 @@ class MOSDECSubOpReadReply(Message):
     priority = PRIO_HIGH
 
 
+# --- peering -----------------------------------------------------------------
+
+
+@message_type(19)
+class MOSDPGQuery(Message):
+    """Primary asks a shard for its pg_info or log tail
+    (src/messages/MOSDPGQuery.h; pg_query_t INFO/LOG types in
+    osd_types.h)."""
+
+    INFO = 1
+    LOG = 2
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("op", "u8"),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+        # LOG queries: send entries after (since_epoch, since_ver)
+        ("since_epoch", "u32"),
+        ("since_ver", "u64"),
+    ]
+
+
+@message_type(20)
+class MOSDPGNotify(Message):
+    """Shard replies with pg_info (src/messages/MOSDPGNotify.h)."""
+
+    FIELDS = [("pgid", PgId), ("info", "bytes"), ("epoch", "u32"), ("from_osd", "u32")]
+
+
+@message_type(21)
+class MOSDPGLog(Message):
+    FIELDS = [
+        ("pgid", PgId),
+        ("info", "bytes"),
+        ("log", "bytes"),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
+        # the version the delta starts after — lets the receiver detect
+        # local entries in (since, head] absent from the delta as divergent
+        ("since_epoch", "u32"),
+        ("since_ver", "u64"),
+    ]
+
+
 # --- recovery pushes --------------------------------------------------------
 
 
@@ -170,6 +339,37 @@ class MOSDPGPushReply(Message):
         ("epoch", "u32"),
         ("from_osd", "u32"),
     ]
+
+
+@message_type(24)
+class MOSDRepOp(Message):
+    """Primary -> replica transaction for replicated pools
+    (src/messages/MOSDRepOp.h; fanned out by
+    ReplicatedBackend::submit_transaction)."""
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("from_osd", "u32"),
+        ("tid", "u64"),
+        ("reqid", ReqId),
+        ("txn", "bytes"),
+        ("log_entries", ("list", "bytes")),
+    ]
+    priority = PRIO_HIGH
+
+
+@message_type(25)
+class MOSDRepOpReply(Message):
+    FIELDS = [("pgid", PgId), ("from_osd", "u32"), ("tid", "u64")]
+    priority = PRIO_HIGH
+
+
+@message_type(26)
+class MOSDPGPull(Message):
+    """Primary asks a replica to push an object it is itself missing
+    (src/messages/MOSDPGPull.h)."""
+
+    FIELDS = [("pgid", PgId), ("oid", "str"), ("epoch", "u32"), ("from_osd", "u32")]
 
 
 # --- scrub ------------------------------------------------------------------
@@ -205,4 +405,24 @@ class MOSDRepScrubMap(Message):
         ("from_osd", "u32"),
         ("scrub_tid", "u64"),
         ("scrub_map", "bytes"),
+    ]
+
+
+# --- backfill reservation ----------------------------------------------------
+
+
+@message_type(34)
+class MBackfillReserve(Message):
+    """Backfill reservation protocol (src/messages/MBackfillReserve.h):
+    the primary reserves a remote slot on each backfill target before
+    scanning (AsyncReserver handshake), releasing it on completion or
+    interval change."""
+
+    REQUEST, GRANT, REJECT, RELEASE = 0, 1, 2, 3
+
+    FIELDS = [
+        ("pgid", PgId),
+        ("op", "u8"),
+        ("epoch", "u32"),
+        ("from_osd", "u32"),
     ]

@@ -21,8 +21,10 @@ The scrub map is JSON (the reference's wire format: a deep EC map carries
 each shard's chunk bytes as base64); the comparison semantics follow the
 reference.
 
-The port has no PG yet, so the scrubber talks to a PG-shaped host through
-only the attributes the reference reads:
+The scrubber's host is the port's PG (`osd/pg.py`), which owns one
+PgScrubber and routes MOSDRepScrub / MOSDRepScrubMap to it.  It reads
+only these attributes of its host, so any object that has them serves as
+well (the CPU tests' single-PG hosts):
 
 - ``pgid`` (a PgId with ``with_shard``), ``whoami()``, ``whoami_shard()``,
   ``epoch()`` and ``acting()``;

@@ -308,6 +308,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launches: the write fails with EIO, no shard commits, the backend goes
    DEGRADED with no host recompute, the cuda probe heals it and the next
    write commits.  Under 60 s.
+13. The placement-group layer: 12 in-process OSD hosts on MemStores
+   (tests/torch_pg_host.py, the host the CPU tests hold against the JAX
+   package's PGs), a flat CRUSH tree of one OSD a host, pool `rbd` (EC
+   RS(8,3) plugin `tpu` reed_sol_van, stripe_unit 4096,
+   allow_ec_overwrites, pg_num 32, Ceph's osd_pool_default_pg_num) and
+   pool `rbd_meta` (replicated size 3, pg_num 32), every EC PG's codec on
+   the card (`PG(..., device=None)`), a PG log of at most 2 entries so that
+   the members CRUSH adds after an out backfill.  Client ops reach
+   `PG.do_op` on each object's primary.  13a: 128 WRITEFULLs of 4 MiB
+   `rbd_data.*` objects, 64 at QD1 and 64 at QD8 (MB/s); 13b: every object
+   read whole at QD8 (GB/s); 13c: osd.3 marked down (seconds from the map
+   to every PG active), every object read degraded; 13d: osd.3 marked out
+   (seconds to active and to clean, bytes pushed by recovery and backfill,
+   MB/s), every object read; 13e: 16 objects of 4 MiB written to pool
+   `rgw_data` (EC RS(8,3), append-only, pg_num 8: RGW's bucket data, whose
+   objects keep hinfo), then a deep scrub of its PG with the most objects
+   (the parity verify) and of rbd's (an overwrites pool keeps no hinfo, so
+   digests and sizes only), both clean; 13f: 256 overwrites of 4-64 KiB in a 64 KiB hot region
+   of 8 objects at QD1 (writes/s), read back against a model; 13g: 64
+   `rbd_header.*` objects of 4 KiB with omap written and read back on
+   rbd_meta (ops/s).  Every byte is checked against what was written.  The
+   launch counts of swar_gf, xor_reduce, packed_verify and packed_delta
+   are set to 0 before 13a and read after each part: 13a launches
+   swar_gf (encode), 13c and 13d swar_gf (the backend's decodes, single
+   erasures included: they go through the decode aggregator, not
+   xor_reduce, whose count is printed), 13e packed_verify and 13f
+   packed_delta, or the run fails; no launch falls back to the host, the
+   guard never degrades and no PG logs a cluster error.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -4459,6 +4487,276 @@ def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
     return out
 
 
+PG_OSDS = 12
+PG_NUM = 32  # Ceph's osd_pool_default_pg_num
+PG_OBJECTS = 128
+PG_OBJECT_BYTES = 4 << 20
+PG_QD = 8
+PG_OVERWRITES = 256
+PG_HOT_OBJECTS = 8
+PG_HOT_REGION = 64 << 10
+PG_HOT_BYTES = (4 << 10, 64 << 10)
+PG_META_OBJECTS = 64
+PG_VICTIM = 3
+# a short PG log, so that the members CRUSH adds after the out backfill
+PG_CONF = {"osd_min_pg_log_entries": 1, "osd_max_pg_log_entries": 2}
+PG_POOLS = [
+    {"name": "rbd", "kind": "ec", "k": 8, "m": 3, "pg_num": PG_NUM, "stripe_unit": 4096,
+     "overwrites": True, "profile": {"technique": "reed_sol_van"}},
+    {"name": "rbd_meta", "kind": "rep", "size": 3, "pg_num": PG_NUM},
+    # RGW's bucket data on EC, append-only: the pool whose objects keep
+    # hinfo, so a deep scrub ships chunk bytes and runs the parity verify
+    # (an overwrites pool keeps none); pg_num cut to 8 for the phase's time
+    {"name": "rgw_data", "kind": "ec", "k": 8, "m": 3, "pg_num": 8, "stripe_unit": 4096,
+     "profile": {"technique": "reed_sol_van"}},
+]
+PG_RGW_OBJECTS = 16
+PG_KERNELS = ("swar_gf", "xor_reduce", "packed_verify", "packed_delta")
+# the kernels each part must launch: the encode of every write, the decode
+# of every degraded read and rebuild (ECBackend decodes through the decode
+# aggregator's decode_array, the SWAR kernel at chunk 4096, single erasures
+# included; xor_reduce serves only ErasureCode.decode and m = 1 codes, so it
+# is counted here and never reached), verify in a deep scrub, delta on the
+# cache-hit overwrites
+PG_REACHES = {"13a": ("swar_gf",), "13b": (), "13c": ("swar_gf",), "13d": ("swar_gf",),
+              "13e": ("packed_verify",), "13f": ("packed_delta",), "13g": ()}
+
+
+def load_pg_host():
+    """tests/torch_pg_host.py: the in-process OSD hosts the CPU tests hold
+    against the JAX package's PGs (it imports neither package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_pg_host.py")
+    spec = importlib.util.spec_from_file_location("torch_pg_host", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_pg(torch, swar, packed, xor_mm, card) -> dict:
+    """Phase 13: client ops through `PG.do_op` on 12 in-process OSD hosts."""
+    import asyncio
+
+    return asyncio.run(_phase_pg(torch, swar, packed, xor_mm, card))
+
+
+async def _phase_pg(torch, swar, packed, xor_mm, card) -> dict:
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+
+    pg_host = load_pg_host()
+    guard = device_guard()
+    t0 = time.perf_counter()
+    c = pg_host.PgCluster("ceph_tpu_torch", PG_OSDS, PG_POOLS, conf=PG_CONF, record=False)
+    ticks = await c.settle()
+    n_pgs = sum(len(h.pgs) for h in c.hosts)
+    print(f"[13] {PG_OSDS} OSD hosts, pools rbd (EC RS(8,3) plugin tpu, stripe_unit 4096, "
+          f"allow_ec_overwrites) and rbd_meta (replicated size 3), pg_num {PG_NUM} each, and "
+          f"rgw_data (EC RS(8,3), append-only, pg_num 8): {n_pgs} PG instances made and peered "
+          f"in {time.perf_counter() - t0:.2f} s ({ticks} ticks)", flush=True)
+    rbd = c.osdmap.get_pool("rbd")
+    check(all(pg.backend.ec.device.type == "cuda" for h in c.hosts for key, pg in h.pgs.items()
+              if key[0] == rbd.id), "13: an rbd PG's codec is not on the card")
+    rng = np.random.default_rng(SEED + 130)
+    base = rng.integers(0, 256, 2 * PG_OBJECT_BYTES, dtype=np.uint8)
+    names = [f"rbd_data.10074b0dc51.{i:016x}" for i in range(PG_OBJECTS)]
+
+    def payload(i: int) -> bytes:
+        off = (i * 65537) % PG_OBJECT_BYTES
+        return base[off:off + PG_OBJECT_BYTES].tobytes()
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "xor_reduce": xor_mm.xor_reduce.launches,
+                "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"]}
+
+    swar.launches = 0
+    xor_mm.xor_reduce.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    by_part: dict = {}
+    out: dict = {}
+
+    def op(code, **kw):
+        return c.osd_op(code, **kw)
+
+    async def run_ops(items, qd: int, pool: str = "rbd") -> list:
+        """(oid, ops) at a queue depth of `qd`; every op answered once."""
+        replies = []
+        for lo in range(0, len(items), qd):
+            batch = [c.op(pool, oid, ops) for oid, ops in items[lo:lo + qd]]
+            await c.pump()
+            for (oid, _ops), rep in zip(items[lo:lo + qd], batch):
+                check(len(rep) == 1, f"13: {oid} answered {len(rep)} times")
+                replies.append(rep[0])
+        return replies
+
+    async def read_all(part: str) -> float:
+        t = time.perf_counter()
+        reps = await run_ops([(n, [op("READ", off=0, len=0)]) for n in names], PG_QD)
+        wall = time.perf_counter() - t
+        for i, rep in enumerate(reps):
+            check(rep.result == 0 and rep.outdata[0] == payload(i),
+                  f"{part}: {names[i]} read back wrong (result {rep.result})")
+        return PG_OBJECTS * PG_OBJECT_BYTES / wall / 1e9
+
+    def done(part: str, before: dict) -> None:
+        torch.cuda.synchronize()
+        now = counts()
+        by_part[part] = {k: now[k] - before[k] for k in PG_KERNELS}
+        for kernel in PG_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    # 13a: WRITEFULLs of 4 MiB RBD data objects at QD1, then QD8
+    before = counts()
+    half = PG_OBJECTS // 2
+    for label, lo, hi, qd in (("QD1", 0, half, 1), ("QD8", half, PG_OBJECTS, PG_QD)):
+        t = time.perf_counter()
+        reps = await run_ops([(names[i], [op("WRITEFULL", data=payload(i))])
+                              for i in range(lo, hi)], qd)
+        wall = time.perf_counter() - t
+        check(all(r.result == 0 for r in reps), f"13a {label}: a write failed")
+        out[f"13a {label} MB/s"] = (hi - lo) * PG_OBJECT_BYTES / wall / 1e6
+    done("13a", before)
+    print(f"[13] 13a: {PG_OBJECTS} WRITEFULLs of {PG_OBJECT_BYTES >> 10} KiB through PG.do_op: "
+          f"{out['13a QD1 MB/s']:.1f} MB/s at QD1, {out['13a QD8 MB/s']:.1f} MB/s at QD8; "
+          f"launches {by_part['13a']}; {card}", flush=True)
+
+    # 13b: whole reads, every shard up
+    before = counts()
+    out["13b GB/s"] = await read_all("13b")
+    done("13b", before)
+    print(f"[13] 13b: {PG_OBJECTS} whole reads at QD{PG_QD}, every byte exact: "
+          f"{out['13b GB/s']:.3f} GB/s; launches {by_part['13b']}; {card}", flush=True)
+
+    # 13c: osd.3 down; re-peering, then degraded reads
+    before = counts()
+    t = time.perf_counter()
+    c.mark_down(PG_VICTIM)
+    await c.pump()
+    while not c.all_active():
+        c.tick()
+        await c.pump()
+    out["13c s to active"] = time.perf_counter() - t
+    await c.settle()
+    out["13c GB/s"] = await read_all("13c")
+    done("13c", before)
+    print(f"[13] 13c: osd.{PG_VICTIM} down: every PG active {out['13c s to active']:.3f} s after "
+          f"the map; {PG_OBJECTS} degraded reads, every byte exact: {out['13c GB/s']:.3f} GB/s; "
+          f"launches {by_part['13c']}; {card}", flush=True)
+
+    # 13d: osd.3 out; recovery and backfill to clean, then every object read
+    before = counts()
+    pushed0 = c.push_bytes
+    bf0 = sum(h.perf.dump()["backfill_pushes"] for h in c.hosts)
+    t = time.perf_counter()
+    c.mark_out(PG_VICTIM)
+    await c.pump()
+    while not c.all_active():
+        c.tick()
+        await c.pump()
+    out["13d s to active"] = time.perf_counter() - t
+    ticks = await c.settle()
+    out["13d s to clean"] = time.perf_counter() - t
+    pushed = c.push_bytes - pushed0
+    backfilled = sum(h.perf.dump()["backfill_pushes"] for h in c.hosts) - bf0
+    out["13d recovery MB/s"] = pushed / out["13d s to clean"] / 1e6
+    check(pushed > 0 and backfilled > 0,
+          f"13d: {pushed} bytes pushed, {backfilled} backfill pushes")
+    out["13d read GB/s"] = await read_all("13d")
+    done("13d", before)
+    print(f"[13] 13d: osd.{PG_VICTIM} out: every PG active {out['13d s to active']:.3f} s and "
+          f"clean {out['13d s to clean']:.3f} s after the map ({ticks} ticks); {pushed} bytes "
+          f"pushed ({int(backfilled)} objects by backfill): {out['13d recovery MB/s']:.1f} MB/s; "
+          f"every object read back exact ({out['13d read GB/s']:.3f} GB/s); launches "
+          f"{by_part['13d']}; {card}", flush=True)
+
+    # 13e: RGW objects written to the append-only pool, then a deep scrub
+    # of its PG with the most objects (the parity verify) and of rbd's
+    # (digests and sizes only: an overwrites pool keeps no hinfo)
+    before = counts()
+    rgw = c.osdmap.get_pool("rgw_data")
+    rgw_names = [f"default.4135.1__shadow_.{i:04x}_0" for i in range(PG_RGW_OBJECTS)]
+    reps = await run_ops([(n, [op("WRITEFULL", data=payload(PG_OBJECTS + i))])
+                          for i, n in enumerate(rgw_names)], PG_QD, pool="rgw_data")
+    check(all(r.result == 0 for r in reps), "13e: an rgw_data write failed")
+    for pool in (rgw, rbd):
+        pg = max((p for p in c.primaries() if p.pool.id == pool.id),
+                 key=lambda p: len(p.list_heads()))
+        results: list = []
+        t = time.perf_counter()
+        check(pg.scrub(deep=True, on_done=results.append), "13e: the scrub did not start")
+        await c.pump()
+        out[f"13e {pool.name} s"] = time.perf_counter() - t
+        check(len(results) == 1, "13e: the deep scrub did not finish")
+        r = results[0]
+        check(r.deep and not r.aborted and r.errors == 0 and r.objects_scrubbed > 0,
+              f"13e: deep scrub of {pg.pgid}: {r}")
+        print(f"[13] 13e: deep scrub of pg {pg.pgid} ({pool.name}, {r.objects_scrubbed} objects "
+              f"of {PG_OBJECT_BYTES >> 10} KiB): clean in {out[f'13e {pool.name} s']:.3f} s; "
+              f"launches so far {dict((k, v - before[k]) for k, v in counts().items())}; {card}",
+              flush=True)
+    done("13e", before)
+
+    # 13f: overwrites of 4-64 KiB in a 64 KiB hot region of 8 objects, QD1
+    before = counts()
+    model = {i: bytearray(payload(i)) for i in range(PG_HOT_OBJECTS)}
+    t = time.perf_counter()
+    for _ in range(PG_OVERWRITES):
+        i = int(rng.integers(0, PG_HOT_OBJECTS))
+        n = int(rng.integers(PG_HOT_BYTES[0], PG_HOT_BYTES[1] + 1))
+        off = int(rng.integers(0, PG_HOT_REGION - n + 1))
+        patch = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        model[i][off:off + n] = patch
+        (rep,) = await run_ops([(names[i], [op("WRITE", off=off, data=patch)])], 1)
+        check(rep.result == 0, f"13f: an overwrite failed ({rep.result})")
+    out["13f writes/s"] = PG_OVERWRITES / (time.perf_counter() - t)
+    reps = await run_ops([(names[i], [op("READ", off=0, len=0)]) for i in model], PG_QD)
+    for i, rep in zip(model, reps):
+        check(rep.result == 0 and rep.outdata[0] == bytes(model[i]),
+              f"13f: {names[i]} read back != the model")
+    done("13f", before)
+    print(f"[13] 13f: {PG_OVERWRITES} overwrites of 4-64 KiB in a 64 KiB hot region of "
+          f"{PG_HOT_OBJECTS} objects at QD1: {out['13f writes/s']:.1f} writes/s; every byte read "
+          f"back; launches {by_part['13f']}; {card}", flush=True)
+
+    # 13g: the image metadata on the replicated pool: header and id objects
+    # with omap, written and read back
+    from ceph_tpu_torch.common.encoding import decode_kv_map, encode_kv_map
+
+    before = counts()
+    meta = {f"rbd_header.10074b0dc51.{i:04x}": (rng.integers(0, 256, 4096, dtype=np.uint8)
+                                                 .tobytes(), {"size": i.to_bytes(8, "little"),
+                                                              "order": b"\x16"})
+            for i in range(PG_META_OBJECTS)}
+    t = time.perf_counter()
+    reps = await run_ops([(oid, [op("WRITEFULL", data=data),
+                                 op("OMAPSETVALS", data=encode_kv_map(kv))])
+                          for oid, (data, kv) in meta.items()], PG_QD, pool="rbd_meta")
+    check(all(r.result == 0 for r in reps), "13g: a metadata write failed")
+    reps = await run_ops([(oid, [op("READ", off=0, len=0), op("OMAPGETVALS")])
+                          for oid in meta], PG_QD, pool="rbd_meta")
+    out["13g ops/s"] = 2 * PG_META_OBJECTS / (time.perf_counter() - t)
+    for (oid, (data, kv)), rep in zip(meta.items(), reps):
+        check(rep.result == 0 and rep.outdata[0] == data and decode_kv_map(rep.outdata[1]) == kv,
+              f"13g: {oid} read back wrong")
+    done("13g", before)
+    print(f"[13] 13g: {PG_META_OBJECTS} rbd_header objects (4 KiB and omap) written and read "
+          f"back on rbd_meta: {out['13g ops/s']:.1f} ops/s; launches {by_part['13g']}; {card}",
+          flush=True)
+
+    check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+          "13: a launch fell back to the host")
+    check(not any(h.clog for h in c.hosts), f"13: cluster log errors {[h.clog for h in c.hosts]}")
+    totals = {k: sum(part[k] for part in by_part.values()) for k in PG_KERNELS}
+    check(totals == counts(), f"13: launches {counts()} != the parts' sum {totals}")
+    print(f"[13] launches by part {by_part}; figures {json.dumps(out)}", flush=True)
+    return {"launches": totals, "by_part": by_part, "figures": out}
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -4544,15 +4842,19 @@ def main(argv: list[str]) -> int:
     for label, row in phase("12b", bluestore_parent_comparison, args.parent, card).items():
         if label in bluestore["times"]:
             bluestore["times"][label].update(row)
+    pg = phase(13, phase_pg, torch, swar, packed, xor_mm, card)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
-                                 "11": scrub_cache["launches"][kernel]}
+                                 "11": scrub_cache["launches"][kernel],
+                                 "13": pg["launches"][kernel]}
+    swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/swar_gf.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:103",
-        "launches": launches,
+        "launches": sum(swar_by_phase.values()),
+        "launches_by_phase": swar_by_phase,
         "max_abs_err": max_err,
         "ms": bulk["ms"],
         "plain_ms": bulk["plain_ms"],

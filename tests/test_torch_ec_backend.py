@@ -806,14 +806,26 @@ def test_failed_launch_fails_the_write_and_its_dependants():
 
 
 def test_unported_paths_raise_eopnotsupp():
-    """Replicated pools are not ported yet: building their backend raises
-    EOPNOTSUPP instead of running on something else."""
+    """Replicated pools are ported now: building their backend gives the
+    ReplicatedBackend.  What stays unported answers -EOPNOTSUPP: COPY_FROM
+    on a PG (the daemon's objecter leg), whichever backend it runs on."""
     c = Cluster("torch")
     m = mods("torch")
     pool = m.osdmap.PgPool(id=2, name="rep", type=m.osdmap.POOL_TYPE_REPLICATED, size=3)
-    with pytest.raises(EcError) as e:
-        m.pg_backend.build_pg_backend(pool, {}, c.listeners[0], c.stores[0], device="cpu")
-    assert e.value.errno == -EOPNOTSUPP
+    backend = m.pg_backend.build_pg_backend(pool, {}, c.listeners[0], c.stores[0], device="cpu")
+    assert isinstance(backend, m.pg_backend.ReplicatedBackend)
+    pg_mod = importlib.import_module("ceph_tpu_torch.osd.pg")
+    conf = importlib.import_module("ceph_tpu_torch.common.config").Config(env=False)
+    host = SimpleNamespace(whoami=0, store=c.stores[0], conf=conf,
+                           send_cluster=lambda osd, msg: None)
+    for p in (pool, c.pool):
+        pg = pg_mod.PG(host, p, 0, {"prof": {"plugin": "tpu", "k": "4", "m": "2"}}, device="cpu")
+        pg.on_new_interval(1, [0] + [m.osdmap.PG_NONE] * (p.size - 1))
+        replies = []
+        op = m.messages.OSDOp(op=m.messages.OSDOp.COPY_FROM, name="src")
+        pg.do_op(m.messages.MOSDOp(reqid=m.messages.ReqId("client.1", 1), pgid=pg.pgid,
+                                   oid="o", ops=[op]), replies.append)
+        assert [r.result for r in replies] == [-EOPNOTSUPP]
 
 
 def test_partly_pinned_rmw_read_keeps_the_earlier_write():

@@ -36,7 +36,9 @@ def test_port_files_found():
                    "codec/plugins/clay.py", "ops/device_cache.py", "osd/scrubber.py",
                    "os/kv.py", "os/bluestore.py", "os/filestore.py", "compressor/__init__.py",
                    "compressor/registry.py", "compressor/device.py",
-                   "ops/checksum_offload.py"):
+                   "ops/checksum_offload.py", "crush/hash.py", "crush/crush.py",
+                   "crush/wrapper.py", "osd/pg.py", "osd/peering.py", "osd/reserver.py",
+                   "osd/snaps.py", "common/config.py", "cls/objclass.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -222,6 +224,46 @@ def test_bluestore_and_offload_services_import_leaves_jax_out():
         "s.queue_transaction(Transaction().write('c', 'o', 0, data))\n"
         "assert s.read('c', 'o') == data\n"
         "assert sorted(offload_services()) == ['compress', 'csum', 'decode', 'encode', 'verify']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_pg_layer_import_leaves_jax_out():
+    """CRUSH, the OSDMap, peering and the PG import neither jax nor the
+    JAX package: a replicated PG alone in its acting set peers, writes
+    and reads back an object through do_op."""
+    code = (
+        "import sys\n"
+        "from types import SimpleNamespace\n"
+        "from ceph_tpu_torch.common.config import Config\n"
+        "from ceph_tpu_torch.msg.messages import MOSDOp, OSDOp, ReqId\n"
+        "from ceph_tpu_torch.os.memstore import MemStore\n"
+        "from ceph_tpu_torch.osd.osdmap import OSDMap\n"
+        "from ceph_tpu_torch.osd.pg import PG\n"
+        "m = OSDMap()\n"
+        "m.crush.build_flat(3)\n"
+        "for o in range(3): m.add_osd(o)\n"
+        "pool = m.create_pool('p', size=1, pg_num=4, crush_rule=m.crush.add_simple_rule('r'))\n"
+        "ps = m.object_to_pg(pool.id, 'o')[1]\n"
+        "acting = m.pg_to_up_acting_osds(pool.id, ps)[2]\n"
+        "store = MemStore()\n"
+        "store.mount()\n"
+        "host = SimpleNamespace(whoami=acting[0], store=store, conf=Config(env=False),\n"
+        "                       send_cluster=lambda osd, msg: None)\n"
+        "pg = PG(host, pool, ps, {}, device='cpu')\n"
+        "pg.on_new_interval(1, acting)\n"
+        "out = []\n"
+        "w = OSDOp(op=OSDOp.WRITEFULL, data=b'hello')\n"
+        "pg.do_op(MOSDOp(reqid=ReqId('c', 1), pgid=pg.pgid, oid='o', ops=[w]), out.append)\n"
+        "pg.do_op(MOSDOp(reqid=ReqId('c', 2), pgid=pg.pgid, oid='o', ops=[OSDOp(op=OSDOp.READ)]),\n"
+        "         out.append)\n"
+        "assert [r.result for r in out] == [0, 0] and out[1].outdata == [b'hello'], out\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

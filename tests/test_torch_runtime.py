@@ -62,7 +62,7 @@ def _cpu_codec(k=4, m=2):
 
 def test_option_table_is_the_runtime_slice():
     names = set(options.OPTIONS)
-    assert len(names) == 32
+    assert len(names) == 38
     for lane in ("client", "recovery", "background"):
         for knob in ("res", "wgt", "lim"):
             assert f"ec_tpu_sched_{lane}_{knob}" in names
@@ -72,6 +72,8 @@ def test_option_table_is_the_runtime_slice():
     assert {"osd_objectstore", "osd_data", "bluestore_compression_algorithm",
             "bluestore_compression_required_ratio", "bluestore_csum_offload",
             "bluestore_csum_offload_window", "bluestore_csum_offload_max_bytes"} <= names
+    assert {"osd_recovery_max_active", "osd_recovery_push_retry_sec", "osd_max_backfills",
+            "osd_min_pg_log_entries", "osd_max_pg_log_entries", "osd_backfill_scan_max"} <= names
 
 
 def test_option_see_also_names_options_of_the_table():

@@ -1,8 +1,11 @@
 """The port's wire encodings and write planning against the JAX package:
 `Transaction`, `LogEntry`, `Eversion`, `ObjectInfo`, `PgId`, `ReqId`,
 `PushOp`, the four EC sub-op messages, the recovery pushes
-(`MOSDPGPush`, `MOSDPGPushReply`) and the scrub messages (`MOSDRepScrub`,
-`MOSDRepScrubMap`) give the reference's bytes for seeded values,
+(`MOSDPGPush`, `MOSDPGPushReply`), the scrub messages (`MOSDRepScrub`,
+`MOSDRepScrubMap`) and the placement-group layer's (`OSDOp`, `MOSDOp`,
+`MOSDOpReply`, `MOSDMap`, `MOSDPGQuery`, `MOSDPGNotify`, `MOSDPGLog`,
+`MOSDRepOp`, `MOSDRepOpReply`, `MOSDPGPull`, `MBackfillReserve`, and the
+PG log's `PgInfo`) give the reference's bytes for seeded values,
 and each package decodes the other's; `get_write_plan` and `merge_writes`
 give the reference's plans and merged bytes on 200 seeded cases; and the
 copied helpers are pinned to the reference (`PgPool`'s fields and
@@ -120,6 +123,41 @@ def _values(seed):
                 scrub_tid=ints[1],
                 scrub_map=b'{"o1": {"size": %d, "digest": %d}}' % (ints[2], ints[3]) + blob,
             ),
+            "osd_op": m.OSDOp(op=m.OSDOp.WRITE, off=ints[1], len=ints[2], data=blob,
+                              name="color" if seed % 2 else ""),
+            "op": m.MOSDOp(
+                reqid=reqid, pgid=pgid, oid=f"rbd_data.{ints[3]:x}",
+                ops=[m.OSDOp(op=m.OSDOp.WRITEFULL, data=blob),
+                     m.OSDOp(op=m.OSDOp.SETXATTR, name="a", data=blob[:5])],
+                epoch=ints[4] % 1000, snap_seq=3 if seed % 2 else 0,
+                snaps=[3, 1] if seed % 2 else [], snap_id=ints[5] % 7,
+            ),
+            "op_reply": m.MOSDOpReply(reqid=reqid, result=-2 if seed % 2 else 0,
+                                      outdata=[blob, b""], version=ints[6], epoch=ints[7] % 99),
+            "osdmap": m.MOSDMap(fsid=f"fsid{ints[0]}", maps={ints[1] % 50: blob},
+                                incrementals={ints[2] % 50: blob[:7], 3: b""}),
+            "pg_query": m.MOSDPGQuery(pgid=pgid, op=m.MOSDPGQuery.LOG if seed % 2 else
+                                      m.MOSDPGQuery.INFO, epoch=ints[3] % 1000,
+                                      from_osd=ints[4] % 64, since_epoch=ints[5] % 9,
+                                      since_ver=ints[6]),
+            "pg_notify": m.MOSDPGNotify(pgid=pgid, info=blob[:40], epoch=ints[7] % 1000,
+                                        from_osd=ints[0] % 64),
+            "pg_log": m.MOSDPGLog(pgid=pgid, info=blob[:40], log=blob, epoch=ints[1] % 1000,
+                                  from_osd=ints[2] % 64, since_epoch=ints[3] % 9,
+                                  since_ver=ints[4]),
+            "pg_info": log.PgInfo(last_update=log.Eversion(4, ints[5]),
+                                  last_complete=log.Eversion(3, ints[6]),
+                                  log_tail=log.Eversion(1, ints[7]),
+                                  last_epoch_started=ints[0] % 1000),
+            "rep_op": m.MOSDRepOp(pgid=pgid, from_osd=ints[1] % 64, tid=ints[2], reqid=reqid,
+                                  txn=_txn(txmod, seed + 2).tobytes(),
+                                  log_entries=[entry.tobytes()]),
+            "rep_op_reply": m.MOSDRepOpReply(pgid=pgid, from_osd=ints[3] % 64, tid=ints[4]),
+            "pg_pull": m.MOSDPGPull(pgid=pgid, oid=f"obj{ints[5]}", epoch=ints[6] % 1000,
+                                    from_osd=ints[7] % 64),
+            "backfill_reserve": m.MBackfillReserve(
+                pgid=pgid, op=m.MBackfillReserve.GRANT if seed % 2 else
+                m.MBackfillReserve.RELEASE, epoch=ints[0] % 1000, from_osd=ints[1] % 64),
         }
 
     return build(jmsg, jlog, jtx, jet), build(msg, pg_log, tx, et)
@@ -137,7 +175,9 @@ def _decode(sample, data):
 
 KINDS = ["transaction", "log_entry", "pgid", "reqid", "sub_write", "sub_write_reply",
          "sub_read", "sub_read_reply", "object_info", "push_op", "push", "push_reply",
-         "rep_scrub", "rep_scrub_map"]
+         "rep_scrub", "rep_scrub_map", "osd_op", "op", "op_reply", "osdmap", "pg_query",
+         "pg_notify", "pg_log", "pg_info", "rep_op", "rep_op_reply", "pg_pull",
+         "backfill_reserve"]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -158,11 +198,20 @@ def test_eversion_and_message_type_numbers_match_reference():
         assert e1.tobytes() == e2.tobytes()
     for name in ("MOSDECSubOpWrite", "MOSDECSubOpWriteReply", "MOSDECSubOpRead",
                  "MOSDECSubOpReadReply", "MOSDPGPush", "MOSDPGPushReply",
-                 "MOSDRepScrub", "MOSDRepScrubMap"):
+                 "MOSDRepScrub", "MOSDRepScrubMap", "MOSDOp", "MOSDOpReply", "MOSDMap",
+                 "MOSDPGQuery", "MOSDPGNotify", "MOSDPGLog", "MOSDRepOp", "MOSDRepOpReply",
+                 "MOSDPGPull", "MBackfillReserve"):
         ours, ref = getattr(msg, name), getattr(jmsg, name)
         assert (ours.TYPE, ours.VERSION, ours.priority) == (ref.TYPE, ref.VERSION, ref.priority)
         assert [f for f, _ in ours.FIELDS] == [f for f, _ in ref.FIELDS]
     assert (pg_log.LOG_MODIFY, pg_log.LOG_DELETE) == (jlog.LOG_MODIFY, jlog.LOG_DELETE)
+    codes = {k: v for k, v in vars(jmsg.OSDOp).items() if k.isupper() and isinstance(v, int)}
+    assert codes and all(getattr(msg.OSDOp, k) == v for k, v in codes.items())
+    assert [f for f, _ in msg.OSDOp.FIELDS] == [f for f, _ in jmsg.OSDOp.FIELDS]
+    for name in ("REQUEST", "GRANT", "REJECT", "RELEASE"):
+        assert getattr(msg.MBackfillReserve, name) == getattr(jmsg.MBackfillReserve, name)
+    assert (msg.MOSDPGQuery.INFO, msg.MOSDPGQuery.LOG) == (jmsg.MOSDPGQuery.INFO,
+                                                           jmsg.MOSDPGQuery.LOG)
     assert (et.OI_ATTR, et.HINFO_ATTR) == (jet.OI_ATTR, jet.HINFO_ATTR)
 
 
@@ -268,13 +317,14 @@ def test_pg_pool_fields_defaults_and_constants_match_reference():
     assert osdmap.PgPool(id=1, name="p") == osdmap.PgPool(
         **dataclasses.asdict(jmap.PgPool(id=1, name="p"))
     )
-    for name in ("PG_NONE", "FLAG_EC_OVERWRITES", "POOL_TYPE_ERASURE", "POOL_TYPE_REPLICATED"):
+    for name in ("PG_NONE", "FLAG_EC_OVERWRITES", "FLAG_FULL_QUOTA", "POOL_TYPE_ERASURE",
+                 "POOL_TYPE_REPLICATED"):
         assert getattr(osdmap, name) == getattr(jmap, name), name
     assert osdmap.PgPool(id=1, name="p", type=osdmap.POOL_TYPE_ERASURE).is_erasure()
 
 
 def test_new_fault_points_carry_the_reference_texts():
-    for point in ("os.read", "os.write", "ec.sub_read", "ec.recover_push"):
+    for point in ("os.read", "os.write", "ec.sub_read", "ec.recover_push", "peering.msg"):
         assert fault_injector.FAULT_POINTS[point] == jfault.FAULT_POINTS[point]
 
 
