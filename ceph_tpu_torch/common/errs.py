@@ -12,3 +12,7 @@ ENODATA = 61
 EOPNOTSUPP = 95
 ECANCELED = 125
 EDQUOT = 122
+EBUSY = 16
+EPERM = 1
+ETIMEDOUT = 110
+ESHUTDOWN = 108

@@ -136,10 +136,24 @@ class FaultInjector:
 # recovery push and the PG's peering-message receive; the JAX package's
 # other points come with the modules that check them.
 FAULT_POINTS: dict[str, str] = {
+    "msgr.send": (
+        "messenger frame send, checked before any bytes reach the wire "
+        "(ms_inject_socket_failures semantics: lossy connections reset, "
+        "lossless ones transparently reconnect and resend).  In "
+        "delay_ms mode the frame is held for the injected latency with "
+        "an async-safe sleep before it is written — a slow NIC, not a "
+        "dead one"
+    ),
+    "msgr.recv": (
+        "messenger frame receive, checked after a frame is read; faults "
+        "the connection like a peer reset (the already-read frame is "
+        "lost, as a real mid-delivery connection death would lose it)"
+    ),
     "codec.launch": (
         "device coding-launch submit in LaunchAggregator._launch: the "
-        "device dispatch fails and the group re-runs on the byte-"
-        "identical host oracle, marking the backend DEGRADED"
+        "device dispatch fails, every op in the group fails with EIO "
+        "and the backend is marked DEGRADED (nothing is recomputed on "
+        "the host)"
     ),
     "os.read": (
         "objectstore read() data path (memstore + bluestore; stat/attr "

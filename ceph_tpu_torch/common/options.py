@@ -427,4 +427,253 @@ OPTIONS: dict[str, Option] = _opts(
            "trim threshold (PGLog ceiling)"),
     Option("osd_backfill_scan_max", int, 64, A,
            "objects per backfill scan chunk", runtime=True),
+    # --- the OSD daemon (osd/osd.py): identity, logging, the messenger,
+    # cephx, heartbeats, the op queue, hedged reads, the recovery storm,
+    # scrub scheduling, tracing and the admin socket ----------------------
+    Option("name", str, "", B, "entity name, e.g. osd.0 / mon.a / client"),
+    Option("fsid", str, "", B, "cluster fsid"),
+    Option("mon_host", str, "", B, "comma-separated mon addresses"),
+    Option(
+        "osd_erasure_code_plugins",
+        str,
+        "tpu native jerasure lrc shec clay",
+        A,
+        "space-separated plugins preloaded at OSD boot (global.yaml.in:2541)",
+    ),
+    Option(
+        "osd_op_class_load_list",
+        str,
+        "lock version numops refcount",
+        A,
+        "object classes preloaded at OSD boot (osd_class_load_list; "
+        "others load lazily on first CALL)",
+    ),
+    Option(
+        "ec_tpu_flight_records",
+        int,
+        512,
+        A,
+        "launch flight-recorder ring capacity (ops/flight_recorder.py): "
+        "completed per-launch records retained for the asok dump_flight "
+        "command and tools/trace_export.py timelines.  Resizing at "
+        "runtime keeps the newest records; the ring is the memory bound "
+        "— each record is a small flat dict",
+        see_also=("ec_tpu_aggregate_window",),
+        runtime=True,
+    ),
+    Option(
+        "ec_tpu_shard_min_batch",
+        int,
+        32,
+        A,
+        "minimum stripe count before a coding launch would shard "
+        "data-parallel over several devices.  The port accepts and "
+        "records it (the OSD status blob); its launches stay on one "
+        "device (ops/dispatch.py), so it changes nothing yet",
+        see_also=("ec_tpu_shard_devices", "ec_tpu_aggregate_window"),
+        runtime=True,
+    ),
+    Option(
+        "ec_tpu_shard_devices",
+        int,
+        0,
+        A,
+        "device width for sharded coding launches (0 = every visible "
+        "device, 1 = no sharding, N = the first N devices).  The port "
+        "accepts and records it; its width stays 1 (ops/dispatch.py), "
+        "and the daemon never opens a second device",
+        see_also=("ec_tpu_shard_min_batch",),
+        runtime=True,
+    ),
+    Option("osd_recovery_max_chunk", int, 8 << 20, A,
+           "max recovery push size; rounded to stripe (ECBackend.h:206)"),
+    Option("osd_recovery_storm_min_objects", int, 8, A,
+           "outstanding missing objects across this OSD's primaried PGs "
+           "before the recovery-storm controller engages: below it the "
+           "per-PG osd_recovery_max_active trickle is the right tool; at "
+           "or above it the controller batches cross-PG reconstruction "
+           "into mesh-wide decode waves",
+           see_also=("osd_recovery_storm_wave_objects",), runtime=True),
+    Option("osd_recovery_storm_wave_objects", int, 16, A,
+           "max objects admitted per recovery-storm wave (the adaptive "
+           "wave size's ceiling): one wave's decodes coalesce through "
+           "the DecodeAggregator into few padded launches on the "
+           "recovery QoS lane.  Admission adapts between "
+           "osd_recovery_storm_min_wave_objects and this ceiling on the "
+           "live client burn rate", runtime=True,
+           see_also=("osd_recovery_storm_min_wave_objects",
+                     "osd_recovery_storm_burn_threshold")),
+    Option("osd_recovery_storm_min_wave_objects", int, 2, A,
+           "adaptive wave-size floor under SLO shedding: even a pool "
+           "burning its latency budget keeps rebuilding at this trickle "
+           "(availability beats a perfectly idle rebuild)",
+           see_also=("osd_recovery_storm_wave_objects",), runtime=True),
+    Option("osd_recovery_storm_max_inflight", int, 32, A,
+           "bounded wave depth: objects mid-recovery across ALL "
+           "primaried PGs before the controller stops admitting new "
+           "waves (the cross-PG analog of osd_recovery_max_active)",
+           runtime=True),
+    Option("mgr_slo_latency_target_ms", float, 0.0, A,
+           "default per-pool op latency SLO target in milliseconds: the "
+           "objective is `mgr_slo_objective` of ops under this latency. "
+           "0 disables SLO evaluation.  Per-pool overrides via "
+           "mgr_slo_pool_latency_targets",
+           see_also=("mgr_slo_pool_latency_targets", "mgr_slo_objective"),
+           runtime=True),
+    # the SLO options the recovery storm's see_also names
+    Option("mgr_slo_pool_latency_targets", str, "", A,
+           "per-pool latency-target overrides as comma-separated "
+           "`<pool id or name>:<ms>` entries, e.g. `rbd:50,7:10`; pools "
+           "not listed use mgr_slo_latency_target_ms",
+           see_also=("mgr_slo_latency_target_ms",), runtime=True),
+    Option("mgr_slo_objective", float, 0.99, A,
+           "latency SLO objective: the target fraction of ops under the "
+           "pool's latency target; the error budget is 1 - objective "
+           "and burn rate = observed bad fraction / error budget",
+           runtime=True),
+    Option("osd_recovery_storm_slo_target_ms", float, 0.0, A,
+           "client-op latency target (ms) the storm admission loop "
+           "evaluates the LOCAL burn rate against, from this OSD's own "
+           "io-accounting histograms (the iostat/SLO layer's per-OSD "
+           "input): ops slower than this eat the error budget.  0 "
+           "disables admission feedback — waves always ramp to the "
+           "ceiling", see_also=("osd_recovery_storm_burn_threshold",
+                                "mgr_slo_latency_target_ms"),
+           runtime=True),
+    Option("osd_recovery_storm_slo_objective", float, 0.99, A,
+           "fraction of client ops that must land under the storm SLO "
+           "target; the error budget is 1 - objective and burn rate = "
+           "observed bad fraction / error budget (the "
+           "mgr_slo_objective shape, evaluated OSD-locally per tick)",
+           see_also=("osd_recovery_storm_slo_target_ms",), runtime=True),
+    Option("osd_recovery_storm_burn_threshold", float, 1.0, A,
+           "local burn rate above which the storm SHEDS (halves the "
+           "wave toward the floor) and at/below which it RAMPS (doubles "
+           "toward the ceiling) — the SLO_LATENCY_BREACH-risk feedback "
+           "that keeps a whole-OSD rebuild from eating client p99",
+           see_also=("osd_recovery_storm_slo_target_ms",), runtime=True),
+    Option("osd_op_num_shards", int, 4, A,
+           "op queue shards (OSD.h sharded op queue)"),
+    Option("osd_op_history_size", int, 20, A,
+           "completed ops kept for dump_historic_ops (TrackedOp.h)",
+           runtime=True),
+    Option("osd_op_complaint_time", float, 30.0, A,
+           "in-flight ops older than this count as slow requests "
+           "(osd.yaml.in osd_op_complaint_time; feeds SLOW_OPS health)",
+           runtime=True),
+    Option("osd_op_num_threads_per_shard", int, 2, A, ""),
+    Option("osd_heartbeat_interval", float, 1.0, A,
+           "seconds between OSD->OSD pings (osd.yaml.in, scaled down)"),
+    Option("osd_heartbeat_grace", float, 6.0, A,
+           "seconds without reply before reporting failure "
+           "(OSDMonitor.cc:3240)", runtime=True),
+    Option("osd_ec_hedge_quantile", float, 3.0, A,
+           "hedge trigger as a multiple of the shard source's EWMA "
+           "sub-read latency: an outstanding EC sub-read older than "
+           "quantile x the peer's smoothed round-trip (floored at "
+           "osd_ec_hedge_min_ms) triggers one speculative read to an "
+           "unused shard source; first k replies win through the "
+           "redundant-read escalation path, the loser is reaped when "
+           "its tid completes.  <= 0 disables hedging",
+           see_also=("osd_ec_hedge_min_ms",
+                     "osd_ec_hedge_budget_percent"), runtime=True),
+    Option("osd_ec_hedge_min_ms", float, 10.0, A,
+           "floor (ms) under the EWMA-scaled hedge threshold: sub-reads "
+           "younger than this never hedge, so microsecond-fast healthy "
+           "clusters do not hedge on scheduling noise",
+           see_also=("osd_ec_hedge_quantile",), runtime=True),
+    Option("osd_ec_hedge_budget_percent", float, 5.0, A,
+           "token-bucket hedge budget as a percentage of issued "
+           "sub-reads (burst = 10 tokens): each sub-read earns "
+           "percent/100 of a token, each hedge spends one, and an empty "
+           "bucket falls back to plain waiting — a cluster-wide "
+           "slowdown cannot melt itself with speculative load.  "
+           "<= 0 removes the cap",
+           see_also=("osd_ec_hedge_quantile",), runtime=True),
+    Option("osd_heartbeat_slow_factor", float, 8.0, A,
+           "laggy-peer threshold: a peer whose EWMA ping RTT (or EC "
+           "sub-read service time) inflates past this multiple of the "
+           "cluster-median peer RTT (floored at 10 ms absolute) is "
+           "reported to the mon as LAGGY — a non-fatal OSD_SLOW_PEER "
+           "health warn, never an auto-down/out; primaries deprioritize "
+           "the peer as an EC read source and hedge it preemptively.  "
+           "The report clears when the peer's RTT recovers.  <= 0 "
+           "disables laggy detection",
+           see_also=("osd_heartbeat_grace",
+                     "osd_ec_hedge_quantile"), runtime=True),
+    Option("osd_scrub_interval", float, 0.0, A,
+           "periodic scrub interval; 0 disables the timer"),
+    Option("osd_deep_scrub_interval", float, 0.0, A,
+           "a periodic scrub of a PG whose last periodic deep scrub is older "
+           "than this many seconds runs deep (Ceph's osd_deep_scrub_interval; "
+           "its default is a week).  0 keeps every periodic scrub shallow, "
+           "the JAX package's schedule, which has no deep timer",
+           see_also=("osd_scrub_interval",)),
+    Option("osd_client_op_priority", int, 63, A, "", runtime=True),
+    Option("osd_recovery_op_priority", int, 3, A, "", runtime=True),
+    Option("osd_op_queue", str, "mclock_scheduler", A,
+           "op scheduler: mclock_scheduler | wpq "
+           "(osd/scheduler/OpScheduler)"),
+    Option("osd_fast_read", bool, False, A,
+           "issue k+m reads, first k win (pool fast_read default)"),
+    Option("osd_mclock_client_res", float, 1.0, A, "", runtime=True),
+    Option("osd_mclock_client_wgt", float, 2.0, A, "", runtime=True),
+    Option("osd_mclock_client_lim", float, 0.0, A, "", runtime=True),
+    Option("osd_mclock_recovery_res", float, 0.0, A, "", runtime=True),
+    Option("osd_mclock_recovery_wgt", float, 1.0, A, "", runtime=True),
+    Option("osd_mclock_recovery_lim", float, 3.0, A, "", runtime=True),
+    Option("ms_type", str, "async+posix", A,
+           "messenger stack: async+posix (TCP) or async+inproc "
+           "(in-process pipes, kernel-bypass for one-host topologies)"),
+    Option("ms_crc_data", bool, True, A, "crc32c-protect frame payloads"),
+    Option("ms_inject_socket_failures", int, 0, D,
+           "1-in-N chance of injected connection failure "
+           "(global.yaml.in:1240)", runtime=True),
+    Option("ms_inject_internal_delays", float, 0.0, D,
+           "injected delay seconds in delivery (global.yaml.in:1271)",
+           runtime=True),
+    Option("ms_dispatch_throttle_bytes", int, 100 << 20, A, ""),
+    Option("ms_secure", bool, False, A,
+           "require AES-GCM-encrypted sessions (ms_*_mode=secure analog); "
+           "needs a keyring for the cephx-derived session key"),
+    Option("ms_compress", bool, False, A,
+           "compress on-wire frames when the peer supports it"),
+    Option("keyring", str, "", A,
+           "keyring file for cephx (daemon identity + peer verification)"),
+    Option("log_file", str, "", B, "empty = stderr"),
+    Option("log_max_recent", int, 500, A,
+           "in-memory ring entries kept for crash dump (Log.h)"),
+    Option("debug_osd", str, "1/5", A, "log/gather levels for subsystem osd"),
+    Option("debug_ms", str, "0/5", A, ""),
+    Option("debug_ec", str, "1/5", A, ""),
+    Option("debug_objecter", str, "0/5", A, ""),
+    Option("debug_crush", str, "0/5", A, ""),
+    Option("debug_objectstore", str, "0/5", A, ""),
+    Option("admin_socket", str, "", A,
+           "unix socket path; empty disables the admin socket"),
+    Option("jaeger_tracing_enable", bool, False, A,
+           "record spans through the EC data path in the in-process tracer "
+           "(default off, matching the reference)", runtime=True),
+    Option("op_trace_sample_rate", float, 1.0, A,
+           "head-sampling probability for op traces: the "
+           "retention decision is made once at the client/messenger "
+           "entry and carried on the message envelope so every "
+           "downstream span honors it.  Sampled-out ops still register "
+           "in the OpTracker (SLOW_OPS accounting is never sampled) and "
+           "still keep their FULL trace if they exceed the complaint "
+           "age or error (tail-based always-keep).  1.0 = record "
+           "everything (pre-sampling behavior)",
+           see_also=("op_trace_budget_per_sec", "jaeger_tracing_enable"),
+           runtime=True),
+    Option("op_trace_budget_per_sec", float, 0.0, A,
+           "token-bucket retention budget: head-sampled traces retained "
+           "per second (burst = one second's worth).  Rate-accepted "
+           "traces that find the bucket empty fall back to provisional "
+           "(tail-keep still rescues slow/errored ops), so always-on "
+           "tracing under the traffic harness cannot exceed this span "
+           "budget.  <= 0 = unlimited",
+           see_also=("op_trace_sample_rate",), runtime=True),
+    Option("heartbeat_inject_failure", float, 0.0, D,
+           "seconds to pretend heartbeats fail (global.yaml.in:865)",
+           runtime=True),
 )

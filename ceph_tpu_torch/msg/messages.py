@@ -1,4 +1,4 @@
-"""The typed message catalog of the port — what the placement-group layer sends.
+"""The typed message catalog of the port — what the PGs and the OSD daemon send.
 
 The port of the part of `ceph_tpu/msg/messages.py` that the PGs and their
 backends send: the wire structs `Struct`, `PgId`, `OSDOp`, `ReqId` and
@@ -11,7 +11,11 @@ returns buffers/attrs/errors (:118-129); the peering messages MOSDPGQuery,
 MOSDPGNotify and MOSDPGLog; the recovery pushes MOSDPGPush / MOSDPGPushReply
 (src/messages/MOSDPGPush.h) and the replicated backend's MOSDRepOp,
 MOSDRepOpReply and MOSDPGPull; the chunky scrub's MOSDRepScrub /
-MOSDRepScrubMap; and the backfill reservation MBackfillReserve.  The type
+MOSDRepScrubMap; the backfill reservation MBackfillReserve; and the OSD
+daemon's: heartbeats (MPing, MOSDPing), boot and failure reports
+(MOSDBoot, MOSDFailure), the monitor client's (MMonCommand,
+MMonCommandAck, MMonSubscribe), the mgr's (MMgrMap, MMgrReport), config
+and cluster log (MConfig, MLog) and watch/notify (MWatchNotify).  The type
 numbers and field orders are the JAX package's, so a message encodes to its
 bytes.
 """
@@ -425,4 +429,140 @@ class MBackfillReserve(Message):
         ("op", "u8"),
         ("epoch", "u32"),
         ("from_osd", "u32"),
+    ]
+
+
+# --- the daemon's liveness, boot and failure reports ------------------------
+
+
+@message_type(1)
+class MPing(Message):
+    FIELDS = [("stamp", "f64")]
+
+
+@message_type(10)
+class MOSDPing(Message):
+    """OSD<->OSD heartbeat (src/messages/MOSDPing.h; handled at
+    OSD.cc:5463 handle_osd_ping)."""
+
+    PING = 1
+    PING_REPLY = 2
+
+    FIELDS = [("op", "u8"), ("stamp", "f64"), ("epoch", "u32"), ("from_osd", "u32")]
+    priority = PRIO_HIGH
+
+
+@message_type(11)
+class MOSDBoot(Message):
+    """OSD -> mon boot announcement (src/messages/MOSDBoot.h)."""
+
+    FIELDS = [("osd", "u32"), ("addr", "str"), ("epoch", "u32")]
+
+
+@message_type(12)
+class MOSDFailure(Message):
+    """OSD -> mon failure report (src/messages/MOSDFailure.h; quorum
+    checked at OSDMonitor.cc:2791 prepare_failure)."""
+
+    FIELDS = [
+        ("target", "u32"),
+        ("target_addr", "str"),
+        ("failed_for", "f64"),
+        ("epoch", "u32"),
+        # 0 = dead (unresponsive, the classic report); 1 =
+        # laggy (heartbeats answered but slow — the gray-failure state:
+        # mon surfaces OSD_SLOW_PEER, never marks down); 2 = laggy
+        # cleared (the reporter's peer recovered)
+        ("laggy", "u8"),
+    ]
+
+    def __init__(self, target=0, target_addr="", failed_for=0.0,
+                 epoch=0, laggy=0, **kw):
+        super().__init__(
+            target=target, target_addr=target_addr,
+            failed_for=failed_for, epoch=epoch, laggy=laggy, **kw,
+        )
+
+# --- the monitor client's messages -------------------------------------------
+
+
+@message_type(14)
+class MMonCommand(Message):
+    """CLI/admin command (src/messages/MMonCommand.h); cmd is the JSON
+    command blob like the reference's cmdmap."""
+
+    FIELDS = [("tid", "u64"), ("cmd", "str")]
+
+
+@message_type(15)
+class MMonCommandAck(Message):
+    FIELDS = [("tid", "u64"), ("retval", "i64"), ("rs", "str"), ("outbl", "bytes")]
+
+
+@message_type(16)
+class MMonSubscribe(Message):
+    """Subscriptions (src/messages/MMonSubscribe.h): what -> start epoch;
+    the mon pushes updates (osdmap) as they commit."""
+
+    FIELDS = [("what", ("map", "str", "u32"))]
+
+# --- mgr, config and cluster-log services ------------------------------------
+
+
+@message_type(30)
+class MMgrMap(Message):
+    """Mon -> subscribers: who the active mgr is
+    (src/messages/MMgrMap.h / MgrMap)."""
+
+    FIELDS = [
+        ("epoch", "u32"),
+        ("active_name", "str"),
+        ("active_addr", "str"),
+        ("standbys", ("list", "str")),
+    ]
+
+
+@message_type(31)
+class MMgrReport(Message):
+    """Daemon -> mgr perf/status report (src/messages/MMgrReport.h;
+    consumed by DaemonServer).  perf/status are JSON blobs."""
+
+    FIELDS = [("daemon", "str"), ("perf", "bytes"), ("status", "bytes")]
+
+
+@message_type(32)
+class MConfig(Message):
+    """Mon -> subscriber: centrally-managed config relevant to that entity
+    (src/messages/MConfig.h; built by ConfigMonitor::check_sub from the
+    global < type-section < entity layering).  `changes` is a JSON object
+    {option: raw value}."""
+
+    FIELDS = [("version", "u32"), ("changes", "bytes")]
+
+
+@message_type(33)
+class MLog(Message):
+    """Cluster-log entries (src/messages/MLog.h), both directions: daemons
+    send new entries to the mons (LogClient -> LogMonitor), the mons push
+    committed entries to "log" subscribers.  `entries` is a JSON list of
+    {"prio", "who", "stamp", "msg"}; `version` is the committed log version
+    (0 on the daemon->mon leg)."""
+
+    FIELDS = [("version", "u64"), ("entries", "bytes")]
+
+
+@message_type(35)
+class MWatchNotify(Message):
+    """Watch/notify push + ack (src/messages/MWatchNotify.h): the primary
+    pushes a notify to every watcher's session; watchers ack with the same
+    type (`is_ack`=1) carrying their optional reply payload."""
+
+    FIELDS = [
+        ("oid", "str"),
+        ("pgid", PgId),
+        ("notify_id", "u64"),
+        ("cookie", "u64"),
+        ("payload", "bytes"),
+        ("is_ack", "u8"),
+        ("watcher", "str"),  # acking entity name
     ]

@@ -21,10 +21,10 @@ invisible without per-launch spans.  Each record carries:
 - flags: ``sharded``, ``timeout`` (a DeviceGuard deadline fired),
   ``throttle_stall`` (a submitter hit the inflight-byte bound),
   ``error`` (sticky failure: a failed launch, or one refused while the
-  backend is DEGRADED), ``overlap``, ``fused``; and ``cache_hit``,
-  ``hedged`` and ``delta``, which the device chunk cache, hedged reads
-  and the RMW record set in the reference and which stay False until
-  those paths are ported.  ``fallback`` and ``degraded_bypass`` mark
+  backend is DEGRADED), ``overlap``, ``fused``; ``cache_hit`` and
+  ``delta`` (the device chunk cache and the RMW delta path), and
+  ``hedged`` (the decode's shard set includes a speculative hedged
+  sub-read that beat a straggler, `hedged_hint`).  ``fallback`` and ``degraded_bypass`` mark
   the reference's host recomputes; the port has none (ops/guard.py),
   and they stay False.
 
@@ -38,11 +38,11 @@ neither needs aggregator plumbing.  Dispatches with no active record
 The ring is a ``collections.deque(maxlen=...)``; a commit takes one
 short lock to bank the utilization accumulators and append (the append
 must share the lock with ``configure``'s deque swap), and readers
-snapshot without blocking writers.  In the port, ``ops/dispatch.perf_dump()``
-reads the utilization scalars (``device_busy_seconds``,
-``device_occupancy``) and ``chip_smoke.py`` reads the records' spans; the
-reference's asok ``dump_flight`` and trace export come with the daemon
-wiring (ROADMAP A9).
+snapshot without blocking writers.  ``ops/dispatch.perf_dump()`` reads
+the utilization scalars (``device_busy_seconds``, ``device_occupancy``),
+and the OSD daemon's admin socket serves the records as ``dump_flight``
+(osd/osd.py; ``reset: true`` rebases the ring and the utilization
+window).
 """
 
 from __future__ import annotations
@@ -67,6 +67,25 @@ import contextvars
 _ACTIVE: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "flight_record", default=None
 )
+
+# hedge hint: set by ECBackend around a reconstruct whose shard set
+# includes a winning hedged sub-read, read by new_record — the decode
+# launch is created levels below (aggregator flush inside
+# pend.result()), so a contextvar is the only plumbing-free channel.
+_HEDGED: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "flight_hedged", default=False
+)
+
+
+@contextlib.contextmanager
+def hedged_hint():
+    """Mark flight records created inside this scope as ``hedged``."""
+    token = _HEDGED.set(True)
+    try:
+        yield
+    finally:
+        _HEDGED.reset(token)
+
 
 def new_record(
     kind: str,
@@ -144,7 +163,7 @@ def new_record(
             # kernel, only the D2H copy (ops/device_cache.py)
             "cache_hit": False,
             # a winning hedged sub-read fed this decode
-            "hedged": False,
+            "hedged": _HEDGED.get(),
             # super-launch fusion: this launch carried more
             # than one aggregation window's worth of tickets
             "fused": False,

@@ -45,13 +45,19 @@ with EIO through `_fail_encoded_op` — the reference re-encodes it on the
 materialize path.  Deep scrub (osd/scrubber.py) verifies parity through
 `verify_aggregator`.
 
-Not ported yet, each with the module that needs it: adaptive hedged
-reads, laggy-peer planning and the sub-read deadline shed.
+Gray-failure tolerance (the daemon's listener hooks `perf_inc`,
+`conf_get`, `note_peer_rtt` and `laggy_peers`): adaptive hedged reads (a
+per-peer EWMA of sub-read round trips sets each sub-read's hedge
+threshold, a token bucket caps the speculative sends), laggy-peer
+planning (reads avoid the peers the heartbeats flag as slow, or hedge up
+front where one cannot be avoided), and the deadline a client op threads
+into its sub-reads, which a shard sheds with -ETIMEDOUT once passed.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -61,8 +67,8 @@ import numpy as np
 
 from ..codec.interface import EcError, ErasureCodeInterface
 from ..common import tracer as tracer_mod
-from ..common.errs import EIO
-from ..common.fault_injector import InjectedFailure, faultpoint
+from ..common.errs import EIO, ETIMEDOUT
+from ..common.fault_injector import InjectedFailure, faultpoint, faultpoint_delay
 from ..common.log import dout
 from ..common.tracer import null_span
 from ..msg.messages import (
@@ -75,6 +81,7 @@ from ..msg.messages import (
     PushOp,
     ReqId,
 )
+from ..ops import flight_recorder as flight_recorder_mod
 from ..os.objectstore import ObjectStore, StoreError
 from ..os.transaction import Transaction
 from ..osd.osdmap import PG_NONE
@@ -195,12 +202,23 @@ class ReadOp:
     # the committed pre-write generation at submit, before its own
     # projection would make `_cache_generation` return None
     cache_generations: dict = field(default_factory=dict)
+    # gray-failure tolerance: the parent op's absolute monotonic deadline
+    # (0.0 = none) rides every sub-read so a doomed read cannot pin shard
+    # sources past its budget
+    deadline: float = 0.0
+    send_ts: dict[int, float] = field(default_factory=dict)  # shard -> sent at
+    hedge_shards: set[int] = field(default_factory=set)  # speculative sends
+    hedge_timer: object | None = None  # asyncio TimerHandle while armed
 
 
 # never-reused namespace tokens for the device chunk cache: one per
 # ECBackend instance, so entries from a torn-down cluster / failed-over
 # primary in the same process can never serve another backend's reads
 _CACHE_NS = itertools.count(1)
+
+# hedged-read token-bucket burst: the most speculative reads the budget
+# can bank; osd_ec_hedge_budget_percent sets the refill rate
+HEDGE_BURST = 10.0
 
 
 RECOVERY_IDLE = "IDLE"
@@ -300,6 +318,8 @@ class ECBackend(PGBackend):
         self.waiting_reads: list[Op] = []
         self.read_ops: dict[int, ReadOp] = {}
         self.recovery_ops: dict[str, RecoveryOp] = {}
+        # oid -> rebuilds asked for while one of that object ran (C15)
+        self._recovery_queue: dict[str, list] = {}
         # Projected object state while writes are in flight (the reference's
         # unstable_hashinfo_registry + projected object contexts): later ops
         # submitted before earlier ones commit must see pending size/hinfo.
@@ -325,6 +345,17 @@ class ECBackend(PGBackend):
         self._sub_write_fences: dict[str, int] = {}
         # lifetime re-sent sub-writes (retry_failed_sub_writes)
         self.sub_write_retries = 0
+        # Adaptive hedged reads: per-peer EWMA of sub-read round-trips
+        # feeds the hedge threshold; the token bucket caps speculative
+        # sends at osd_ec_hedge_budget_percent of traffic (each completed
+        # sub-read earns pct/100 token, a hedge spends one, burst-bounded
+        # so an idle primary cannot bank a storm).
+        self._peer_ewma: dict[int, float] = {}  # osd -> EWMA rtt seconds
+        self._hedge_tokens = HEDGE_BURST
+        # late-loser send ledger: tid -> (retired_at, {shard: (peer,
+        # sent_at)}) for sub-reads still outstanding when their ReadOp
+        # completed — late replies land their RTT sample here
+        self._late_sends: dict[int, tuple[float, dict[int, tuple[int, float]]]] = {}
 
     # -- helpers -------------------------------------------------------------
 
@@ -349,6 +380,30 @@ class ECBackend(PGBackend):
         hook = getattr(self.listener, "perf_hist", None)
         if hook is not None:
             hook(name, value)
+
+    def _perf_inc(self, name: str, n: int = 1) -> None:
+        """Bump a daemon counter through the listener (hedge/shed
+        accounting; harnesses without the hook drop it)."""
+        hook = getattr(self.listener, "perf_inc", None)
+        if hook is not None:
+            hook(name, n)
+
+    def _conf(self, name: str, default):
+        """Runtime-mutable knob through the listener (PGs forward to the
+        OSD's Config); harnesses without the hook get the default."""
+        hook = getattr(self.listener, "conf_get", None)
+        if hook is None:
+            return default
+        v = hook(name)
+        return default if v is None else v
+
+    def _laggy_sources(self) -> set[int]:
+        """OSDs the heartbeat subsystem currently flags as laggy (slow
+        but alive); sub-read planning deprioritizes them."""
+        hook = getattr(self.listener, "laggy_peers", None)
+        if hook is None:
+            return set()
+        return set(hook())
 
     def _next_tid(self) -> int:
         self._tid += 1
@@ -1166,13 +1221,16 @@ class ECBackend(PGBackend):
         want_shards: set[int] | None = None,
         parent_span=None,
         cache_generations: Mapping | None = None,
+        deadline: float = 0.0,
     ) -> None:
         """Client/RMW/recovery reads with reconstruction
         (ECBackend.cc:2389).  on_complete receives
         {oid: (errno, [bytes per requested extent])}; recovery passes
         on_complete_raw to consume the gathered shard streams directly.
         `cache_generations` overrides the device-cache generation of an
-        object (the RMW read leg's pre-write generation)."""
+        object (the RMW read leg's pre-write generation).  `deadline` is
+        the parent op's absolute monotonic budget: sub-reads inherit it so
+        shards shed work for a read the client has already given up on."""
         fast = self.fast_read if fast_read is None else fast_read
         tid = self._next_tid()
         requests: dict[str, ReadRequest] = {}
@@ -1204,7 +1262,32 @@ class ECBackend(PGBackend):
             on_complete({oid: (-EIO, []) for oid in reads})
             return
         sub_count = self.ec.get_sub_chunk_count()
-        sources = set(minimum)
+        preempt: set[int] = set()
+        laggy = self._laggy_sources()
+        if laggy and not fast:
+            # Laggy-peer deprioritization: plan the read
+            # entirely off non-laggy sources when the stripe allows it;
+            # when a laggy source is unavoidable, hedge PREEMPTIVELY —
+            # one extra shard up front so the slow peer never sits alone
+            # on the critical path.
+            oid_list = list(reads)
+            srcs = {s: self._shard_source(s, oid_list) for s in avail}
+            clean = {s for s in avail if srcs[s] not in laggy}
+            if self._decodable(want, clean):
+                minimum = self.ec.minimum_to_decode(want, clean)
+                trace.event("laggy sources deprioritized")
+            else:
+                extra = [s for s in avail - set(minimum) if srcs[s] not in laggy]
+                if extra and self._hedge_spend():
+                    preempt = {
+                        min(extra, key=lambda s: self._peer_ewma.get(srcs[s], 0.0))
+                    }
+                    self._perf_inc("ec_hedge_reads")
+                    trace.event(
+                        lambda: f"preemptive hedge to shard {sorted(preempt)}"
+                        " (laggy source unavoidable)"
+                    )
+        sources = set(minimum) | preempt
         if fast:
             sources = set(avail)  # redundant reads, first k win (ECBackend.h:371)
         rop = ReadOp(
@@ -1217,6 +1300,8 @@ class ECBackend(PGBackend):
             on_complete_raw=on_complete_raw,
             trace=trace,
             cache_generations=dict(cache_generations or {}),
+            deadline=deadline,
+            hedge_shards=set(preempt),
         )
         self.read_ops[tid] = rop
         self._send_reads(rop, sources)
@@ -1228,10 +1313,12 @@ class ECBackend(PGBackend):
         # completion check runs against a partial plan.
         sends: list[tuple[int, MOSDECSubOpRead]] = []
         oids = list(rop.requests)
+        now = time.monotonic()
         for s in shards:
             osd = self._shard_source(s, oids)
             rop.sources[s] = osd
             rop.tried.add(s)
+            rop.send_ts[s] = now
             to_read: dict[str, list[list[int]]] = {}
             for oid, req in rop.requests.items():
                 exts = []
@@ -1261,12 +1348,181 @@ class ECBackend(PGBackend):
             )
         rop.trace.event(lambda: f"sub-reads to shards {sorted(shards)}")
         for osd, msg in sends:
+            msg.deadline = rop.deadline  # sub-reads inherit the op budget
             self.listener.send_shard(osd, msg)
+        # a self-send above may have completed the op synchronously; the
+        # arm helper no-ops (and _retire_rop already cancelled) if so
+        self._arm_hedge_timer(rop)
+
+    # -- adaptive hedged reads ------------------------------------
+
+    def _hedge_spend(self) -> bool:
+        """Take one token from the hedge budget; False (counted as
+        ec_hedge_denied) means plain waiting — the bucket refills as
+        sub-reads complete.  osd_ec_hedge_budget_percent <= 0 uncaps."""
+        pct = float(self._conf("osd_ec_hedge_budget_percent", 5.0))
+        if pct <= 0:
+            return True
+        if self._hedge_tokens >= 1.0:
+            self._hedge_tokens -= 1.0
+            return True
+        self._perf_inc("ec_hedge_denied")
+        return False
+
+    def _hedge_earn(self) -> None:
+        """Each completed sub-read banks pct/100 token, burst-bounded."""
+        pct = float(self._conf("osd_ec_hedge_budget_percent", 5.0))
+        if pct > 0:
+            self._hedge_tokens = min(HEDGE_BURST, self._hedge_tokens + pct / 100.0)
+
+    def _hedge_threshold(self, peer: int) -> float:
+        """Seconds an outstanding sub-read to `peer` may age before it
+        counts as slow: quantile x the peer's EWMA round-trip, floored
+        at osd_ec_hedge_min_ms so cold/fast peers don't hedge on noise."""
+        q = float(self._conf("osd_ec_hedge_quantile", 3.0))
+        floor = float(self._conf("osd_ec_hedge_min_ms", 10.0)) / 1000.0
+        return max(q * self._peer_ewma.get(peer, 0.0), floor)
+
+    def _arm_hedge_timer(self, rop: ReadOp) -> None:
+        """(Re)schedule the hedge check for the earliest moment an
+        outstanding sub-read crosses its slowness threshold.  Inert when
+        hedging is disabled, the op is done, or no event loop runs (the
+        synchronous test harnesses)."""
+        if float(self._conf("osd_ec_hedge_quantile", 3.0)) <= 0:
+            return
+        if self.read_ops.get(rop.tid) is not rop:
+            return  # already retired (synchronous self-send completion)
+        outstanding = set(rop.sources) - set(rop.replies) - set(rop.errors)
+        if not outstanding:
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        now = time.monotonic()
+        expiry = min(
+            rop.send_ts.get(s, now) + self._hedge_threshold(rop.sources[s])
+            for s in outstanding
+        )
+        if rop.hedge_timer is not None:
+            rop.hedge_timer.cancel()
+        rop.hedge_timer = loop.call_later(
+            max(expiry - now, 0.0), self._hedge_fire, rop.tid
+        )
+
+    def _hedge_fire(self, tid: int) -> None:
+        """Hedge-timer body: if an outstanding sub-read is past its
+        threshold, issue ONE speculative read to the best untried shard
+        source (budget permitting).  First k replies win through the
+        normal gather; the loser's late reply hits a retired tid and is
+        dropped, so a double-count is structurally impossible."""
+        rop = self.read_ops.get(tid)
+        if rop is None:
+            return
+        rop.hedge_timer = None
+        if float(self._conf("osd_ec_hedge_quantile", 3.0)) <= 0:
+            return
+        now = time.monotonic()
+        outstanding = set(rop.sources) - set(rop.replies) - set(rop.errors)
+        overdue = {
+            s
+            for s in outstanding
+            if now - rop.send_ts.get(s, now) >= self._hedge_threshold(rop.sources[s])
+        }
+        if not overdue:
+            self._arm_hedge_timer(rop)  # a reply raced the timer; re-aim
+            return
+        if rop.deadline and now > rop.deadline:
+            return  # doomed read: never spend hedge budget on it
+        remaining = (
+            set.intersection(*(self._available_shards(o) for o in rop.requests))
+            - rop.tried
+        )
+        if not remaining:
+            return  # every source asked; error escalation owns the rest
+        if not self._hedge_spend():
+            return  # budget exhausted: plain waiting
+        oids = list(rop.requests)
+        laggy = self._laggy_sources()
+
+        def rank(s: int):
+            peer = self._shard_source(s, oids)
+            return (peer in laggy, self._peer_ewma.get(peer, 0.0), s)
+
+        s = min(remaining, key=rank)
+        rop.subchunks[s] = [(0, self.ec.get_sub_chunk_count())]
+        rop.hedge_shards.add(s)
+        self._perf_inc("ec_hedge_reads")
+        rop.trace.event(
+            lambda: f"hedged read to shard {s} (slow shards {sorted(overdue)})"
+        )
+        self._send_reads(rop, {s})
 
     def _retire_rop(self, rop: ReadOp) -> None:
-        """Drop a ReadOp from the in-flight table; late replies now hit
-        an unknown tid and are dropped."""
+        """Drop a ReadOp from the in-flight table and disarm its hedge
+        timer; late replies now hit an unknown tid and are reaped.
+
+        Late-loser RTT ledger: a hedged-past slow shard's
+        reply arrives AFTER the op completes — and that reply carries
+        the one signal a gray peer ever emits, its service time.  If the
+        late losers were reaped blind, hedging would mask exactly the
+        slowness the laggy detector needs to see.  Remember where the
+        still-outstanding sub-reads went so `_note_late_reply` can land
+        the sample (and the budget earn) before dropping the data."""
         self.read_ops.pop(rop.tid, None)
+        t = rop.hedge_timer
+        if t is not None:
+            rop.hedge_timer = None
+            t.cancel()
+        outstanding = set(rop.sources) - set(rop.replies) - set(rop.errors)
+        sends = {
+            s: (rop.sources[s], rop.send_ts[s])
+            for s in outstanding
+            if rop.sources.get(s, PG_NONE) != PG_NONE and s in rop.send_ts
+        }
+        if sends:
+            self._late_sends[rop.tid] = (time.monotonic(), sends)
+            self._prune_late_sends()
+
+    # answers for retired tids stay attributable this long; anything
+    # later is a dead peer's ghost, not a service-time signal
+    LATE_SEND_TTL = 120.0
+
+    def _prune_late_sends(self) -> None:
+        cutoff = time.monotonic() - self.LATE_SEND_TTL
+        for tid in [
+            t for t, (at, _s) in self._late_sends.items() if at < cutoff
+        ]:
+            del self._late_sends[tid]
+
+    def _sample_peer_rtt(self, peer: int, rtt: float) -> None:
+        """One sub-read service-time sample: feeds the per-peer hedge
+        threshold EWMA and (through the listener) the OSD-level laggy
+        detector."""
+        prev = self._peer_ewma.get(peer)
+        self._peer_ewma[peer] = rtt if prev is None else 0.2 * rtt + 0.8 * prev
+        hook = getattr(self.listener, "note_peer_rtt", None)
+        if hook is not None:
+            hook(peer, rtt)
+
+    def _note_late_reply(self, msg: MOSDECSubOpReadReply) -> None:
+        """A reply for a retired ReadOp: sample the peer's service time
+        from the late-send ledger (the slow peer a hedge raced past is
+        the laggy detector's prime witness), earn back the hedge budget
+        for the completed sub-read, then reap the payload unread — the
+        op already completed, so counting its data twice is impossible."""
+        entry = self._late_sends.get(msg.tid)
+        if entry is None:
+            return
+        _retired_at, sends = entry
+        rec = sends.pop(msg.pgid.shard, None)
+        if not sends:
+            del self._late_sends[msg.tid]
+        if rec is None:
+            return
+        peer, sent = rec
+        self._sample_peer_rtt(peer, time.monotonic() - sent)
+        self._hedge_earn()
 
     def handle_sub_read(self, msg: MOSDECSubOpRead) -> None:
         """Shard-side read (ECBackend.cc:1023-1156): extents (with CLAY
@@ -1275,6 +1531,32 @@ class ECBackend(PGBackend):
         buffers: dict[str, list[list[bytes]]] = {}
         attrs: dict[str, dict[str, bytes]] = {}
         errors: dict[str, int] = {}
+        deadline = getattr(msg, "deadline", 0.0)
+        if deadline and time.monotonic() > deadline:
+            # Sub-read deadline shed: the parent op's budget
+            # is spent, so the client already gave up — answer every
+            # object -ETIMEDOUT without touching the store, releasing
+            # this shard source immediately instead of pinning it.
+            self._perf_inc("subread_deadline_shed")
+            self.listener.send_shard(
+                msg.from_osd,
+                MOSDECSubOpReadReply(
+                    pgid=msg.pgid,
+                    from_osd=self.listener.whoami(),
+                    tid=msg.tid,
+                    buffers={},
+                    attrs={},
+                    errors={oid: -ETIMEDOUT for oid in msg.to_read},
+                ),
+            )
+            return
+        # gray-failure injection (ec.sub_read delay_ms mode): answer
+        # correctly but late — the reply is deferred below, off-loop.
+        # Scoped by daemon identity so a harness can gray ONE shard
+        # source while its peers stay fast.
+        inject_delay = faultpoint_delay(
+            "ec.sub_read", who=f"osd.{self.listener.whoami()}"
+        )
         sub_count = self.ec.get_sub_chunk_count()
         for oid, extents in msg.to_read.items():
             runs = [tuple(r) for r in msg.subchunks.get(oid, [[0, sub_count]])]
@@ -1323,6 +1605,18 @@ class ECBackend(PGBackend):
             attrs=attrs,
             errors=errors,
         )
+        if inject_delay > 0:
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                loop = None  # sync harness: delay inert, answer now
+            if loop is not None:
+                # the gray shard: correct bytes, late — deferred on the
+                # event loop so the injected latency never blocks it
+                loop.call_later(
+                    inject_delay, self.listener.send_shard, msg.from_osd, reply
+                )
+                return
         self.listener.send_shard(msg.from_osd, reply)
 
     def _verify_hinfo(self, coll: str, oid: str, shard: int, data: bytes) -> None:
@@ -1341,8 +1635,18 @@ class ECBackend(PGBackend):
         (ECBackend.cc:1191-1328)."""
         rop = self.read_ops.get(msg.tid)
         if rop is None:
-            return  # a late reply for a completed op: reaped unread
+            # late loser (completed/hedged-past op): its service time
+            # still feeds the laggy detector, then the payload is reaped
+            self._note_late_reply(msg)
+            return
         shard = msg.pgid.shard
+        # per-peer service-time EWMA: every sub-read round trip feeds the
+        # hedge threshold AND the OSD's laggy detector
+        sent = rop.send_ts.get(shard)
+        peer = rop.sources.get(shard, PG_NONE)
+        if sent is not None and peer != PG_NONE:
+            self._sample_peer_rtt(peer, time.monotonic() - sent)
+        self._hedge_earn()
         rop.trace.event(
             lambda: f"reply from shard {shard}"
             + (f" with errors {sorted(msg.errors)}" if msg.errors else "")
@@ -1424,6 +1728,10 @@ class ECBackend(PGBackend):
             return False
 
     def _complete_read_op(self, rop: ReadOp, good: set[int]) -> None:
+        if rop.hedge_shards & good:
+            # a speculative read answered in time to join the decode set:
+            # the hedge paid for itself (win-rate vs ec_hedge_reads)
+            self._perf_inc("ec_hedge_wins")
         if rop.on_complete_raw is not None:
             rop.trace.event("raw shard streams handed to recovery")
             rop.trace.finish()
@@ -1451,17 +1759,26 @@ class ECBackend(PGBackend):
                 except EcError as e:
                     results[oid] = (e.errno, [])
 
+        # hedge flag on the flight records: decode launches fed by a
+        # winning speculative sub-read carry "hedged", so the timeline
+        # shows WHICH launches a straggler would have stalled.  No-op
+        # scope when no hedge shard made the good set.
+        hint = (
+            flight_recorder_mod.hedged_hint()
+            if rop.hedge_shards & good
+            else contextlib.nullcontext()
+        )
         if not rop.want <= good:
             t0 = time.monotonic()
             # decode path: spans make the degraded read visible end to end
             with rop.trace.child("ec:reconstruct") as sp:
                 sp.keyval("have", ",".join(map(str, sorted(good))))
                 sp.keyval("want", ",".join(map(str, sorted(rop.want))))
-                with tracer_mod.span_scope(sp):
+                with tracer_mod.span_scope(sp), hint:
                     reconstruct_all()
             self._perf_hist("ec_decode_latency", time.monotonic() - t0)
         else:
-            with tracer_mod.span_scope(rop.trace):
+            with tracer_mod.span_scope(rop.trace), hint:
                 reconstruct_all()
         rop.trace.event("read complete")
         rop.trace.finish()
@@ -1554,6 +1871,13 @@ class ECBackend(PGBackend):
         self, oid: str, missing_on: set[int], on_complete: Callable[[int], None]
     ) -> None:
         """Primary-only: rebuild `missing_on` shards (run_recovery_op)."""
+        if oid in self.recovery_ops:
+            # A rebuild of this object is in flight (the recovery driver's
+            # and a backfill push, say): run this one after it.  The
+            # reference starts both, the second replaces the first in
+            # `recovery_ops`, and the first never completes (ROADMAP C15).
+            self._recovery_queue.setdefault(oid, []).append((set(missing_on), on_complete))
+            return
         rec = RecoveryOp(
             oid=oid,
             missing_on=set(missing_on),
@@ -1585,6 +1909,7 @@ class ECBackend(PGBackend):
                 rec.trace.event(f"recovery read failed ({err})")
                 rec.trace.finish()
                 rec.on_complete(err or -EIO)
+                self._start_queued_recovery(rec.oid)
 
             self.objects_read_and_reconstruct(
                 {rec.oid: [(0, self._recovery_extent(rec.oid, avail))]},
@@ -1683,6 +2008,7 @@ class ECBackend(PGBackend):
             rec.trace.event(f"decode failed ({e})")
             rec.trace.finish()
             rec.on_complete(getattr(e, "errno", -EIO))
+            self._start_queued_recovery(rec.oid)
             return
         rec.shard_data = rebuilt
         self._push_recovered(rec)
@@ -1731,6 +2057,7 @@ class ECBackend(PGBackend):
             rec.trace.event(f"decode failed ({e})")
             rec.trace.finish()
             rec.on_complete(getattr(e, "errno", -EIO))
+            self._start_queued_recovery(rec.oid)
             return
         rec.pending_decode = None
         if rec.decode_t0:
@@ -1901,6 +2228,16 @@ class ECBackend(PGBackend):
         rec.trace.finish()
         self.listener.on_global_recover(rec.oid)
         rec.on_complete(0)
+        self._start_queued_recovery(rec.oid)
+
+    def _start_queued_recovery(self, oid: str) -> None:
+        """Start the next rebuild of `oid` asked for while one ran."""
+        queue = self._recovery_queue.get(oid)
+        if queue and oid not in self.recovery_ops:
+            missing_on, on_complete = queue.pop(0)
+            if not queue:
+                del self._recovery_queue[oid]
+            self.recover_object(oid, missing_on, on_complete)
 
     # -- scrub support ---------------------------------------------------------
 

@@ -5,19 +5,15 @@ entries and store contents, over the port's backends (`ECBackend`, whose
 encode, decode, verify and delta run on the device, and
 `ReplicatedBackend`).  `PG(osd, pool, ps, profiles, device=None)` makes
 an EC pool's codec on `device` (None: `cuda`, which raises with no GPU).
-Three paths of the JAX package's PG are not ported, and `do_op` answers
--EOPNOTSUPP for them: cache tiering (an op on a cache-tier pool) and
-COPY_FROM, which need the daemon's internal objecter leg, and
-watch/notify (WATCH, NOTIFY, LIST_WATCHERS), which needs the messenger's
-client sessions.  What only the daemon calls comes with it: the mgr's
-progress and blocked-op reports, `list_unfound` / `mark_unfound_lost`,
-the stat helpers, the recovery-storm hooks and the listener hooks of
-the hedged reads (`perf_inc`, `conf_get`, `note_peer_rtt`,
-`laggy_peers`).  One policy differs from the JAX package's: an EC
-rebuild that fails for want of sources takes the members that moved slot
-this interval as holders of their old slots, and runs again (ROADMAP
-C13).  The host `osd` gives `whoami`, `store`, `conf`, `osdmap`,
-`send_cluster`, `local_reserver`, `perf` and `clog_error`.
+Cache tiering and COPY_FROM fetch through the daemon's internal objecter
+leg (`osd.internal_op`), and watch/notify pushes to the client sessions
+of the daemon's messenger.  One policy differs from the JAX package's:
+an EC rebuild that fails for want of sources takes the members that
+moved slot this interval as holders of their old slots, and runs again
+(ROADMAP C13).  The host `osd` gives `whoami`, `store`, `conf`,
+`osdmap`, `send_cluster`, `local_reserver`, `perf` and `clog_error`;
+the daemon (osd/osd.py) gives the rest (`internal_op`, `recovery_storm`,
+`note_subread_rtt`, `laggy_peers`, `io_accountant`).
 
 Mirrors the slice of src/osd/PG.{h,cc} + PrimaryLogPG.cc that executes
 client ops and drives recovery:
@@ -43,16 +39,19 @@ from __future__ import annotations
 import asyncio
 import bisect
 import time
-from typing import Callable
+from collections import OrderedDict
+from typing import TYPE_CHECKING, Callable
 
 from ..common.errs import (
     EAGAIN,
+    EBUSY,
     ECANCELED,
     EDQUOT,
     EINVAL,
     ENODATA,
     ENOENT,
     EOPNOTSUPP,
+    EPERM,
 )
 from ..common.log import dout
 from ..msg.messages import (
@@ -91,6 +90,12 @@ WRITE_OPS = {
     OSDOp.ZERO,
     OSDOp.WRITESAME,
 }
+
+# Cache-tier dirty marker (object_info_t FLAG_DIRTY analog): set by client
+# writes on a writeback cache PG, cleared by flush; rides the write
+# transaction so replicas agree.
+DIRTY_ATTR = "cache_dirty"
+
 
 # Wire blobs for GETXATTRS dumps and omap ops (the copy-get attrs map,
 # src/osd/PrimaryLogPG.cc do_copy_get).
@@ -194,6 +199,40 @@ class PG(PGListener):
         # reply must get the original result, not a second execution.
         self._reqid_results: dict[tuple[str, int], MOSDOpReply] = {}
         self._inflight_reqids: dict[tuple[str, int], list] = {}
+        # watch/notify (PrimaryLogPG watchers / Notify in Watch.cc):
+        # oid -> (entity, cookie) -> connection; cookies are only unique
+        # per watcher entity, exactly like the reference's watch key
+        # (pair<uint64_t, entity_name_t>, PrimaryLogPG.h).
+        # Simplification vs the reference: watches are primary-memory only
+        # (the reference persists them in object_info and clients re-watch
+        # after ENOTCONN) — a primary failover drops them, so watchers
+        # must re-register after cluster topology changes.
+        self.watchers: dict[str, dict[tuple[str, int], object]] = {}
+        self._notify_id = 0
+        # notify_id -> {"pending": set[(entity, cookie)], "acks", "finish"}
+        self._notifies: dict[int, dict] = {}
+        # cache tiering (PrimaryLogPG promote_object / TierAgent):
+        self._promoting: dict[str, list] = {}  # oid -> queued (msg,reply,conn)
+        self._tier_pass: set[tuple[str, int]] = set()  # reqids past the gate
+        self._tier_lru: "OrderedDict[str, None]" = OrderedDict()
+        self._tier_tid = 0
+        self._tier_agent_busy = False
+        # oids mid-flush: writes are blocked (queued) until the write-back
+        # and dirty-clear land, else a racing write could be marked clean
+        # and lost on evict (the reference's wait_for_blocked_object).
+        self._flushing: dict[str, list] = {}
+        # recovery-progress accounting: the high-water total of
+        # missing objects this recovery episode and the done counters —
+        # progress_status() folds them into the OSD status blob the mgr
+        # progress module aggregates.  Reset when the episode completes.
+        self._recovery_total = 0
+        self._recovery_done = 0
+        self._recovery_done_bytes = 0
+        # completion-report repeats remaining: the final done==total
+        # event is re-emitted on a few status reports, because the mgr
+        # samples a last-write-wins status blob and a one-shot report
+        # can be overwritten before the module's next tick sees it
+        self._recovery_final_reports = 0
 
     # -- interval / peering ----------------------------------------------------
 
@@ -233,6 +272,14 @@ class PG(PGListener):
         # forever — re-peering recomputes the missing sets and the next
         # tick re-admits whatever still needs rebuilding
         self.recovering.clear()
+        # recovery-progress episode dies with the interval: a demoted
+        # primary's progress_status goes silent BEFORE its reset branch
+        # can run, and stale done counts would otherwise pre-fill the
+        # bar when this OSD becomes primary again
+        self._recovery_total = 0
+        self._recovery_done = 0
+        self._recovery_done_bytes = 0
+        self._recovery_final_reports = 0
         self.peering.start_peering_interval(epoch, acting)
 
     def tick(self) -> None:
@@ -284,6 +331,33 @@ class PG(PGListener):
         "@" separator and are internal)."""
         return [o for o in self._list_local() if "@" not in o]
 
+    def logical_object_size(self, oid: str) -> int:
+        return self._object_size(oid)
+
+    def local_object_count(self) -> int:
+        """O(1)/one-readdir count for stat reporting (no enumeration)."""
+        coll = shard_coll(self.pgid, self.whoami_shard())
+        try:
+            return self.osd.store.count_objects(coll)
+        except Exception:
+            return 0
+
+    def local_bytes_used(self) -> int:
+        """Raw bytes this OSD stores for the PG (every local object incl.
+        snap clones and EC shard chunks) — the pg_stats slice `ceph df`'s
+        USED column aggregates."""
+        coll = shard_coll(self.pgid, self.whoami_shard())
+        total = 0
+        try:
+            for oid in self.osd.store.list_objects(coll):
+                try:
+                    total += self.osd.store.stat(coll, oid)
+                except Exception:
+                    pass
+        except Exception:
+            return 0
+        return total
+
     def _drop_local_object(self, oid: str) -> None:
         """Divergent-rewind hook: a stale-but-present local copy must be
         dropped so recovery PULLS the authoritative version instead of
@@ -300,6 +374,13 @@ class PG(PGListener):
         self._version = max(self._version, self.pg_log.head.version)
         self._rebuild_dup_window()
         self._apply_shard_moves()
+        # kick the storm controller AT the flood: activation
+        # is the moment a whole-OSD failure's missing sets appear, and
+        # waiting for the next heartbeat tick would let the per-PG
+        # trickle race the first wave
+        storm = getattr(self.osd, "recovery_storm", None)
+        if storm is not None:
+            storm.tick()
         self._kick_recovery()
 
     def _apply_shard_moves(self) -> None:
@@ -479,6 +560,34 @@ class PG(PGListener):
         except (KeyError, AttributeError):
             pass  # harness OSD without the histogram declared
 
+    def perf_inc(self, name: str, n: int = 1) -> None:
+        """EC hedge/shed accounting -> the OSD's counters."""
+        perf = getattr(self.osd, "perf", None)
+        if perf is None:
+            return
+        try:
+            perf.inc(name, n)
+        except (KeyError, AttributeError):
+            pass  # harness OSD without the counter declared
+
+    def conf_get(self, name: str):
+        """Runtime-mutable knob lookup for the EC backend (hedge
+        quantile/floor/budget ride the OSD's live Config)."""
+        conf = getattr(self.osd, "conf", None)
+        return conf.get(name) if conf is not None else None
+
+    def note_peer_rtt(self, peer: int, rtt: float) -> None:
+        """Sub-read service-time sample -> the OSD's laggy detector."""
+        hook = getattr(self.osd, "note_subread_rtt", None)
+        if hook is not None:
+            hook(peer, rtt)
+
+    def laggy_peers(self) -> set[int]:
+        """OSDs the heartbeat subsystem flags as slow-but-alive; the EC
+        backend deprioritizes them as sub-read sources."""
+        hook = getattr(self.osd, "laggy_peers", None)
+        return set(hook()) if hook is not None else set()
+
     def whoami_shard(self) -> int:
         if self.pool.type != POOL_TYPE_ERASURE:
             return -1
@@ -539,12 +648,26 @@ class PG(PGListener):
         self.peering.mark_recovered(oid, self.osd.whoami)
 
     def on_global_recover(self, oid: str) -> None:
+        # progress accounting gates on the recovery driver's in-flight
+        # set: backfill pushes reuse backend.recover_object (and thus
+        # land here) without ever entering `recovering`, and the
+        # backend + _recover_one's completion BOTH call this hook for a
+        # real recovery — counting on the membership test keeps done at
+        # exactly one per recovered object and zero for backfill
+        if oid in self.recovering:
+            self._recovery_done += 1
         for osd in list(self.peering.peer_missing):
             self.peering.mark_recovered(oid, osd)
         self.peering.mark_recovered(oid, self.osd.whoami)
         self.recovering.discard(oid)
         for cb in self.waiting_for_degraded.pop(oid, []):
             cb()
+        # completion-driven waves: while a storm is engaged,
+        # each landed recovery frees in-flight budget — admit the next
+        # wave NOW instead of waiting out the heartbeat tick
+        storm = getattr(self.osd, "recovery_storm", None)
+        if storm is not None and storm.engaged:
+            storm.tick()
         self._kick_recovery()
 
     def clog_error(self, msg: str) -> None:
@@ -556,8 +679,7 @@ class PG(PGListener):
         self, msg: MOSDOp, reply: Callable[[MOSDOpReply], None], conn=None
     ) -> None:
         """PrimaryLogPG::do_op.  `reply` delivers the MOSDOpReply; `conn`
-        is the client session (kept for the signature; watch/notify is
-        not ported)."""
+        is the client session (needed to push watch notifies)."""
         if not self.peering.is_primary() or not self.peering.is_active():
             # Misdirected or not-yet-peered: tell the client to refresh its
             # map and resend (the reference drops + relies on the map sub;
@@ -605,13 +727,23 @@ class PG(PGListener):
             # OSD-internal traffic (flush/promote) still flows
             reply(self._errored(msg, -EDQUOT))
             return
-        # Cache tiering (PrimaryLogPG::maybe_handle_cache) promotes and
-        # flushes through the daemon's internal objecter, and watch/notify
-        # pushes to client sessions: neither is ported, so both answer
-        # -EOPNOTSUPP.
+        # Cache-tier gate (PrimaryLogPG::maybe_handle_cache): promote on
+        # miss, forward deletes to the base, reject writes on readonly.
+        # OSD-internal traffic ("osd." clients: promote writes, flush acks)
+        # bypasses it.
+        if (
+            self.pool.is_cache_tier()
+            and msg.reqid.client
+            and not msg.reqid.client.startswith("osd.")
+            and not self._tier_gate(msg, reply, conn, writing)
+        ):
+            return
         first = msg.ops[0].op if msg.ops else 0
-        if self.pool.is_cache_tier() or first in (OSDOp.WATCH, OSDOp.NOTIFY):
-            reply(self._errored(msg, -EOPNOTSUPP))
+        if first == OSDOp.WATCH:
+            self._do_watch(conn, msg, reply)
+            return
+        if first == OSDOp.NOTIFY:
+            self._do_notify(msg, reply)
             return
         if writing:
             if self.scrubber.write_blocked(oid):
@@ -759,10 +891,7 @@ class PG(PGListener):
                 self._start_rollback(msg, reply, int(op.off))
                 return
             elif op.op == OSDOp.COPY_FROM:
-                # the source fetch is an internal objecter op of the
-                # daemon, which is not ported
-                self._inflight_reqids.pop(msg.reqid.key(), None)
-                reply(self._errored(msg, -EOPNOTSUPP))
+                self._start_copy_from(msg, reply, op)
                 return
             elif op.op == OSDOp.CALL:
                 # WR-class object-class method: runs against the pre-op
@@ -850,6 +979,18 @@ class PG(PGListener):
                     ss.seq = newest
                     ss.born = newest
                     pgt.attrs[SS_ATTR] = ss.encode()
+        # Cache-tier dirty marking (object_info_t FLAG_DIRTY): client
+        # mutations on a writeback cache are flush candidates; internal
+        # writes (promotes, flush bookkeeping) stay clean.
+        if (
+            self.pool.cache_mode == "writeback"
+            and self.pool.tier_of >= 0
+            and not pgt.delete
+            and msg.reqid.client
+            and not msg.reqid.client.startswith("osd.")
+        ):
+            pgt.attrs[DIRTY_ATTR] = b"1"
+
         def finish(rep: MOSDOpReply, remember: bool) -> None:
             self._finish_write(msg, reply, rep, remember)
 
@@ -924,9 +1065,16 @@ class PG(PGListener):
                     result = -ECANCELED
                     break
             elif op.op == OSDOp.LIST_WATCHERS:
-                # the watch table belongs to watch/notify (not ported)
-                result = -EOPNOTSUPP
-                break
+                # PrimaryLogPG do_osd_ops CEPH_OSD_OP_LIST_WATCHERS:
+                # (entity, cookie) pairs currently registered on the head
+                import json as _json
+
+                outdata[i] = _json.dumps(
+                    [
+                        {"watcher": e, "cookie": c}
+                        for e, c in sorted(self.watchers.get(msg.oid, {}))
+                    ]
+                ).encode()
             elif op.op == OSDOp.GETXATTRS:
                 # Bulk client-xattr dump — the attrs leg of copy-get
                 # (PrimaryLogPG::do_copy_get), consumed by COPY_FROM and
@@ -1011,7 +1159,11 @@ class PG(PGListener):
             )
 
         self.backend.objects_read_and_reconstruct(
-            {target: [ext for _i, ext in read_extents]}, on_read
+            {target: [ext for _i, ext in read_extents]},
+            on_read,
+            # end-to-end budget: sub-reads inherit the op's
+            # remaining deadline so shards shed a doomed read's work
+            deadline=getattr(msg, "deadline", 0.0),
         )
 
     def _finish_write(
@@ -1024,6 +1176,16 @@ class PG(PGListener):
             self._reqid_results[key] = rep
             if len(self._reqid_results) > 1000:  # bounded dup window
                 self._reqid_results.pop(next(iter(self._reqid_results)))
+        # Cache-tier residency bookkeeping: every completed mutation is the
+        # authoritative place to learn an object now exists (first writes
+        # arrive via the promotion pass-through, which skips the gate's
+        # touch) or is gone (deletes).
+        if self.pool.is_cache_tier() and rep.result == 0:
+            if self._object_exists(msg.oid):
+                self._tier_touch(msg.oid)
+                self._tier_maybe_agent()
+            else:
+                self._tier_lru.pop(msg.oid, None)
         reply(rep)
         for dup_reply in self._inflight_reqids.pop(key, []):
             dup_reply(rep)
@@ -1102,6 +1264,44 @@ class PG(PGListener):
             {src: [(0, src_size)]}, on_read
         )
 
+    def _start_copy_from(self, msg: MOSDOp, reply, op: OSDOp) -> None:
+        """COPY_FROM: fetch the source object's bytes (this OSD acting as a
+        client toward the source's primary — the objecter leg of
+        PrimaryLogPG::do_copy_from) and apply them through the write
+        pipeline as a full write."""
+        src, src_snap = op.name, int(op.off)
+
+        def on_fetched(err: int, outs: list[bytes]) -> None:
+            if err:
+                self._finish_write(
+                    msg, reply, self._errored(msg, -abs(err)), remember=False
+                )
+                return
+            data = outs[0] if outs else b""
+            attrs = decode_attrs(outs[1]) if len(outs) > 1 else {}
+            # copy-get carries the attr map too (PrimaryLogPG do_copy_get):
+            # the copy REPLACES the destination — its old client xattrs
+            # go, the source's come
+            stale = set(self._client_attrs(msg.oid)) - set(attrs)
+            msg.ops[:] = (
+                [OSDOp(op=OSDOp.WRITEFULL, data=data)]
+                + [OSDOp(op=OSDOp.RMXATTR, name=k) for k in sorted(stale)]
+                + [
+                    OSDOp(op=OSDOp.SETXATTR, name=k, data=v)
+                    for k, v in sorted(attrs.items())
+                ]
+            )
+            self._do_write(msg, reply)
+
+        self.osd.internal_op(
+            self.pool.id,
+            src,
+            [OSDOp(op=OSDOp.READ), OSDOp(op=OSDOp.GETXATTRS)],
+            on_fetched,
+            snap_id=src_snap,
+            multi=True,
+        )
+
     # -- object classes (src/objclass; PrimaryLogPG CALL) ----------------------
 
     def _make_hctx(self, oid: str, msg: MOSDOp, writable: bool, pgt=None):
@@ -1161,6 +1361,498 @@ class PG(PGListener):
             omap_fn=None if self.pool.type == POOL_TYPE_ERASURE else omap_fn,
         )
 
+    # -- cache tiering (PrimaryLogPG maybe_handle_cache / TierAgentState) ------
+
+    def _tier_gate(self, msg: MOSDOp, reply, conn, writing: bool) -> bool:
+        """Returns True to continue normal dispatch, False when the op was
+        consumed (promotion in flight, forwarded, or rejected).
+        `writing` is do_op's once-computed write classification.
+
+        Scope mirrors the reference's writeback/readonly modes with one
+        documented simplification: cache pools don't combine with pool
+        snapshots.  Promotion and flush carry client xattrs (cls state)
+        alongside bytes, as the reference's copy-get does.
+        """
+        first = msg.ops[0].op if msg.ops else 0
+        if msg.oid in self._flushing and (
+            writing or first in (OSDOp.CACHE_FLUSH, OSDOp.CACHE_EVICT)
+        ):
+            # Mid-flush: a write racing the write-back could get its dirty
+            # mark cleared and then be evicted — queue until the flush
+            # completes (PrimaryLogPG wait_for_blocked_object).
+            self._flushing[msg.oid].append((msg, reply, conn))
+            return False
+        if first == OSDOp.CACHE_FLUSH:
+            self._do_cache_flush(msg, reply)
+            return False
+        if first == OSDOp.CACHE_EVICT:
+            self._do_cache_evict(msg, reply)
+            return False
+        if first in (OSDOp.PGLS, OSDOp.NOTIFY):
+            return True
+        key = msg.reqid.key()
+        if key in self._tier_pass:
+            return True
+        if writing and self.pool.cache_mode == "readonly":
+            reply(self._errored(msg, -EPERM))
+            return False
+        pure_delete = (
+            writing
+            and all(op.op == OSDOp.DELETE for op in msg.ops)
+            and not msg.snap_id
+        )
+        if pure_delete and self.pool.cache_mode == "writeback":
+            # Forward the delete to the base pool FIRST: a cache-only
+            # delete would resurrect from the base on the next miss.
+            def on_base(err: int, _data: bytes) -> None:
+                if err and err != -ENOENT:
+                    reply(self._errored(msg, err))
+                    return
+                self._tier_lru.pop(msg.oid, None)
+                self._tier_pass.add(key)
+                try:
+                    self.do_op(msg, reply, conn)
+                finally:
+                    self._tier_pass.discard(key)
+
+            self.osd.internal_op(
+                self.pool.tier_of, msg.oid, [OSDOp(op=OSDOp.DELETE)], on_base
+            )
+            return False
+        # COPY_FROM reads its SOURCE locally via an internal fetch that
+        # bypasses this gate, so a cold (base-resident) source must be
+        # promoted before the copy can run.
+        for op in msg.ops:
+            if op.op == OSDOp.COPY_FROM and not self._object_exists(op.name):
+                self._tier_promote(op.name, (msg, reply, conn))
+                return False
+        if self._object_exists(msg.oid):
+            self._tier_touch(msg.oid)
+            if writing:
+                self._tier_maybe_agent()
+            return True
+        # Miss: promote from the base pool, queue the op behind the fetch
+        # (PrimaryLogPG::promote_object + wait_for_blocked_object).
+        self._tier_promote(msg.oid, (msg, reply, conn))
+        if writing:
+            self._tier_maybe_agent()
+        return False
+
+    def _tier_promote(self, oid: str, entry) -> None:
+        """Queue an op behind promotion of `oid`; start the base fetch if
+        this is the first waiter."""
+        waiters = self._promoting.get(oid)
+        if waiters is not None:
+            waiters.append(entry)
+            return
+        self._promoting[oid] = [entry]
+
+        def on_fetched(err: int, outs: list[bytes]) -> None:
+            data = outs[0] if outs else b""
+            attrs = decode_attrs(outs[1]) if len(outs) > 1 else {}
+            self._tier_promoted(oid, err, data, attrs)
+
+        # copy-get: data + the client-xattr map in one fetch, so cls
+        # state (locks, versions, refcounts) survives promotion
+        self.osd.internal_op(
+            self.pool.tier_of,
+            oid,
+            [OSDOp(op=OSDOp.READ), OSDOp(op=OSDOp.GETXATTRS)],
+            on_fetched,
+            multi=True,
+        )
+
+    def _tier_drain(self, oid: str) -> None:
+        """Re-dispatch ops queued behind a promotion; each gets a one-shot
+        gate pass so a base-absent object can't loop through promotion."""
+        for m, r, c in self._promoting.pop(oid, []):
+            k = m.reqid.key()
+            self._tier_pass.add(k)
+            try:
+                self.do_op(m, r, c)
+            finally:
+                self._tier_pass.discard(k)
+
+    def _tier_promoted(
+        self, oid: str, err: int, data: bytes, attrs: dict[str, bytes] | None = None
+    ) -> None:
+        if err == -ENOENT:
+            # Base has nothing: reads answer ENOENT, writes create fresh.
+            self._tier_drain(oid)
+            return
+        if err:
+            for m, r, _c in self._promoting.pop(oid, []):
+                r(self._errored(m, -EAGAIN if err == -EAGAIN else err))
+            return
+        # Write the promoted copy through the replicated pipeline as an
+        # internal (clean, non-dirty) object — bytes AND client xattrs,
+        # so flush→evict→promote round-trips cls state — then release
+        # the waiters.
+        self._tier_tid += 1
+        pm = MOSDOp(
+            reqid=ReqId(client=f"osd.{self.osd.whoami}.promote", tid=self._tier_tid),
+            pgid=PgId(self.pool.id, self.pgid.ps, -1),
+            oid=oid,
+            ops=[OSDOp(op=OSDOp.WRITEFULL, data=data)]
+            + [
+                OSDOp(op=OSDOp.SETXATTR, name=k, data=v)
+                for k, v in sorted((attrs or {}).items())
+            ],
+            epoch=self._epoch,
+        )
+
+        def on_written(rep: MOSDOpReply) -> None:
+            if rep.result:
+                for m, r, _c in self._promoting.pop(oid, []):
+                    r(self._errored(m, rep.result))
+                return
+            self._tier_touch(oid)
+            self._tier_drain(oid)
+
+        self.do_op(pm, on_written)
+
+    def _tier_touch(self, oid: str) -> None:
+        self._tier_lru[oid] = None
+        self._tier_lru.move_to_end(oid)
+
+    def _is_dirty(self, oid: str) -> bool:
+        return bool(self._getxattr(oid, DIRTY_ATTR))
+
+    def _tier_flush(self, oid: str, done) -> None:
+        """Write a dirty object's bytes back to the base pool, then clear
+        the dirty marker through the replicated pipeline.  done(err).
+        Writes on `oid` are blocked (queued in _flushing) for the duration,
+        so the clear cannot race a fresh mutation."""
+        if not self._object_exists(oid):
+            done(-ENOENT)
+            return
+        if oid in self._flushing:
+            done(-EBUSY)  # a flush is already running; writes are queued
+            return
+        if not self._is_dirty(oid):
+            # Clean normally means base-backed — but an object written into
+            # the pool BEFORE `osd tier add` is clean with no base copy
+            # (and would be unevictable, see _tier_evict).  Verify, and
+            # write it back if the base lacks it.
+            def on_stat(err: int, _data: bytes) -> None:
+                if err == -ENOENT:
+                    self._tier_writeback(oid, done)
+                else:
+                    done(0 if not err else err)
+
+            self.osd.internal_op(
+                self.pool.tier_of, oid, [OSDOp(op=OSDOp.STAT)], on_stat
+            )
+            return
+        self._tier_writeback(oid, done)
+
+    def _tier_writeback(self, oid: str, done) -> None:
+        """The write-back leg of a flush: copy bytes AND client xattrs
+        (cls locks/versions/refcounts included — the reference's copy-get
+        carries the attr map) to the base pool, then clear the dirty
+        marker.  Writers on `oid` queue in _flushing."""
+        self._flushing[oid] = []
+        coll = shard_coll(self.pgid, -1)
+        data = self.osd.store.read(coll, oid, 0, self._object_size(oid))
+        attrs = self._client_attrs(oid)
+
+        def finish(err: int) -> None:
+            waiters = self._flushing.pop(oid, [])
+            done(err)
+            for m, r, c in waiters:
+                self.do_op(m, r, c)
+
+        def on_ack(err: int, _data: bytes) -> None:
+            if err:
+                finish(err)
+                return
+            pgt = PGTransaction(oid=oid)
+            pgt.attrs[DIRTY_ATTR] = None  # rm
+            self._tier_tid += 1
+            self.backend.submit_transaction(
+                pgt,
+                ReqId(client=f"osd.{self.osd.whoami}.flush", tid=self._tier_tid),
+                lambda: finish(0),
+            )
+
+        self.osd.internal_op(
+            self.pool.tier_of,
+            oid,
+            [OSDOp(op=OSDOp.WRITEFULL, data=bytes(data))]
+            + [
+                OSDOp(op=OSDOp.SETXATTR, name=k, data=v)
+                for k, v in sorted(attrs.items())
+            ],
+            on_ack,
+        )
+
+    def _tier_evict(self, oid: str, done) -> None:
+        """Drop a CLEAN object from the cache (local delete only — the base
+        copy is authoritative; the next miss re-promotes).  done(err).
+
+        Before deleting, the base copy's existence is verified: an object
+        that predates the tier relationship (written into the pool before
+        `osd tier add`) carries no dirty mark yet exists nowhere else —
+        deleting it would be permanent loss.  Such objects answer -EBUSY
+        (flush them first), which also covers the reference's reason for
+        refusing non-empty tier pools without --force-nonempty."""
+        if not self._object_exists(oid):
+            done(-ENOENT)
+            return
+        if self._is_dirty(oid):
+            done(-EBUSY)
+            return
+        if oid in self._flushing:
+            done(-EBUSY)  # a flush (or another evict) holds the object
+            return
+        # Block writes on the oid for the whole evict (the reference's
+        # object-context write lock): a write acked while the base STAT
+        # is in flight must not be deleted out from under the client.
+        self._flushing[oid] = []
+
+        def finish(err: int) -> None:
+            waiters = self._flushing.pop(oid, [])
+            done(err)
+            for m, r, c in waiters:
+                self.do_op(m, r, c)
+
+        def on_base_stat(err: int, _data: bytes) -> None:
+            if err:
+                # base copy unverifiable (absent or unreachable): refuse
+                finish(-EBUSY)
+                return
+            if self._is_dirty(oid):  # re-dirtied while we checked
+                finish(-EBUSY)
+                return
+            pgt = PGTransaction(oid=oid, delete=True)
+            self._tier_tid += 1
+            self._tier_lru.pop(oid, None)
+            self.backend.submit_transaction(
+                pgt,
+                ReqId(client=f"osd.{self.osd.whoami}.evict", tid=self._tier_tid),
+                lambda: finish(0),
+            )
+
+        self.osd.internal_op(
+            self.pool.tier_of, oid, [OSDOp(op=OSDOp.STAT)], on_base_stat
+        )
+
+    def _tier_op_done(self, msg: MOSDOp, reply):
+        """done(err) closure answering a CACHE_FLUSH/CACHE_EVICT client op."""
+
+        def done(err: int) -> None:
+            if err:
+                reply(self._errored(msg, err))
+            else:
+                reply(
+                    MOSDOpReply(
+                        reqid=msg.reqid,
+                        result=0,
+                        outdata=[b""] * len(msg.ops),
+                        version=self._version,
+                        epoch=self._epoch,
+                    )
+                )
+
+        return done
+
+    def _do_cache_flush(self, msg: MOSDOp, reply) -> None:
+        self._tier_flush(msg.oid, self._tier_op_done(msg, reply))
+
+    def _do_cache_evict(self, msg: MOSDOp, reply) -> None:
+        self._tier_evict(msg.oid, self._tier_op_done(msg, reply))
+
+    def _tier_share(self) -> int:
+        """This PG's slice of the pool-wide object target (ceil split;
+        the reference agent works from per-PG dirty/full ratios)."""
+        return -(-self.pool.target_max_objects // max(1, self.pool.pg_num))
+
+    def _tier_maybe_agent(self) -> None:
+        """Cheap trigger: only schedule the agent's full store scan when
+        the in-memory LRU (an approximate local head count — rebuilt
+        lazily after a primary restart) crosses the PG's share.  Runs for
+        readonly caches too: promotions accumulate there and must still
+        honor target_max_objects (evict-only; nothing is ever dirty)."""
+        if (
+            self.pool.target_max_objects
+            and self.pool.cache_mode in ("writeback", "readonly")
+            and len(self._tier_lru) > self._tier_share()
+        ):
+            asyncio.get_event_loop().call_soon(self._tier_agent)
+
+    def _tier_agent(self) -> None:
+        """Flush-and-evict down to target_max_objects, coldest first
+        (TierAgentState evict_mode; utilization-driven in the reference,
+        object-count-driven here).  One store scan computes the whole
+        victim batch; victims are processed sequentially, then the scan
+        repeats only if still over target."""
+        target = self.pool.target_max_objects
+        if (
+            not target
+            or self.pool.cache_mode == "none"
+            or self._tier_agent_busy
+            or not self.peering.is_primary()
+        ):
+            return
+        share = self._tier_share()
+        heads = [o for o in self._list_local() if "@" not in o]
+        excess = len(heads) - share
+        if excess <= 0:
+            return
+        # coldest = LRU order, with never-touched objects (e.g. after a
+        # primary restart, the in-memory LRU is empty) treated as coldest
+        in_lru = {o: i for i, o in enumerate(self._tier_lru)}
+        victims = sorted(heads, key=lambda o: in_lru.get(o, -1))[:excess]
+        self._tier_agent_busy = True
+        loop = asyncio.get_event_loop()
+
+        def next_victim(err: int) -> None:
+            if err:
+                # e.g. base pool unplaceable (-EAGAIN): stop this batch and
+                # back off instead of spinning against a stuck victim
+                self._tier_agent_busy = False
+                loop.call_later(0.5, self._tier_agent)
+                return
+            if not victims:
+                self._tier_agent_busy = False
+                loop.call_soon(self._tier_agent)  # rescan; exits when under
+                return
+            victim = victims.pop(0)
+
+            def flushed(e: int) -> None:
+                if e:
+                    next_victim(e)
+                else:
+                    self._tier_evict(victim, next_victim)
+
+            self._tier_flush(victim, flushed)
+
+        next_victim(0)
+
+    # -- watch / notify (PrimaryLogPG watchers, Watch.cc) ----------------------
+
+    def _do_watch(self, conn, msg: MOSDOp, reply) -> None:
+        op = msg.ops[0]
+        cookie = int(op.off)
+        if not self._object_exists(msg.oid):
+            reply(self._errored(msg, -ENOENT))
+            return
+        table = self.watchers.setdefault(msg.oid, {})
+        wkey = (msg.reqid.client, cookie)
+        if op.len:
+            table[wkey] = conn
+        else:
+            table.pop(wkey, None)
+            if not table:
+                self.watchers.pop(msg.oid, None)
+        reply(
+            MOSDOpReply(
+                reqid=msg.reqid,
+                result=0,
+                outdata=[b""],
+                version=self._version,
+                epoch=self._epoch,
+            )
+        )
+
+    def _do_notify(self, msg: MOSDOp, reply) -> None:
+        import json as _json
+
+        from ..msg.messages import MWatchNotify
+
+        op = msg.ops[0]
+        timeout_s = (int(op.off) or 3000) / 1000.0
+        watchers = dict(self.watchers.get(msg.oid, {}))
+        self._notify_id += 1
+        nid = self._notify_id
+        state = {
+            "pending": set(watchers),
+            "acks": {},
+            "conns": dict(watchers),
+            "done": False,
+        }
+
+        def finish() -> None:
+            if state["done"]:
+                return
+            state["done"] = True
+            self._notifies.pop(nid, None)
+            out = _json.dumps(
+                {
+                    "acks": {
+                        f"{ent}/{ck}": p.hex()
+                        for (ent, ck), p in state["acks"].items()
+                    },
+                    "timeouts": sorted(
+                        f"{ent}/{ck}" for ent, ck in state["pending"]
+                    ),
+                }
+            ).encode()
+            reply(
+                MOSDOpReply(
+                    reqid=msg.reqid,
+                    result=0,
+                    outdata=[out],
+                    version=self._version,
+                    epoch=self._epoch,
+                )
+            )
+
+        state["finish"] = finish
+        if not watchers:
+            finish()
+            return
+        self._notifies[nid] = state
+        for (entity, cookie), conn in watchers.items():
+            push = MWatchNotify(
+                oid=msg.oid,
+                pgid=self.pgid,
+                notify_id=nid,
+                cookie=cookie,
+                payload=op.data,
+                is_ack=0,
+                watcher=entity,
+            )
+
+            async def _send(conn=conn, push=push, wkey=(entity, cookie)) -> None:
+                try:
+                    await conn.send_message(push)
+                except ConnectionError:
+                    state["pending"].discard(wkey)
+                    if not state["pending"]:
+                        finish()
+
+            asyncio.get_event_loop().create_task(_send())
+        asyncio.get_event_loop().call_later(timeout_s, finish)
+
+    def handle_watch_ack(self, msg) -> None:
+        state = self._notifies.get(msg.notify_id)
+        wkey = (msg.watcher, msg.cookie)
+        if state is None or wkey not in state["pending"]:
+            return
+        state["pending"].discard(wkey)
+        state["acks"][wkey] = msg.payload
+        if not state["pending"]:
+            state["finish"]()
+
+    def on_client_reset(self, conn) -> None:
+        """A client session died: its watches evaporate (watch timeout via
+        connection teardown) and pending notifies stop waiting for it."""
+        for oid in list(self.watchers):
+            table = self.watchers[oid]
+            for wkey in [k for k, wc in table.items() if wc is conn]:
+                del table[wkey]
+            if not table:
+                del self.watchers[oid]
+        for state in list(self._notifies.values()):
+            stale = {
+                k for k, wc in state["conns"].items() if wc is conn
+            } & state["pending"]
+            if stale:
+                state["pending"] -= stale
+                if not state["pending"]:
+                    state["finish"]()
+
     def _errored(self, msg: MOSDOp, err: int) -> MOSDOpReply:
         return MOSDOpReply(
             reqid=msg.reqid,
@@ -1209,8 +1901,15 @@ class PG(PGListener):
 
     def _kick_recovery(self) -> None:
         """Start recoveries up to osd_recovery_max_active
-        (the OSD recovery wq, scaled to this PG)."""
+        (the OSD recovery wq, scaled to this PG).  While the OSD's
+        recovery-storm controller is ENGAGED, admission belongs to its
+        cross-PG waves — the per-PG trickle yields so wave
+        pacing (and its SLO shedding) actually governs; degraded-op
+        prioritization still admits directly via _recover_one."""
         if not self.peering.is_primary() or not self.peering.is_active():
+            return
+        storm = getattr(self.osd, "recovery_storm", None)
+        if storm is not None and storm.engaged:
             return
         max_active = self.osd.conf.get("osd_recovery_max_active")
         for oid in self.peering.all_missing_oids():
@@ -1243,6 +1942,217 @@ class PG(PGListener):
             self.on_global_recover(oid)
 
         self.backend.recover_object(oid, missing_on, on_complete)
+
+    def progress_active(self) -> bool:
+        """READ-ONLY: does this PG currently have progress-worthy
+        activity on this primary?  The pure predicate monitoring polls
+        (tools/chaos.py) use instead of progress_status(), whose
+        episode bookkeeping belongs to the OSD's own status reports."""
+        p = self.peering
+        return (
+            p.is_primary()
+            and p.is_active()
+            and bool(
+                p.all_missing_oids()
+                or self.recovering
+                or p.backfill_targets
+                or self.scrubber.active
+            )
+        )
+
+    def note_recovery_bytes(self, oid: str, nbytes: int) -> None:
+        """Backend hook (ECBackend._push_recovered): reconstructed bytes
+        fold into this PG's recovery-progress event.  Gated like the
+        done counter — backfill pushes ride the same backend path but
+        are not recovery."""
+        if oid in self.recovering:
+            self._recovery_done_bytes += int(nbytes)
+            # workload attribution: recovery traffic counts
+            # against its pool under the `recovery` op class, so the
+            # iostat view separates tenant load from the cluster's own
+            accountant = getattr(self.osd, "io_accountant", None)
+            if accountant is not None:
+                accountant.account(
+                    self.pool.id, "recovery", "recovery", nbytes
+                )
+
+    def progress_status(self) -> list[dict]:
+        """Progress events for the OSD status blob: one entry
+        per active recovery / backfill / scrub on this PRIMARY, each
+        with objects/bytes done vs total.  The mgr's progress module
+        (mgr/progress.py) aggregates these into per-PG bars with rate +
+        ETA and raises PG_RECOVERY_STALLED when one stops advancing.
+
+        Episode bookkeeping note: this renderer maintains the recovery
+        high-water total (a monotone max) and zeroes the counters once
+        an episode drains — both IDEMPOTENT, so extra callers beyond
+        the status heartbeat are safe; they just cannot observe a
+        final done==total event (absence is the completion signal)."""
+        p = self.peering
+        if not p.is_primary() or not p.is_active():
+            return []
+        events: list[dict] = []
+        outstanding = p.all_missing_oids()
+        if outstanding or self.recovering:
+            self._recovery_final_reports = 0  # episode (re)opened
+            # high-water total: newly discovered missing objects grow
+            # the denominator, they never shrink `done`
+            self._recovery_total = max(
+                self._recovery_total, self._recovery_done + len(outstanding)
+            )
+            ev = {
+                "kind": "recovery",
+                "objects_done": self._recovery_done,
+                "objects_total": self._recovery_total,
+                "bytes_done": self._recovery_done_bytes,
+                "bytes_total": 0,  # unknown until rebuilt (best-effort)
+            }
+            inflight = getattr(self.backend, "recovery_inflight", None)
+            if inflight is not None:
+                ev["inflight"] = inflight()
+            events.append(ev)
+        elif (
+            self._recovery_total
+            or self._recovery_done
+            or self._recovery_done_bytes
+        ):
+            # episode complete: emit a final done==total report so the
+            # mgr can classify the event as completed (without it the
+            # event simply vanishes at done<total and counts as
+            # expired/lost).  Repeated on a few reports — the mgr
+            # samples a last-write-wins status blob, so a one-shot
+            # report can be overwritten before a module tick sees it —
+            # then the counters reset so the next episode starts at
+            # zero.  The done counters are checked too: an episode that
+            # starts AND finishes entirely between two status reports
+            # never set _recovery_total here, and its leftover done
+            # count would pre-fill the next episode's bar.
+            if self._recovery_done:
+                if not self._recovery_final_reports:
+                    self._recovery_final_reports = 3
+                events.append({
+                    "kind": "recovery",
+                    "objects_done": self._recovery_done,
+                    # everything still outstanding drained some other
+                    # way (overwrites); the recovered count IS the
+                    # episode's completed total
+                    "objects_total": self._recovery_done,
+                    "bytes_done": self._recovery_done_bytes,
+                    "bytes_total": 0,
+                })
+                self._recovery_final_reports -= 1
+            if not self._recovery_final_reports:
+                self._recovery_total = 0
+                self._recovery_done = 0
+                self._recovery_done_bytes = 0
+        if p.backfill_targets:
+            heads = sorted(self._list_local())
+            total = len(heads) * len(p.backfill_targets)
+            done = 0
+            for osd in p.backfill_targets:
+                cursor = p.last_backfill.get(osd, "")
+                done += bisect.bisect_right(heads, cursor)
+            events.append({
+                "kind": "backfill",
+                "objects_done": done,
+                "objects_total": max(total, done),
+                "bytes_done": 0,
+                "bytes_total": 0,
+            })
+        scrub = self.scrubber.progress()
+        if scrub is not None:
+            events.append(scrub)
+        return events
+
+    def blocked_ops_summary(self) -> dict:
+        """What's queued and why (OpTracker's dump_blocked_ops view):
+        degraded-wait, promotion-wait, and flush-wait queues by object."""
+        out = {}
+        if self.waiting_for_degraded:
+            out["waiting_for_degraded"] = {
+                oid: len(cbs) for oid, cbs in self.waiting_for_degraded.items()
+            }
+        if self._promoting:
+            out["waiting_for_promote"] = {
+                oid: len(w) for oid, w in self._promoting.items()
+            }
+        if self._flushing:
+            out["waiting_for_flush"] = {
+                oid: len(w) for oid, w in self._flushing.items()
+            }
+        return out
+
+    # -- lost/unfound (PrimaryLogPG mark_all_unfound_lost; MissingLoc) ---------
+
+    def list_unfound(self) -> list[str]:
+        """Missing objects with NO live source (MissingLoc's unfound set):
+        replicated — no up acting member holds a copy; EC — fewer than k
+        up shards hold theirs.  Recovery of these can never complete and
+        ops touching them wait forever until the operator intervenes
+        (qa/tasks/ec_lost_unfound.py is the reference's coverage)."""
+        p = self.peering
+        if not p.is_primary() or not p.is_active():
+            # conflating "wrong daemon" with "nothing unfound" would
+            # mislead the operator running this against a replica
+            raise ValueError(
+                f"pg {self.pgid}: not the active primary here"
+            )
+        up_acting = [
+            o
+            for o in self._acting
+            if o != PG_NONE and self.osd.osdmap.is_up(o)
+        ]
+        need = self.backend.k if self.pool.type == POOL_TYPE_ERASURE else 1
+        out = []
+        for oid in p.all_missing_oids():
+            # a backfill target whose cursor hasn't passed `oid` holds at
+            # best a STALE copy — it is not a source (same union
+            # get_shard_missing applies on the read path)
+            missing_on = p.osds_missing(oid) | p.backfill_pending_osds(oid)
+            holders = [o for o in up_acting if o not in missing_on]
+            if len(holders) < need:
+                out.append(oid)
+        return out
+
+    def mark_unfound_lost(self, mode: str = "delete") -> list[str]:
+        """`ceph pg <pgid> mark_unfound_lost delete` — give up on unfound
+        objects: drop them from every missing set, delete surviving
+        remnant shards through the normal transaction fan-out, and
+        release ops queued behind their recovery (they re-run and answer
+        ENOENT).  Only the reference's `delete` mode is offered: `revert`
+        requires prior-version data this framework's log doesn't retain.
+        """
+        if mode != "delete":
+            raise ValueError(
+                "only mode='delete' is supported (revert needs rollback data)"
+            )
+        lost = self.list_unfound()
+        for oid in lost:
+            self.peering.missing.rm(oid)
+            for m in self.peering.peer_missing.values():
+                m.rm(oid)
+            self.recovering.discard(oid)
+            self._tier_tid += 1
+            pgt = PGTransaction(oid=oid, delete=True)
+            try:
+                self.backend.submit_transaction(
+                    pgt,
+                    ReqId(
+                        client=f"osd.{self.osd.whoami}.lost",
+                        tid=self._tier_tid,
+                    ),
+                    lambda: None,
+                )
+            except Exception as e:
+                # remnant cleanup is best-effort: the object is already
+                # struck from the missing sets either way
+                dout("osd", 5, f"pg {self.pgid}: lost-delete of {oid}: {e!r}")
+            self.clog_error(
+                f"pg {self.pgid} marking unfound object {oid} lost (deleted)"
+            )
+            for cb in self.waiting_for_degraded.pop(oid, []):
+                cb()
+        return lost
 
     # -- backfill driver -------------------------------------------------------
     #
@@ -1326,6 +2236,8 @@ class PG(PGListener):
             self._surrender_reservations()
 
     def _backfill_chunk(self) -> None:
+        import bisect
+
         p = self.peering
         if not p.backfill_targets or self._bf_inflight:
             return

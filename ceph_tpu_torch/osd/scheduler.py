@@ -1,13 +1,14 @@
 """Op QoS schedulers — mirror of src/osd/scheduler/.
 
-The port's copy of the dmClock pieces of `ceph_tpu/osd/scheduler.py` that
-the launch scheduler (ops/launch_scheduler.py) runs on: `SchedClass`,
-`ClientProfile`, `WorkItem` and `MClockScheduler`.
+The port's copy of `ceph_tpu/osd/scheduler.py`: `SchedClass`,
+`ClientProfile`, `WorkItem` and `MClockScheduler`, which the launch
+scheduler (ops/launch_scheduler.py) and the OSD's op queue run on, and the
+`WPQScheduler` that `osd_op_queue = wpq` selects (`make_scheduler`).
 
 Reference: src/osd/scheduler/mClockScheduler.h:72 (dmClock
 tag-based scheduler over the external dmclock submodule; see also
 src/dmclock/src/dmclock_server.h) and OpScheduler.h's WPQ alternative
-(`osd_op_queue` selects one; the port has only mClock).
+(`osd_op_queue` option selects one, as here).
 
 The dmClock algorithm (Gulati et al., OSDI'10) assigns each scheduling
 class a (reservation, weight, limit) triple in IOPS:
@@ -27,6 +28,7 @@ way the reference's mClock cost model scales by item size
 from __future__ import annotations
 
 import enum
+import heapq
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -180,3 +182,31 @@ class MClockScheduler(OpScheduler):
 
     def __len__(self) -> int:
         return self._size
+
+
+class WPQScheduler(OpScheduler):
+    """Weighted priority queue fallback (OpScheduler.h WPQ): strict
+    priority with FIFO within a priority."""
+
+    def __init__(self):
+        self._heap: list[tuple[int, int, WorkItem]] = []
+        self._seq = 0
+
+    def enqueue(self, item: WorkItem) -> None:
+        self._seq += 1
+        heapq.heappush(self._heap, (-item.priority, self._seq, item))
+
+    def dequeue(self) -> WorkItem | None:
+        if not self._heap:
+            return None
+        return heapq.heappop(self._heap)[2]
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+
+def make_scheduler(kind: str, **kw) -> OpScheduler:
+    """`osd_op_queue` selection (OpScheduler.cc make_scheduler)."""
+    if kind == "wpq":
+        return WPQScheduler()
+    return MClockScheduler(**kw)

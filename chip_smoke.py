@@ -337,6 +337,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    packed_delta, or the run fails; no launch falls back to the host, the
    guard never degrades and no PG logs a cluster error.
 
+14. The OSD daemon: 12 port `OSD` daemons in this process on the card,
+   each on its own BlueStore in a temporary directory, over the `posix`
+   messenger on loopback (Ceph's default `ms_type`) with cephx on (a
+   generated keyring; `ms_secure` off), booting through their MonClient
+   against the test-side map service of tests/torch_daemon_host.py (it
+   answers subscriptions and boots, and marks a daemon down once two peers
+   report it); the pools of phase 13.  Client ops go over the wire from
+   that file's small client.  Cuts: one host, heartbeats every 0.25 s with
+   a 1.5 s grace, the out given by the map service, scrub timers of 2 s.
+   14a boot to every PG active and clean (s); 14b 128 WRITEFULLs of 4 MiB
+   on rbd at QD1 and QD8 (MB/s), whole reads (GB/s); 14c QD8 again after
+   `bluestore_csum_offload` is set through each daemon's admin socket
+   (`injectargs` with `conf`; MB/s and crc32c launches), then set back to
+   its default, off; 14d osd.3's
+   daemon stopped (s to the down epoch its peers' MOSDFailures bring,
+   degraded-read GB/s); 14e osd.3 out (s to clean, MB/s rebuilt, the
+   recovery-storm controllers' waves); 14f 16 objects on rgw_data, then
+   the daemon's own scrub timer deep-scrubs one of its PGs (s,
+   packed_verify launches); 14g 256 hot-region overwrites at QD1 (writes/s,
+   packed_delta launches); 14h a watch/notify round trip and a COPY_FROM
+   (ms); 14i a launch fault armed on one daemon through `injectargs`: the
+   op gets EIO, `tpu_backend.degraded` turns true, the probe heals it and
+   the next write lands.  Each part's flight records are read through an
+   admin socket's `dump_flight` (queue wait, h2d, kernel, d2h summed, and
+   the kernel's share of the part's wall time).  The launch counts are
+   set to 0 before 14a and read after each part: 14b-14e launch swar_gf,
+   14c crc32c, 14f packed_verify and 14g packed_delta, or the run fails;
+   every daemon's status blob reads fallback_launches 0, and any daemon
+   marked down other than osd.3 is reported.
+
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
 There is no CPU branch: without CUDA the script exits non-zero.
@@ -4522,14 +4552,14 @@ PG_REACHES = {"13a": ("swar_gf",), "13b": (), "13c": ("swar_gf",), "13d": ("swar
               "13e": ("packed_verify",), "13f": ("packed_delta",), "13g": ()}
 
 
-def load_pg_host():
-    """tests/torch_pg_host.py: the in-process OSD hosts the CPU tests hold
-    against the JAX package's PGs (it imports neither package)."""
+def load_test_host(name: str):
+    """A file of tests/ loaded by path (it imports neither package)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_pg_host.py")
-    spec = importlib.util.spec_from_file_location("torch_pg_host", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -4545,7 +4575,7 @@ async def _phase_pg(torch, swar, packed, xor_mm, card) -> dict:
     from ceph_tpu_torch.ops import dispatch
     from ceph_tpu_torch.ops.guard import device_guard
 
-    pg_host = load_pg_host()
+    pg_host = load_test_host("torch_pg_host")
     guard = device_guard()
     t0 = time.perf_counter()
     c = pg_host.PgCluster("ceph_tpu_torch", PG_OSDS, PG_POOLS, conf=PG_CONF, record=False)
@@ -4757,6 +4787,379 @@ async def _phase_pg(torch, swar, packed, xor_mm, card) -> dict:
     return {"launches": totals, "by_part": by_part, "figures": out}
 
 
+D_OSDS = 12
+D_VICTIM = 3
+D_OBJECTS = 128
+D_OBJECT_BYTES = 4 << 20
+D_QD = 8
+D_RGW_OBJECTS = 16
+D_OVERWRITES = 256
+D_HOT_OBJECTS = 8
+# the daemon's options for the phase; everything else at the defaults
+D_CONF = {
+    "ms_type": "async+posix",
+    "osd_objectstore": "bluestore",
+    "osd_heartbeat_interval": 0.25,  # Ceph's default 1.0 (cut)
+    "osd_heartbeat_grace": 1.5,      # Ceph's default 6.0 (cut)
+    "osd_min_pg_log_entries": 1,     # phase 13's short log: the out backfills
+    "osd_max_pg_log_entries": 2,
+    "ec_tpu_flight_records": 16384,  # a part's launches fit the ring
+}
+D_SCRUB_INTERVAL = 2.0  # osd_scrub_interval and osd_deep_scrub_interval (cut)
+D_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
+D_REACHES = {"14a": (), "14b": ("swar_gf",), "14c": ("swar_gf", "crc32c"),
+             "14d": ("swar_gf",), "14e": ("swar_gf",), "14f": ("packed_verify",),
+             "14g": ("packed_delta",), "14h": (), "14i": ()}
+
+
+def flight_spans(records: list, wall_s: float) -> dict:
+    """A part's flight records: count, each span summed (s), and the
+    kernel span's share of the part's wall time."""
+    out = {"records": len(records)}
+    for span in ("queue_wait_s", "h2d_s", "kernel_s", "d2h_s"):
+        out[span] = sum(r.get(span, 0.0) for r in records)
+    out["kernel_share"] = out["kernel_s"] / wall_s if wall_s > 0 else 0.0
+    return out
+
+
+def phase_daemon(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 14: client ops over the wire to 12 OSD daemons."""
+    import asyncio
+
+    return asyncio.run(_phase_daemon(torch, swar, packed, co, card, device))
+
+
+async def _phase_daemon(torch, swar, packed, co, card, device) -> dict:
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.common.encoding import encode_kv_map
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+
+    host = load_test_host("torch_daemon_host")
+    guard = device_guard()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_osd_")
+    c = host.DaemonCluster("ceph_tpu_torch", D_OSDS, PG_POOLS, conf={**D_CONF, **PG_CONF},
+                           device=device, stack="posix", keyring=True, root_dir=tmp,
+                           store="bluestore", honor_failures=True, admin_sockets=True)
+    cl = None
+    by_part: dict = {}
+    out: dict = {}
+    spans: dict = {}
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"],
+                "crc32c": co.crc32c_device.launches}
+
+    async def flight(reset: bool = False):
+        got = await c.asok(0, "dump_flight", **({"reset": True} if reset else {}))
+        return got if reset else got["records"]
+
+    part_t0: dict = {}
+
+    async def begin(part: str) -> dict:
+        await flight(reset=True)
+        part_t0[part] = time.perf_counter()
+        return counts()
+
+    async def done(part: str, before: dict) -> None:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - part_t0[part]
+        now = counts()
+        by_part[part] = {k: now[k] - before[k] for k in D_KERNELS}
+        for kernel in D_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        spans[part] = flight_spans(await flight(), wall)
+        if part != "14i":
+            check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    rng = np.random.default_rng(SEED + 140)
+    base = rng.integers(0, 256, 2 * D_OBJECT_BYTES, dtype=np.uint8)
+    names = [f"rbd_data.10074b0dc52.{i:016x}" for i in range(D_OBJECTS)]
+
+    def payload(i: int) -> bytes:
+        off = (i * 65537) % D_OBJECT_BYTES
+        return base[off:off + D_OBJECT_BYTES].tobytes()
+
+    def op(code, **kw):
+        return cl.osd_op(code, **kw)
+
+    async def run_ops(items, qd: int, pool: str = "rbd") -> list:
+        replies = []
+        for lo in range(0, len(items), qd):
+            replies += await asyncio.gather(*(cl.op(pool, oid, ops)
+                                              for oid, ops in items[lo:lo + qd]))
+        return replies
+
+    def describe(pool: str, oid: str) -> str:
+        """Where an object stands: its PG on every daemon that has it."""
+        pgid, primary = cl.target(pool, oid)
+        key = (pgid.pool, pgid.ps)
+        lines = [f"{oid}: pg {pgid}, primary osd.{primary}; epochs: client "
+                 f"{cl.osdmap.epoch}, map service {c.mon.osdmap.epoch}"]
+        for o in c.running():
+            pg = o.pgs.get(key) or o.strays.get(key)
+            if pg is not None:
+                p = pg.peering
+                lines.append(f"  osd.{o.whoami}{' (stray)' if key in o.strays else ''}: "
+                             f"{p.state.value} epoch {o.osdmap.epoch} acting {list(p.acting)} "
+                             f"primary {p.primary} clean {pg.is_clean} missing "
+                             f"{oid in p.missing.items} backfill {sorted(p.backfill_targets)} "
+                             f"exists {pg._object_exists(oid)} log head {pg.pg_log.head}")
+        return "\n".join(lines)
+
+    async def read_all(part: str) -> float:
+        t = time.perf_counter()
+        reps = await run_ops([(n, [op("READ", off=0, len=0)]) for n in names], D_QD)
+        wall = time.perf_counter() - t
+        for i, rep in enumerate(reps):
+            if rep.result != 0 or rep.outdata[0] != payload(i):
+                print(f"[14] {part}: read back wrong, result {rep.result}\n"
+                      f"{describe('rbd', names[i])}", flush=True)
+            check(rep.result == 0 and rep.outdata[0] == payload(i),
+                  f"{part}: {names[i]} read back wrong (result {rep.result})")
+        return D_OBJECTS * D_OBJECT_BYTES / wall / 1e9
+
+    async def write_all(label: str, lo: int, hi: int, qd: int) -> float:
+        t = time.perf_counter()
+        reps = await run_ops([(names[i], [op("WRITEFULL", data=payload(i))])
+                              for i in range(lo, hi)], qd)
+        wall = time.perf_counter() - t
+        check(all(r.result == 0 for r in reps), f"{label}: a write failed "
+              f"({sorted({r.result for r in reps})})")
+        return (hi - lo) * D_OBJECT_BYTES / wall / 1e6
+
+    def spurious_downs() -> list:
+        return sorted(o for o in c.mon.down_epochs if o != D_VICTIM)
+
+    swar.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    co.crc32c_device.launches = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    try:
+        # 14a: boot, through MonClient, to every PG active and clean
+        before = counts()
+        part_t0["14a"] = time.perf_counter()
+        out["14a s to clean"] = await c.start(120)
+        cl = c.client
+        check(all(pg.backend.ec.device.type == "cuda" for o in c.osds
+                  for pg in o.pgs.values() if hasattr(pg.backend, "ec")),
+              "14a: an EC PG's codec is not on the card")
+        await done("14a", before)
+        n_pgs = sum(len(o.pgs) for o in c.osds)
+        print(f"[14] 14a: {D_OSDS} OSD daemons (BlueStore, async+posix on loopback, cephx) "
+              f"booted through MonClient: {n_pgs} PG instances, every PG active and clean "
+              f"{out['14a s to clean']:.3f} s after the first start, epoch "
+              f"{c.mon.osdmap.epoch}; {card}", flush=True)
+
+        # 14b: WRITEFULLs at QD1 and QD8, then whole reads
+        before = await begin("14b")
+        half = D_OBJECTS // 2
+        out["14b QD1 MB/s"] = await write_all("14b QD1", 0, half, 1)
+        out["14b QD8 MB/s"] = await write_all("14b QD8", half, D_OBJECTS, D_QD)
+        out["14b read GB/s"] = await read_all("14b")
+        await done("14b", before)
+        print(f"[14] 14b: {D_OBJECTS} WRITEFULLs of {D_OBJECT_BYTES >> 10} KiB over the "
+              f"messenger: {out['14b QD1 MB/s']:.1f} MB/s at QD1, {out['14b QD8 MB/s']:.1f} "
+              f"MB/s at QD8; whole reads {out['14b read GB/s']:.3f} GB/s; launches "
+              f"{by_part['14b']}; spans {spans['14b']}; {card}", flush=True)
+
+        # 14c: the checksum offload switched on in every daemon, QD8 again
+        before = await begin("14c")
+        for i in range(D_OSDS):
+            await c.asok(i, "injectargs", conf={"bluestore_csum_offload": "true"})
+        check(all(o.store._csum_offload for o in c.osds), "14c: an offload stayed off")
+        out["14c QD8 MB/s"] = await write_all("14c", 0, D_OBJECTS, D_QD)
+        await done("14c", before)
+        # back to the option's default (off) for the parts that follow
+        for i in range(D_OSDS):
+            await c.asok(i, "injectargs", conf={"bluestore_csum_offload": "false"})
+        print(f"[14] 14c: bluestore_csum_offload set through 12 admin sockets; {D_OBJECTS} "
+              f"WRITEFULLs at QD8: {out['14c QD8 MB/s']:.1f} MB/s; launches {by_part['14c']}; "
+              f"spans {spans['14c']}; {card}", flush=True)
+
+        # 14d: osd.3's daemon stopped; its peers report it, the map marks it down
+        before = await begin("14d")
+        t = time.monotonic()
+        await c.stop_osd(D_VICTIM)
+        await host.wait_until(lambda: D_VICTIM in c.mon.down_epochs, 30.0, "osd.3 down")
+        out["14d s to down"] = c.mon.epoch_times[c.mon.down_epochs[D_VICTIM]] - t
+        await host.wait_until(lambda: all(o.osdmap.epoch == c.mon.osdmap.epoch
+                                          for o in c.running()), 30.0, "the down epoch")
+        out["14d degraded read GB/s"] = await read_all("14d")
+        await done("14d", before)
+        print(f"[14] 14d: osd.{D_VICTIM} stopped: marked down {out['14d s to down']:.3f} s "
+              f"later by its peers' MOSDFailures (grace {D_CONF['osd_heartbeat_grace']} s); "
+              f"{D_OBJECTS} degraded reads {out['14d degraded read GB/s']:.3f} GB/s; launches "
+              f"{by_part['14d']}; spans {spans['14d']}; {card}", flush=True)
+
+        # 14e: osd.3 out; rebuild to clean
+        before = await begin("14e")
+        def recovered() -> int:
+            return sum(io.get("recovery", {}).get("bytes", 0) for o in c.running()
+                       for io in o.io_accountant.dump_pools().values())
+
+        rec0 = recovered()
+        waves0 = sum(o.recovery_storm.perf_dump()["waves"] for o in c.running())
+        t = time.perf_counter()
+        c.mon.mark_out(D_VICTIM)
+        await c.wait_clean(120)
+        out["14e s to clean"] = time.perf_counter() - t
+        rebuilt = recovered() - rec0
+        out["14e recovery MB/s"] = rebuilt / out["14e s to clean"] / 1e6
+        out["14e waves"] = sum(o.recovery_storm.perf_dump()["waves"]
+                               for o in c.running()) - waves0
+        out["14e read GB/s"] = await read_all("14e")
+        await done("14e", before)
+        print(f"[14] 14e: osd.{D_VICTIM} out: clean {out['14e s to clean']:.3f} s after the "
+              f"map; {rebuilt} bytes rebuilt ({out['14e recovery MB/s']:.1f} MB/s), "
+              f"{out['14e waves']} recovery-storm waves; every object read back "
+              f"({out['14e read GB/s']:.3f} GB/s); launches {by_part['14e']}; spans "
+              f"{spans['14e']}; {card}", flush=True)
+
+        # 14f: RGW objects, then the daemons' own scrub timers deep-scrub
+        before = await begin("14f")
+        rgw_names = [f"default.4135.2__shadow_.{i:04x}_0" for i in range(D_RGW_OBJECTS)]
+        reps = await run_ops([(n, [op("WRITEFULL", data=payload(i))])
+                              for i, n in enumerate(rgw_names)], D_QD, pool="rgw_data")
+        check(all(r.result == 0 for r in reps), "14f: an rgw_data write failed")
+        rgw = c.mon.osdmap.get_pool("rgw_data")
+        pg = max((p for p in c.primaries() if p.pool.id == rgw.id),
+                 key=lambda p: len(p.list_heads()))
+        daemon = next(o for o in c.running() if o.pgs.get((pg.pool.id, pg.ps)) is pg)
+        t = time.perf_counter()
+        daemon.conf.set("osd_deep_scrub_interval", D_SCRUB_INTERVAL)
+        daemon.conf.set("osd_scrub_interval", D_SCRUB_INTERVAL)
+        await host.wait_until(lambda: pg.scrubber.last_result is not None
+                              and pg.scrubber.last_result.deep, 60.0, "the timer's deep scrub")
+        out["14f s to deep scrub"] = time.perf_counter() - t
+        daemon.conf.set("osd_scrub_interval", 0.0)
+        daemon.conf.set("osd_deep_scrub_interval", 0.0)
+        await host.wait_until(lambda: all(not p.scrubber.active for p in c.primaries()), 60.0,
+                              "the timer's scrubs")
+        r = pg.scrubber.last_result
+        check(not r.aborted and r.errors == 0 and r.objects_scrubbed > 0,
+              f"14f: deep scrub of {pg.pgid}: {r}")
+        await done("14f", before)
+        print(f"[14] 14f: {D_RGW_OBJECTS} rgw_data objects; osd.{daemon.whoami}'s scrub timer "
+              f"(2 s) deep-scrubbed pg {pg.pgid} ({r.objects_scrubbed} objects) clean, "
+              f"{out['14f s to deep scrub']:.3f} s after the timer was set; launches "
+              f"{by_part['14f']}; spans {spans['14f']}; {card}", flush=True)
+
+        # 14g: 256 overwrites of 4-64 KiB in a 64 KiB hot region, QD1
+        before = await begin("14g")
+        model = {i: bytearray(payload(i)) for i in range(D_HOT_OBJECTS)}
+        t = time.perf_counter()
+        for _ in range(D_OVERWRITES):
+            i = int(rng.integers(0, D_HOT_OBJECTS))
+            n = int(rng.integers(PG_HOT_BYTES[0], PG_HOT_BYTES[1] + 1))
+            off = int(rng.integers(0, PG_HOT_REGION - n + 1))
+            patch = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            model[i][off:off + n] = patch
+            rep = await cl.op("rbd", names[i], [op("WRITE", off=off, data=patch)])
+            check(rep.result == 0, f"14g: an overwrite failed ({rep.result})")
+        out["14g writes/s"] = D_OVERWRITES / (time.perf_counter() - t)
+        reps = await run_ops([(names[i], [op("READ", off=0, len=0)]) for i in model], D_QD)
+        for i, rep in zip(model, reps):
+            check(rep.result == 0 and rep.outdata[0] == bytes(model[i]),
+                  f"14g: {names[i]} read back != the model")
+        await done("14g", before)
+        print(f"[14] 14g: {D_OVERWRITES} overwrites of 4-64 KiB in a 64 KiB hot region of "
+              f"{D_HOT_OBJECTS} objects at QD1: {out['14g writes/s']:.1f} writes/s; launches "
+              f"{by_part['14g']}; spans {spans['14g']}; {card}", flush=True)
+
+        # 14h: a watch/notify round trip and a COPY_FROM on rbd_meta
+        before = await begin("14h")
+        hdr = "rbd_header.10074b0dc52"
+        rep = await cl.op("rbd_meta", hdr, [op("WRITEFULL", data=b"h" * 4096),
+                                             op("OMAPSETVALS", data=encode_kv_map({"s": b"1"}))])
+        check(rep.result == 0, "14h: the header write failed")
+        watcher = host.make_client(c.m, c.monmap, name="client.77", stack="posix",
+                                   auth=c.m.cephx.CephxAuth.for_client(
+                                       "client.77", c.keyring.get("client.77")))
+        await watcher.connect()
+        check((await watcher.watch("rbd_meta", hdr, 1, cb=lambda nid, p: b"ok")).result == 0,
+              "14h: the watch failed")
+        t = time.perf_counter()
+        rep = await cl.op("rbd_meta", hdr, [op("NOTIFY", off=5000, data=b"refresh")])
+        out["14h notify ms"] = (time.perf_counter() - t) * 1e3
+        acks = json.loads(rep.outdata[0])
+        check(rep.result == 0 and acks["acks"] == {"client.77/1": b"ok".hex()}
+              and not acks["timeouts"], f"14h: notify answered {rep.result} {acks}")
+        await watcher.shutdown()
+        t = time.perf_counter()
+        rep = await cl.op("rbd_meta", hdr + ".copy", [op("COPY_FROM", name=hdr, off=0)])
+        out["14h copy_from ms"] = (time.perf_counter() - t) * 1e3
+        check(rep.result == 0, f"14h: COPY_FROM answered {rep.result}")
+        rep = await cl.op("rbd_meta", hdr + ".copy", [op("READ", off=0, len=0)])
+        check(rep.result == 0 and rep.outdata[0] == b"h" * 4096, "14h: the copy reads wrong")
+        await done("14h", before)
+        print(f"[14] 14h: watch/notify round trip with one ack {out['14h notify ms']:.3f} ms; "
+              f"COPY_FROM of a 4 KiB header {out['14h copy_from ms']:.3f} ms; launches "
+              f"{by_part['14h']}; {card}", flush=True)
+
+        # 14i: a launch fault armed through one daemon's admin socket
+        before = await begin("14i")
+        oid = "rbd_data.drill"
+        primary = cl.target("rbd", oid)[1]
+        await c.asok(primary, "injectargs", point="codec.launch", error=5, hits=1)
+        rep = await cl.op("rbd", oid, [op("WRITEFULL", data=payload(1))])
+        status = c.status(primary)
+        check(rep.result == -5, f"14i: the faulted write answered {rep.result}, not -EIO")
+        check(status["tpu_backend"]["degraded"] and status["tpu_backend"]["fallback_launches"] == 0,
+              f"14i: tpu_backend {status['tpu_backend']}")
+        await c.asok(primary, "injectargs", clear=True)
+        # the guard probes the card on a submitter's path once its probe
+        # interval has passed: writes refused with EIO until one heals it
+        t = time.perf_counter()
+        refused = 0
+        while True:
+            rep = await cl.op("rbd", oid, [op("WRITEFULL", data=payload(1))])
+            if rep.result == 0 or time.perf_counter() - t > 30.0:
+                break
+            refused += 1
+            await asyncio.sleep(0.1)
+        out["14i s to heal"] = time.perf_counter() - t
+        check(rep.result == 0 and not guard.degraded,
+              f"14i: the write after the clear answered {rep.result}")
+        rep = await cl.op("rbd", oid, [op("READ", off=0, len=0)])
+        check(rep.result == 0 and rep.outdata[0] == payload(1), "14i: the drill object reads wrong")
+        await done("14i", before)
+        print(f"[14] 14i: codec.launch armed on osd.{primary}: the write answered EIO, "
+              f"tpu_backend degraded with fallback_launches 0; the probe healed it "
+              f"{out['14i s to heal']:.3f} s after the clear ({refused} writes refused with "
+              f"EIO meanwhile), and the write landed; {card}",
+              flush=True)
+
+        statuses = [c.status(o.whoami) for o in c.running()]
+        check(all(s["tpu_backend"]["fallback_launches"] == 0 for s in statuses),
+              "14: a daemon's status blob reads fallback launches")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+              "14: a launch fell back to the host")
+        out["spurious downs"] = spurious_downs()
+        out["epochs"] = c.mon.osdmap.epoch
+        out["late heartbeat ticks"] = sum(o.heartbeat_stalls for o in c.running())
+        clog = [(o.whoami, o.clog) for o in c.running() if o.clog]
+        print(f"[14] daemons marked down besides osd.{D_VICTIM}: {out['spurious downs']}; "
+              f"{out['epochs']} map epochs; {out['late heartbeat ticks']} heartbeat ticks "
+              f"judged no peer (late); cluster-log errors {clog}", flush=True)
+    finally:
+        await c.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    totals = {k: sum(part[k] for part in by_part.values()) for k in D_KERNELS}
+    check(totals == counts(), f"14: launches {counts()} != the parts' sum {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[14] launches by part {by_part}; spans by part {json.dumps(spans)}; figures "
+          f"{json.dumps(out)}", flush=True)
+    return {"launches": totals, "by_part": by_part, "figures": out, "spans": spans}
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -4843,11 +5246,16 @@ def main(argv: list[str]) -> int:
         if label in bluestore["times"]:
             bluestore["times"][label].update(row)
     pg = phase(13, phase_pg, torch, swar, packed, xor_mm, card)
+    from ceph_tpu_torch.ops import checksum_offload as co
+
+    daemon = phase(14, phase_daemon, torch, swar, packed, co, card)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
                                  "11": scrub_cache["launches"][kernel],
-                                 "13": pg["launches"][kernel]}
-    swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"]}
+                                 "13": pg["launches"][kernel],
+                                 "14": daemon["launches"][kernel]}
+    swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
+                     "14": daemon["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -4902,7 +5310,8 @@ def main(argv: list[str]) -> int:
          "x".join(map(str, XOR_BULK)),
          {"3": xor_launches, "10b": plugins["xor_reduce_launches"]}),
         ("crc32c", "crc32c.cu", "ceph_tpu/ops/checksum_offload.py:118",
-         "x".join(map(str, CRC_BULK)), {"12c": bluestore["launches"]["crc32c"]}),
+         "x".join(map(str, CRC_BULK)), {"12c": bluestore["launches"]["crc32c"],
+                                        "14c": daemon["launches"]["crc32c"]}),
         ("compress_transform", "compress_transform.cu", "ceph_tpu/compressor/device.py:56",
          "x".join(map(str, XFORM_BULK)),
          {"12d": bluestore["launches"]["compress_transform"]}),

@@ -806,9 +806,11 @@ def test_failed_launch_fails_the_write_and_its_dependants():
 
 
 def test_unported_paths_raise_eopnotsupp():
-    """Replicated pools are ported now: building their backend gives the
-    ReplicatedBackend.  What stays unported answers -EOPNOTSUPP: COPY_FROM
-    on a PG (the daemon's objecter leg), whichever backend it runs on."""
+    """Replicated pools are ported: building their backend gives the
+    ReplicatedBackend.  COPY_FROM, which answered -EOPNOTSUPP before the
+    daemon was ported, now fetches its source through the host's
+    `internal_op` on either backend; with a source that does not exist it
+    answers -ENOENT, as the JAX package's PG does, and writes nothing."""
     c = Cluster("torch")
     m = mods("torch")
     pool = m.osdmap.PgPool(id=2, name="rep", type=m.osdmap.POOL_TYPE_REPLICATED, size=3)
@@ -816,8 +818,14 @@ def test_unported_paths_raise_eopnotsupp():
     assert isinstance(backend, m.pg_backend.ReplicatedBackend)
     pg_mod = importlib.import_module("ceph_tpu_torch.osd.pg")
     conf = importlib.import_module("ceph_tpu_torch.common.config").Config(env=False)
+    fetched = []
+
+    def internal_op(pool_id, oid, ops, cb, snap_id=0, timeout=5.0, multi=False):
+        fetched.append((pool_id, oid))
+        cb(-2, [] if multi else b"")
+
     host = SimpleNamespace(whoami=0, store=c.stores[0], conf=conf,
-                           send_cluster=lambda osd, msg: None)
+                           send_cluster=lambda osd, msg: None, internal_op=internal_op)
     for p in (pool, c.pool):
         pg = pg_mod.PG(host, p, 0, {"prof": {"plugin": "tpu", "k": "4", "m": "2"}}, device="cpu")
         pg.on_new_interval(1, [0] + [m.osdmap.PG_NONE] * (p.size - 1))
@@ -825,7 +833,8 @@ def test_unported_paths_raise_eopnotsupp():
         op = m.messages.OSDOp(op=m.messages.OSDOp.COPY_FROM, name="src")
         pg.do_op(m.messages.MOSDOp(reqid=m.messages.ReqId("client.1", 1), pgid=pg.pgid,
                                    oid="o", ops=[op]), replies.append)
-        assert [r.result for r in replies] == [-EOPNOTSUPP]
+        assert [r.result for r in replies] == [-2]
+    assert fetched == [(2, "src"), (c.pool.id, "src")]
 
 
 def test_partly_pinned_rmw_read_keeps_the_earlier_write():
@@ -1436,3 +1445,26 @@ def test_partly_applied_sub_write_rolls_forward(store, shard, heal):
     assert c.primary.sub_write_retries >= 6 - shard if heal == "later" else 2
     assert not any(b._sub_write_fences for b in c.backends)
     c.quiescent()
+
+
+def test_two_rebuilds_of_one_object_both_complete_in_the_port():
+    """ROADMAP C15: two rebuilds of one object asked for before either
+    completes (the recovery driver's and a backfill push, in a daemon).
+    The reference starts both and the second replaces the first in
+    `recovery_ops`, so the first never completes; the port runs the second
+    after the first, and both shards come back."""
+    got = {}
+    for pkg in PKGS:
+        c = Cluster(pkg)
+        c.write("obj", 0, payload(3 * c.sw))
+        before = c.lose("obj", [2, 4])
+        done = []
+        c.primary.recover_object("obj", {2}, lambda err: done.append((2, err)))
+        c.primary.recover_object("obj", {4}, lambda err: done.append((4, err)))
+        c.pump()
+        restored = {s: c.stores[s].exists(c.coll(s), "obj") and
+                    c.stores[s].read(c.coll(s), "obj", 0, 0) == before[s][0] for s in (2, 4)}
+        got[pkg] = (sorted(done), restored, dict(c.primary.recovery_ops))
+    assert got["torch"][0] == [(2, 0), (4, 0)] and got["torch"][1] == {2: True, 4: True}
+    assert not got["torch"][2]
+    assert len(got["jax"][0]) < 2, "the reference was expected to lose a completion"

@@ -38,7 +38,12 @@ def test_port_files_found():
                    "compressor/registry.py", "compressor/device.py",
                    "ops/checksum_offload.py", "crush/hash.py", "crush/crush.py",
                    "crush/wrapper.py", "osd/pg.py", "osd/peering.py", "osd/reserver.py",
-                   "osd/snaps.py", "common/config.py", "cls/objclass.py"):
+                   "osd/snaps.py", "common/config.py", "cls/objclass.py",
+                   "msg/frames.py", "msg/crypto.py", "msg/stack.py", "msg/messenger.py",
+                   "auth/cephx.py", "auth/keyring.py", "mon/client.py", "mon/monmap.py",
+                   "common/admin_socket.py", "common/op_tracker.py",
+                   "common/io_accounting.py", "common/clog.py",
+                   "osd/recovery_controller.py", "osd/osd.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -264,6 +269,47 @@ def test_pg_layer_import_leaves_jax_out():
         "pg.do_op(MOSDOp(reqid=ReqId('c', 2), pgid=pg.pgid, oid='o', ops=[OSDOp(op=OSDOp.READ)]),\n"
         "         out.append)\n"
         "assert [r.result for r in out] == [0, 0] and out[1].outdata == [b'hello'], out\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("host", ["torch_pg_host.py", "torch_daemon_host.py"])
+def test_test_hosts_import_neither_package_by_name(host):
+    """The in-process hosts that `chip_smoke.py` loads by path take the
+    package's name and import by string: neither package by name."""
+    for name in _imported_modules(ROOT / "tests" / host):
+        assert name.split(".")[0] not in FORBIDDEN, f"{host} imports {name}"
+
+
+def test_osd_daemon_import_leaves_jax_out():
+    """The OSD daemon and every module under it (the messenger, cephx,
+    MonClient, the admin socket, the op tracker, the recovery-storm
+    controller) import neither jax nor the JAX package: an RS(2,1)
+    cluster of three daemons boots over the inproc stack with cephx on,
+    against the test-side map service, and serves a write and a read."""
+    code = (
+        "import asyncio, sys, tempfile\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_daemon_host import DaemonCluster\n"
+        "async def main():\n"
+        "    c = DaemonCluster('ceph_tpu_torch', 3, [dict(name='ec', kind='ec', k=2, m=1,\n"
+        "                      pg_num=2, stripe_unit=4096)], device='cpu', keyring=True,\n"
+        "                      root_dir=tempfile.mkdtemp())\n"
+        "    try:\n"
+        "        await c.start(30)\n"
+        "        cl = c.client\n"
+        "        assert (await cl.op('ec', 'o', [cl.osd_op('WRITEFULL', data=b'x' * 9000)])).result == 0\n"
+        "        r = await cl.op('ec', 'o', [cl.osd_op('READ', off=0, len=0)])\n"
+        "        assert r.result == 0 and r.outdata[0] == b'x' * 9000\n"
+        "    finally:\n"
+        "        await c.stop()\n"
+        "asyncio.run(main())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

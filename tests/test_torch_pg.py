@@ -531,36 +531,99 @@ def _active_primary(pkg, pool):
     return pg
 
 
+class DaemonStub(FakeOsd):
+    """FakeOsd plus what the daemon gives the paths that need it: the
+    internal objecter leg (`internal_op`, answered from a table of source
+    objects) and a client session to push notifies to."""
+
+    def __init__(self, pkg, sources=None):
+        super().__init__(pkg)
+        self.pkg = pkg
+        self.sources = dict(sources or {})
+        self.internal = []
+
+    def internal_op(self, pool_id, oid, ops, cb, snap_id=0, timeout=5.0, multi=False):
+        self.internal.append((pool_id, oid, [op.op for op in ops], snap_id))
+        enc = imp(self.pkg, "common.encoding").encode_kv_map
+        if oid not in self.sources:
+            cb(-2, [] if multi else b"")
+            return
+        data, attrs = self.sources[oid]
+        cb(0, [data, enc(attrs)] if multi else data)
+
+
+class SessionStub:
+    def __init__(self):
+        self.sent = []
+
+    async def send_message(self, msg):
+        self.sent.append(msg.tobytes())
+
+
 @pytest.mark.parametrize("code", ["COPY_FROM", "WATCH", "NOTIFY", "LIST_WATCHERS"])
 def test_unported_ops_answer_eopnotsupp(code):
-    """COPY_FROM (the daemon's objecter leg) and watch/notify (client
-    sessions) are not ported: the op fails whole with -EOPNOTSUPP and
-    leaves nothing behind."""
-    msgs = imp("torch", "msg.messages")
-    om = imp("torch", "osd.osdmap")
-    pg = _active_primary("torch", om.PgPool(id=1, name="p", size=1, min_size=1))
-    replies = []
-    op = msgs.OSDOp(op=getattr(msgs.OSDOp, code), name="src", off=1, len=1)
-    pg.do_op(msgs.MOSDOp(reqid=msgs.ReqId("client.1", 1), pgid=pg.pgid, oid="o", ops=[op]),
-             replies.append)
-    assert [r.result for r in replies] == [-imp("torch", "common.errs").EOPNOTSUPP]
-    assert not pg._inflight_reqids and not pg.osd.store.list_objects("1.0")
+    """COPY_FROM (through the daemon's objecter leg) and watch/notify (over
+    the client sessions) were answered -EOPNOTSUPP before the daemon was
+    ported; now each is answered as the JAX package's PG answers it, on
+    the same host: the same replies, the same internal ops and the same
+    objects in the store."""
+
+    async def run(pkg):
+        msgs = imp(pkg, "msg.messages")
+        om = imp(pkg, "osd.osdmap")
+        osd = DaemonStub(pkg, sources={"src": (b"source-bytes" * 50, {"_u.k": b"v"})})
+        pg = make_pg(pkg, osd, om.PgPool(id=1, name="p", size=1, min_size=1))
+        pg.on_new_interval(1, [0])
+        conn = SessionStub()
+        replies = []
+
+        def send(ops, oid="o", tid=1):
+            pg.do_op(msgs.MOSDOp(reqid=msgs.ReqId("client.1", tid), pgid=pg.pgid, oid=oid,
+                                 ops=ops), lambda r: replies.append(r.tobytes()), conn)
+
+        if code == "COPY_FROM":
+            send([msgs.OSDOp(op=msgs.OSDOp.COPY_FROM, name="src", off=0)])
+            send([msgs.OSDOp(op=msgs.OSDOp.COPY_FROM, name="missing", off=0)], oid="o2", tid=2)
+        else:
+            send([msgs.OSDOp(op=msgs.OSDOp.WRITEFULL, data=b"x")], tid=1)
+            send([msgs.OSDOp(op=msgs.OSDOp.WATCH, off=7, len=1)], tid=2)
+            send([msgs.OSDOp(op=getattr(msgs.OSDOp, code), off=10, data=b"hi")], tid=3)
+        for _ in range(20):
+            await asyncio.sleep(0)
+        stored = {o: bytes(osd.store.read("1.0", o, 0, 0))
+                  for o in osd.store.list_objects("1.0")}
+        return replies, osd.internal, conn.sent, stored
+
+    got = {pkg: asyncio.run(run(pkg)) for pkg in PKGS}
+    assert got["torch"] == got["jax"]
+    if code == "COPY_FROM":
+        assert got["torch"][3]["o"] == b"source-bytes" * 50
 
 
 def test_cache_tier_pool_answers_eopnotsupp():
     """Cache tiering promotes and flushes through the daemon's objecter:
-    every op on a cache-tier pool answers -EOPNOTSUPP."""
-    msgs = imp("torch", "msg.messages")
-    om = imp("torch", "osd.osdmap")
-    pool = om.PgPool(id=2, name="cache", size=1, min_size=1, tier_of=1, cache_mode="writeback")
-    pg = _active_primary("torch", pool)
-    for code in ("WRITEFULL", "READ", "CACHE_FLUSH"):
+    before the daemon was ported every op on a cache-tier pool answered
+    -EOPNOTSUPP.  Now a write, a read and a flush on a writeback cache PG
+    go through `internal_op` as the JAX package's do, with the same
+    replies and the same internal ops."""
+
+    def run(pkg):
+        msgs = imp(pkg, "msg.messages")
+        om = imp(pkg, "osd.osdmap")
+        pool = om.PgPool(id=2, name="cache", size=1, min_size=1, tier_of=1,
+                         cache_mode="writeback")
+        osd = DaemonStub(pkg, sources={"o": (b"base-bytes", {})})
+        pg = make_pg(pkg, osd, pool)
+        pg.on_new_interval(1, [0])
         replies = []
-        op = msgs.OSDOp(op=getattr(msgs.OSDOp, code), data=b"abc")
-        pg.do_op(msgs.MOSDOp(reqid=msgs.ReqId("client.1", 1), pgid=pg.pgid, oid="o", ops=[op]),
-                 replies.append)
-        assert [r.result for r in replies] == [-95], code
-    assert not pg.osd.store.list_objects("2.0")
+        for tid, code in enumerate(("READ", "WRITEFULL", "READ", "CACHE_FLUSH"), 1):
+            op = msgs.OSDOp(op=getattr(msgs.OSDOp, code), data=b"abc")
+            pg.do_op(msgs.MOSDOp(reqid=msgs.ReqId("client.1", tid), pgid=pg.pgid, oid="o",
+                                 ops=[op]), lambda r: replies.append((r.result, r.outdata)))
+        return replies, osd.internal
+
+    assert run("torch") == run("jax")
+
 
 
 def test_host_module_imports_neither_package():

@@ -60,9 +60,21 @@ def _cpu_codec(k=4, m=2):
 # -- options ---------------------------------------------------------------------------
 
 
+# options of the port's table that the JAX package's has not (each with
+# the module that reads it)
+PORT_ONLY_OPTIONS = {"osd_deep_scrub_interval"}  # osd/osd.py's deep scrub timer
+
+
 def test_option_table_is_the_runtime_slice():
     names = set(options.OPTIONS)
-    assert len(names) == 38
+    assert len(names) == 100
+    # the OSD daemon's (osd/osd.py and what it runs)
+    assert {"osd_heartbeat_interval", "osd_heartbeat_grace", "osd_op_queue",
+            "osd_mclock_client_res", "osd_mclock_recovery_lim", "osd_scrub_interval",
+            "osd_recovery_storm_wave_objects", "osd_ec_hedge_quantile", "ms_type",
+            "ms_secure", "ms_inject_socket_failures", "keyring", "admin_socket",
+            "ec_tpu_shard_devices", "ec_tpu_shard_min_batch"} <= names
+    assert PORT_ONLY_OPTIONS <= names
     for lane in ("client", "recovery", "background"):
         for knob in ("res", "wgt", "lim"):
             assert f"ec_tpu_sched_{lane}_{knob}" in names
@@ -81,7 +93,7 @@ def test_option_see_also_names_options_of_the_table():
         assert set(opt.see_also) <= set(options.OPTIONS), opt.name
 
 
-@pytest.mark.parametrize("name", sorted(options.OPTIONS))
+@pytest.mark.parametrize("name", sorted(set(options.OPTIONS) - PORT_ONLY_OPTIONS))
 def test_option_matches_reference(name):
     ours, ref = options.OPTIONS[name], joptions.OPTIONS[name]
     assert ours.type is ref.type
@@ -90,6 +102,14 @@ def test_option_matches_reference(name):
     assert ours.level.value == ref.level.value
     assert ours.see_also == ref.see_also
     assert ours.parse(str(ref.default)) == ref.parse(str(ref.default))
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ONLY_OPTIONS))
+def test_port_only_options_are_not_the_references(name):
+    """A port-only option is absent from the JAX package's table, and its
+    default leaves the reference's behaviour as it is (0: off)."""
+    assert name not in joptions.OPTIONS
+    assert options.OPTIONS[name].default == 0
 
 
 # -- pinned helpers ------------------------------------------------------------------

@@ -5,7 +5,10 @@
 `MOSDRepScrubMap`) and the placement-group layer's (`OSDOp`, `MOSDOp`,
 `MOSDOpReply`, `MOSDMap`, `MOSDPGQuery`, `MOSDPGNotify`, `MOSDPGLog`,
 `MOSDRepOp`, `MOSDRepOpReply`, `MOSDPGPull`, `MBackfillReserve`, and the
-PG log's `PgInfo`) give the reference's bytes for seeded values,
+PG log's `PgInfo`) and the OSD daemon's (`MPing`, `MOSDPing`, `MOSDBoot`,
+`MOSDFailure`, `MMonCommand`, `MMonCommandAck`, `MMonSubscribe`,
+`MMgrMap`, `MMgrReport`, `MConfig`, `MLog`, `MWatchNotify`) give the
+reference's bytes for seeded values,
 and each package decodes the other's; `get_write_plan` and `merge_writes`
 give the reference's plans and merged bytes on 200 seeded cases; and the
 copied helpers are pinned to the reference (`PgPool`'s fields and
@@ -158,6 +161,31 @@ def _values(seed):
             "backfill_reserve": m.MBackfillReserve(
                 pgid=pgid, op=m.MBackfillReserve.GRANT if seed % 2 else
                 m.MBackfillReserve.RELEASE, epoch=ints[0] % 1000, from_osd=ints[1] % 64),
+            "ping": m.MPing(stamp=ints[2] / 7.0),
+            "osd_ping": m.MOSDPing(op=m.MOSDPing.PING_REPLY if seed % 2 else m.MOSDPing.PING,
+                                   stamp=ints[3] / 3.0, epoch=ints[4] % 1000,
+                                   from_osd=ints[5] % 64),
+            "osd_boot": m.MOSDBoot(osd=ints[6] % 64, addr=f"127.0.0.1:{ints[7] % 65536}",
+                                   epoch=ints[0] % 1000),
+            "osd_failure": m.MOSDFailure(target=ints[1] % 64, target_addr=f"inproc:{ints[2]}",
+                                         failed_for=ints[3] / 11.0, epoch=ints[4] % 1000,
+                                         laggy=seed % 3),
+            "mon_command": m.MMonCommand(tid=ints[5], cmd='{"prefix": "osd tree"}'),
+            "mon_command_ack": m.MMonCommandAck(tid=ints[6], retval=-22 if seed % 2 else 0,
+                                                rs="no such command", outbl=blob),
+            "mon_subscribe": m.MMonSubscribe(what={"osdmap": ints[7] % 100, "config": 0,
+                                                   "mgrmap": seed}),
+            "mgr_map": m.MMgrMap(epoch=ints[0] % 1000, active_name="x",
+                                 active_addr=f"127.0.0.1:{ints[1] % 65536}",
+                                 standbys=["y", "z"][: 1 + seed]),
+            "mgr_report": m.MMgrReport(daemon=f"osd.{ints[2] % 64}", perf=b'{"op": 3}',
+                                       status=blob),
+            "config": m.MConfig(version=ints[3] % 1000,
+                                changes=b'{"osd_heartbeat_grace": "2.5"}'),
+            "log": m.MLog(version=ints[4], entries=b'[{"prio": "info", "msg": "boot"}]'),
+            "watch_notify": m.MWatchNotify(oid=f"obj{ints[5]}", pgid=pgid, notify_id=ints[6],
+                                           cookie=ints[7], payload=blob, is_ack=seed % 2,
+                                           watcher="client.4100"),
         }
 
     return build(jmsg, jlog, jtx, jet), build(msg, pg_log, tx, et)
@@ -177,7 +205,9 @@ KINDS = ["transaction", "log_entry", "pgid", "reqid", "sub_write", "sub_write_re
          "sub_read", "sub_read_reply", "object_info", "push_op", "push", "push_reply",
          "rep_scrub", "rep_scrub_map", "osd_op", "op", "op_reply", "osdmap", "pg_query",
          "pg_notify", "pg_log", "pg_info", "rep_op", "rep_op_reply", "pg_pull",
-         "backfill_reserve"]
+         "backfill_reserve", "ping", "osd_ping", "osd_boot", "osd_failure", "mon_command",
+         "mon_command_ack", "mon_subscribe", "mgr_map", "mgr_report", "config", "log",
+         "watch_notify"]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -200,7 +230,9 @@ def test_eversion_and_message_type_numbers_match_reference():
                  "MOSDECSubOpReadReply", "MOSDPGPush", "MOSDPGPushReply",
                  "MOSDRepScrub", "MOSDRepScrubMap", "MOSDOp", "MOSDOpReply", "MOSDMap",
                  "MOSDPGQuery", "MOSDPGNotify", "MOSDPGLog", "MOSDRepOp", "MOSDRepOpReply",
-                 "MOSDPGPull", "MBackfillReserve"):
+                 "MOSDPGPull", "MBackfillReserve", "MPing", "MOSDPing", "MOSDBoot",
+                 "MOSDFailure", "MMonCommand", "MMonCommandAck", "MMonSubscribe", "MMgrMap",
+                 "MMgrReport", "MConfig", "MLog", "MWatchNotify"):
         ours, ref = getattr(msg, name), getattr(jmsg, name)
         assert (ours.TYPE, ours.VERSION, ours.priority) == (ref.TYPE, ref.VERSION, ref.priority)
         assert [f for f, _ in ours.FIELDS] == [f for f, _ in ref.FIELDS]
@@ -324,7 +356,8 @@ def test_pg_pool_fields_defaults_and_constants_match_reference():
 
 
 def test_new_fault_points_carry_the_reference_texts():
-    for point in ("os.read", "os.write", "ec.sub_read", "ec.recover_push", "peering.msg"):
+    for point in ("os.read", "os.write", "ec.sub_read", "ec.recover_push", "peering.msg",
+                  "msgr.send", "msgr.recv"):
         assert fault_injector.FAULT_POINTS[point] == jfault.FAULT_POINTS[point]
 
 
