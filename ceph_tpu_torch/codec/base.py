@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..common.errs import EINVAL, EIO
+from ..ops.guard import DeviceError
 from .interface import EcError, ErasureCodeInterface, Profile
 
 
@@ -37,7 +38,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     never picks the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceError(
             "ceph_tpu_torch: CUDA is not available; pass device='cpu' "
             "to run the plain PyTorch versions on the CPU"
         )

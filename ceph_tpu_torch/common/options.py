@@ -5,9 +5,12 @@ entries the offload runtime reads (the aggregators, the device guard, the
 launch scheduler's QoS lanes, the mempool ledger), those of the device
 chunk cache and the RMW delta path, and those of the object stores
 (`osd_objectstore`, `osd_data`, BlueStore's compression and checksum
-offload), and those the placement-group layer reads (recovery, backfill
-and log-trim bounds).  The rest of the table
-comes with the modules that read it.
+offload), those the placement-group layer reads (recovery, backfill
+and log-trim bounds), and those of the monitor and the mgr (the lease and
+tick, the failure reporters, the down-out timer and its flap dampening,
+the cluster log's bound, the pool defaults `osd pool create` applies, and
+the `mgr_*` table the mgr modules read).  The table holds every name of
+the reference's, and one more: `osd_deep_scrub_interval`.
 
 Reference: src/common/options/global.yaml.in (~800 typed
 options code-generated into md_config_t) and src/common/options.h (Option
@@ -676,4 +679,155 @@ OPTIONS: dict[str, Option] = _opts(
     Option("heartbeat_inject_failure", float, 0.0, D,
            "seconds to pretend heartbeats fail (global.yaml.in:865)",
            runtime=True),
+    # --- the monitor, the mgr and the pool defaults they apply -------------
+    Option("erasure_code_dir", str, "", A, "directory for native codec plugins"),
+    Option(
+        "osd_pool_erasure_code_stripe_unit",
+        int,
+        4096,
+        A,
+        "default stripe unit (bytes) for EC pools (osd.yaml.in)",
+    ),
+    Option(
+        "osd_pool_default_erasure_code_profile",
+        str,
+        "plugin=tpu technique=reed_sol_van k=2 m=1",
+        A,
+        "default EC profile (global.yaml.in)",
+    ),
+    Option("mgr_iostat_window_sec", float, 10.0, A,
+           "iostat rate window: per-pool/per-client IOPS, bytes/sec and "
+           "windowed p99 are computed over the last this-many seconds "
+           "of merged OSD reports (EMA-smoothed like the progress "
+           "module's rates)", runtime=True),
+    Option("mgr_iostat_top_clients", int, 10, A,
+           "how many clients the iostat module ranks in its "
+           "top-by-IOPS/bytes/p99 views (mgr asok `iostat top`, mon "
+           "`status`, and the ceph_tpu_top_client_* scrape families — "
+           "the scrape cardinality bound)", runtime=True),
+    Option("mgr_slo_burn_threshold", float, 1.0, A,
+           "burn-rate threshold: SLO_LATENCY_BREACH raises when BOTH "
+           "the fast and slow windows burn above this (the multi-window "
+           "burn-rate alert shape: the fast window confirms it is "
+           "happening now, the slow window that it is not a blip); "
+           "clears when either window drops back under", runtime=True),
+    Option("mgr_slo_fast_window_sec", float, 10.0, A,
+           "fast burn-rate window (seconds)",
+           see_also=("mgr_slo_slow_window_sec",), runtime=True),
+    Option("mgr_slo_slow_window_sec", float, 60.0, A,
+           "slow burn-rate window (seconds)",
+           see_also=("mgr_slo_fast_window_sec",), runtime=True),
+    Option("mgr_history_max_series", int, 256, A,
+           "cardinality cap of the mgr-resident time-series store "
+           "(common/tsdb.py): when a new series would exceed it, the "
+           "least-recently-written series is evicted — churned daemons "
+           "and departed clients age out instead of growing the mgr "
+           "without bound.  Evictions are counted on the "
+           "ceph_tpu_history_evictions counter", runtime=True),
+    Option("mgr_history_ring_slots", int, 360, A,
+           "downsample buckets retained per resolution level per "
+           "series: with the default 1s/10s/60s resolutions, 360 slots "
+           "keep ~6 minutes of raw samples, an hour at 10 s, and six "
+           "hours at 1 min — in fixed memory per series",
+           see_also=("mgr_history_resolutions",), runtime=True),
+    Option("mgr_history_resolutions", str, "1,10,60", A,
+           "comma-separated downsample bucket widths in seconds, "
+           "finest first; raw samples land in the finest ring and fold "
+           "into min/max/avg/last buckets at each coarser width.  "
+           "Changing this at runtime restarts the history at the new "
+           "geometry", see_also=("mgr_history_ring_slots",), runtime=True),
+    Option("mgr_trend_window_sec", float, 15.0, A,
+           "recent window the trend sentinels average over; compared "
+           "against the trailing mgr_trend_baseline_sec window that "
+           "precedes it.  Sentinels hold fire until a full "
+           "window + baseline of genuinely observed history exists "
+           "(mgr failover never alarms on imported totals)",
+           see_also=("mgr_trend_baseline_sec",), runtime=True),
+    Option("mgr_trend_baseline_sec", float, 60.0, A,
+           "trailing baseline window the trend sentinels compare the "
+           "recent window against", see_also=("mgr_trend_window_sec",),
+           runtime=True),
+    Option("mgr_trend_regression_ratio", float, 0.5, A,
+           "TPU_THROUGHPUT_REGRESSION threshold: the check raises when "
+           "recent encode/decode GB/s falls below this fraction of the "
+           "trailing baseline while launch volume persists (>= "
+           "mgr_trend_min_launch_rate and >= half the baseline launch "
+           "cadence — a load DROP is not a regression).  <= 0 disables "
+           "the sentinel", see_also=("mgr_trend_min_launch_rate",),
+           runtime=True),
+    Option("mgr_trend_occupancy_ratio", float, 0.5, A,
+           "TPU_OCCUPANCY_COLLAPSE threshold: raises when recent device "
+           "occupancy falls below this fraction of the trailing "
+           "baseline under sustained launch volume.  <= 0 disables the "
+           "sentinel", runtime=True),
+    Option("mgr_trend_queue_wait_factor", float, 3.0, A,
+           "TPU_QUEUE_WAIT_INFLATION threshold: raises when the recent "
+           "mean launch queue-wait exceeds this multiple of the "
+           "trailing baseline (baseline floored at 1 ms, so a "
+           "near-zero-wait baseline requires factor x 1 ms) under "
+           "sustained launch volume.  <= 0 disables the sentinel",
+           runtime=True),
+    Option("mgr_trend_min_launch_rate", float, 0.1, A,
+           "launch-volume floor (launches/sec over BOTH trend windows) "
+           "below which NO trend sentinel evaluates — an idle or "
+           "draining cluster has trends worth graphing, not alarming "
+           "on, and an idle baseline is nothing to regress from",
+           see_also=("mgr_trend_regression_ratio",), runtime=True),
+    Option(
+        "mgr_progress_stall_sec",
+        float,
+        60.0,
+        A,
+        "PG_RECOVERY_STALLED window (mgr/progress.py): a PG whose "
+        "recovery/backfill event reports no objects/bytes advance for "
+        "this many seconds raises the health warning; it clears on the "
+        "next observed advance (or event completion).  <= 0 disables "
+        "the check",
+        runtime=True,
+    ),
+    Option("osd_pool_default_pg_num", int, 8, B, ""),
+    Option("mon_lease", float, 5.0, A, "paxos lease seconds (Paxos.h)"),
+    Option("mon_tick_interval", float, 1.0, A, ""),
+    Option("mon_osd_min_down_reporters", int, 2, A,
+           "distinct reporters needed to mark an osd down "
+           "(OSDMonitor.cc can_mark_down quorum; reference default 2)"),
+    Option("mon_osd_reporter_subtree_level", str, "host", A, ""),
+    Option("mon_osd_down_out_interval", float, 30.0, A,
+           "seconds down before an osd is marked out"),
+    Option("mon_osd_flap_window", float, 300.0, A,
+           "seconds a markdown stays in an OSD's recent-flap history: "
+           "the down->out grace for an OSD with N markdowns inside the "
+           "window is mon_osd_down_out_interval * "
+           "mon_osd_flap_backoff^(N-1), so a flapping OSD earns an "
+           "exponentially longer grace instead of re-triggering "
+           "peering storms on every bounce.  <= 0 disables dampening "
+           "(every markdown uses the base interval)",
+           see_also=("mon_osd_flap_backoff",
+                     "mon_osd_down_out_interval"), runtime=True),
+    Option("mon_osd_flap_backoff", float, 2.0, A,
+           "grace multiplier per recent markdown beyond the first "
+           "(exponent capped at 8); 1.0 disables the growth",
+           see_also=("mon_osd_flap_window",), runtime=True),
+    Option("mon_osd_flap_max_auto_out_per_tick", int, 4, A,
+           "auto-out churn cap: at most this many OSDs are marked out "
+           "per down-out sweep tick — a rack-wide blip cannot remap "
+           "the whole map in one epoch; the remainder keep their "
+           "down-clock and go out on later ticks.  <= 0 removes the "
+           "cap", see_also=("mon_osd_down_out_interval",), runtime=True),
+    Option("mon_log_max", int, 500, A,
+           "committed cluster-log entries each mon retains (the `log "
+           "last` tail; mon/log_monitor.py).  Entries past the bound "
+           "age out oldest-first on the next commit; lowering it at "
+           "runtime trims immediately, raising it lets the tail grow. "
+           "History beyond the bound lives only in daemon logs",
+           runtime=True),
+    Option("memstore_device_bytes", int, 1 << 30, A, ""),
+    Option("debug_mon", str, "1/5", A, ""),
+    Option("debug_paxos", str, "1/5", A, ""),
+    Option("telemetry_salt", str, "", A,
+           "cluster-persistent salt for the telemetry report's anonymized "
+           "cluster id; set once (e.g. via the central config DB) so reports "
+           "stay correlated across mgr failovers.  Empty -> a per-mgr random "
+           "salt (ids change on failover).  Mirrors the reference telemetry "
+           "module's persisted report id.", runtime=True),
 )

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import _nvcc
+from ..ops.guard import DeviceError
 from .registry import Compressor
 
 MAGIC = b"TZD1"
@@ -136,7 +137,7 @@ def transform_rows_device(rows: torch.Tensor) -> torch.Tensor:
                                             rows.stride(0) if S > 1 else Lp,
                                             out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"transform_rows_device: kernel launch failed (cudaError {err})")
+        raise DeviceError(f"transform_rows_device: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
         transform_rows_device.launches += 1
         transform_rows_device.path_launches[path] += 1

@@ -4,6 +4,14 @@ Hunts for a usable monitor, issues commands (retargeting to the leader on
 -EAGAIN, the analog of the reference's request forwarding), maintains
 subscriptions, and delivers map updates to its owner (OSD daemon or
 librados client).
+
+The port's: when the session to the monitor holding the subscriptions
+resets (that monitor stopped), the client hunts the next rank and renews
+them there, as Ceph's MonClient reopens its session; the reference's keeps
+them on the dead monitor, and its owner hears of no map again (ROADMAP
+C18).  A pass over every rank that finds none to take them is counted in
+`hunt_failures`, and the hunt goes on after a backoff until one does or
+the client shuts down.
 """
 
 from __future__ import annotations
@@ -46,6 +54,10 @@ class MonClient(Dispatcher):
         self.on_log: Callable[[MLog], None] | None = None
         self._cur_rank = 0  # mon we're currently talking to
         self._subs: dict[str, int] = {}
+        self.hunts = 0  # sessions reopened on another monitor after a reset
+        self.hunt_failures = 0  # passes over every rank that none answered
+        self._hunt: asyncio.Task | None = None
+        self._closed = False
 
     # -- dispatch --------------------------------------------------------------
 
@@ -68,6 +80,44 @@ class MonClient(Dispatcher):
                 self.on_log(msg)
             return True
         return False
+
+    def ms_handle_reset(self, conn: Connection) -> None:
+        """The session to the current monitor died: hunt the next rank
+        and renew the subscriptions there (MonClient::ms_handle_reset ->
+        _reopen_session; the port's, C18)."""
+        if not self._subs or conn.peer_addr != self.monmap.addr_of_rank(self._cur_rank):
+            return
+        if self._closed or (self._hunt is not None and not self._hunt.done()):
+            return  # shut down, or a hunt is on and carries on past this rank
+        self._cur_rank = (self._cur_rank + 1) % self.monmap.size()
+        self.hunts += 1
+        self._hunt = asyncio.get_event_loop().create_task(self._reopen_session())
+
+    async def _reopen_session(self) -> None:
+        """Offer the subscriptions to each rank in turn until one takes
+        them; after a pass that found none, wait (0.05 s, doubling to 2 s)
+        and pass again."""
+        backoff = 0.05
+        while not self._closed:
+            for _ in range(self.monmap.size()):
+                try:
+                    await self.resubscribe()
+                    return
+                except ConnectionError:
+                    self._cur_rank = (self._cur_rank + 1) % self.monmap.size()
+            self.hunt_failures += 1
+            dout("monc", 1, f"{self.name}: no monitor took the subscriptions "
+                            f"({self.hunt_failures} passes); hunting on")
+            await asyncio.sleep(backoff)
+            backoff = min(2 * backoff, 2.0)
+
+    async def shutdown(self) -> None:
+        """Stop hunting and close the client's messenger."""
+        self._closed = True
+        if self._hunt is not None:
+            self._hunt.cancel()
+            self._hunt = None
+        await self.msgr.shutdown()
 
     # -- commands --------------------------------------------------------------
 

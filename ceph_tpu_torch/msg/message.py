@@ -131,6 +131,10 @@ class Message(Encodable):
     # executing it.  Valid because every daemon shares one process clock
     # (the MOSDPing.stamp precedent).  0.0 = no deadline
     deadline = 0.0
+    # set by a sender whose later message replaces this one (the
+    # monitors' election messages, ROADMAP C21): the messenger drops it
+    # instead of sending or resending it; not on the wire
+    superseded = False
 
     def __init__(self, **kwargs):
         self.src = ""

@@ -15,7 +15,10 @@ MOSDRepScrubMap; the backfill reservation MBackfillReserve; and the OSD
 daemon's: heartbeats (MPing, MOSDPing), boot and failure reports
 (MOSDBoot, MOSDFailure), the monitor client's (MMonCommand,
 MMonCommandAck, MMonSubscribe), the mgr's (MMgrMap, MMgrReport), config
-and cluster log (MConfig, MLog) and watch/notify (MWatchNotify).  The type
+and cluster log (MConfig, MLog) and watch/notify (MWatchNotify); and the
+monitors' and the mgr's own: Paxos and elections (MMonPaxos,
+MMonElection), the mgr's beacon and digest (MMgrBeacon, MMonMgrReport)
+and the MDS map service's (MMDSBeacon, MMDSMap).  The type
 numbers and field orders are the JAX package's, so a message encodes to its
 bytes.
 """
@@ -506,7 +509,66 @@ class MMonSubscribe(Message):
 
     FIELDS = [("what", ("map", "str", "u32"))]
 
+
+# --- the monitors' own: Paxos and elections ----------------------------------
+
+
+@message_type(17)
+class MMonPaxos(Message):
+    """Paxos protocol (src/messages/MMonPaxos.h)."""
+
+    OP_COLLECT = 1
+    OP_LAST = 2
+    OP_BEGIN = 3
+    OP_ACCEPT = 4
+    OP_COMMIT = 5
+    OP_LEASE = 6
+    # the peon's answer to a lease (Ceph's OP_LEASE_ACK); the port's
+    # monitors send both, the JAX package's ignore them (ROADMAP C16)
+    OP_LEASE_ACK = 7
+
+    FIELDS = [
+        ("op", "u8"),
+        ("pn", "u64"),
+        ("last_committed", "u64"),
+        ("values", ("map", "u64", "bytes")),
+        # pn under which an accepted-but-uncommitted value (at slot
+        # last_committed+1 in `values`) was accepted; 0 = none
+        ("uncommitted_pn", "u64"),
+    ]
+    priority = PRIO_HIGH
+
+    def __init__(self, uncommitted_pn: int = 0, **kwargs):
+        super().__init__(uncommitted_pn=uncommitted_pn, **kwargs)
+
+
+@message_type(18)
+class MMonElection(Message):
+    """Mon elections (src/messages/MMonElection.h / ElectionLogic)."""
+
+    OP_PROPOSE = 1
+    OP_ACK = 2
+    OP_VICTORY = 3
+
+    # `quorum` rides OP_VICTORY so every member (peons included) learns
+    # the full quorum set, as the reference's victory message does.
+    FIELDS = [("op", "u8"), ("epoch", "u64"), ("rank", "u32"),
+              ("quorum", ("list", "u32"))]
+    priority = PRIO_HIGH
+
+    def __init__(self, op=0, epoch=0, rank=0, quorum=None):
+        super().__init__(op=op, epoch=epoch, rank=rank, quorum=quorum or [])
+
+
 # --- mgr, config and cluster-log services ------------------------------------
+
+
+@message_type(29)
+class MMgrBeacon(Message):
+    """Mgr -> mon availability beacon (src/messages/MMgrBeacon.h);
+    drives MgrMonitor's active/standby election."""
+
+    FIELDS = [("name", "str"), ("addr", "str")]
 
 
 @message_type(30)
@@ -566,3 +628,48 @@ class MWatchNotify(Message):
         ("is_ack", "u8"),
         ("watcher", "str"),  # acking entity name
     ]
+
+
+# --- the MDS map and the mgr's digest ----------------------------------------
+
+
+@message_type(39)
+class MMDSBeacon(Message):
+    """MDS -> mon availability beacon (src/messages/MMDSBeacon.h): drives
+    MDSMonitor's rank assignment and failover.  `state` is the daemon's
+    self-reported state (boot / standby / active).  `client` is the
+    daemon's RADOS client instance id (objecter reqid name, '' when the
+    daemon runs embedded without one): what the MDSMonitor blocklists
+    through the OSDMonitor when it fails this daemon over — the
+    reference's MDSMonitor::fail_mds_gid blocklisting the gid's addrs."""
+
+    FIELDS = [
+        ("name", "str"), ("addr", "str"), ("state", "str"), ("client", "str")
+    ]
+
+
+@message_type(41)
+class MMonMgrReport(Message):
+    """Active mgr -> mons: the PGMap digest (src/messages/
+    MMonMgrReport.h).  `digest` is a JSON pool-stats summary the mon
+    serves through `ceph df` / health; volatile (re-sent each beacon
+    interval), not paxos state — the freshest report wins."""
+
+    FIELDS = [("digest", "bytes")]
+
+
+@message_type(40)
+class MMDSMap(Message):
+    """Mon -> subscribers: the FSMap (src/messages/MMDSMap.h + FSMap):
+    per-filesystem rank-0 holders plus the shared standby pool, as a
+    JSON envelope {"filesystems": {name: {meta_pool, data_pool,
+    active_name, active_addr}}, "standbys": {daemon: addr}}.  Clients
+    resolve their filesystem's active MDS from this; standby daemons
+    learn here which filesystem they were promoted to."""
+
+    FIELDS = [("epoch", "u32"), ("fsmap", "bytes")]
+
+    def filesystems(self) -> dict:
+        import json as _json
+
+        return _json.loads(self.fsmap.decode() or "{}").get("filesystems", {})

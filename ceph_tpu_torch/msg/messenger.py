@@ -125,6 +125,17 @@ class Connection:
         # before this instant fail fast instead of each serially burning
         # a fresh full retry window under the send lock
         self._dead_until = 0.0
+        # set when the peer connected to us (`peer_is_up`): a resend
+        # waiting out its backoff retries at once
+        self._retry_now = asyncio.Event()
+
+    def peer_is_up(self) -> None:
+        """The peer has just opened a session to this messenger, so it is
+        up: a resend in its backoff goes now, and sends no longer fail
+        fast (the port's; a restarted monitor hears the current election
+        instead of waiting out the backoff, ROADMAP C21)."""
+        self._dead_until = 0.0
+        self._retry_now.set()
 
     @property
     def connected(self) -> bool:
@@ -250,6 +261,8 @@ class Connection:
         closes the gap with session seq replay, which needs the ack
         machinery this model doesn't carry)."""
         async with self._send_lock:
+            if msg.superseded:
+                return  # a later message replaced it while it queued
             if self._closed:
                 raise ConnectionError(f"connection to {self.peer_addr} closed")
             if asyncio.get_event_loop().time() < self._dead_until:
@@ -264,6 +277,8 @@ class Connection:
             attempt = 0
             give_up_at = asyncio.get_event_loop().time() + _RESEND_WINDOW
             while True:
+                if msg.superseded:
+                    return  # replaced during a resend backoff
                 if self._closed:  # closed underneath a resend backoff
                     raise ConnectionError(
                         f"connection to {self.peer_addr} closed"
@@ -325,7 +340,15 @@ class Connection:
                     # lossless: back off briefly and resend the SAME frame
                     # (same seq) over a fresh session
                     self.msgr.resends += 1
-                    await asyncio.sleep(min(0.5, 0.01 * (1 << min(attempt, 6))))
+                    if not self._retry_now.is_set():
+                        try:
+                            await asyncio.wait_for(
+                                self._retry_now.wait(),
+                                min(0.5, 0.01 * (1 << min(attempt, 6))),
+                            )
+                        except asyncio.TimeoutError:
+                            pass
+                    self._retry_now.clear()
 
     # -- receive -------------------------------------------------------------
 
@@ -549,6 +572,9 @@ class Messenger:
                 )
             await conn._attach(reader, writer)
             self._accepted.append(conn)
+            out = self._conns.get(conn.peer_addr)
+            if out is not None and not out._closed:
+                out.peer_is_up()
             for d in self.dispatchers:
                 d.ms_handle_accept(conn)
         except (

@@ -23,6 +23,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
+from .guard import DeviceError
+
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 _BUILT: dict[str, "Built"] = {}
@@ -49,7 +51,7 @@ def nvcc_path() -> str:
         return nvcc
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+        raise DeviceError("nvcc not found (set CUDA_HOME)")
     return found
 
 
@@ -59,7 +61,7 @@ def build(name: str, source: Path | str, symbols: dict[str, list]) -> Built:
     `source` is a path to a .cu file, or (a str) the source text itself,
     which is first written to BUILD_DIR/<name>_<tag>.cu.  `symbols` maps
     each exported C function to its ctypes argtypes; every one returns an
-    int (a cudaError_t).  Raises RuntimeError if nvcc fails."""
+    int (a cudaError_t).  Raises DeviceError (a RuntimeError) if nvcc fails."""
     text = source.read_text() if isinstance(source, Path) else source
     tag = hashlib.sha256(text.encode()).hexdigest()[:16]
     key = f"{name}_{tag}"
@@ -87,7 +89,7 @@ def build(name: str, source: Path | str, symbols: dict[str, list]) -> Built:
             ]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
+                raise DeviceError(
                     f"{name}: nvcc failed ({proc.returncode}):\n{proc.stderr}"
                 )
             os.replace(tmp, so)

@@ -42,6 +42,7 @@ import torch
 from ..common.lockdep import make_lock as _lockdep_make_lock
 from ..utils.crc32c import _TABLE, crc32c
 from . import _nvcc
+from .guard import DeviceError
 from .dispatch import record_launch
 from .offload_runtime import (
     AggTicket,
@@ -295,7 +296,7 @@ def crc32c_device(blocks: torch.Tensor) -> torch.Tensor:
         err = lib.crc32c_launch(blocks.data_ptr(), S, L, blocks.stride(0) if S > 1 else L,
                                 tables.data_ptr(), _zero_const(L), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"crc32c_device: kernel launch failed (cudaError {err})")
+        raise DeviceError(f"crc32c_device: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
         crc32c_device.launches += 1
     return out

@@ -43,13 +43,35 @@ import time
 from ..common.lockdep import make_lock
 
 
-class DeviceTimeout(RuntimeError):
+class DeviceError(RuntimeError):
+    """The device's failure, not the caller's: a kernel that does not
+    build or launch, a missing GPU, a guarded call's timeout or refusal."""
+
+
+class DeviceTimeout(DeviceError):
     """A guarded device call exceeded its per-launch deadline."""
 
 
-class DeviceDegraded(RuntimeError):
+class DeviceDegraded(DeviceError):
     """A launch was refused: the backend is DEGRADED and no probe has
     healed it yet."""
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """Whether `exc` is the device's: a `DeviceError`, or torch's own CUDA
+    failure (`torch.AcceleratorError`, `torch.OutOfMemoryError`, or a bare
+    `RuntimeError` naming CUDA, as torch raised before it had the
+    former).  A `RuntimeError` subclass of the program's own, such as
+    `NotImplementedError` or `RecursionError`, is not."""
+    if isinstance(exc, DeviceError):
+        return True
+    import torch
+
+    kinds = tuple(k for k in (getattr(torch, "AcceleratorError", None),
+                              getattr(torch, "OutOfMemoryError", None)) if k is not None)
+    if kinds and isinstance(exc, kinds):
+        return True
+    return type(exc) is RuntimeError and "CUDA" in str(exc)
 
 
 def _default_probe() -> None:
@@ -63,11 +85,11 @@ def _default_probe() -> None:
     from .xor_mm import xor_matmul
 
     if not torch.cuda.is_available():
-        raise RuntimeError("device probe: CUDA is not available")
+        raise DeviceError("device probe: CUDA is not available")
     bm = torch.eye(8, dtype=torch.uint8, device="cuda")
     x = torch.arange(128, dtype=torch.uint8, device="cuda").reshape(1, 128)
     if not np.array_equal(xor_matmul(bm, x).cpu().numpy(), x.cpu().numpy()):
-        raise RuntimeError("device probe: identity product differs")
+        raise DeviceError("device probe: identity product differs")
 
 
 class DeviceGuard:

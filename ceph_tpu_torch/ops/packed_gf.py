@@ -61,6 +61,7 @@ import torch
 
 from ..gf.tables import GF_MUL_TABLE
 from . import _nvcc
+from .guard import DeviceError
 from .dispatch import lead_stripes, record_launch
 
 # xtime reduction byte: 2 * 0x80 in GF(2^8) == generator poly & 0xFF.
@@ -642,7 +643,7 @@ def _launch(mode: int, kernel: str, lowered: LoweredProgram, groups, stripes: in
         with torch.cuda.device(device):
             err = _LAUNCH(*args)
     if err != 0:
-        raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
+        raise DeviceError(f"{kernel}: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
         launches[kernel] += 1
 

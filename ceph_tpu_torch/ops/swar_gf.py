@@ -35,6 +35,7 @@ import torch
 
 from ..gf.bitslice import expand_matrix
 from . import _nvcc
+from .guard import DeviceError
 from .dispatch import lead_stripes, record_launch
 
 # One bit per packed byte field: plane words hold bit b of 4 bytes at bit
@@ -230,7 +231,7 @@ def swar_gf(plan: CodingPlan, data: torch.Tensor) -> torch.Tensor:
             stripes, k, plan.m, L, stream,
         )
     if err != 0:
-        raise RuntimeError(f"swar_gf: kernel launch failed (cudaError {err})")
+        raise DeviceError(f"swar_gf: kernel launch failed (cudaError {err})")
     with _LAUNCH_LOCK:
         launches += 1
     return out

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from . import _nvcc
+from .guard import DeviceError
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -130,7 +131,7 @@ def xor_reduce(data: torch.Tensor) -> torch.Tensor:
             err = lib.xor_reduce_launch(flat.data_ptr(), out.data_ptr(), S, k, L,
                                         stride_s, stride_k, vec, stream)
         if err != 0:
-            raise RuntimeError(f"xor_reduce: kernel launch failed (cudaError {err})")
+            raise DeviceError(f"xor_reduce: kernel launch failed (cudaError {err})")
         with _LAUNCH_LOCK:
             xor_reduce.launches += 1
     return out.view(*lead, L)
@@ -261,7 +262,7 @@ def gf2_plane_matmul(bit_matrix, planes: torch.Tensor) -> torch.Tensor:
                 S, R, nnz, stride_s, P, vec, stream,
             )
         if err != 0:
-            raise RuntimeError(f"gf2_plane_matmul: kernel launch failed (cudaError {err})")
+            raise DeviceError(f"gf2_plane_matmul: kernel launch failed (cudaError {err})")
         with _LAUNCH_LOCK:
             gf2_plane_matmul.launches += 1
     return out.view(*lead, R, P)

@@ -590,6 +590,10 @@ class OSD(Dispatcher):
         # heartbeat state: peer -> last reply rx time
         self._hb_last_rx: dict[int, float] = {}
         self._hb_late = 0.0  # how late the last heartbeat tick woke (s)
+        # every heartbeat tick's lateness summed (s), and its value when
+        # each peer's grace last restarted (C14)
+        self._hb_stalled = 0.0
+        self._hb_stalled_at: dict[int, float] = {}
         self.heartbeat_stalls = 0  # ticks that judged no peer (C14)
         self._hb_first_tx: dict[int, float] = {}
         self._reported_failed: set[int] = set()
@@ -916,7 +920,7 @@ class OSD(Dispatcher):
             self.admin_socket = None
         await self.msgr.shutdown()
         await self.hb_msgr.shutdown()
-        await self.monc.msgr.shutdown()
+        await self.monc.shutdown()
         self.store.umount()
 
     async def _send_boot(self) -> None:
@@ -1499,6 +1503,7 @@ class OSD(Dispatcher):
             # with its messenger (and, in one process, with its peers)
             # was busy that long, and ping replies waited in it too
             self._hb_late = time.monotonic() - slept - interval
+            self._hb_stalled += max(self._hb_late, 0.0)
             if not self.up:
                 # Mon may have missed our boot (election in progress) or the
                 # subscription connection reset: renew both (OSD::tick).
@@ -1525,7 +1530,6 @@ class OSD(Dispatcher):
                 continue  # pretend our pings are lost (global.yaml.in:865)
             now = time.monotonic()
             for peer in self._hb_peers():
-                self._hb_first_tx.setdefault(peer, now)
                 self._send_ping(
                     peer,
                     MOSDPing(
@@ -1574,13 +1578,19 @@ class OSD(Dispatcher):
     def _heartbeat_check(self, now: float) -> None:
         """heartbeat_check (OSD.cc:5834): report peers past the grace.
 
-        The port's one change (ROADMAP C14): a tick that woke more than
+        The port's changes (ROADMAP C14, C20): a tick that woke more than
         half the grace late judges nobody.  The loop that would have
         handled the peers' replies was stalled, so their silence says
         nothing about them; every peer gets a fresh grace from now, as
         Ceph's OSD drops its heartbeat work while its own threads are
         unhealthy (`HeartbeatMap::is_healthy`).  Without it one stalled
-        loop makes every daemon of the process report every peer."""
+        loop makes every daemon of the process report every peer.  A
+        peer's silence is also measured without the time the loop lost
+        in the ticks since its last reply: stalls each too short to make
+        a tick late can add up past the grace between two of a peer's
+        replies.  And a peer's grace starts when the first ping to it
+        went out, not when it was queued behind the heartbeat session's
+        handshake (`_send_ping`)."""
         grace = self.conf.get("osd_heartbeat_grace")
         if self._hb_late > grace / 2:
             self.heartbeat_stalls += 1
@@ -1589,6 +1599,7 @@ class OSD(Dispatcher):
             for peer in self._hb_peers():
                 if peer in self._hb_first_tx:
                     self._hb_last_rx[peer] = max(self._hb_last_rx.get(peer, now), now)
+                    self._hb_stalled_at[peer] = self._hb_stalled
             return
         for peer in self._hb_peers():
             first = self._hb_first_tx.get(peer)
@@ -1596,7 +1607,8 @@ class OSD(Dispatcher):
                 continue
             last = self._hb_last_rx.get(peer, first)
             failed_for = now - last
-            if failed_for > grace and now - first > grace:
+            lost = self._hb_stalled - self._hb_stalled_at.get(peer, self._hb_stalled)
+            if failed_for - lost > grace and now - first > grace:
                 if peer not in self._reported_failed:
                     self._reported_failed.add(peer)
                     self.perf.inc("heartbeat_failures")
@@ -1610,6 +1622,9 @@ class OSD(Dispatcher):
                 last = self._last_failure_report.get(peer, 0.0)
                 if now - last >= grace:
                     self._last_failure_report[peer] = now
+                    dout("osd", 1, f"osd.{self.whoami}: reporting osd.{peer}: no reply for "
+                                   f"{failed_for:.3f} s, {lost:.3f} s of it lost by late "
+                                   f"ticks (this tick {self._hb_late:.3f} s late)")
                     self._report_failure(peer, failed_for)
             else:
                 self._reported_failed.discard(peer)
@@ -1725,6 +1740,11 @@ class OSD(Dispatcher):
                 await self.hb_msgr.send_to(info.addr, msg)
             except ConnectionError:
                 pass
+            # the peer's grace starts once its first ping went out (or its
+            # session failed), not while the handshake was queued (C20)
+            if peer not in self._hb_first_tx:
+                self._hb_first_tx[peer] = time.monotonic()
+                self._hb_stalled_at[peer] = self._hb_stalled
 
         asyncio.get_event_loop().create_task(_send())
 
@@ -1749,6 +1769,7 @@ class OSD(Dispatcher):
         elif msg.op == MOSDPing.PING_REPLY:
             now = time.monotonic()
             self._hb_last_rx[msg.from_osd] = now
+            self._hb_stalled_at[msg.from_osd] = self._hb_stalled
             # ping round-trip (now - our PING's stamp, echoed back):
             # the laggy detector's baseline signal
             self._note_peer_rtt(msg.from_osd, now - msg.stamp)
@@ -1973,6 +1994,9 @@ def _osd_status(osd: "OSD") -> dict:
             "op_deadline_shed": osd.perf.get("op_deadline_shed"),
             "subread_deadline_shed": osd.perf.get("subread_deadline_shed"),
         },
+        # the MonClient's hunts for a monitor after a reset, and its
+        # passes over every rank that found none (the port's, C18)
+        "monclient": {"hunts": osd.monc.hunts, "hunt_failures": osd.monc.hunt_failures},
     }
 
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--mon-only]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
-kernels (parent, this, this, parent), each in a process of its own.
+kernels (parent, this, this, parent), each in a process of its own.  With
+--mon-log, the monitors' log (Paxos, the elector's messages and timers,
+the lease) is written at level 10 to PATH.  With --mon-only, phase 1
+builds the kernels and phase 15 runs alone; the script then exits without
+the kernel and contract lines.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -366,6 +370,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    14c crc32c, 14f packed_verify and 14g packed_delta, or the run fails;
    every daemon's status blob reads fallback_launches 0, and any daemon
    marked down other than osd.3 is reported.
+15. The control plane: phase 14's 12 daemons and pools, booted, placed,
+   failed, marked out and reconfigured by 3 port `Monitor`s in a Paxos
+   quorum (their EC profile checks' codecs on the card) and a port `Mgr`,
+   all over the `posix` messenger with cephx, from
+   tests/torch_daemon_host.py's `DaemonCluster(mons=3)`; the pools made by
+   commands (`osd erasure-code-profile set`, `osd pool create`).  Cuts:
+   64 objects of 4 MiB on rbd, `mon_osd_down_out_interval` 3 s (Ceph's
+   600), phase 14's heartbeats and PG log.  15a seconds to the quorum,
+   the mgr active, every OSD up through `OSDMonitor.prepare_boot`, the
+   pools, every PG active and clean; 15b WRITEFULLs at QD1 and QD8 (MB/s),
+   whole reads (GB/s); 15c the leader monitor stopped under a QD8 write
+   batch (s to a quorum of 2 through the lease, s to MON_DOWN, every write
+   read back), then restarted with an empty store (s to a quorum of 3 with
+   its last_committed caught up); 15d osd.3's daemon stopped (s to down
+   through `prepare_failure`, degraded-read GB/s, s to the down-out
+   timer's out, s from the out to clean, MB/s rebuilt); 15e `config set
+   osd bluestore_csum_offload true` through ConfigMonitor (s until every
+   daemon has it, QD8 MB/s, crc32c launches); 15f `config set` of the
+   scrub timer deep-scrubs an rgw_data PG (packed_verify launches); 15g a
+   launch fault through `injectargs`: s until TPU_BACKEND_DEGRADED shows
+   in `ceph health` through the mgr, s until it clears after the probe
+   heals the guard.  Each part reads its flight spans, counts its
+   elections (the quorum's election epoch; fails above one in 15a, two
+   in 15c and none elsewhere), fails if a daemon other than osd.3 was
+   marked down (the monitors' cluster log) or if a monitor stopped on a
+   device error.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -375,6 +405,7 @@ There is no CPU branch: without CUDA the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import ctypes
 import functools
@@ -5160,6 +5191,417 @@ async def _phase_daemon(torch, swar, packed, co, card, device) -> dict:
     return {"launches": totals, "by_part": by_part, "figures": out, "spans": spans}
 
 
+M_MONS = 3  # Ceph's documented minimum for a quorum that survives one loss
+M_OSDS = 12
+M_VICTIM = 3
+M_OBJECTS = 64  # on rbd (cut from phase 14's 128, for the phase's time)
+M_OBJECT_BYTES = 4 << 20
+M_QD = 8
+M_ELECTION_BATCH = 16  # the QD8 writes issued across 15c's election
+M_RGW_OBJECTS = 16
+M_SCRUB_INTERVAL = 2.0  # osd_scrub_interval and osd_deep_scrub_interval (cut)
+# the monitors' and the mgr's options for the phase; the rest at the defaults
+M_MON_CONF = {
+    "mon_osd_down_out_interval": 3.0,  # Ceph's default 600 (cut)
+}
+M_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
+M_REACHES = {"15a": (), "15b": ("swar_gf",), "15c": ("swar_gf",), "15d": ("swar_gf",),
+             "15e": ("crc32c",), "15f": ("packed_verify",), "15g": ()}
+# the elections each part may count: the first quorum, then the leader's
+# stop and its restart (ROADMAP C21)
+M_ELECTIONS = {"15a": 1, "15b": 0, "15c": 2, "15d": 0, "15e": 0, "15f": 0, "15g": 0}
+MARKED_DOWN = re.compile(r"osd\.(\d+) marked down")
+
+
+def phase_mon(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 15: 12 OSD daemons booted, placed, failed, marked out and
+    reconfigured by 3 monitors in a Paxos quorum and a mgr."""
+    import asyncio
+
+    return asyncio.run(_phase_mon(torch, swar, packed, co, card, device))
+
+
+async def _phase_mon(torch, swar, packed, co, card, device) -> dict:
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+
+    host = load_test_host("torch_daemon_host")
+    guard = device_guard()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mon_")
+    c = host.DaemonCluster("ceph_tpu_torch", M_OSDS, PG_POOLS, conf={**D_CONF, **PG_CONF},
+                           device=device, stack="posix", keyring=True, root_dir=tmp,
+                           store="bluestore", admin_sockets=True, mons=M_MONS,
+                           mon_conf=M_MON_CONF)
+    cl = None
+    by_part: dict = {}
+    out: dict = {}
+    spans: dict = {}
+    elections: dict = {}
+    downs: dict = {}
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"],
+                "crc32c": co.crc32c_device.launches}
+
+    def marked_down() -> list:
+        """Every daemon the monitors' cluster log says was marked down."""
+        mon = c.leader() or next(m for m in c.monitors if m._tick_task is not None)
+        return [int(g.group(1)) for e in mon.logmon.entries
+                for g in [MARKED_DOWN.match(e["msg"])] if g]
+
+    async def flight(reset: bool = False):
+        got = await c.asok(0, "dump_flight", **({"reset": True} if reset else {}))
+        return got if reset else got["records"]
+
+    part_t0: dict = {}
+    part_epoch: dict = {}
+
+    async def begin(part: str) -> dict:
+        if c.osds[0] is not None and c.osds[0]._running:
+            await flight(reset=True)
+        part_t0[part] = time.perf_counter()
+        part_epoch[part] = c.quorum_epoch()
+        return counts()
+
+    async def done(part: str, before: dict) -> None:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - part_t0[part]
+        now = counts()
+        by_part[part] = {k: now[k] - before[k] for k in M_KERNELS}
+        for kernel in M_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        spans[part] = flight_spans(await flight(), wall)
+        c.raise_failed_monitor()
+        elections[part] = (c.quorum_epoch() - part_epoch[part]) // 2
+        check(elections[part] <= M_ELECTIONS[part], f"{part}: {elections[part]} elections, "
+              f"more than the {M_ELECTIONS[part]} expected")
+        downs[part] = sorted(set(o for o in marked_down() if o != M_VICTIM))
+        check(not downs[part], f"{part}: daemons besides osd.{M_VICTIM} marked down: "
+                               f"{downs[part]}")
+        if part != "15g":
+            check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    rng = np.random.default_rng(SEED + 150)
+    base = rng.integers(0, 256, 2 * M_OBJECT_BYTES, dtype=np.uint8)
+    names = [f"rbd_data.20a3c1f9e7b.{i:016x}" for i in range(M_OBJECTS)]
+
+    def payload(i: int) -> bytes:
+        off = (i * 65537) % M_OBJECT_BYTES
+        return base[off:off + M_OBJECT_BYTES].tobytes()
+
+    def op(code, **kw):
+        return cl.osd_op(code, **kw)
+
+    async def run_ops(items, qd: int, pool: str = "rbd") -> list:
+        replies = []
+        for lo in range(0, len(items), qd):
+            replies += await asyncio.gather(*(cl.op(pool, oid, ops)
+                                              for oid, ops in items[lo:lo + qd]))
+        return replies
+
+    def describe(pool: str, oid: str) -> str:
+        """Where an object stands: its PG on every daemon that has it, the
+        guard, and the daemons' cluster-log errors."""
+        pgid, primary = cl.target(pool, oid)
+        key = (pgid.pool, pgid.ps)
+        lines = [f"{oid}: pg {pgid}, primary osd.{primary}; epochs: client "
+                 f"{cl.osdmap.epoch}, monitors {c.osdmap.epoch}; guard degraded "
+                 f"{guard.degraded} ({guard.reason!r})"]
+        for o in c.running():
+            pg = o.pgs.get(key) or o.strays.get(key)
+            if pg is not None:
+                p = pg.peering
+                lines.append(f"  osd.{o.whoami}{' (stray)' if key in o.strays else ''}: "
+                             f"{p.state.value} epoch {o.osdmap.epoch} acting {list(p.acting)} "
+                             f"primary {p.primary} clean {pg.is_clean} missing "
+                             f"{oid in p.missing.items} backfill {sorted(p.backfill_targets)} "
+                             f"exists {pg._object_exists(oid)} log head {pg.pg_log.head}")
+        lines += [f"  osd.{o.whoami} clog: {o.clog[-6:]}" for o in c.running() if o.clog]
+        return "\n".join(lines)
+
+    async def read_back(part: str, idx) -> float:
+        t = time.perf_counter()
+        reps = await run_ops([(names[i], [op("READ", off=0, len=0)]) for i in idx], M_QD)
+        wall = time.perf_counter() - t
+        for i, rep in zip(idx, reps):
+            if rep.result != 0 or rep.outdata[0] != payload(i):
+                print(f"[15] {part}: read back wrong, result {rep.result}\n"
+                      f"{describe('rbd', names[i])}", flush=True)
+            check(rep.result == 0 and rep.outdata[0] == payload(i),
+                  f"{part}: {names[i]} read back wrong (result {rep.result})")
+        return len(idx) * M_OBJECT_BYTES / wall / 1e9
+
+    async def write(label: str, idx, qd: int) -> float:
+        t = time.perf_counter()
+        reps = await run_ops([(names[i], [op("WRITEFULL", data=payload(i))]) for i in idx], qd)
+        wall = time.perf_counter() - t
+        check(all(r.result == 0 for r in reps), f"{label}: a write failed "
+              f"({sorted({r.result for r in reps})})")
+        return len(idx) * M_OBJECT_BYTES / wall / 1e6
+
+    async def health_has(code: str, present: bool, timeout: float) -> float:
+        """Seconds until `code` is (or is no longer) in `ceph health`."""
+        t = time.perf_counter()
+        while (code in (await c.health())["checks"]) != present:
+            check(time.perf_counter() - t < timeout,
+                  f"{code} {'never showed' if present else 'never cleared'} in health")
+            await asyncio.sleep(0.05)
+        return time.perf_counter() - t
+
+    swar.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    co.crc32c_device.launches = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    try:
+        # 15a: quorum, the mgr, boots through OSDMonitor, pools by command, clean
+        before = counts()
+        part_t0["15a"] = time.perf_counter()
+        part_epoch["15a"] = 1
+        out["15a s to clean"] = await c.start(180)
+        cl = c.client
+        out["15a s to quorum"] = c.t_quorum
+        out["15a s to mgr active"] = c.t_mgr
+        out["15a s to every OSD up"] = c.t_up
+        out["15a s to pools"] = c.t_pools
+        check(all(m.device.type == "cuda" and m.osdmon.device.type == "cuda"
+                  for m in c.monitors), "15a: a monitor's codec device is not the card")
+        check(all(pg.backend.ec.device.type == "cuda" for o in c.osds
+                  for pg in o.pgs.values() if hasattr(pg.backend, "ec")),
+              "15a: an EC PG's codec is not on the card")
+        health = await c.health()
+        check(health["status"] == "HEALTH_OK", f"15a: health {health}")
+        await done("15a", before)
+        n_pgs = sum(len(o.pgs) for o in c.osds)
+        print(f"[15] 15a: {M_MONS} monitors in quorum {out['15a s to quorum']:.3f} s after the "
+              f"first start; mgr.x active at {out['15a s to mgr active']:.3f} s; {M_OSDS} OSD "
+              f"daemons up in the map through OSDMonitor.prepare_boot at "
+              f"{out['15a s to every OSD up']:.3f} s; rbd, rbd_meta and rgw_data made by "
+              f"commands at {out['15a s to pools']:.3f} s; {n_pgs} PG instances active and "
+              f"clean at {out['15a s to clean']:.3f} s; map epoch {c.osdmap.epoch}; "
+              f"elections {elections['15a']}; {card}", flush=True)
+
+        # 15b: WRITEFULLs at QD1 and QD8, then whole reads
+        before = await begin("15b")
+        half = M_OBJECTS // 2
+        out["15b QD1 MB/s"] = await write("15b QD1", range(half), 1)
+        out["15b QD8 MB/s"] = await write("15b QD8", range(half, M_OBJECTS), M_QD)
+        out["15b read GB/s"] = await read_back("15b", range(M_OBJECTS))
+        await done("15b", before)
+        print(f"[15] 15b: {M_OBJECTS} WRITEFULLs of {M_OBJECT_BYTES >> 10} KiB: "
+              f"{out['15b QD1 MB/s']:.1f} MB/s at QD1, {out['15b QD8 MB/s']:.1f} MB/s at QD8; "
+              f"whole reads {out['15b read GB/s']:.3f} GB/s; launches {by_part['15b']}; spans "
+              f"{spans['15b']}; {card}", flush=True)
+
+        # 15c: the leader monitor stopped under a QD8 write batch, then restarted
+        before = await begin("15c")
+        leader = c.leader()
+        check(leader is not None, "15c: no leader")
+        lost = leader.name
+        t = time.perf_counter()
+        await c.stop_mon(lost)
+        batch = asyncio.ensure_future(write("15c", range(M_ELECTION_BATCH), M_QD))
+        await host.wait_until(lambda: c.leader() is not None and len(c.leader().quorum) == 2,
+                              60.0, "a quorum of 2")
+        out["15c s to quorum of 2"] = time.perf_counter() - t
+        out["15c s to MON_DOWN"] = out["15c s to quorum of 2"] + await health_has(
+            "MON_DOWN", True, 30.0)
+        out["15c QD8 MB/s across the election"] = await batch
+        out["15c read GB/s"] = await read_back("15c", range(M_ELECTION_BATCH))
+        committed = max(m.paxos.last_committed for m in c.monitors if m._tick_task is not None)
+        t = time.perf_counter()
+        revived = await c.restart_mon(lost)
+        await host.wait_until(
+            lambda: c.leader() is not None and len(c.leader().quorum) == 3
+            and not c.leader().paxos.recovering()
+            and revived.paxos.last_committed >= committed
+            and len({m.paxos.last_committed for m in c.monitors}) == 1, 60.0,
+            "a quorum of 3 with the revived monitor caught up")
+        out["15c s to quorum of 3"] = time.perf_counter() - t
+        out["15c revived last_committed"] = revived.paxos.last_committed
+        await health_has("MON_DOWN", False, 30.0)
+        out["15c MON_DOWN cleared s"] = time.perf_counter() - t
+        await done("15c", before)
+        print(f"[15] 15c: mon.{lost} (the leader) stopped: a quorum of 2 "
+              f"{out['15c s to quorum of 2']:.3f} s later, MON_DOWN in health at "
+              f"{out['15c s to MON_DOWN']:.3f} s; {M_ELECTION_BATCH} QD8 WRITEFULLs across "
+              f"the election all acknowledged and read back "
+              f"({out['15c QD8 MB/s across the election']:.1f} MB/s); restarted with an empty "
+              f"store: a quorum of 3 again {out['15c s to quorum of 3']:.3f} s later, "
+              f"last_committed caught up to {out['15c revived last_committed']} through "
+              f"Paxos; elections {elections['15c']}; launches {by_part['15c']}; spans "
+              f"{spans['15c']}; {card}", flush=True)
+
+        # 15d: osd.3 stopped: down by its peers' reports, degraded reads, out by the
+        # monitor's own down-out timer, rebuilt to clean
+        before = await begin("15d")
+
+        def recovered() -> int:
+            return sum(io.get("recovery", {}).get("bytes", 0) for o in c.running()
+                       for io in o.io_accountant.dump_pools().values())
+
+        rec0 = recovered()
+        stamps: dict = {}
+
+        async def watch_map():
+            while "out" not in stamps:
+                m = c.osdmap
+                if "down" not in stamps and not m.is_up(M_VICTIM):
+                    stamps["down"] = time.perf_counter()
+                if m.osds[M_VICTIM].weight == 0:
+                    stamps["out"] = time.perf_counter()
+                await asyncio.sleep(0.005)
+
+        watcher = asyncio.ensure_future(watch_map())
+        t = time.perf_counter()
+        await c.stop_osd(M_VICTIM)
+        await host.wait_until(lambda: "down" in stamps, 60.0, "osd.3 marked down")
+        out["15d s to down"] = stamps["down"] - t
+        await host.wait_until(lambda: all(o.osdmap.epoch >= c.osdmap.epoch
+                                          for o in c.running()), 30.0, "the down epoch")
+        out["15d degraded read GB/s"] = await read_back("15d", range(M_OBJECTS))
+        await host.wait_until(lambda: "out" in stamps, 60.0, "the down-out timer's out")
+        await watcher
+        out["15d s down to out"] = stamps["out"] - stamps["down"]
+        await c.wait_clean(180)
+        out["15d s out to clean"] = time.perf_counter() - stamps["out"]
+        rebuilt = recovered() - rec0
+        out["15d rebuilt bytes"] = rebuilt
+        out["15d recovery MB/s"] = rebuilt / out["15d s out to clean"] / 1e6
+        out["15d read GB/s"] = await read_back("15d", range(M_OBJECTS))
+        await done("15d", before)
+        print(f"[15] 15d: osd.{M_VICTIM} stopped: marked down by OSDMonitor.prepare_failure "
+              f"{out['15d s to down']:.3f} s later (min_down_reporters 2, grace "
+              f"{D_CONF['osd_heartbeat_grace']} s); {M_OBJECTS} degraded reads "
+              f"{out['15d degraded read GB/s']:.3f} GB/s; marked out by the monitor's "
+              f"down-out timer {out['15d s down to out']:.3f} s after the down (interval "
+              f"{M_MON_CONF['mon_osd_down_out_interval']} s); clean "
+              f"{out['15d s out to clean']:.3f} s after the out, {rebuilt} bytes rebuilt "
+              f"({out['15d recovery MB/s']:.1f} MB/s); elections {elections['15d']}; launches "
+              f"{by_part['15d']}; spans {spans['15d']}; {card}", flush=True)
+
+        # 15e: the checksum offload through ConfigMonitor: MConfig to every daemon
+        before = await begin("15e")
+        t = time.perf_counter()
+        await c.config_set("osd", "bluestore_csum_offload", "true")
+        await host.wait_until(lambda: all(o.store._csum_offload for o in c.running()), 30.0,
+                              "the offload at every daemon")
+        out["15e s to config at every daemon"] = time.perf_counter() - t
+        out["15e QD8 MB/s"] = await write("15e", range(M_OBJECTS), M_QD)
+        out["15e read GB/s"] = await read_back("15e", range(M_OBJECTS))
+        await c.command({"prefix": "config rm", "who": "osd", "name": "bluestore_csum_offload"})
+        await host.wait_until(lambda: not any(o.store._csum_offload for o in c.running()),
+                              30.0, "the offload back off")
+        await done("15e", before)
+        print(f"[15] 15e: `config set osd bluestore_csum_offload true` reached every daemon "
+              f"through MConfig in {out['15e s to config at every daemon']:.3f} s; "
+              f"{M_OBJECTS} WRITEFULLs at QD8 {out['15e QD8 MB/s']:.1f} MB/s; launches "
+              f"{by_part['15e']}; spans {spans['15e']}; then `config rm`; {card}", flush=True)
+
+        # 15f: RGW objects; the scrub timer set centrally deep-scrubs a PG
+        before = await begin("15f")
+        rgw_names = [f"default.5921.7__shadow_.{i:04x}_0" for i in range(M_RGW_OBJECTS)]
+        reps = await run_ops([(n, [op("WRITEFULL", data=payload(i))])
+                              for i, n in enumerate(rgw_names)], M_QD, pool="rgw_data")
+        check(all(r.result == 0 for r in reps), "15f: an rgw_data write failed")
+        rgw = c.osdmap.get_pool("rgw_data")
+        pg = max((p for p in c.primaries() if p.pool.id == rgw.id),
+                 key=lambda p: len(p.list_heads()))
+        daemon = next(o for o in c.running() if o.pgs.get((pg.pool.id, pg.ps)) is pg)
+        t = time.perf_counter()
+        await c.config_set("osd", "osd_deep_scrub_interval", M_SCRUB_INTERVAL)
+        await c.config_set(f"osd.{daemon.whoami}", "osd_scrub_interval", M_SCRUB_INTERVAL)
+        await host.wait_until(lambda: pg.scrubber.last_result is not None
+                              and pg.scrubber.last_result.deep, 60.0, "the timer's deep scrub")
+        out["15f s to deep scrub"] = time.perf_counter() - t
+        await c.command({"prefix": "config rm", "who": f"osd.{daemon.whoami}",
+                         "name": "osd_scrub_interval"})
+        await c.command({"prefix": "config rm", "who": "osd", "name": "osd_deep_scrub_interval"})
+        await host.wait_until(lambda: daemon.conf.get("osd_scrub_interval") == 0.0, 30.0,
+                              "the timer off")
+        await host.wait_until(lambda: all(not p.scrubber.active for p in c.primaries()), 60.0,
+                              "the timer's scrubs")
+        r = pg.scrubber.last_result
+        check(not r.aborted and r.errors == 0 and r.objects_scrubbed > 0,
+              f"15f: deep scrub of {pg.pgid}: {r}")
+        await done("15f", before)
+        print(f"[15] 15f: {M_RGW_OBJECTS} rgw_data objects; `config set osd "
+              f"osd_deep_scrub_interval {M_SCRUB_INTERVAL}` and osd.{daemon.whoami}'s "
+              f"osd_scrub_interval through ConfigMonitor: pg {pg.pgid} ({r.objects_scrubbed} "
+              f"objects) deep-scrubbed clean {out['15f s to deep scrub']:.3f} s later; "
+              f"launches {by_part['15f']}; spans {spans['15f']}; {card}", flush=True)
+
+        # 15g: a launch fault through injectargs; TPU_BACKEND_DEGRADED through the mgr
+        before = await begin("15g")
+        oid = "rbd_data.mon_drill"
+        primary = cl.target("rbd", oid)[1]
+        await c.asok(primary, "injectargs", point="codec.launch", error=5, hits=1)
+        rep = await cl.op("rbd", oid, [op("WRITEFULL", data=payload(1))])
+        check(rep.result == -5, f"15g: the faulted write answered {rep.result}, not -EIO")
+        out["15g s to TPU_BACKEND_DEGRADED"] = await health_has(
+            "TPU_BACKEND_DEGRADED", True, 30.0)
+        detail = (await c.health())["detail"].get("TPU_BACKEND_DEGRADED", [])
+        await c.asok(primary, "injectargs", clear=True)
+        t = time.perf_counter()
+        refused = 0
+        while True:
+            rep = await cl.op("rbd", oid, [op("WRITEFULL", data=payload(1))])
+            if rep.result == 0 or time.perf_counter() - t > 30.0:
+                break
+            refused += 1
+            await asyncio.sleep(0.1)
+        check(rep.result == 0 and not guard.degraded,
+              f"15g: the write after the clear answered {rep.result}")
+        out["15g s to heal"] = time.perf_counter() - t
+        out["15g s heal to clear"] = await health_has("TPU_BACKEND_DEGRADED", False, 30.0)
+        rep = await cl.op("rbd", oid, [op("READ", off=0, len=0)])
+        check(rep.result == 0 and rep.outdata[0] == payload(1), "15g: the drill object reads wrong")
+        await done("15g", before)
+        print(f"[15] 15g: codec.launch armed on osd.{primary}: EIO; TPU_BACKEND_DEGRADED in "
+              f"`ceph health` through the mgr's digest {out['15g s to TPU_BACKEND_DEGRADED']:.3f} s "
+              f"after the failed write ({len(detail)} detail lines); the probe healed the guard "
+              f"{out['15g s to heal']:.3f} s after the clear ({refused} writes refused), and "
+              f"the check cleared {out['15g s heal to clear']:.3f} s after the heal; {card}",
+              flush=True)
+
+        statuses = [c.status(o.whoami) for o in c.running()]
+        check(all(s["tpu_backend"]["fallback_launches"] == 0 for s in statuses),
+              "15: a daemon's status blob reads fallback launches")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+              "15: a launch fell back to the host")
+        out["epochs"] = c.osdmap.epoch
+        out["elections"] = elections
+        out["lease elections"] = sum(m.lease_elections for m in c.monitors)
+        out["late lease ticks"] = sum(m.lease_stalls for m in c.monitors)
+        out["late election timers"] = sum(m.elector.late_timeouts for m in c.monitors)
+        out["monclient failed passes"] = sum(o.monc.hunt_failures for o in c.running())
+        out["late heartbeat ticks"] = sum(o.heartbeat_stalls for o in c.running())
+        out["monclient hunts"] = sum(o.monc.hunts for o in c.running())
+        print(f"[15] elections by part {elections}; lease elections "
+              f"{out['lease elections']}, late lease ticks {out['late lease ticks']}, late "
+              f"election timers {out['late election timers']}; daemons "
+              f"marked down besides osd.{M_VICTIM}: none; {out['epochs']} map epochs; "
+              f"{out['late heartbeat ticks']} heartbeat ticks judged no peer (late); "
+              f"{out['monclient hunts']} MonClient hunts "
+              f"({out['monclient failed passes']} failed passes)", flush=True)
+    finally:
+        await c.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    totals = {k: sum(part[k] for part in by_part.values()) for k in M_KERNELS}
+    check(totals == counts(), f"15: launches {counts()} != the parts' sum {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[15] launches by part {by_part}; spans by part {json.dumps(spans)}; figures "
+          f"{json.dumps(out)}", flush=True)
+    return {"launches": totals, "by_part": by_part, "figures": out, "spans": spans}
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -5171,6 +5613,10 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--bluestore-timing-of", metavar="DIR",
                         help="only time the crc32c and transform kernels of the checkout at "
                              "DIR and print one JSON line (what --parent runs)")
+    parser.add_argument("--mon-log", metavar="PATH",
+                        help="write the monitors' log (subsystem mon, level 10) to PATH")
+    parser.add_argument("--mon-only", action="store_true",
+                        help="run phase 1 (the builds) and phase 15 alone; no contract line")
     args = parser.parse_args(argv)
     import torch
 
@@ -5210,6 +5656,13 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
     diag = (kern_exp2, kern_exp3, kern_exp4, kern_exp5)
+    if args.mon_log:
+        from ceph_tpu_torch.common.log import Log, default_client
+
+        log = default_client()
+        log.log = Log(args.mon_log)
+        log.subsys.set_log_level("mon", 10)
+        atexit.register(log.log.flush)
 
     def phase(n, fn, *args):
         t0 = time.perf_counter()
@@ -5219,6 +5672,11 @@ def main(argv: list[str]) -> int:
 
     name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed, xor_mm,
                               nvcc_path())
+    if args.mon_only:
+        from ceph_tpu_torch.ops import checksum_offload as co
+
+        phase(15, phase_mon, torch, swar, packed, co, card)
+        return 0
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4, kern_exp2,
@@ -5249,13 +5707,15 @@ def main(argv: list[str]) -> int:
     from ceph_tpu_torch.ops import checksum_offload as co
 
     daemon = phase(14, phase_daemon, torch, swar, packed, co, card)
+    mon = phase(15, phase_mon, torch, swar, packed, co, card)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
                                  "11": scrub_cache["launches"][kernel],
                                  "13": pg["launches"][kernel],
                                  "14": daemon["launches"][kernel]}
+    diag_launches["packed_verify"]["15"] = mon["launches"]["packed_verify"]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
-                     "14": daemon["launches"]["swar_gf"]}
+                     "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -5311,7 +5771,8 @@ def main(argv: list[str]) -> int:
          {"3": xor_launches, "10b": plugins["xor_reduce_launches"]}),
         ("crc32c", "crc32c.cu", "ceph_tpu/ops/checksum_offload.py:118",
          "x".join(map(str, CRC_BULK)), {"12c": bluestore["launches"]["crc32c"],
-                                        "14c": daemon["launches"]["crc32c"]}),
+                                        "14c": daemon["launches"]["crc32c"],
+                                        "15e": mon["by_part"]["15e"]["crc32c"]}),
         ("compress_transform", "compress_transform.cu", "ceph_tpu/compressor/device.py:56",
          "x".join(map(str, XFORM_BULK)),
          {"12d": bluestore["launches"]["compress_transform"]}),

@@ -151,7 +151,9 @@ def test_admin_socket_dumps_have_the_reference_keys(tmp_path):
     ours, ref = got["torch"], got["jax"]
     assert ours["keys"] == ref["keys"]
     assert ours["flight_record_keys"] and ours["flight_record_keys"] == ref["flight_record_keys"]
-    assert ours["status"] == ref["status"]
+    # the port's status blob adds one key, its MonClient's hunts and the
+    # passes that found no monitor (ROADMAP C18)
+    assert ours["status"] == {**ref["status"], "monclient": "dict"}
     assert ours["tpu_backend"] == ref["tpu_backend"]
     assert ours["mempools"] == ref["mempools"]
     assert ours["storm"] == ref["storm"]

@@ -43,7 +43,11 @@ def test_port_files_found():
                    "auth/cephx.py", "auth/keyring.py", "mon/client.py", "mon/monmap.py",
                    "common/admin_socket.py", "common/op_tracker.py",
                    "common/io_accounting.py", "common/clog.py",
-                   "osd/recovery_controller.py", "osd/osd.py"):
+                   "osd/recovery_controller.py", "osd/osd.py", "common/health.py",
+                   "mon/paxos.py", "mon/paxos_service.py", "mon/elector.py",
+                   "mon/osd_monitor.py", "mon/auth_monitor.py", "mon/config_monitor.py",
+                   "mon/log_monitor.py", "mon/mgr_monitor.py", "mon/mds_monitor.py",
+                   "mon/monitor.py", "mgr/mgr.py", "mgr/modules.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 

@@ -67,7 +67,13 @@ PORT_ONLY_OPTIONS = {"osd_deep_scrub_interval"}  # osd/osd.py's deep scrub timer
 
 def test_option_table_is_the_runtime_slice():
     names = set(options.OPTIONS)
-    assert len(names) == 100
+    assert len(names) == 132
+    # the monitor's and the mgr's (mon/, mgr/): the reference's whole table
+    # is in the port's now
+    assert {"mon_lease", "mon_tick_interval", "mon_osd_min_down_reporters",
+            "mon_osd_down_out_interval", "mon_osd_flap_window", "mon_log_max",
+            "osd_pool_default_pg_num", "osd_pool_default_erasure_code_profile",
+            "mgr_iostat_window_sec", "telemetry_salt"} <= names
     # the OSD daemon's (osd/osd.py and what it runs)
     assert {"osd_heartbeat_interval", "osd_heartbeat_grace", "osd_op_queue",
             "osd_mclock_client_res", "osd_mclock_recovery_lim", "osd_scrub_interval",

@@ -7,8 +7,10 @@
 `MOSDRepOp`, `MOSDRepOpReply`, `MOSDPGPull`, `MBackfillReserve`, and the
 PG log's `PgInfo`) and the OSD daemon's (`MPing`, `MOSDPing`, `MOSDBoot`,
 `MOSDFailure`, `MMonCommand`, `MMonCommandAck`, `MMonSubscribe`,
-`MMgrMap`, `MMgrReport`, `MConfig`, `MLog`, `MWatchNotify`) give the
-reference's bytes for seeded values,
+`MMgrMap`, `MMgrReport`, `MConfig`, `MLog`, `MWatchNotify`) and the
+monitors' and the mgr's (`MMonPaxos`, `MMonElection`, `MMgrBeacon`,
+`MMonMgrReport`, `MMDSBeacon`, `MMDSMap`, through the messenger's
+envelope too) give the reference's bytes for seeded values,
 and each package decodes the other's; `get_write_plan` and `merge_writes`
 give the reference's plans and merged bytes on 200 seeded cases; and the
 copied helpers are pinned to the reference (`PgPool`'s fields and
@@ -408,3 +410,63 @@ def test_extent_cache_sequence_matches_reference(seed):
         for c, p in zip(caches, pair):
             c.release_pin(p)
     assert caches[0].empty() and caches[1].empty()
+
+
+def _mon_values(seed):
+    """Seeded values of the monitors' and the mgr's messages, built by
+    each package from the same numbers."""
+    rng = np.random.default_rng(1000 + seed)
+    ints = [int(x) for x in rng.integers(0, 1 << 30, 8)]
+    blob = _rbytes(rng, 48)
+
+    def build(m):
+        return {
+            "mon_paxos": m.MMonPaxos(op=1 + seed % 6, pn=ints[0], last_committed=ints[1],
+                                     values={ints[2]: blob, ints[3]: blob[:7]},
+                                     uncommitted_pn=ints[4] if seed % 2 else 0),
+            "mon_election": m.MMonElection(op=1 + seed % 3, epoch=ints[5], rank=seed % 5,
+                                           quorum=[0, 2] if seed % 2 else []),
+            "mgr_beacon": m.MMgrBeacon(name=f"x{ints[6] % 10}", addr=f"127.0.0.1:{ints[7] % 65536}"),
+            "mon_mgr_report": m.MMonMgrReport(digest=b'{"pools": {"rbd": {"stored": %d}}}' % ints[0]),
+            "mds_beacon": m.MMDSBeacon(name="a", addr="127.0.0.1:6800",
+                                       state=("boot", "standby", "active")[seed % 3],
+                                       client=f"client.{ints[1]}" if seed % 2 else ""),
+            "mds_map": m.MMDSMap(epoch=ints[2] % 1000, fsmap=b'{"filesystems": {}, "standbys": {}}'),
+        }
+
+    return build(jmsg), build(msg)
+
+
+MON_KINDS = ["mon_paxos", "mon_election", "mgr_beacon", "mon_mgr_report", "mds_beacon",
+             "mds_map"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", MON_KINDS)
+def test_monitor_messages_match_reference_both_ways(kind, seed):
+    ref, ours = (v[kind] for v in _mon_values(seed))
+    assert ours.TYPE == ref.TYPE
+    assert ours.priority == ref.priority
+    assert ours.tobytes() == ref.tobytes()
+    assert type(ours).frombytes(ref.tobytes()).tobytes() == ref.tobytes()
+    assert type(ref).frombytes(ours.tobytes()).tobytes() == ours.tobytes()
+    # and through the envelope, as the messenger frames them
+    from ceph_tpu.msg.message import decode_message as jdecode, encode_message as jencode
+    from ceph_tpu_torch.msg.message import decode_message, encode_message
+
+    assert encode_message(ours) == jencode(ref)
+    assert jdecode(*encode_message(ours)).tobytes() == ref.tobytes()
+    assert decode_message(*jencode(ref)).tobytes() == ours.tobytes()
+
+
+def test_monitor_message_constants_match_reference():
+    for name in ("OP_COLLECT", "OP_LAST", "OP_BEGIN", "OP_ACCEPT", "OP_COMMIT", "OP_LEASE"):
+        assert getattr(msg.MMonPaxos, name) == getattr(jmsg.MMonPaxos, name)
+    for name in ("OP_PROPOSE", "OP_ACK", "OP_VICTORY"):
+        assert getattr(msg.MMonElection, name) == getattr(jmsg.MMonElection, name)
+    # the port's lease ack takes an op number the reference leaves unused
+    assert msg.MMonPaxos.OP_LEASE_ACK not in {
+        v for k, v in vars(jmsg.MMonPaxos).items() if k.startswith("OP_")}
+    for name in ("MMonPaxos", "MMonElection", "MMgrBeacon", "MMonMgrReport", "MMDSBeacon",
+                 "MMDSMap"):
+        assert [f for f in getattr(msg, name).FIELDS] == [f for f in getattr(jmsg, name).FIELDS]

@@ -1,5 +1,5 @@
-"""OSD daemons over a messenger, with a stand-in map service and a small
-client, for either package.
+"""OSD daemons over a messenger, with monitors and a mgr or a stand-in map
+service, and a small client, for either package.
 
 `DaemonCluster(root, ...)` starts, from the modules of the package named
 `root` (`"ceph_tpu"` or `"ceph_tpu_torch"`), one `MapService` and
@@ -39,6 +39,14 @@ OSDMap, sends `MOSDOp`, waits for `MOSDOpReply`, and resends on a newer
 map, on -EAGAIN or when the reply does not come.  It can hold a watch
 and acks notifies as the reference's `Objecter` does.
 
+With `mons=N`, `DaemonCluster` starts N real `Monitor`s and one `Mgr` of
+the package in place of `MapService`: the daemons boot through
+`OSDMonitor.prepare_boot`, failure reports and the down-out timer are the
+monitor's, the pools are made by commands (`osd erasure-code-profile
+set`, `osd pool create`), and `mark_out` / `mark_in` / `set_tier` /
+`config_set` are `MMonCommand`s (coroutines there).  The first boots are
+then not one epoch: compare such clusters by end states, not epochs.
+
 This module imports neither package by name: the tests run one cluster
 of each and compare them, and `chip_smoke.py` loads it by path and drives
 the port's on the card.
@@ -74,10 +82,29 @@ def modules(root: str) -> SimpleNamespace:
         config=imp("common.config"),
         crush=imp("crush.crush"),
         monmap=imp("mon.monmap"),
+        mon=imp("mon.monitor"),
+        monclient=imp("mon.client"),
+        mgr=imp("mgr.mgr"),
         keyring=imp("auth.keyring"),
         cephx=imp("auth.cephx"),
         errs=imp("common.errs"),
     )
+
+
+def free_port_addrs(names) -> dict:
+    """Loopback host:port addresses, one a name, from ports the kernel
+    handed out and this process released."""
+    import socket
+
+    socks, addrs = [], {}
+    for name in names:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        addrs[name] = f"127.0.0.1:{s.getsockname()[1]}"
+    for s in socks:
+        s.close()
+    return addrs
 
 
 async def wait_until(pred, timeout: float, what: str = "", step: float = 0.005) -> None:
@@ -309,6 +336,7 @@ class _ClientBody:
         self._replies: dict[int, asyncio.Future] = {}
         self._tid = 0
         self._placement: dict = {}
+        self._mon_rank = 0
         self.watches: dict = {}  # (pool, oid, cookie) -> callback(notify_id, payload)
         self.notifies: list = []
         self.resends = 0
@@ -318,6 +346,24 @@ class _ClientBody:
         addr = self.monmap.addr_of_rank(0)
         await self.msgr.send_to(addr, self.m.messages.MMonSubscribe(what={"osdmap": 0}))
         await wait_until(lambda: self.osdmap.epoch > 0, self.timeout, "the client's first map")
+
+    def ms_handle_reset(self, conn) -> None:
+        """The monitor holding the subscription went away: subscribe at
+        the next one (as the port's MonClient hunts)."""
+        if self.monmap.size() < 2 or conn.peer_addr != self.monmap.addr_of_rank(self._mon_rank):
+            return
+
+        async def _hunt():
+            for _ in range(self.monmap.size()):
+                self._mon_rank = (self._mon_rank + 1) % self.monmap.size()
+                try:
+                    await self.msgr.send_to(self.monmap.addr_of_rank(self._mon_rank),
+                                            self.m.messages.MMonSubscribe(what={"osdmap": 0}))
+                    return
+                except ConnectionError:
+                    continue
+
+        self._hunt = asyncio.get_event_loop().create_task(_hunt())
 
     async def shutdown(self) -> None:
         await self.msgr.shutdown()
@@ -442,21 +488,37 @@ def make_client(m, monmap, **kw):
 
 
 class DaemonCluster:
-    """A map service, `n_osds` OSD daemons of package `root` and a client.
+    """A map service (or `mons` monitors and a mgr), `n_osds` OSD daemons
+    of package `root` and a client.
 
     `conf` is applied to every daemon (with `name`), `osd_conf(i)` adds
     per-daemon options, `device` is passed to the port's daemons
-    (`OSD(..., device=)`), `keyring` (a path, or True for a generated
-    one in `root_dir`, with keys for the daemons and `clients`) turns
-    cephx on, and `store` is `memstore` or `bluestore` (each daemon's in
-    `root_dir/osd.N`)."""
+    (`OSD(..., device=)`) and monitors, `keyring` (a path, or True for a
+    generated one in `root_dir`, with keys for the daemons and `clients`)
+    turns cephx on, and `store` is `memstore` or `bluestore` (each
+    daemon's in `root_dir/osd.N`).  `mon_conf` is applied to every
+    monitor and the mgr, `mgr_modules(mgr)` may register modules, and
+    `election_timeout` is the monitors' (the reference's default 0.5 s)."""
+
+    MGR = "x"
 
     def __init__(self, root: str, n_osds: int, pools: list[dict], *, conf: dict | None = None,
                  osd_conf=None, device=None, stack: str = "inproc", keyring=None,
                  root_dir: str | None = None, store: str = "memstore",
                  honor_failures: bool = False, min_down_reporters: int = 2,
-                 admin_sockets: bool = False, clients=(CLIENT, "client.77")):
+                 admin_sockets: bool = False, clients=(CLIENT, "client.77"),
+                 mons: int = 0, mon_conf: dict | None = None, election_timeout: float = 0.5,
+                 mgr_beacon: float = 1.0):
         self.m = modules(root)
+        self.n_mons = mons
+        self.mon_names = [chr(ord("a") + i) for i in range(mons)]
+        self.mon_conf = dict(mon_conf or {})
+        self.election_timeout = election_timeout
+        self.mgr_beacon = mgr_beacon
+        self.monitors: list = []
+        self.mgr = None
+        self.monc = None
+        self.t_quorum = self.t_mgr = self.t_up = self.t_pools = None
         self.root = root
         self.n_osds = n_osds
         self.pools = pools
@@ -471,7 +533,9 @@ class DaemonCluster:
         self.keyring_path = None
         if keyring:
             kr = self.m.keyring.KeyRing()
-            for ent in ["mon.a", *clients] + [f"osd.{i}" for i in range(n_osds)]:
+            mon_ents = [f"mon.{n}" for n in self.mon_names] or ["mon.a"]
+            extra = [f"mgr.{self.MGR}", "client.admin"] if mons else []
+            for ent in [*mon_ents, *extra, *clients] + [f"osd.{i}" for i in range(n_osds)]:
                 kr.add(ent)
             self.keyring = kr
             if isinstance(keyring, str):
@@ -480,9 +544,9 @@ class DaemonCluster:
                 self.keyring_path = os.path.join(root_dir, "keyring")
             if self.keyring_path:
                 kr.save(self.keyring_path)
-        self.mon = make_map_service(self.m, n_osds, pools, stack=stack, keyring=self.keyring,
-                                    honor_failures=honor_failures,
-                                    min_down_reporters=min_down_reporters)
+        self.mon = None if mons else make_map_service(
+            self.m, n_osds, pools, stack=stack, keyring=self.keyring,
+            honor_failures=honor_failures, min_down_reporters=min_down_reporters)
         self.osds: list = [None] * n_osds
         self.monmap = None
         self.client = None
@@ -508,17 +572,170 @@ class DaemonCluster:
         addr = "127.0.0.1:0" if self.stack == "posix" else ""
         return m.osd.OSD(i, self.monmap, conf=conf, store=store, addr=addr, auth=auth, **kw)
 
+    # -- monitors and the mgr (mons > 0) ----------------------------------------
+
+    def make_monitor(self, name: str):
+        m = self.m
+        conf = m.config.Config({"name": f"mon.{name}", "ms_type": self.stack,
+                                **self.mon_conf}, env=False)
+        kw = {} if self.device is None or self.root == "ceph_tpu" else {"device": self.device}
+        if self.admin_sockets and self.root_dir is not None:
+            kw["admin_socket"] = os.path.join(self.root_dir, f"mon.{name}.asok")
+        return m.mon.Monitor(name, self.monmap, election_timeout=self.election_timeout,
+                             conf=conf, keyring=self.keyring, stack=self.stack, **kw)
+
+    def leader(self):
+        """The monitor that leads the quorum, or None in an election."""
+        for mon in self.monitors:
+            if mon is not None and mon._tick_task is not None and mon.is_leader():
+                return mon
+        return None
+
+    @property
+    def osdmap(self):
+        """The map source's committed map: the map service's, or the
+        leading monitor's (a running one's when no leader is known)."""
+        if self.mon is not None:
+            return self.mon.osdmap
+        mon = self.leader() or next(m for m in self.monitors
+                                    if m is not None and m._tick_task is not None)
+        return mon.osdmon.osdmap
+
+    async def command(self, cmd: dict, timeout: float = 30.0):
+        """One monitor command: (retval, rs, outbl); raises on an error,
+        with every monitor's state."""
+        rv, rs, out = await self.monc.command(cmd, timeout)
+        if rv != 0:
+            raise RuntimeError(f"{cmd['prefix']}: {rv} {rs}; monitors "
+                               f"{json.dumps(self.monitor_states())}")
+        return rv, rs, out
+
+    def monitor_states(self) -> list:
+        """What each monitor believes: its election, Paxos and OSDMonitor
+        queue (for a failure's report)."""
+        out = []
+        for mon in self.monitors:
+            p, e = mon.paxos, mon.elector
+            out.append({
+                "name": mon.name, "rank": mon.rank, "running": mon._tick_task is not None,
+                "leader": mon.leader_rank, "quorum": mon.quorum, "epoch": e.epoch,
+                "electing": e.electing, "deferred": e.deferred, "acked": sorted(e.acked),
+                "leading": p.leading, "collecting": p._collecting,
+                "collect_acks": sorted(p._collect_acks), "pn": p.accepted_pn,
+                "last_committed": p.last_committed, "active": p._active_value is not None,
+                "pending": len(p._pending), "osdmon_proposing": mon.osdmon._proposing,
+                "osdmon_pending": len(mon.osdmon._pending), "osdmap": mon.osdmon.osdmap.epoch,
+            })
+        return out
+
+    async def create_pools(self) -> None:
+        """The pools of `pools`, made as an operator makes them."""
+        for spec in self.pools:
+            if spec["kind"] == "ec":
+                profile = {"plugin": spec.get("plugin", "tpu"), "k": str(spec["k"]),
+                           "m": str(spec["m"]), **spec.get("profile", {})}
+                if "stripe_unit" in spec:
+                    profile["stripe_unit"] = str(spec["stripe_unit"])
+                await self.command({"prefix": "osd erasure-code-profile set",
+                                    "name": f"prof_{spec['name']}",
+                                    "profile": [f"{k}={v}" for k, v in profile.items()]})
+                await self.command({"prefix": "osd pool create", "pool": spec["name"],
+                                    "pool_type": "erasure", "pg_num": spec["pg_num"],
+                                    "erasure_code_profile": f"prof_{spec['name']}",
+                                    "allow_ec_overwrites": bool(spec.get("overwrites"))})
+            else:
+                await self.command({"prefix": "osd pool create", "pool": spec["name"],
+                                    "pool_type": "replicated", "pg_num": spec["pg_num"],
+                                    "size": int(spec.get("size", 3))})
+
+    async def start_monitors(self, timeout: float = 30.0) -> None:
+        m = self.m
+        t0 = time.monotonic()
+        if self.stack == "posix":
+            addrs = free_port_addrs(self.mon_names)
+        else:
+            tag = uuid.uuid4().hex[:8]
+            addrs = {n: f"inproc:mon-{tag}-{n}" for n in self.mon_names}
+        self.monmap = m.monmap.MonMap(addrs=addrs)
+        self.monitors = [self.make_monitor(n) for n in self.monmap.ranks]
+        for mon in self.monitors:
+            await mon.start()
+
+        def quorum() -> bool:
+            self.raise_failed_monitor()
+            return self.leader() is not None and all(
+                len(mon.quorum) == self.n_mons for mon in self.monitors)
+
+        await wait_until(quorum, timeout, "the quorum")
+        self.t_quorum = time.monotonic() - t0
+        mgr_conf = m.config.Config({"name": f"mgr.{self.MGR}", "ms_type": self.stack,
+                                    **self.mon_conf}, env=False)
+        kw = {"keyring": self.keyring} if self.keyring is not None and self.root != "ceph_tpu" else {}
+        self.mgr = m.mgr.Mgr(self.MGR, self.monmap, conf=mgr_conf,
+                             addr="127.0.0.1:0" if self.stack == "posix" else "", **kw)
+        self.mgr.beacon_interval = self.mgr_beacon
+        await self.mgr.start()
+        await self.mgr.wait_for_active(timeout)
+        self.t_mgr = time.monotonic() - t0
+        msgr_kw = {"stack": self.stack}
+        if self.keyring is not None:
+            msgr_kw["auth"] = m.cephx.CephxAuth.for_client("client.admin",
+                                                          self.keyring.get("client.admin"))
+        self.monc = m.monclient.MonClient(
+            "client.admin", self.monmap, msgr=m.messenger.Messenger("client.admin", **msgr_kw))
+
+    async def stop_mon(self, name: str) -> None:
+        i = self.monmap.ranks.index(name)
+        await self.monitors[i].stop()
+
+    async def restart_mon(self, name: str):
+        """A fresh monitor (an empty store) in place of a stopped one."""
+        i = self.monmap.ranks.index(name)
+        mon = self.make_monitor(name)
+        self.monitors[i] = mon
+        await mon.start()
+        return mon
+
+    def raise_failed_monitor(self) -> None:
+        """Raise the device error that stopped a monitor, if one did (the
+        port's monitors; the reference's have no `failed`)."""
+        for mon in self.monitors:
+            if getattr(mon, "failed", None) is not None:
+                raise mon.failed
+
+    def quorum_epoch(self) -> int:
+        """The highest election epoch a running monitor has seen."""
+        return max(mon.elector.epoch for mon in self.monitors if mon._tick_task is not None)
+
+    async def health(self) -> dict:
+        return json.loads((await self.command({"prefix": "health", "detail": True}))[2])
+
+    async def config_set(self, who: str, name: str, value) -> None:
+        await self.command({"prefix": "config set", "who": who, "name": name,
+                            "value": str(value)})
+
+    # -- start and stop ------------------------------------------------------------
+
     async def start(self, timeout: float = 60.0) -> float:
         """Start everything; returns the seconds until every PG's primary
         is active and clean."""
         t0 = time.monotonic()
-        addr = await self.mon.start()
-        self.monmap = self.m.monmap.MonMap(addrs={"a": addr})
+        if self.n_mons:
+            await self.start_monitors(timeout)
+        else:
+            addr = await self.mon.start()
+            self.monmap = self.m.monmap.MonMap(addrs={"a": addr})
         for i in range(self.n_osds):
             self.osds[i] = self.make_osd(i)
         for o in self.osds:
             await o.start()
         await wait_until(lambda: all(o.up for o in self.osds), timeout, "every OSD up")
+        if self.n_mons:
+            await wait_until(lambda: self.osdmap.num_up_osds() == self.n_osds, timeout,
+                             "every OSD up in the map")
+            self.t_up = time.monotonic() - t0
+            await self.create_pools()
+            self.t_pools = time.monotonic() - t0
         auth = None
         if self.keyring is not None:
             auth = self.m.cephx.CephxAuth.for_client(CLIENT, self.keyring.get(CLIENT))
@@ -533,8 +750,34 @@ class DaemonCluster:
         for o in self.osds:
             if o is not None and o._running:
                 await o.stop()
-        await self.mon.stop()
+        if self.mon is not None:
+            await self.mon.stop()
+        if self.mgr is not None:
+            await self.mgr.stop()
+        if self.monc is not None:
+            await self.monc.msgr.shutdown()
+        for mon in self.monitors:
+            if mon._tick_task is not None:
+                await mon.stop()
         await asyncio.sleep(0)
+
+    # -- the operator's commands (monitors) ----------------------------------------
+
+    async def mark_out(self, osd: int) -> None:
+        await self.command({"prefix": "osd out", "id": osd})
+
+    async def mark_in(self, osd: int) -> None:
+        await self.command({"prefix": "osd in", "id": osd})
+
+    async def set_tier(self, base: str, cache: str, mode: str = "writeback",
+                       target_max_objects: int | None = None) -> None:
+        await self.command({"prefix": "osd tier add", "pool": base, "tierpool": cache})
+        await self.command({"prefix": "osd tier cache-mode", "pool": cache, "mode": mode})
+        await self.command({"prefix": "osd tier set-overlay", "pool": base,
+                            "overlaypool": cache})
+        if target_max_objects is not None:
+            await self.command({"prefix": "osd pool set", "pool": cache,
+                                "var": "target_max_objects", "val": target_max_objects})
 
     async def stop_osd(self, i: int) -> None:
         """Stop osd.i's daemon: its heartbeats stop, its store stays."""
@@ -565,7 +808,7 @@ class DaemonCluster:
                     yield pg
 
     def all_clean(self) -> bool:
-        om = self.mon.osdmap
+        om = self.osdmap
         for o in self.running():
             if o.osdmap.epoch != om.epoch:
                 return False
