@@ -1,9 +1,9 @@
 """Object-class runtime: registry, method decorator, handler context.
 
-The port of `ceph_tpu/cls/objclass.py`.  No class ships with the port
-yet: `get_method` finds no `ceph_tpu_torch.cls.<name>` module and raises
-MethodNotFound, so a CALL answers -EOPNOTSUPP, as the JAX package's PG
-does for a class it cannot load.
+The port of `ceph_tpu/cls/objclass.py`.  `get_method` imports
+`ceph_tpu_torch.cls.<name>` on a class's first CALL; a class with no such
+module raises MethodNotFound, so the CALL answers -EOPNOTSUPP, as the JAX
+package's PG does for a class it cannot load.
 
 Mirrors src/objclass/objclass.h: `cls_register` / `cls_register_cxx_method`
 with CLS_METHOD_RD / CLS_METHOD_WR flags, and the `cls_method_context_t`

@@ -14,6 +14,13 @@ Structure mirrored:
   `tick()` plus access to the daemon state, the osdmap, and mon
   commands — the same surface the reference's MgrModule exposes
   (cluster maps via `self.get()`, `mon_command`, perf counters).
+
+Where the port differs: a module whose tick raises a device error
+(`ops.guard.is_device_error`) stops the mgr, which records the error in
+`failed`, as a monitor does; any other exception a module raises is
+logged and the loop goes on, as in the reference.  A module with an
+`on_report(daemon, status, now)` method sees every daemon report as it
+arrives (the progress module's completions, ROADMAP C24).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..msg.messages import (
     MOSDMap,
 )
 from ..msg.messenger import Connection, Dispatcher, Messenger
+from ..ops.guard import is_device_error
 from ..osd.osdmap import OSDMap, advance_map
 
 
@@ -83,6 +91,7 @@ class Mgr(Dispatcher):
         self._running = False
         self.beacon_interval = 1.0
         self.admin_socket = None
+        self.failed: BaseException | None = None  # the device error that stopped it
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -101,9 +110,8 @@ class Mgr(Dispatcher):
     async def _start_admin_socket(self) -> None:
         """Mgr admin socket (the `ceph tell mgr.*` surface): the iostat
         / top-clients views live here so an operator can ask "who is
-        driving the load" without a prometheus stack.  The modules they
-        read are not ported yet (ROADMAP A10b): until then each answers
-        that its module is not registered."""
+        driving the load" without a prometheus stack.  A command whose
+        module is not registered answers so."""
         try:
             path = self.conf.get("admin_socket")
         except KeyError:
@@ -492,6 +500,19 @@ class Mgr(Dispatcher):
             except json.JSONDecodeError:
                 return True
             st.last_report = time.monotonic()
+            # the port's (ROADMAP C24): modules that must see every
+            # report, not only the one a tick finds
+            for module in self.modules:
+                hook = getattr(module, "on_report", None)
+                if hook is None:
+                    continue
+                try:
+                    hook(msg.daemon, st.status, st.last_report)
+                except Exception as e:  # a module must not kill dispatch
+                    if is_device_error(e):
+                        self._fail(module, e)
+                        return True
+                    dout("mgr", 0, f"module {module.NAME} raised {e!r} on a report")
             return True
         return False
 
@@ -512,7 +533,20 @@ class Mgr(Dispatcher):
                     if asyncio.iscoroutine(result):
                         await result
                 except Exception as e:  # a module must not kill the mgr
+                    if is_device_error(e):
+                        self._fail(module, e)
+                        return
                     dout("mgr", 0, f"module {module.NAME} raised {e!r}")
+
+    def _fail(self, module, exc: BaseException) -> None:
+        """A module met a device error: record it and stop the mgr (its
+        beacons stop, so a standby takes over)."""
+        if self.failed is not None:
+            return
+        self.failed = exc
+        dout("mgr", 0, f"mgr.{self.name}: module {module.NAME} hit a device "
+                       f"error, stopping: {exc!r}")
+        asyncio.get_event_loop().create_task(self.stop())
 
     # -- module-facing surface (MgrModule API analog) --------------------------
 

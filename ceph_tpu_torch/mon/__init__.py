@@ -13,9 +13,7 @@ an EC profile: `Monitor(..., device=None)` puts it on cuda unless the
 caller names another device.  Where the port differs from the reference
 (the lease, proposing once caught up, the client's hunt on a reset) is in
 ROADMAP.md §C (C16, C17, C18).  The mgr modules that feed the digest's
-other slices (prometheus, iostat, progress, metrics history, balancer,
-pg_autoscaler, telemetry, dashboard, orchestrator, clog) are not ported
-yet (ROADMAP A10b).
+other slices are in `mgr/`.
 """
 
 from .client import MonClient

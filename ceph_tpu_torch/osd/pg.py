@@ -264,6 +264,16 @@ class PG(PGListener):
                     self._moved_members[osd] = old
         self._acting = list(acting)
         self._ensure_local_coll()
+        # the port's (ROADMAP C25): a client's resend of a write still in
+        # flight waits on that write, which may never commit now that its
+        # interval ended (a member it waits on is gone).  Ceph's on_change
+        # requeues such ops; here they are answered -EAGAIN, so the client
+        # resends once the PG is active again, where the write runs anew
+        for key, waiters in self._inflight_reqids.items():
+            self._inflight_reqids[key] = []
+            for w in waiters:
+                w(MOSDOpReply(reqid=ReqId(*key), result=-EAGAIN, outdata=[],
+                              version=0, epoch=epoch))
         self.scrubber.reset()  # an interval change aborts in-flight scrubs
         self._reset_backfill()  # reservations do not survive an interval
         # in-flight recoveries die with the interval (the reference's

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--mon-only]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
 kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, the monitors' log (Paxos, the elector's messages and timers,
-the lease) is written at level 10 to PATH.  With --mon-only, phase 1
-builds the kernels and phase 15 runs alone; the script then exits without
-the kernel and contract lines.
+the lease) is written at level 10 to PATH.  With --only N, phase 1
+builds the kernels and phase N (14, 15 or 16) runs alone; the script
+then exits without the kernel and contract lines.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -396,6 +396,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    in 15c and none elsewhere), fails if a daemon other than osd.3 was
    marked down (the monitors' cluster log) or if a monitor stopped on a
    device error.
+16. The client and the operator's view: phase 15's cluster anew (3
+   monitors, 12 daemons on BlueStore, posix, cephx, the same pools), the
+   port's `Mgr` with ten modules (vstart's eight: prometheus, dashboard,
+   telemetry, orchestrator, progress, iostat, metrics_history, clog; and
+   the balancer and pg_autoscaler in their default advise and warn
+   modes), prometheus served on 127.0.0.1 and the mgr's admin socket on;
+   every op through the port's `Rados` as `client.admin` with the
+   generated key, none through the test host's client.  Cuts: 32 objects,
+   a 64 MiB image, one out.  16a seconds to every PG clean and to
+   `Rados.connect`; 16b 32 `IoCtx.write_full` of 4 MiB on rbd, half at
+   QD1 and half at QD8 (MB/s), read back byte-exact (GB/s), the iostat
+   module's rbd write ops equal to the writes issued, `iostat top` on the
+   mgr's admin socket listing client.admin; 16c a 64 MiB image through
+   `striper.StripedObject` over 4 MiB objects (RBD's default layout),
+   written and read back byte-exact (MB/s), a `cls_lock` lock and unlock on
+   `rbd_header.img16` and a `cls log` add and list on rbd_meta through
+   `cls/client.py` and `IoCtx.exec`; 16d a prometheus scrape over HTTP that
+   passes tests/test_metrics_lint.py's `lint_exposition` (its copy,
+   tests/torch_metrics_lint.py, which imports neither package), with nonzero
+   ec_dispatch, ec_aggregator and trace families, and osd.0's
+   `launches_per_sec` history over 16b-16c within 20% of the dispatch
+   counters' rate (every daemon of the process reports the same
+   process-wide counters, so the cluster series is about 12 times one
+   daemon's); 16e `osd out 3` as a mon command from `Rados`: seconds to
+   clean and MB/s rebuilt, the progress module's events and storm bar,
+   each event to done == total and counted completed (none expired), the
+   health checks PG_RECOVERY_STALLED and TPU_* raised on the way, a
+   nonzero recovery_storm family, and `perf history ls` / `get` on the
+   mgr's admin socket.  swar_gf launches in 16b, 16c and 16e;
+   `fallback_per_sec` stays 0 and every daemon's fallback_launches reads
+   0; the phase fails above 150 s.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -4592,6 +4623,8 @@ def load_test_host(name: str):
     module = importlib.util.module_from_spec(spec)
     sys.modules[name] = module
     spec.loader.exec_module(module)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ceph_tpu"))
+    check(not leaked, f"loading tests/{name}.py imported {leaked[:5]}")
     return module
 
 
@@ -5602,6 +5635,427 @@ async def _phase_mon(torch, swar, packed, co, card, device) -> dict:
     return {"launches": totals, "by_part": by_part, "figures": out, "spans": spans}
 
 
+R_MONS = 3
+R_OSDS = 12
+R_VICTIM = 3
+R_OBJECTS = 32  # on rbd: half at QD1, half at QD8
+R_OBJECT_BYTES = 4 << 20  # RBD's default object size
+R_QD = 8
+R_IMAGE_BYTES = 64 << 20  # the striped image (cut)
+R_LIMIT_S = 150.0
+R_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
+R_REACHES = {"16a": (), "16b": ("swar_gf",), "16c": ("swar_gf",), "16d": (),
+             "16e": ("swar_gf",)}
+# the scrape's families that must carry a nonzero sample, and the part that
+# checks each (the storm controllers count only once an OSD fails)
+R_FAMILIES = {"ceph_tpu_ec_dispatch_": "16d", "ceph_tpu_ec_aggregator_": "16d",
+              "ceph_tpu_trace_": "16d", "ceph_tpu_recovery_storm_": "16e"}
+R_RATE_TOLERANCE = 0.2  # history vs counters: the mgr's 1 s ticks against a part's edges
+
+
+def phase_client(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 16: the port's librados and the mgr's modules on phase 15's
+    cluster."""
+    import asyncio
+
+    return asyncio.run(_phase_client(torch, swar, packed, co, card, device))
+
+
+def mgr_modules(mgr) -> dict:
+    """The modules vstart registers, plus the balancer and the autoscaler
+    in their default modes (advise, warn), on `mgr`: name -> module."""
+    from ceph_tpu_torch import mgr as m
+    from ceph_tpu_torch.mgr.balancer import BalancerModule
+    from ceph_tpu_torch.mgr.pg_autoscaler import PgAutoscalerModule
+    from ceph_tpu_torch.mgr.prometheus import PrometheusModule
+
+    mods = {}
+    for module in (PrometheusModule(), m.DashboardModule(), m.TelemetryModule(),
+                   m.OrchestratorModule(), m.ProgressModule(), m.IostatModule(),
+                   m.MetricsHistoryModule(), m.ClogModule(), BalancerModule(),
+                   PgAutoscalerModule()):
+        mgr.register_module(module)
+        mods[module.NAME] = module
+    return mods
+
+
+async def _phase_client(torch, swar, packed, co, card, device) -> dict:
+    import asyncio
+    import tempfile
+    import urllib.request
+
+    from ceph_tpu_torch.client import Rados, RadosError
+    from ceph_tpu_torch.cls import client as cls_client
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.striper import StripedObject, StripePolicy
+
+    host = load_test_host("torch_daemon_host")
+    lint = load_test_host("torch_metrics_lint").lint_exposition
+    guard = device_guard()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_client_")
+    c = host.DaemonCluster("ceph_tpu_torch", R_OSDS, PG_POOLS, conf={**D_CONF, **PG_CONF},
+                           device=device, stack="posix", keyring=True, root_dir=tmp,
+                           store="bluestore", admin_sockets=True, mons=R_MONS,
+                           mon_conf=M_MON_CONF)
+    rados = None
+    mods: dict = {}
+    by_part: dict = {}
+    out: dict = {}
+    seen: dict = {"events": set(), "storms": set(), "done": set(), "checks": set(),
+                  "last": {}, "storm_last": {}}
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"],
+                "crc32c": co.crc32c_device.launches}
+
+    def done(part: str, before: dict) -> None:
+        torch.cuda.synchronize()
+        now = counts()
+        by_part[part] = {k: now[k] - before[k] for k in R_KERNELS}
+        for kernel in R_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        c.raise_failed_monitor()
+        check(c.mgr.failed is None, f"{part}: the mgr stopped on {c.mgr.failed!r}")
+        check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    async def mgr_asok(prefix: str, **kw):
+        path = c.mgr.conf.get("admin_socket")
+        return await asyncio.get_running_loop().run_in_executor(
+            None, lambda: admin_command(path, prefix, timeout=30.0, **kw))
+
+    async def scrape() -> dict:
+        url = f"http://{mods['prometheus'].addr}/metrics"
+        text = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: urllib.request.urlopen(url, timeout=30).read().decode())
+        return lint(text)  # tests/test_metrics_lint.py's rules
+
+    def nonzero(families: dict, prefix: str) -> bool:
+        return any(float(v) != 0.0 for name, fam in families.items() if name.startswith(prefix)
+                   for _n, _l, v in fam["samples"])
+
+    def watch_progress() -> None:
+        digest = mods["progress"].progress_digest()
+        reporters: dict = {}
+        for daemon in c.mgr.list_daemons():
+            for pgid, evs in (c.mgr.get_daemon_status(daemon).get("progress") or {}).items():
+                for ev in evs:
+                    reporters.setdefault((pgid, ev.get("kind")), []).append(daemon)
+        for ev in digest["events"]:
+            key = (ev["pgid"], ev["kind"])
+            seen["events"].add(key)
+            seen["last"][key] = (ev["objects_done"], ev["objects_total"],
+                                 reporters.get(key, []))
+            if ev["objects_total"] and ev["objects_done"] >= ev["objects_total"]:
+                seen["done"].add(key)
+        for ev in digest["storms"]:
+            seen["storms"].add(ev["pgid"])
+            seen["storm_last"][ev["pgid"]] = (ev["objects_done"], ev["objects_total"])
+        seen["checks"].update(code for code in c.mgr.health_checks()
+                              if code == "PG_RECOVERY_STALLED" or code.startswith("TPU_"))
+
+    rng = np.random.default_rng(SEED + 160)
+    base = rng.integers(0, 256, 2 * R_OBJECT_BYTES, dtype=np.uint8)
+    names = [f"rbd_data.5c1e97a3d42.{i:016x}" for i in range(R_OBJECTS)]
+
+    def payload(i: int) -> bytes:
+        off = (i * 65537) % R_OBJECT_BYTES
+        return base[off:off + R_OBJECT_BYTES].tobytes()
+
+    def describe(oid: str) -> str:
+        """Where an object stands for the client and for every daemon: its
+        PG, the client's map and connection, the PG on each daemon, and
+        the primary's ops in flight."""
+        obj = rados.objecter
+        om = obj.osdmap
+        pool_id = om.get_pool("rbd").id
+        pgid, primary = obj._calc_target(pool_id, oid)
+        info = om.osds.get(primary)
+        conn = obj.msgr._conns.get(info.addr) if info is not None else None
+        lines = [f"{oid}: pg {pgid}, the client's primary osd.{primary} at epoch {om.epoch}, "
+                 f"the monitors' osd.{c.osdmap.pg_to_up_acting_osds(pool_id, pgid.ps)[3]} "
+                 f"at {c.osdmap.epoch}; client connection "
+                 f"{None if conn is None else (conn._closed, conn._out_seq, conn._dead_until)}; "
+                 f"Objecter resends {obj.perf.get('op_resend')}, timeouts "
+                 f"{obj.perf.get('op_timeout')}; guard degraded {guard.degraded}"]
+        key = (pgid.pool, pgid.ps)
+        for o in c.running():
+            pg = o.pgs.get(key) or o.strays.get(key)
+            if pg is not None:
+                p = pg.peering
+                lines.append(f"  osd.{o.whoami}{' (stray)' if key in o.strays else ''}: "
+                             f"{p.state.value} epoch {o.osdmap.epoch} acting {list(p.acting)} "
+                             f"primary {p.primary} clean {pg.is_clean} missing "
+                             f"{oid in p.missing.items} recovering {oid in pg.recovering}")
+            if o.whoami == primary:
+                lines.append(f"  osd.{o.whoami} ops in flight: {o.op_tracker.dump_in_flight()}")
+        return "\n".join(lines)
+
+    async def batch(calls, oids):
+        """One QD batch; on a failure, where each object stood, then the
+        failure."""
+        try:
+            return await asyncio.gather(*calls)
+        except (TimeoutError, RadosError):
+            for oid in oids:
+                print(f"[16] {describe(oid)}", flush=True)
+            raise
+
+    async def write(io, idx, qd: int) -> float:
+        t = time.perf_counter()
+        for lo in range(0, len(idx), qd):
+            part = idx[lo:lo + qd]
+            await batch([io.write_full(names[i], payload(i)) for i in part],
+                        [names[i] for i in part])
+        return len(idx) * R_OBJECT_BYTES / (time.perf_counter() - t) / 1e6
+
+    async def read_back(io, idx) -> float:
+        t = time.perf_counter()
+        for lo in range(0, len(idx), R_QD):
+            part = idx[lo:lo + R_QD]
+            got = await batch([io.read(names[i]) for i in part], [names[i] for i in part])
+            for i, blob in zip(part, got):
+                check(blob == payload(i), f"16: {names[i]} read back wrong")
+        return len(idx) * R_OBJECT_BYTES / (time.perf_counter() - t) / 1e9
+
+    def recovered() -> int:
+        return sum(io.get("recovery", {}).get("bytes", 0) for o in c.running()
+                   for io in o.io_accountant.dump_pools().values())
+
+    swar.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    co.crc32c_device.launches = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    try:
+        # 16a: the cluster, the mgr's modules, Rados.connect, every PG clean
+        before = counts()
+        out["16a s to clean"] = await c.start(180)
+        mods = mgr_modules(c.mgr)
+        c.mgr.conf.set("admin_socket", os.path.join(tmp, "mgr.x.asok"))
+        await c.mgr._start_admin_socket()
+        await mods["prometheus"].serve("127.0.0.1")
+        t = time.perf_counter()
+        rados = Rados(c.monmap, name="client.admin", secret=c.keyring.get("client.admin"),
+                      stack="posix")
+        await rados.connect(30.0)
+        out["16a s to connect"] = time.perf_counter() - t
+        rbd = await rados.open_ioctx("rbd")
+        meta = await rados.open_ioctx("rbd_meta")
+        check(all(pg.backend.ec.device.type == "cuda" for o in c.osds
+                  for pg in o.pgs.values() if hasattr(pg.backend, "ec")),
+              "16a: an EC PG's codec is not on the card")
+        done("16a", before)
+        print(f"[16] 16a: {R_MONS} monitors, mgr.x with {len(mods)} modules "
+              f"({', '.join(sorted(mods))}), {R_OSDS} OSD daemons, every PG clean "
+              f"{out['16a s to clean']:.3f} s after the first start; Rados.connect "
+              f"{out['16a s to connect']:.3f} s; prometheus at {mods['prometheus'].addr}; "
+              f"{card}", flush=True)
+
+        # 16b: WRITEFULLs through IoCtx at QD1 and QD8, read back
+        before = counts()
+        # the module stamps its samples with time.monotonic()
+        launches0, t_b = dispatch.LAUNCHES.snapshot()["launches"], time.monotonic()
+        half = R_OBJECTS // 2
+        resends0 = rados.objecter.perf.get("op_resend")
+        out["16b QD1 MB/s"] = await write(rbd, list(range(half)), 1)
+        out["16b QD8 MB/s"] = await write(rbd, list(range(half, R_OBJECTS)), R_QD)
+        resends = int(rados.objecter.perf.get("op_resend") - resends0)
+        out["16b read GB/s"] = await read_back(rbd, list(range(R_OBJECTS)))
+        rbd_id = str(rados.objecter.osdmap.get_pool("rbd").id)
+
+        def rbd_writes() -> int:
+            return mods["iostat"].iostat().get(rbd_id, {}).get("write_ops", 0)
+
+        try:
+            await host.wait_until(lambda: rbd_writes() >= R_OBJECTS, 30.0, "iostat's rbd writes")
+        except TimeoutError:
+            pass  # the check below says what was counted
+        await asyncio.sleep(2.0)  # later reports may not add a write
+        out["16b iostat rbd write ops"] = rbd_writes()
+        out["16b Objecter resends"] = resends
+        check(out["16b iostat rbd write ops"] == R_OBJECTS,
+              f"16b: iostat counts {out['16b iostat rbd write ops']} rbd writes; the client "
+              f"issued {R_OBJECTS} and resent {resends}")
+        top = await mgr_asok("iostat top")
+        check(any(row["client"].startswith("client.admin") for row in top["clients"]),
+              f"16b: `iostat top` lists no client.admin: {top}")
+        done("16b", before)
+        print(f"[16] 16b: {R_OBJECTS} IoCtx.write_full of {R_OBJECT_BYTES >> 10} KiB on rbd: "
+              f"{out['16b QD1 MB/s']:.1f} MB/s at QD1, {out['16b QD8 MB/s']:.1f} MB/s at QD8; "
+              f"read back byte-exact {out['16b read GB/s']:.3f} GB/s; iostat's rbd write ops "
+              f"{out['16b iostat rbd write ops']} of {R_OBJECTS} writes issued, "
+              f"{resends} resent; `iostat top` lists "
+              f"{sorted({r['client'] for r in top['clients']})}; launches {by_part['16b']}; "
+              f"{card}", flush=True)
+
+        # 16c: a striped RBD image, its header's lock and a cls log round trip
+        before = counts()
+        image = rng.integers(0, 256, R_IMAGE_BYTES, dtype=np.uint8).tobytes()
+        so = StripedObject(rbd, "rbd_data.img16", StripePolicy(
+            stripe_unit=R_OBJECT_BYTES, stripe_count=1, object_size=R_OBJECT_BYTES))
+        t = time.perf_counter()
+        await so.write(image, 0)
+        out["16c image write MB/s"] = R_IMAGE_BYTES / (time.perf_counter() - t) / 1e6
+        t = time.perf_counter()
+        back = await so.read(0, 0)
+        out["16c image read MB/s"] = R_IMAGE_BYTES / (time.perf_counter() - t) / 1e6
+        check(back == image and await so.size() == R_IMAGE_BYTES, "16c: the image reads wrong")
+        header = "rbd_header.img16"
+        await meta.write_full(header, b"")
+        await cls_client.lock(meta, header, "rbd_lock", cookie="auto 16")
+        info = await cls_client.get_lock_info(meta, header, "rbd_lock")
+        check(info["type"] == "exclusive" and len(info["holders"]) == 1, f"16c: lock {info}")
+        await cls_client.unlock(meta, header, "rbd_lock", cookie="auto 16")
+        check(not (await cls_client.get_lock_info(meta, header, "rbd_lock"))["holders"],
+              "16c: the lock is still held")
+        entries = [{"ts": 1700000000.0 + i, "section": "image", "name": "img16",
+                    "data": f"resize {i}"} for i in range(4)]
+        await meta.exec("rbd_log.img16", "log", "add", json.dumps({"entries": entries}).encode())
+        listed = json.loads(await meta.exec("rbd_log.img16", "log", "list", b"{}"))
+        check([e["data"] for e in listed["entries"]] == [e["data"] for e in entries],
+              f"16c: cls log lists {listed}")
+        t_c = time.monotonic()
+        launches1 = dispatch.LAUNCHES.snapshot()["launches"]
+        done("16c", before)
+        print(f"[16] 16c: a {R_IMAGE_BYTES >> 20} MiB image striped over "
+              f"{R_IMAGE_BYTES // R_OBJECT_BYTES} objects of {R_OBJECT_BYTES >> 10} KiB: write "
+              f"{out['16c image write MB/s']:.1f} MB/s, read back byte-exact "
+              f"{out['16c image read MB/s']:.1f} MB/s; cls lock and unlock on {header}; cls log "
+              f"add and list ({len(entries)} entries); launches {by_part['16c']}; {card}",
+              flush=True)
+
+        # 16d: the scrape, and osd.0's launch history against the counters
+        before = counts()
+        await asyncio.sleep(2.5)  # the mgr's module ticks past 16c's last reports
+        families = await scrape()
+        for prefix, part in R_FAMILIES.items():
+            check(any(name.startswith(prefix) for name in families),
+                  f"16d: the scrape has no {prefix}* family")
+            if part == "16d":
+                check(nonzero(families, prefix), f"16d: every {prefix}* sample is 0")
+        mh = mods["metrics_history"]
+        window = time.monotonic() - t_b + 5.0
+
+        def inside(daemon=None) -> list:
+            # the 1 s buckets wholly inside 16b-16c
+            got = mh.history_get("launches_per_sec", daemon=daemon, window=window)["points"]
+            return [v for t, v in got if v is not None and t_b <= t and t + 1.0 <= t_c]
+
+        points, cluster = inside("osd.0"), inside()
+        counted = (launches1 - launches0) / (t_c - t_b)
+        history = statistics.fmean(points) if points else 0.0
+        out["16d counters launches/s"] = counted
+        out["16d osd.0 history launches/s"] = history
+        out["16d cluster/osd.0 launches"] = (statistics.fmean(cluster) / statistics.fmean(points)
+                                             if points and statistics.fmean(points) else None)
+        check(abs(history - counted) <= R_RATE_TOLERANCE * counted,
+              f"16d: osd.0's launches_per_sec {history:.2f} vs the counters' {counted:.2f}")
+        done("16d", before)
+        print(f"[16] 16d: scrape of {len(families)} families passes test_metrics_lint's "
+              f"rules; osd.0's launches_per_sec over 16b-16c {history:.2f} /s against the "
+              f"dispatch counters' {counted:.2f} /s; the cluster series reads "
+              f"{out['16d cluster/osd.0 launches']} times osd.0's (every daemon reports the "
+              f"process's counters); {card}", flush=True)
+
+        # 16e: osd.3 out by a mon command from Rados, rebuilt to clean, watched by progress
+        before = counts()
+        prog = mods["progress"]
+        completed0, expired0 = prog.completed, prog.expired
+        rec0 = recovered()
+        t = time.perf_counter()
+        rv, rs, _ = await rados.mon_command({"prefix": "osd out", "id": R_VICTIM})
+        check(rv == 0, f"16e: osd out answered {rv} {rs}")
+
+        async def watcher():
+            while True:
+                watch_progress()
+                await asyncio.sleep(0.1)
+
+        w = asyncio.ensure_future(watcher())
+        try:
+            await host.wait_until(lambda: c.osdmap.osds[R_VICTIM].weight == 0, 30.0, "the out")
+            await c.wait_clean(180)
+            out["16e s out to clean"] = time.perf_counter() - t
+            rebuilt = recovered() - rec0
+            out["16e rebuilt bytes"] = rebuilt
+            out["16e recovery MB/s"] = rebuilt / out["16e s out to clean"] / 1e6
+            await host.wait_until(lambda: not prog.events and not prog.storms
+                                  and prog.completed > completed0, 30.0,
+                                  "progress's events to finish")
+        finally:
+            w.cancel()
+        watch_progress()
+        out["16e events"] = len(seen["events"])
+        out["16e events done"] = len(seen["done"])
+        out["16e storm bars"] = sorted(seen["storms"])
+        out["16e completed"] = prog.completed - completed0
+        out["16e expired"] = prog.expired - expired0
+        out["16e checks raised"] = sorted(seen["checks"])
+        # the recoveries last seen below their total (a backfill's or a
+        # scrub's vanishing is its completion)
+        below = {f"{k[0]}:{k[1]}": v for k, v in seen["last"].items()
+                 if k not in seen["done"] and k[1] == "recovery"}
+        out["16e events below total"] = below
+        out["16e storm bars last"] = seen["storm_last"]
+        check(seen["events"] and seen["storms"], f"16e: progress saw events "
+              f"{len(seen['events'])}, storm bars {sorted(seen['storms'])}")
+        # the out's whole-OSD rebuild: its bar reached done == total, so
+        # the module counted it completed when it vanished
+        check(all(done >= total > 0 for done, total in seen["storm_last"].values()),
+              f"16e: a storm bar vanished below its total: {seen['storm_last']}")
+        check(out["16e expired"] == 0 and out["16e completed"] > 0,
+              f"16e: progress counted {out['16e completed']} completed, "
+              f"{out['16e expired']} expired; events below total {below}")
+        check(seen["done"], "16e: no event reached done == total")
+        out["16e read GB/s"] = await read_back(rbd, list(range(R_OBJECTS)))
+        families = await scrape()
+        check(nonzero(families, "ceph_tpu_recovery_storm_"),
+              "16e: every ceph_tpu_recovery_storm_* sample is 0")
+        ls = await mgr_asok("perf history ls")
+        got = await mgr_asok("perf history get", series="launches_per_sec", window="600")
+        check(ls and got.get("points"), f"16e: perf history answered {ls} / {got}")
+        fallback = mh.history_get("fallback_per_sec", window=600.0, aggregate="max")["points"]
+        check(all(not v for _t, v in fallback), f"16e: fallback_per_sec {fallback}")
+        done("16e", before)
+        detail = {code: c.mgr.health_checks().get(code) for code in seen["checks"]}
+        print(f"[16] 16e: `osd out {R_VICTIM}` from Rados: clean "
+              f"{out['16e s out to clean']:.3f} s later, {rebuilt} bytes rebuilt "
+              f"({out['16e recovery MB/s']:.1f} MB/s); progress: {out['16e events']} events "
+              f"({out['16e events done']} reached done == total), storm bars "
+              f"{out['16e storm bars']} (last {seen['storm_last']}), "
+              f"{out['16e completed']} completed, {out['16e expired']} expired (below total: "
+              f"{below}); checks raised {out['16e checks raised']} "
+              f"{detail}; `perf history ls` {len(ls.get('series', ls))} series; "
+              f"launches {by_part['16e']}; {card}", flush=True)
+
+        statuses = [c.status(o.whoami) for o in c.running()]
+        check(all(s["tpu_backend"]["fallback_launches"] == 0 for s in statuses),
+              "16: a daemon's status blob reads fallback launches")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+              "16: a launch fell back to the host")
+        check(c.client._tid == 0, "16: an op went through the test host's client")
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        for module in mods.values():
+            if hasattr(module, "shutdown"):
+                await module.shutdown()
+        await c.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    totals = {k: sum(part[k] for part in by_part.values()) for k in R_KERNELS}
+    check(totals == counts(), f"16: launches {counts()} != the parts' sum {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] <= R_LIMIT_S, f"16: {out['seconds']:.1f} s, over {R_LIMIT_S} s")
+    print(f"[16] launches by part {by_part}; figures {json.dumps(out)}", flush=True)
+    return {"launches": totals, "by_part": by_part, "figures": out}
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -5615,8 +6069,8 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--mon-only", action="store_true",
-                        help="run phase 1 (the builds) and phase 15 alone; no contract line")
+    parser.add_argument("--only", choices=("14", "15", "16"),
+                        help="run phase 1 (the builds) and this phase alone; no contract line")
     args = parser.parse_args(argv)
     import torch
 
@@ -5672,10 +6126,11 @@ def main(argv: list[str]) -> int:
 
     name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed, xor_mm,
                               nvcc_path())
-    if args.mon_only:
+    if args.only:
         from ceph_tpu_torch.ops import checksum_offload as co
 
-        phase(15, phase_mon, torch, swar, packed, co, card)
+        alone = {"14": phase_daemon, "15": phase_mon, "16": phase_client}[args.only]
+        phase(int(args.only), alone, torch, swar, packed, co, card)
         return 0
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
@@ -5708,6 +6163,12 @@ def main(argv: list[str]) -> int:
 
     daemon = phase(14, phase_daemon, torch, swar, packed, co, card)
     mon = phase(15, phase_mon, torch, swar, packed, co, card)
+    client = phase(16, phase_client, torch, swar, packed, co, card)
+    fig15, fig16 = mon["figures"], client["figures"]
+    print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
+          f"{fig16['16b QD8 MB/s']:.1f} (QD1 / QD8, Rados, ten mgr modules) beside 15b "
+          f"{fig15['15b QD1 MB/s']:.1f} / {fig15['15b QD8 MB/s']:.1f} (the test host's "
+          f"client, no module); {card}", flush=True)
     for kernel in ("packed_verify", "packed_delta"):
         diag_launches[kernel] = {"7b": diag_launches[kernel],
                                  "11": scrub_cache["launches"][kernel],
@@ -5715,7 +6176,8 @@ def main(argv: list[str]) -> int:
                                  "14": daemon["launches"][kernel]}
     diag_launches["packed_verify"]["15"] = mon["launches"]["packed_verify"]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
-                     "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"]}
+                     "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
+                     "16": client["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",

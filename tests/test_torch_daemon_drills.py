@@ -49,15 +49,32 @@ And the port's monitor where it differs from the reference's:
 - ROADMAP C19: reports that reach the quorum again before a markdown
   commits count as a second markdown in the reference, and flap
   dampening then holds a once-failed daemon in; the port counts one.
+
+And the client and the mgr's modules:
+
+- ROADMAP C22: a degraded EC read in flight while every daemon is marked
+  down and up again is served byte-exact by both packages.
+- ROADMAP C23: a held loop makes the reference's progress module raise
+  PG_RECOVERY_STALLED for a recovery that never stopped; the port's
+  credits the time its ticks lost.
+- ROADMAP C25: an op whose reply a held loop delays past 2 s is resent by
+  the reference's Objecter, not by the port's; the op's deadline holds
+  in both.  A write in flight when a replica or an EC shard dies
+  completes in both: the port's Objecter resends on the new interval.
+- ROADMAP C24: a completion reported between two mgr ticks is counted
+  expired by the reference's progress module, completed by the port's.
+- A device error in a mgr module's tick stops the port's mgr; any other
+  error is logged and the module runs again.
 """
 
 import asyncio
+import importlib
 
 import pytest
 
 from test_torch_ec_backend import _pin_reference  # noqa: F401 (autouse)
 from test_torch_osd import make_cluster, quiet, settle
-from torch_daemon_host import wait_until
+from torch_daemon_host import CLIENT, wait_until
 from torch_leak_gate import port_leak_gate  # noqa: F401  (autouse)
 
 EC = [dict(name="ec", kind="ec", k=4, m=2, pg_num=8, stripe_unit=4096)]
@@ -741,3 +758,350 @@ def test_one_failure_counts_one_markdown_only_in_the_port(pkg):
             await mon.stop()
 
     asyncio.run(run())
+
+
+# -- C22: a degraded EC read while the PG re-peers -----------------------------
+
+
+async def _read_through_a_repeer(pkg, tmp_path, yields: int):
+    """Eight degraded reads in flight (one member of `o0`'s PG stopped and
+    marked down) when every running daemon is marked down in one epoch
+    and up again in the next, both published at once: the PGs re-peer
+    while their other members are still Stray.  Each read's result and
+    bytes."""
+    c = make_cluster(pkg, tmp_path, pools=EC, n_osds=7)
+    try:
+        await c.start(30)
+        cl = c.client
+        for i in range(8):
+            rep = await cl.op("ec", f"o{i}", [cl.osd_op("WRITEFULL", data=data(20000, i))])
+            assert rep.result == 0
+        await settle(c)
+        pgid, primary = cl.target("ec", "o0")
+        acting = c.mon.osdmap.pg_to_up_acting_osds(pgid.pool, pgid.ps)[2]
+        victim = next(a for a in acting if a != primary)
+        await c.stop_osd(victim)
+        c.mon.mark_down(victim)
+        await settle(c)
+        reads = [asyncio.ensure_future(cl.op("ec", f"o{i}", [cl.osd_op("READ", off=0, len=0)]))
+                 for i in range(8)]
+        for _ in range(yields):  # the reads reach their primaries, sub-reads go out
+            await asyncio.sleep(0)
+        running = [o.whoami for o in c.running()]
+        c.mon._change(new_down=running)
+        c.mon._change(new_up={i: c.mon.osdmap.osds[i].addr for i in running})
+        reps = await asyncio.gather(*reads)
+        await settle(c)
+        return [bytes(r.outdata[0]) if r.result == 0 else r.result for r in reps]
+    finally:
+        await c.stop()
+
+
+@pytest.mark.parametrize("yields", [0, 8])
+def test_a_degraded_read_through_a_repeer_is_served_in_both(tmp_path, yields):
+    """ROADMAP C22: neither package answers EIO here; both serve every
+    read byte-exact once the PGs have re-peered."""
+    got = {pkg: asyncio.run(_read_through_a_repeer(pkg, tmp_path, yields))
+           for pkg in ("jax", "torch")}
+    assert got["jax"] == got["torch"] == [data(20000, i) for i in range(8)]
+
+
+# -- periodic judges under a held loop (ROADMAP C23) ---------------------------
+
+
+async def _progress_under_a_held_loop(pkg, hold: float):
+    """A real `Mgr`'s module loop runs the progress module (stall window
+    1.5 s) while a daemon reports a recovery that advances one object
+    every 0.1 s; each report reaches the mgr's dispatch two loop turns
+    after the daemon's tick, as a message does.  Once the module tracks
+    the event, a callback holds the loop for `hold` seconds.  Every
+    health check the module raised, and the event's final state."""
+    import json
+    import time
+
+    mgr_mod = importlib.import_module(f"{ROOT[pkg]}.mgr.mgr")
+    progress = importlib.import_module(f"{ROOT[pkg]}.mgr.progress")
+    msgs = importlib.import_module(f"{ROOT[pkg]}.msg.messages")
+    monmap = importlib.import_module(f"{ROOT[pkg]}.mon.monmap")
+    mgr = mgr_mod.Mgr("x", monmap.MonMap(addrs={"a": "127.0.0.1:6789"}))
+    mod = progress.ProgressModule(stall_sec=1.5)
+    mgr.register_module(mod)
+    raised = []
+    set_check = mod.set_health_check
+    mod.set_health_check = lambda code, *a, **kw: (raised.append(code), set_check(code, *a, **kw))
+    mgr._running = mgr.active = True
+    done = [0]
+
+    async def daemon():
+        while mgr._running:
+            await asyncio.sleep(0.1)
+            done[0] = min(done[0] + 1, 200)
+            status = {"up": True, "progress": {"1.0": [{
+                "kind": "recovery", "objects_done": done[0], "objects_total": 200,
+                "bytes_done": done[0] << 16, "bytes_total": 200 << 16}]}}
+            msg = msgs.MMgrReport(daemon="osd.0", perf=b"{}", status=json.dumps(status).encode())
+            for _ in range(2):
+                await asyncio.sleep(0)
+            mgr.ms_dispatch(None, msg)
+
+    tasks = [asyncio.ensure_future(mgr._module_loop()), asyncio.ensure_future(daemon())]
+    try:
+        await wait_until(lambda: ("1.0", "recovery") in mod.events, 5.0, "the event tracked")
+        time.sleep(hold)  # a callback that holds the loop
+        await asyncio.sleep(1.5)  # the ticks after the hold, fresh reports among them
+        ev = mod.events[("1.0", "recovery")]
+        return sorted(set(raised)), ev.done > 0 and not ev.is_stalled(time.monotonic(), 1.5)
+    finally:
+        mgr._running = False
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+
+def test_a_held_loop_raises_no_recovery_stall_in_the_port():
+    """ROADMAP C23: with the loop held 2.5 s past a 1.5 s stall window,
+    the reference's progress module judges the recovery by the reports
+    it had before the hold, on the first tick after it, and raises
+    PG_RECOVERY_STALLED for a recovery that never stopped; the port's
+    measures an event's stall and expiry without the time its own ticks
+    lost, and raises nothing."""
+    ref_raised, ref_moving = asyncio.run(_progress_under_a_held_loop("jax", 2.5))
+    raised, moving = asyncio.run(_progress_under_a_held_loop("torch", 2.5))
+    assert "PG_RECOVERY_STALLED" in ref_raised, "the reference was expected to fire"
+    assert raised == [] and moving and ref_moving
+
+
+async def _an_op_under_a_held_loop(pkg, tmp_path, hold: float, timeout: float):
+    """A client op through the package's `Rados` whose primary holds the
+    loop for `hold` seconds as the op arrives: its outcome, the
+    Objecter's resends, and the object read back."""
+    import time
+
+    rados_mod = importlib.import_module(f"{ROOT[pkg]}.client.rados")
+    OSDOp = importlib.import_module(f"{ROOT[pkg]}.msg.messages").OSDOp
+    c = make_cluster(pkg, tmp_path, pools=EC, n_osds=6)
+    r = None
+    try:
+        await c.start(30)
+        r = rados_mod.Rados(c.monmap, name=CLIENT, secret=c.keyring.get(CLIENT), stack="inproc")
+        await r.connect()
+        io = await r.open_ioctx("ec")
+        primary = c.osds[c.client.target("ec", "o")[1]]
+        enqueue = primary._enqueue_op
+
+        def held(conn, msg):
+            primary._enqueue_op = enqueue
+            time.sleep(hold)  # a callback that holds the loop
+            enqueue(conn, msg)
+
+        primary._enqueue_op = held
+        try:
+            outcome = (await io._op("o", [OSDOp(op=OSDOp.WRITEFULL, data=data(40000, 5))],
+                                    timeout=timeout)).result
+        except TimeoutError:
+            outcome = "timeout"
+        back = await io.read("o") if outcome == 0 else None
+        return outcome, back, r.objecter.perf.get("op_resend")
+    finally:
+        if r is not None:
+            await r.shutdown()
+        await c.stop()
+
+
+@pytest.mark.parametrize("hold,timeout,want", [(2.5, 10.0, 0), (2.5, 1.0, "timeout")])
+def test_an_op_under_a_held_loop_is_not_resent_in_the_port(tmp_path, hold, timeout, want):
+    """ROADMAP C25: an op in flight when the loop is held 2.5 s.  Held
+    inside the op's deadline, it completes in both packages, but the
+    reference's Objecter, whose 2 s reply timer ran out during the hold,
+    resends it first (the PG answers the duplicate again: a read runs
+    twice, a write is counted twice by iostat); the port's waits for the
+    reply and sends it once.  Held past the deadline, both raise
+    TimeoutError, as the op's wall time did pass its deadline (Ceph's
+    `rados_osd_op_timeout`)."""
+    got = {pkg: asyncio.run(_an_op_under_a_held_loop(pkg, tmp_path, hold, timeout))
+           for pkg in ("jax", "torch")}
+    for pkg in ("jax", "torch"):
+        outcome, back, _resends = got[pkg]
+        assert outcome == want, pkg
+        if want == 0:
+            assert back == data(40000, 5)
+    if want == 0:
+        assert got["jax"][2] >= 1, "the reference was expected to resend"
+        assert got["torch"][2] == 0
+
+
+MIXED = EC + [dict(name="rep", kind="rep", size=3, pg_num=8)]
+
+
+async def _a_write_while_a_member_dies(pkg, tmp_path, pool: str, late_map: float):
+    """A WRITEFULL through the package's `Rados` whose sub-write a
+    member of the PG other than the primary drops; that member is then
+    stopped and marked down with the write still in flight, and the
+    primary hears of that map `late_map` seconds after the others.  The
+    write's outcome, the object read back, and the Objecter's resends."""
+    rados_mod = importlib.import_module(f"{ROOT[pkg]}.client.rados")
+    OSDOp = importlib.import_module(f"{ROOT[pkg]}.msg.messages").OSDOp
+    c = make_cluster(pkg, tmp_path, pools=MIXED, n_osds=7)
+    r = None
+    try:
+        await c.start(30)
+        r = rados_mod.Rados(c.monmap, name=CLIENT, secret=c.keyring.get(CLIENT), stack="inproc")
+        await r.connect()
+        io = await r.open_ioctx(pool)
+        pgid, primary = c.client.target(pool, "o")
+        acting = c.mon.osdmap.pg_to_up_acting_osds(pgid.pool, pgid.ps)[2]
+        victim = c.osds[next(a for a in acting if a >= 0 and a != primary)]
+        dropped = []
+        fast = victim.ms_fast_dispatch
+
+        def drop_sub_writes(conn, msg):
+            if type(msg).__name__ in ("MOSDRepOp", "MOSDECSubOpWrite"):
+                dropped.append(msg)
+                return
+            fast(conn, msg)
+
+        victim.ms_fast_dispatch = drop_sub_writes
+        w = asyncio.ensure_future(io._op("o", [OSDOp(op=OSDOp.WRITEFULL, data=data(40000, 7))],
+                                         timeout=6.0))
+        await wait_until(lambda: dropped, 5.0, "the victim's sub-write dropped", step=0.01)
+        assert not w.done()
+        monc = c.osds[primary].monc
+        on_map = monc.on_osdmap
+        if late_map:
+            monc.on_osdmap = lambda m: asyncio.get_event_loop().call_later(late_map, on_map, m)
+        await c.stop_osd(victim.whoami)
+        c.mon.mark_down(victim.whoami)
+        try:
+            outcome = (await w).result
+        except TimeoutError:
+            outcome = "timeout"
+        back = await io.read("o") if outcome == 0 else None
+        return outcome, back, r.objecter.perf.get("op_resend")
+    finally:
+        if r is not None:
+            await r.shutdown()
+        await c.stop()
+
+
+@pytest.mark.parametrize("late_map", [0.0, 0.3])
+@pytest.mark.parametrize("pool", ["rep", "ec"])
+def test_a_write_in_flight_when_a_member_dies_completes_in_both(tmp_path, pool, late_map):
+    """ROADMAP C25: a replica, or an EC shard that is not the primary,
+    stops and is marked down with a write in flight.  The reference's
+    Objecter resends on its 2 s timer; the port's resends because the
+    new map starts a new interval for the PG, and a resend that reaches
+    the primary before its map does (`late_map`) is answered -EAGAIN
+    when the PG re-peers.  Both complete the write inside its deadline and read it
+    back byte-exact."""
+    for pkg in ("jax", "torch"):
+        outcome, back, resends = asyncio.run(
+            _a_write_while_a_member_dies(pkg, tmp_path, pool, late_map))
+        assert outcome == 0, pkg
+        assert back == data(40000, 7), pkg
+        assert resends >= 1, pkg
+
+
+# -- a device error in a mgr module stops the mgr ------------------------------
+
+
+@pytest.mark.parametrize("kind", ["device", "other"])
+def test_a_device_error_in_a_mgr_module_stops_the_mgr(kind, tmp_path):
+    """The port's `Mgr._module_loop`: a module whose tick raises a device
+    error (`ops.guard.DeviceError`) stops the mgr, which records it in
+    `failed`; one that raises `ValueError` is logged, and the loop runs
+    it again next tick."""
+    from ceph_tpu_torch.mgr.modules import MgrModule
+    from ceph_tpu_torch.ops.guard import DeviceError
+    from test_torch_mgr import cluster
+
+    class Faulty(MgrModule):
+        NAME = "faulty"
+        ticks = 0
+
+        def tick(self):
+            Faulty.ticks += 1
+            raise DeviceError("launch failed") if kind == "device" else ValueError("a bug")
+
+    async def run():
+        c = cluster("torch", 1, [], tmp_path)
+        try:
+            await c.start()
+            c.mgr.register_module(Faulty())
+            await wait_until(lambda: Faulty.ticks >= 2 or c.mgr.failed is not None, 10.0,
+                             "the faulty module's ticks")
+            await asyncio.sleep(0.1)
+            return c.mgr.failed, c.mgr._running, Faulty.ticks
+        finally:
+            await c.stop()
+
+    failed, running, ticks = asyncio.run(run())
+    if kind == "device":
+        assert isinstance(failed, DeviceError) and not running and ticks == 1
+    else:
+        assert failed is None and running and ticks >= 2
+
+
+async def _completions_between_ticks(pkg):
+    """A real `Mgr`'s module loop runs the progress module while a daemon
+    reports, every 0.1 s, a PG recovery and its share of a whole-OSD
+    rebuild.  Just after a tick the work completes: the daemon sends its
+    final done == total reports three times, 0.1 s apart (three
+    heartbeats, as the PG and the storm controller do), then reports
+    nothing, all before the next tick.  What the module counts."""
+    import json
+
+    mgr_mod = importlib.import_module(f"{ROOT[pkg]}.mgr.mgr")
+    progress = importlib.import_module(f"{ROOT[pkg]}.mgr.progress")
+    msgs = importlib.import_module(f"{ROOT[pkg]}.msg.messages")
+    monmap = importlib.import_module(f"{ROOT[pkg]}.mon.monmap")
+    mgr = mgr_mod.Mgr("x", monmap.MonMap(addrs={"a": "127.0.0.1:6789"}))
+    mod = progress.ProgressModule(stall_sec=30.0)
+    mgr.register_module(mod)
+    ticked = asyncio.Event()
+    tick = mod.tick
+
+    def tick_and_signal():
+        tick()
+        ticked.set()
+
+    mod.tick = tick_and_signal
+    mgr._running = mgr.active = True
+
+    def report(done, total):
+        status = {"up": True}
+        if total:
+            status["progress"] = {"1.0": [{"kind": "recovery", "objects_done": done,
+                                           "objects_total": total, "bytes_done": done << 16,
+                                           "bytes_total": 0}]}
+            status["recovery_storm"] = {"victims": ["osd.3"], "objects_done": done,
+                                        "objects_total": total}
+        mgr.ms_dispatch(None, msgs.MMgrReport(daemon="osd.0", perf=b"{}",
+                                              status=json.dumps(status).encode()))
+
+    task = asyncio.ensure_future(mgr._module_loop())
+    try:
+        for done in range(4):  # in flight across two ticks
+            report(done, 8)
+            ticked.clear()
+            await asyncio.wait_for(ticked.wait(), 5.0)
+        for _ in range(3):  # the final reports, between two ticks
+            report(8, 8)
+            await asyncio.sleep(0.1)
+        report(0, 0)
+        await asyncio.sleep(progress.ProgressModule.EVENT_EXPIRE_SEC + 2.5)
+        return mod.completed, mod.expired
+    finally:
+        mgr._running = False
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+
+
+def test_completions_between_ticks_count_completed_in_the_port():
+    """ROADMAP C24: the reference's progress module reads each daemon's
+    latest report at its 1 s tick, so a completion whose three final
+    reports fall between two ticks is missed, and the recovery and the
+    rebuild bar vanish below their totals: both counted expired.  The
+    port's mgr hands every report to the module, which counts both
+    completed."""
+    assert asyncio.run(_completions_between_ticks("jax")) == (0, 2)
+    assert asyncio.run(_completions_between_ticks("torch")) == (2, 0)

@@ -8,6 +8,9 @@ CPU.
 - The JAX package's OSD daemons and `Rados` client under the port's
   `Monitor` and `Mgr`: the same, and the reference daemons' reports
   reaching `ceph df` through the port's mgr.
+- The port's `Rados` client against the JAX package's monitor and
+  daemons: pools, EC and replicated I/O, omap, classes and a striped
+  object.
 - A mixed quorum: two port monitors and one of the JAX package's elect,
   commit the same Paxos values byte for byte, and elect again when the
   port's leader stops (the port's lease calls that election).
@@ -193,6 +196,80 @@ def test_a_mixed_quorum_commits_the_same_values():
             for mon in mons:
                 if mon._tick_task is not None:
                     await mon.stop()
+            await asyncio.sleep(0.05)
+
+    asyncio.run(run())
+
+
+def test_the_port_client_against_the_reference_monitor_and_daemons():
+    """The port's `Rados` (Objecter, MonClient, messenger) against the
+    JAX package's monitor and OSD daemons: pool commands, an EC and a
+    replicated pool's object I/O, omap, a class method (the reference's
+    `lock` and `log`, through the port's `cls/client.py`), a
+    `StripedObject`, and the pool listing, all byte-exact."""
+    from ceph_tpu.common.config import Config as JConfig
+    from ceph_tpu.osd.osd import OSD as JOSD
+
+    from ceph_tpu_torch.client import Rados as TRados
+    from ceph_tpu_torch.cls import client as cls_client
+    from ceph_tpu_torch.striper import StripedObject, StripePolicy
+
+    async def run():
+        addrs = free_port_addrs(1)
+        mon = Monitor("a", JMonMap(addrs=addrs), election_timeout=0.3)
+        await mon.start()
+        await mon.wait_for_quorum()
+        osds = [JOSD(i, JMonMap(addrs=addrs),
+                     conf=JConfig({"name": f"osd.{i}", "osd_heartbeat_interval": 0.25,
+                                   "osd_heartbeat_grace": 5.0}, env=False))
+                for i in range(4)]
+        client = None
+        try:
+            for o in osds:
+                await o.start()
+            for o in osds:
+                await o.wait_for_up(timeout=20.0)
+            client = TRados(MonMap(addrs=addrs))
+            await client.connect()
+            rv, rs, _ = await client.mon_command({
+                "prefix": "osd erasure-code-profile set", "name": "k2m1",
+                "profile": ["k=2", "m=1", "plugin=tpu"]})
+            assert rv == 0, rs
+            await client.pool_create("ecpool", "erasure", profile="k2m1", pg_num=4)
+            await client.pool_create("meta", "replicated", size=3, pg_num=4)
+            assert {"ecpool", "meta"} <= set(await client.pool_list())
+            ec = await client.open_ioctx("ecpool")
+            meta = await client.open_ioctx("meta")
+            objs = {f"o{i}": bytes((j * 3 + i) % 256 for j in range(3 * 8192 + 55 * i))
+                    for i in range(4)}
+            for oid, blob in objs.items():
+                await ec.write_full(oid, blob)
+            for oid, blob in objs.items():
+                assert await ec.read(oid) == blob and await ec.stat(oid) == len(blob)
+            assert await ec.list_objects() == sorted(objs)
+            await meta.omap_set("hdr", {"a": b"1", "b": b"2"})
+            assert await meta.omap_get_vals("hdr") == {"a": b"1", "b": b"2"}
+            await cls_client.lock(meta, "hdr", "rbd_lock", cookie="c1")
+            info = await cls_client.get_lock_info(meta, "hdr", "rbd_lock")
+            assert info["type"] == "exclusive" and len(info["holders"]) == 1
+            await cls_client.unlock(meta, "hdr", "rbd_lock", cookie="c1")
+            assert (await cls_client.get_lock_info(meta, "hdr", "rbd_lock"))["holders"] == []
+            await meta.exec("log", "log", "add", b'{"entries": [{"ts": 1.5, "section": "s",'
+                                               b' "name": "n", "data": "d"}]}')
+            listed = __import__("json").loads(await meta.exec("log", "log", "list", b"{}"))
+            assert [e["data"] for e in listed["entries"]] == ["d"]
+            so = StripedObject(meta, "img", StripePolicy(stripe_unit=4096, stripe_count=2,
+                                                       object_size=8192))
+            blob = bytes((j * 11) % 253 for j in range(50_000))
+            await so.write(blob, 0)
+            assert await so.read(0, 0) == blob and await so.size() == len(blob)
+        finally:
+            if client is not None:
+                await client.shutdown()
+            for o in osds:
+                if o._running:
+                    await o.stop()
+            await mon.stop()
             await asyncio.sleep(0.05)
 
     asyncio.run(run())

@@ -47,7 +47,13 @@ def test_port_files_found():
                    "mon/paxos.py", "mon/paxos_service.py", "mon/elector.py",
                    "mon/osd_monitor.py", "mon/auth_monitor.py", "mon/config_monitor.py",
                    "mon/log_monitor.py", "mon/mgr_monitor.py", "mon/mds_monitor.py",
-                   "mon/monitor.py", "mgr/mgr.py", "mgr/modules.py"):
+                   "mon/monitor.py", "mgr/mgr.py", "mgr/modules.py",
+                   "client/objecter.py", "client/rados.py", "client/__init__.py",
+                   "striper/striper.py", "striper/__init__.py", "cls/log.py",
+                   "cls/client.py", "common/tsdb.py", "mgr/prometheus.py",
+                   "mgr/iostat.py", "mgr/progress.py", "mgr/metrics_history.py",
+                   "mgr/clog.py", "mgr/balancer.py", "mgr/pg_autoscaler.py",
+                   "mgr/telemetry.py", "mgr/dashboard.py", "mgr/orchestrator.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 

@@ -1,0 +1,66 @@
+"""The reference's test modules, run on the port.
+
+`load(name)` reads `tests/<name>.py`, points every `ceph_tpu` import at
+`ceph_tpu_torch` and every `from test_x import` at the port's copy of
+that helper module (loaded the same way), and executes the text as the
+module `<name>__torch`.  The cases are the reference's, unchanged; only
+the package they import differs.  `collect(mod, names, into)` hands
+chosen test classes and functions to a port test file under a `_torch`
+suffix, so pytest collects them there.
+
+The port's daemons and monitors take `device=None` as cuda, where the
+reference's tests build them with no device: `cpu_daemons` (a fixture
+of the files that collect such cases) makes the OSD's and the monitor's
+default the CPU for the test's length, which is what passing
+`device="cpu"` to each would do.
+"""
+
+from __future__ import annotations
+
+import importlib
+import re
+import sys
+import types
+from pathlib import Path
+
+import pytest
+
+TESTS = Path(__file__).resolve().parent
+_PKG = re.compile(r"\bceph_tpu\b(?!_torch)")
+_HELPER = re.compile(r"^(\s*)from (test_\w+) import", re.M)
+
+
+def load(name: str) -> types.ModuleType:
+    """The reference's `tests/<name>.py` on the port (memoized)."""
+    key = f"{name}__torch"
+    if key in sys.modules:
+        return sys.modules[key]
+    src = (TESTS / f"{name}.py").read_text()
+    src = _PKG.sub("ceph_tpu_torch", src)
+    mod = types.ModuleType(key)
+    mod.__file__ = str(TESTS / f"{name}.py")
+    sys.modules[key] = mod  # first: helpers may import each other
+    for _indent, helper in set(_HELPER.findall(src)):
+        load(helper)
+    src = _HELPER.sub(r"\1from \2__torch import", src)
+    exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+    return mod
+
+
+def collect(mod: types.ModuleType, names, into: dict) -> None:
+    """`into[name + "_torch"] = mod.name` for each of `names`."""
+    for name in names:
+        into[f"{name}_torch"] = getattr(mod, name)
+
+
+@pytest.fixture
+def cpu_daemons(monkeypatch):
+    """The port's OSDs and monitors default to the CPU (see the module
+    docstring)."""
+    base = importlib.import_module("ceph_tpu_torch.codec.base")
+
+    def resolve(device=None):
+        return base.resolve_device("cpu" if device is None else device)
+
+    for mod in ("ceph_tpu_torch.osd.osd", "ceph_tpu_torch.mon.monitor"):
+        monkeypatch.setattr(importlib.import_module(mod), "resolve_device", resolve)
