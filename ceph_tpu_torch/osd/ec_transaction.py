@@ -126,6 +126,12 @@ def get_write_plan(
     for off, data in pgt.writes:
         end = off + len(data)
         plan.new_size = max(plan.new_size, end)
+        if end == off:
+            # a zero-length write changes no byte, so it reads and writes
+            # no stripe; the reference plans the stripe before `off` as a
+            # partial tail and reads it at a negative offset on an empty
+            # object, a sub-read no shard can be sent (ROADMAP C27)
+            continue
         start_aligned = sinfo.logical_to_prev_stripe_offset(off)
         end_aligned = sinfo.logical_to_next_stripe_offset(end)
         if not allows_overwrites:

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
 kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, the monitors' log (Paxos, the elector's messages and timers,
 the lease) is written at level 10 to PATH.  With --only N, phase 1
-builds the kernels and phase N (14, 15 or 16) runs alone; the script
+builds the kernels and phase N (14, 15, 16 or 17) runs alone; the script
 then exits without the kernel and contract lines.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
@@ -350,7 +350,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    report it); the pools of phase 13.  Client ops go over the wire from
    that file's small client.  Cuts: one host, heartbeats every 0.25 s with
    a 1.5 s grace, the out given by the map service, scrub timers of 2 s.
-   14a boot to every PG active and clean (s); 14b 128 WRITEFULLs of 4 MiB
+   14a boot to every PG active and clean (s); 14b 64 WRITEFULLs of 4 MiB
    on rbd at QD1 and QD8 (MB/s), whole reads (GB/s); 14c QD8 again after
    `bluestore_csum_offload` is set through each daemon's admin socket
    (`injectargs` with `conf`; MB/s and crc32c launches), then set back to
@@ -376,7 +376,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    all over the `posix` messenger with cephx, from
    tests/torch_daemon_host.py's `DaemonCluster(mons=3)`; the pools made by
    commands (`osd erasure-code-profile set`, `osd pool create`).  Cuts:
-   64 objects of 4 MiB on rbd, `mon_osd_down_out_interval` 3 s (Ceph's
+   32 objects of 4 MiB on rbd, `mon_osd_down_out_interval` 3 s (Ceph's
    600), phase 14's heartbeats and PG log.  15a seconds to the quorum,
    the mgr active, every OSD up through `OSDMonitor.prepare_boot`, the
    pools, every PG active and clean; 15b WRITEFULLs at QD1 and QD8 (MB/s),
@@ -427,6 +427,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    mgr's admin socket.  swar_gf launches in 16b, 16c and 16e;
    `fallback_per_sec` stays 0 and every daemon's fallback_launches reads
    0; the phase fails above 150 s.
+17. The access layers: phase 16's cluster built anew the same way (3
+   monitors, 12 daemons on BlueStore, posix, cephx, the mgr with its ten
+   modules) with one more pool, rbd_peer (phase 13's rbd shape at pg_num
+   8), and Ceph's heartbeat interval, grace and down-out interval; every
+   op through the port's `Rados` as `client.admin`.  17a an RBD image of 128 MiB at order 22 on rbd
+   (RS(8,3), `allow_ec_overwrites`): written whole in 4 MiB writes at QD1
+   and again at QD8, read back byte-exact, 256 random overwrites of 4-64
+   KiB (QD8, distinct objects in flight), a snapshot, 8 writes after it read at the snapshot and at the
+   head, the snapshot protected and cloned, a copy-up write in the clone,
+   a flatten, the clone's export (which holds every overwrite) equal to
+   the host model; 17b a journaled 32 MiB image with 16 writes of 1
+   MiB mirrored by `MirrorDaemon.sync_once` into rbd_peer (seconds from
+   the last write until the destination equals the source, replay MB/s);
+   17d the `fs` library with the metadata on rbd_meta and the data on
+   rbd: 64 files of 256 KiB-4 MiB in 8 directories written, listed, read
+   back (QD8) and renamed; 17c the gateway on rgw_data (append-only) at RGW's
+   4 MiB stripe: S3 over HTTP on 127.0.0.1 signed with `sign_v2`, 32
+   PUTs of 4 MiB (16 at QD1, 16 at QD8 into 8 buckets), GETs at QD8, 32
+   ranged reads of 1 MiB at QD8 (through the striper: the S3 front end
+   serves no Range), a 32 MiB multipart upload in parts of 8 MiB, Swift's
+   token, 8 PUTs of 1 MiB and 8 GETs at QD8, then osd.3 stopped and 8 GETs of objects with a data shard
+   on it, byte-exact, which decode on `swar_gf`.  MB/s for each step and
+   the `swar_gf` and `packed_delta` launches of each; `swar_gf` launches
+   in every part; no fallback; the phase fails above 400 s.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -4853,7 +4877,7 @@ async def _phase_pg(torch, swar, packed, xor_mm, card) -> dict:
 
 D_OSDS = 12
 D_VICTIM = 3
-D_OBJECTS = 128
+D_OBJECTS = 64  # cut from 128 to keep the whole script near 900 s with phase 17
 D_OBJECT_BYTES = 4 << 20
 D_QD = 8
 D_RGW_OBJECTS = 16
@@ -5227,7 +5251,7 @@ async def _phase_daemon(torch, swar, packed, co, card, device) -> dict:
 M_MONS = 3  # Ceph's documented minimum for a quorum that survives one loss
 M_OSDS = 12
 M_VICTIM = 3
-M_OBJECTS = 64  # on rbd (cut from phase 14's 128, for the phase's time)
+M_OBJECTS = 32  # on rbd (cut from 64 to keep the whole script near 900 s)
 M_OBJECT_BYTES = 4 << 20
 M_QD = 8
 M_ELECTION_BATCH = 16  # the QD8 writes issued across 15c's election
@@ -6056,6 +6080,485 @@ async def _phase_client(torch, swar, packed, co, card, device) -> dict:
     return {"launches": totals, "by_part": by_part, "figures": out}
 
 
+A_MONS = 3
+A_OSDS = 12
+A_VICTIM = 3
+A_ORDER = 22  # RBD's default: 4 MiB objects
+A_IMAGE_BYTES = 128 << 20
+A_QD = 8
+A_OVERWRITES = 256
+A_OVERWRITE_BYTES = (4 << 10, 64 << 10)
+A_SNAP_WRITES = 8  # writes after the snapshot, 64 KiB each
+A_MIRROR_BYTES = 32 << 20
+A_MIRROR_WRITES = 16
+A_MIRROR_WRITE = 1 << 20
+A_S3_OBJECTS = 32  # half at QD1, half at QD8
+A_S3_BYTES = 4 << 20
+A_RANGED = 32  # ranged reads of A_RANGE_BYTES
+A_RANGE_BYTES = 1 << 20
+A_MULTIPART_BYTES = 32 << 20
+A_PART_BYTES = 8 << 20
+A_SWIFT_OBJECTS = 8
+A_SWIFT_BYTES = 1 << 20
+A_DEGRADED_GETS = 8
+A_FS_FILES = 64
+A_FS_DIRS = 8
+A_FS_BYTES = (256 << 10, 4 << 20)
+# RGW's and CephFS's documented defaults (rgw_obj_stripe_size 4 MiB; a file
+# layout of stripe_unit = object_size = 4 MiB, stripe_count 1), where the
+# reference's classes default to 512 KiB and 64 KiB stripe units
+A_STRIPE = 4 << 20
+# rbd-mirror's destination: phase 13's rbd shape at pg_num 8 (cut)
+A_POOLS = PG_POOLS + [
+    {"name": "rbd_peer", "kind": "ec", "k": 8, "m": 3, "pg_num": 8, "stripe_unit": 4096,
+     "overwrites": True, "profile": {"technique": "reed_sol_van"}},
+]
+A_MON_CONF: dict = {}  # Ceph's down-out interval: 17c's degraded GETs decode, none rebuilds
+# Ceph's heartbeat interval and grace (phases 14-16 cut them to 0.25 s and
+# 1.5 s): every daemon ticks its PGs and reports to the mgr each heartbeat,
+# work that grows with the objects stored and that phase 17 does not measure
+A_CONF = {**D_CONF, **PG_CONF, "osd_heartbeat_interval": 1.0, "osd_heartbeat_grace": 6.0}
+A_LIMIT_S = 400.0
+A_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
+A_REACHES = {"17a": ("swar_gf",), "17b": ("swar_gf",), "17c": ("swar_gf",),
+             "17d": ("swar_gf",)}
+
+
+async def http_call(addr: str, method: str, path: str, headers: dict | None = None,
+                    body: bytes = b"") -> tuple:
+    """One HTTP/1.1 request to 127.0.0.1: (status, headers, body)."""
+    import asyncio
+
+    host, port = addr.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    try:
+        head = [f"{method} {path} HTTP/1.1", f"Host: {addr}",
+                *(f"{k}: {v}" for k, v in (headers or {}).items()),
+                f"Content-Length: {len(body)}"]
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + body)
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    top, _, payload = raw.partition(b"\r\n\r\n")
+    lines = top.decode().split("\r\n")
+    hdrs = dict(line.split(": ", 1) for line in lines[1:] if ": " in line)
+    return int(lines[0].split()[1]), hdrs, payload
+
+
+def phase_access(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 17: RBD, rbd-mirror, RGW over S3 and Swift, and the `fs`
+    library, on phase 16's cluster built anew."""
+    import asyncio
+
+    return asyncio.run(_phase_access(torch, swar, packed, co, card, device))
+
+
+async def _phase_access(torch, swar, packed, co, card, device) -> dict:
+    import asyncio
+    import tempfile
+    from email.utils import formatdate
+
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.fs import FileSystem
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.rbd import RBD, JournaledImage, MirrorDaemon, enable_journaling
+    from ceph_tpu_torch.rgw import ObjectGateway, S3Server, SwiftServer
+    from ceph_tpu_torch.rgw.http import sign_v2
+    from ceph_tpu_torch.striper import StripedObject, StripePolicy
+
+    host = load_test_host("torch_daemon_host")
+    guard = device_guard()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_access_")
+    c = host.DaemonCluster("ceph_tpu_torch", A_OSDS, A_POOLS, conf=A_CONF,
+                           device=device, stack="posix", keyring=True, root_dir=tmp,
+                           store="bluestore", admin_sockets=True, mons=A_MONS,
+                           mon_conf=A_MON_CONF)
+    rados = s3 = swift = None
+    mods: dict = {}
+    by_part: dict = {}
+    by_step: dict = {}
+    out: dict = {}
+    rng = np.random.default_rng(SEED + 170)
+    stripe = StripePolicy(stripe_unit=A_STRIPE, stripe_count=1, object_size=A_STRIPE)
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"],
+                "crc32c": co.crc32c_device.launches}
+
+    def delta(before: dict) -> dict:
+        torch.cuda.synchronize()
+        now = counts()
+        return {k: now[k] - before[k] for k in A_KERNELS}
+
+    def done(part: str, before: dict) -> None:
+        by_part[part] = delta(before)
+        for kernel in A_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        c.raise_failed_monitor()
+        check(c.mgr.failed is None, f"{part}: the mgr stopped on {c.mgr.failed!r}")
+        check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    def blob(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def mbs(nbytes: int, t0: float) -> float:
+        return nbytes / (time.perf_counter() - t0) / 1e6
+
+    async def step(name: str, nbytes: int, coro):
+        """Run one step of a part: its MB/s and its launches."""
+        before = counts()
+        t = time.perf_counter()
+        result = await coro
+        out[f"{name} MB/s"] = mbs(nbytes, t)
+        by_step[name] = {k: v for k, v in delta(before).items()
+                         if k in ("swar_gf", "packed_delta")}
+        return result
+
+    swar.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    co.crc32c_device.launches = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    try:
+        out["17 s to clean"] = await c.start(180)
+        mods = mgr_modules(c.mgr)
+        rados = Rados(c.monmap, name="client.admin", secret=c.keyring.get("client.admin"),
+                      stack="posix")
+        await rados.connect(30.0)
+        rbd_io = await rados.open_ioctx("rbd")
+        meta_io = await rados.open_ioctx("rbd_meta")
+        check(all(pg.backend.ec.device.type == "cuda" for o in c.osds
+                  for pg in o.pgs.values() if hasattr(pg.backend, "ec")),
+              "17: an EC PG's codec is not on the card")
+        print(f"[17] {A_MONS} monitors, mgr.x with {len(mods)} modules, {A_OSDS} OSD "
+              f"daemons on BlueStore, pools {[p['name'] for p in A_POOLS]}, every PG clean "
+              f"{out['17 s to clean']:.3f} s after the first start; {card}", flush=True)
+
+        # 17a: an RBD image on rbd: whole writes at QD1 and QD8, read back, random
+        # overwrites, a snapshot, a clone's copy-up, a flatten, the export
+        before = counts()
+        rbd = RBD(rbd_io)
+        await rbd.create("vol17", A_IMAGE_BYTES, order=A_ORDER)
+        img = await rbd.open("vol17")
+        ob = 1 << A_ORDER
+        offs = list(range(0, A_IMAGE_BYTES, ob))
+        model = bytearray(blob(A_IMAGE_BYTES))
+
+        async def qd1():
+            for off in offs:
+                await img.write(off, bytes(model[off:off + ob]))
+
+        await step("17a write QD1", A_IMAGE_BYTES, qd1())
+        model = bytearray(blob(A_IMAGE_BYTES))
+
+        async def qd8():
+            for lo in range(0, len(offs), A_QD):
+                await asyncio.gather(*(img.write(off, bytes(model[off:off + ob]))
+                                       for off in offs[lo:lo + A_QD]))
+
+        await step("17a write QD8", A_IMAGE_BYTES, qd8())
+
+        async def read_all(image):
+            parts = []
+            for lo in range(0, len(offs), A_QD):
+                parts += await asyncio.gather(*(image.read(off, ob) for off in offs[lo:lo + A_QD]))
+            return b"".join(parts)
+
+        back = await step("17a read", A_IMAGE_BYTES, read_all(img))
+        check(back == bytes(model), "17a: the image reads back wrong")
+        touched = []
+
+        def plan(n: int, lo: int, hi: int) -> list:
+            sizes = [int(rng.integers(lo, hi + 1)) for _ in range(n)]
+            return [(int(rng.integers(0, A_IMAGE_BYTES - size)), blob(size)) for size in sizes]
+
+        async def overwrite(writes: list, qd: int):
+            # at most qd in flight, on distinct objects: each batch's
+            # writes apply in any order
+            batches, objs = [[]], [set()]
+            for off, data in writes:
+                mine = {o for o, _oo, _n in img._extents(off, len(data))}
+                if len(batches[-1]) == qd or mine & objs[-1]:
+                    batches.append([])
+                    objs.append(set())
+                batches[-1].append((off, data))
+                objs[-1] |= mine
+            for batch in batches:
+                await asyncio.gather(*(img.write(off, data) for off, data in batch))
+                for off, data in batch:
+                    model[off:off + len(data)] = data
+                    touched.append((off, len(data)))
+
+        writes = plan(A_OVERWRITES, *A_OVERWRITE_BYTES)
+        await step("17a overwrites", sum(len(d) for _o, d in writes), overwrite(writes, A_QD))
+        await img.snap_create("s17")
+        at_snap = bytes(model)
+        await overwrite(plan(A_SNAP_WRITES, 64 << 10, 64 << 10), 1)
+        for off, size in touched[-A_SNAP_WRITES:]:
+            check(await img.read(off, size, snap_name="s17") == at_snap[off:off + size],
+                  f"17a: the snapshot reads wrong at {off}")
+            check(await img.read(off, size) == bytes(model[off:off + size]),
+                  f"17a: the head reads wrong at {off} after the snapshot")
+        await img.snap_protect("s17")
+        await rbd.clone("vol17", "s17", "vol17c")
+        child = await rbd.open("vol17c")
+        child_model = bytearray(at_snap)
+        off = int(rng.integers(0, A_IMAGE_BYTES - (64 << 10)))
+        data = blob(64 << 10)
+        await step("17a copy-up", len(data), child.write(off, data))
+        child_model[off:off + len(data)] = data
+        await step("17a flatten", A_IMAGE_BYTES, child.flatten())
+        exported = await step("17a export", A_IMAGE_BYTES, child.export())
+        # the export holds every overwrite (all made before the snapshot); the
+        # writes after it were read at the head above
+        check(exported == bytes(child_model), "17a: the clone's export differs from the model")
+        check(await rbd.children("vol17", "s17") == [], "17a: the flattened clone is a child")
+        done("17a", before)
+        print(f"[17] 17a: a {A_IMAGE_BYTES >> 20} MiB image at order {A_ORDER} on rbd: write "
+              f"{out['17a write QD1 MB/s']:.1f} MB/s at QD1, {out['17a write QD8 MB/s']:.1f} at "
+              f"QD8, read back byte-exact {out['17a read MB/s']:.1f}; {A_OVERWRITES} overwrites "
+              f"of 4-64 KiB {out['17a overwrites MB/s']:.2f} MB/s; snapshot, {A_SNAP_WRITES} "
+              f"writes after it, reads at it byte-exact; clone, copy-up "
+              f"{out['17a copy-up MB/s']:.2f} MB/s, flatten {out['17a flatten MB/s']:.1f} MB/s, "
+              f"export equal to the model {out['17a export MB/s']:.1f} MB/s; launches by step "
+              f"{ {k: v for k, v in by_step.items() if k.startswith('17a')} }; launches "
+              f"{by_part['17a']}; {card}", flush=True)
+
+        # 17b: rbd-mirror from rbd into rbd_peer
+        before = counts()
+        peer_io = await rados.open_ioctx("rbd_peer")
+        await rbd.create("mir17", A_MIRROR_BYTES, order=A_ORDER)
+        await enable_journaling(rbd, "mir17")
+        ji = await JournaledImage.open(rbd, "mir17")
+        daemon = MirrorDaemon(rbd_io, peer_io)
+        check((await daemon.sync_once())["mir17"] == 0, "17b: the bootstrap pass replayed events")
+        mirror_model = bytearray(A_MIRROR_BYTES)
+        t = time.perf_counter()
+        for _ in range(A_MIRROR_WRITES):
+            off = int(rng.integers(0, A_MIRROR_BYTES - A_MIRROR_WRITE))
+            data = blob(A_MIRROR_WRITE)
+            await ji.write(off, data)
+            mirror_model[off:off + A_MIRROR_WRITE] = data
+        out["17b journaled write MB/s"] = mbs(A_MIRROR_WRITES * A_MIRROR_WRITE, t)
+        t = time.perf_counter()
+        replayed = await daemon.sync_once()
+        out["17b s last write to equal"] = time.perf_counter() - t
+        out["17b replay MB/s"] = A_MIRROR_WRITES * A_MIRROR_WRITE / out["17b s last write to equal"] / 1e6
+        check(replayed["mir17"] == A_MIRROR_WRITES, f"17b: replayed {replayed}")
+        dst = await RBD(peer_io).open("mir17")
+        check(await dst.export() == bytes(mirror_model) == await ji.image.export(),
+              "17b: the mirror differs from the source")
+        done("17b", before)
+        print(f"[17] 17b: a journaled {A_MIRROR_BYTES >> 20} MiB image, {A_MIRROR_WRITES} "
+              f"writes of {A_MIRROR_WRITE >> 20} MiB ({out['17b journaled write MB/s']:.1f} MB/s "
+              f"with the journal); MirrorDaemon.sync_once replayed {replayed['mir17']} events "
+              f"into rbd_peer, equal to the source {out['17b s last write to equal']:.3f} s after "
+              f"the last write ({out['17b replay MB/s']:.1f} MB/s); launches {by_part['17b']}; "
+              f"{card}", flush=True)
+
+        # 17d: the fs library, metadata on rbd_meta, data on rbd
+        before = counts()
+        fs = FileSystem(meta_io, rbd_io, layout=stripe)
+        await fs.mkfs()
+        for d in range(A_FS_DIRS):
+            await fs.mkdir(f"/d{d}")
+        files = {f"/d{i % A_FS_DIRS}/f{i}": blob(int(rng.integers(A_FS_BYTES[0],
+                                                                  A_FS_BYTES[1] + 1)))
+                 for i in range(A_FS_FILES)}
+        total = sum(len(v) for v in files.values())
+
+        async def fs_write():
+            for path, data in files.items():
+                await fs.write_file(path, data)
+
+        async def fs_read():
+            paths = list(files)
+            for lo in range(0, len(paths), A_QD):
+                got = await asyncio.gather(*(fs.read_file(p) for p in paths[lo:lo + A_QD]))
+                for path, data in zip(paths[lo:lo + A_QD], got):
+                    check(data == files[path], f"17d: {path} reads back wrong")
+
+        await step("17d write", total, fs_write())
+        listed = [len(await fs.listdir(f"/d{d}")) for d in range(A_FS_DIRS)]
+        check(sum(listed) == A_FS_FILES, f"17d: listed {listed}")
+        await step("17d read", total, fs_read())
+        t = time.perf_counter()
+        await fs.mkdir("/moved")
+        for path in files:
+            await fs.rename(path, "/moved/" + path.replace("/", "_"))
+        out["17d renames/s"] = A_FS_FILES / (time.perf_counter() - t)
+        left = [len(await fs.listdir(f"/d{d}")) for d in range(A_FS_DIRS)]
+        check(len(await fs.listdir("/moved")) == A_FS_FILES and not any(left),
+              f"17d: after the renames /moved lists {len(await fs.listdir('/moved'))}, the "
+              f"directories {left}")
+        for path, data in list(files.items())[:4]:
+            check(await fs.read_file("/moved/" + path.replace("/", "_")) == data,
+                  f"17d: {path} reads wrong after its rename")
+        done("17d", before)
+        print(f"[17] 17d: {A_FS_FILES} files of {A_FS_BYTES[0] >> 10} KiB-{A_FS_BYTES[1] >> 20} "
+              f"MiB ({total} bytes) in {A_FS_DIRS} directories, metadata on rbd_meta, data on "
+              f"rbd: write {out['17d write MB/s']:.1f} MB/s, listed, read back byte-exact "
+              f"{out['17d read MB/s']:.1f} MB/s, renamed {out['17d renames/s']:.1f}/s; launches "
+              f"{by_part['17d']}; {card}", flush=True)
+
+        # 17c: RGW on rgw_data over S3 (sign_v2) and Swift, then degraded GETs
+        before = counts()
+        gw_io = await rados.open_ioctx("rgw_data")
+        gw = ObjectGateway(gw_io, policy=stripe)
+        s3 = S3Server(gw, require_auth=True)
+        addr = await s3.serve("127.0.0.1")
+        user = await gw.create_user("alice")
+
+        async def s3_call(method, path, body=b""):
+            date = formatdate(time.time(), usegmt=True)
+            sig = sign_v2(user["secret_key"], method, path.split("?", 1)[0], date)
+            status, hdrs, payload = await http_call(addr, method, path, {
+                "Date": date, "Authorization": f"AWS {user['access_key']}:{sig}"}, body)
+            check(status in (200, 204), f"17c: {method} {path} answered {status} {payload[:200]}")
+            return hdrs, payload
+
+        # the reference's bucket index is one JSON object that each PUT reads,
+        # changes and writes back, so concurrent PUTs into one bucket lose
+        # index entries: QD8 spreads its PUTs over A_QD buckets
+        buckets = [f"b17-{q}" for q in range(A_QD)]
+        for b in buckets:
+            await s3_call("PUT", f"/{b}")
+        half = A_S3_OBJECTS // 2
+        objects = {f"{buckets[max(0, i - half) % A_QD]}/o{i}": blob(A_S3_BYTES)
+                   for i in range(A_S3_OBJECTS)}
+        keys = list(objects)
+
+        async def puts(ks, qd):
+            for lo in range(0, len(ks), qd):
+                await asyncio.gather(*(s3_call("PUT", f"/{k}", objects[k])
+                                       for k in ks[lo:lo + qd]))
+
+        await step("17c PUT QD1", half * A_S3_BYTES, puts(keys[:half], 1))
+        await step("17c PUT QD8", half * A_S3_BYTES, puts(keys[half:], A_QD))
+
+        async def gets(ks):
+            for lo in range(0, len(ks), A_QD):
+                got = await asyncio.gather(*(s3_call("GET", f"/{k}") for k in ks[lo:lo + A_QD]))
+                for k, (_h, payload) in zip(ks[lo:lo + A_QD], got):
+                    check(payload == objects[k], f"17c: GET {k} reads back wrong")
+
+        await step("17c GET", A_S3_OBJECTS * A_S3_BYTES, gets(keys))
+
+        async def ranged():
+            # the S3 front end serves no Range header (as the reference's):
+            # a ranged GET reads the gateway's striped object at an offset
+            picks = [(keys[int(rng.integers(0, len(keys)))],
+                      int(rng.integers(0, A_S3_BYTES - A_RANGE_BYTES))) for _ in range(A_RANGED)]
+            for lo in range(0, A_RANGED, A_QD):
+                got = await asyncio.gather(*(
+                    StripedObject(gw_io, f"rgw.obj.{k}", policy=stripe).read(A_RANGE_BYTES, off)
+                    for k, off in picks[lo:lo + A_QD]))
+                for (k, off), data in zip(picks[lo:lo + A_QD], got):
+                    check(data == objects[k][off:off + A_RANGE_BYTES],
+                          f"17c: a ranged read of {k} at {off} is wrong")
+
+        await step("17c ranged GET", A_RANGED * A_RANGE_BYTES, ranged())
+        parts = [blob(A_PART_BYTES) for _ in range(A_MULTIPART_BYTES // A_PART_BYTES)]
+
+        async def multipart():
+            _h, init = await s3_call("POST", f"/{buckets[0]}/big?uploads")
+            upload = re.search(rb"<UploadId>(\w+)</UploadId>", init).group(1).decode()
+            for n, part in enumerate(parts, 1):
+                await s3_call("PUT", f"/{buckets[0]}/big?partNumber={n}&uploadId={upload}", part)
+            await s3_call("POST", f"/{buckets[0]}/big?uploadId={upload}")
+
+        await step("17c multipart", A_MULTIPART_BYTES, multipart())
+        _h, big = await s3_call("GET", f"/{buckets[0]}/big")
+        check(big == b"".join(parts), "17c: the multipart object reads back wrong")
+        swift = SwiftServer(gw)
+        saddr = await swift.serve("127.0.0.1")
+        status, hdrs, _ = await http_call(saddr, "GET", "/auth/v1.0", {
+            "X-Auth-User": "alice:swift", "X-Auth-Key": user["secret_key"]})
+        check(status == 200, f"17c: Swift's auth answered {status}")
+        token = {"X-Auth-Token": hdrs["X-Auth-Token"]}
+        status, _, _ = await http_call(saddr, "PUT", "/v1/AUTH_alice/c17", token)
+        check(status == 201, f"17c: the container PUT answered {status}")
+        sobjects = {f"s{i}": blob(A_SWIFT_BYTES) for i in range(A_SWIFT_OBJECTS)}
+
+        async def swift_puts():
+            for k, data in sobjects.items():
+                status, _, _ = await http_call(saddr, "PUT", f"/v1/AUTH_alice/c17/{k}", token, data)
+                check(status == 201, f"17c: Swift PUT {k} answered {status}")
+
+        async def swift_gets():
+            got = await asyncio.gather(*(http_call(saddr, "GET", f"/v1/AUTH_alice/c17/{k}", token)
+                                         for k in sobjects))
+            for (k, data), (status, _, payload) in zip(sobjects.items(), got):
+                check(status == 200 and payload == data, f"17c: Swift GET {k} answered {status}")
+
+        await step("17c Swift PUT", A_SWIFT_OBJECTS * A_SWIFT_BYTES, swift_puts())
+        await step("17c Swift GET", A_SWIFT_OBJECTS * A_SWIFT_BYTES, swift_gets())
+        # one daemon stopped: GETs of objects with a data shard on it decode
+        om = rados.objecter.osdmap
+        pool_id = om.get_pool("rgw_data").id
+
+        def data_slots(oid: str) -> list:
+            _pool, ps = om.object_to_pg(pool_id, oid)
+            return om.pg_to_up_acting_osds(pool_id, ps)[2][:8]
+
+        degraded = [k for k in keys if A_VICTIM in data_slots(f"rgw.obj.{k}.{0:016x}")]
+        degraded = degraded[:A_DEGRADED_GETS]
+        check(len(degraded) == A_DEGRADED_GETS, f"17c: {len(degraded)} objects on osd.{A_VICTIM}")
+        t = time.perf_counter()
+        await c.stop_osd(A_VICTIM)
+        await host.wait_until(lambda: not c.osdmap.is_up(A_VICTIM), 60.0, "osd.3 marked down")
+        out["17c s to down"] = time.perf_counter() - t
+        await host.wait_until(lambda: all(o.osdmap.epoch >= c.osdmap.epoch for o in c.running()),
+                              30.0, "the down epoch")
+        await step("17c degraded GET", A_DEGRADED_GETS * A_S3_BYTES, gets(degraded))
+        check(by_step["17c degraded GET"]["swar_gf"] > 0, "17c: the degraded GETs decoded nothing")
+        done("17c", before)
+        print(f"[17] 17c: S3 over HTTP on 127.0.0.1, sign_v2, bucket data on rgw_data "
+              f"(append-only): {A_S3_OBJECTS} PUTs of {A_S3_BYTES >> 20} MiB "
+              f"{out['17c PUT QD1 MB/s']:.1f} MB/s at QD1, {out['17c PUT QD8 MB/s']:.1f} at QD8; "
+              f"GETs byte-exact {out['17c GET MB/s']:.1f} MB/s; {A_RANGED} ranged reads of "
+              f"{A_RANGE_BYTES >> 10} KiB "
+              f"{out['17c ranged GET MB/s']:.1f} MB/s; a {A_MULTIPART_BYTES >> 20} MiB multipart "
+              f"upload in parts of {A_PART_BYTES >> 20} MiB {out['17c multipart MB/s']:.1f} MB/s; "
+              f"Swift: a token, {A_SWIFT_OBJECTS} PUTs {out['17c Swift PUT MB/s']:.1f} MB/s and "
+              f"GETs {out['17c Swift GET MB/s']:.1f} MB/s of 1 MiB; osd.{A_VICTIM} stopped, down "
+              f"{out['17c s to down']:.3f} s later, {A_DEGRADED_GETS} degraded GETs byte-exact "
+              f"{out['17c degraded GET MB/s']:.1f} MB/s; launches by step "
+              f"{ {k: v for k, v in by_step.items() if k.startswith('17c')} }; launches "
+              f"{by_part['17c']}; {card}", flush=True)
+
+        statuses = [c.status(o.whoami) for o in c.running()]
+        check(all(s["tpu_backend"]["fallback_launches"] == 0 for s in statuses),
+              "17: a daemon's status blob reads fallback launches")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+              "17: a launch fell back to the host")
+        check(c.client._tid == 0, "17: an op went through the test host's client")
+    finally:
+        for srv in (s3, swift):
+            if srv is not None:
+                await srv.shutdown()
+        if rados is not None:
+            await rados.shutdown()
+        for module in mods.values():
+            if hasattr(module, "shutdown"):
+                await module.shutdown()
+        await c.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    totals = {k: sum(part[k] for part in by_part.values()) for k in A_KERNELS}
+    check(totals == counts(), f"17: launches {counts()} != the parts' sum {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] <= A_LIMIT_S, f"17: {out['seconds']:.1f} s, over {A_LIMIT_S} s")
+    print(f"[17] launches by part {by_part}; by step {by_step}; figures {json.dumps(out)}",
+          flush=True)
+    return {"launches": totals, "by_part": by_part, "by_step": by_step, "figures": out}
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -6069,7 +6572,7 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
     args = parser.parse_args(argv)
     import torch
@@ -6129,7 +6632,8 @@ def main(argv: list[str]) -> int:
     if args.only:
         from ceph_tpu_torch.ops import checksum_offload as co
 
-        alone = {"14": phase_daemon, "15": phase_mon, "16": phase_client}[args.only]
+        alone = {"14": phase_daemon, "15": phase_mon, "16": phase_client,
+                 "17": phase_access}[args.only]
         phase(int(args.only), alone, torch, swar, packed, co, card)
         return 0
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
@@ -6164,6 +6668,7 @@ def main(argv: list[str]) -> int:
     daemon = phase(14, phase_daemon, torch, swar, packed, co, card)
     mon = phase(15, phase_mon, torch, swar, packed, co, card)
     client = phase(16, phase_client, torch, swar, packed, co, card)
+    access = phase(17, phase_access, torch, swar, packed, co, card)
     fig15, fig16 = mon["figures"], client["figures"]
     print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
           f"{fig16['16b QD8 MB/s']:.1f} (QD1 / QD8, Rados, ten mgr modules) beside 15b "
@@ -6175,9 +6680,10 @@ def main(argv: list[str]) -> int:
                                  "13": pg["launches"][kernel],
                                  "14": daemon["launches"][kernel]}
     diag_launches["packed_verify"]["15"] = mon["launches"]["packed_verify"]
+    diag_launches["packed_delta"]["17"] = access["launches"]["packed_delta"]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
-                     "16": client["launches"]["swar_gf"]}
+                     "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",

@@ -16,6 +16,14 @@ and `cls/log.py`) against the JAX package's, on the CPU.
   Objecter sent (its envelope and payload) are equal, byte for byte.
   The Objecter's reqid nonce and its clock are pinned alike in both
   packages, so the ops' names and deadlines agree.
+
+The Objecter's clock is pinned to one `t0` a test, taken from the real
+`time.monotonic()` an hour ahead of it (`torch_access_host.pinned_t0`),
+and the same for both packages' runs.  The op's deadline, `t0` plus
+its timeout, rides the MOSDOp, and every OSD compares it with its own,
+unpinned, monotonic clock at admission: a constant `t0` would hold only
+on a host whose clock (time since boot, on Linux) is below it.
+`test_the_pin_*` shows the dependence both ways.
 """
 
 import asyncio
@@ -27,6 +35,7 @@ import pytest
 
 from test_torch_ec_backend import _pin_reference  # noqa: F401 (autouse)
 from test_torch_osd import ROOT, make_cluster, settle
+from torch_access_host import pinned_t0
 from torch_daemon_host import CLIENT
 from torch_leak_gate import port_leak_gate  # noqa: F401 (autouse)
 from torch_ported import collect, cpu_daemons, load  # noqa: F401 (fixture)
@@ -90,16 +99,20 @@ def gen_script(seed: int, n: int = 48) -> list:
 STRIPED = [(0, 50_000), (12_000, 7_000), (40_000, 30_000), (16_383, 2), (65_536, 1)]
 
 
-async def client_run(pkg: str, tmp_path, seed: int, monkeypatch) -> dict:
+def pin_client(objecter, monkeypatch, t0: float) -> None:
+    """The Objecter's clock at `t0` and the reqid nonce at a constant."""
+    monkeypatch.setattr(objecter, "time", SimpleNamespace(monotonic=lambda: t0))
+    monkeypatch.setattr("secrets.token_hex", lambda n: "c1" * n)
+
+
+async def client_run(pkg: str, tmp_path, seed: int, monkeypatch, t0: float) -> dict:
     root = ROOT[pkg]
     objecter = importlib.import_module(f"{root}.client.objecter")
     rados_mod = importlib.import_module(f"{root}.client.rados")
     striper = importlib.import_module(f"{root}.striper")
     encode_message = importlib.import_module(f"{root}.msg.message").encode_message
     MOSDOp = importlib.import_module(f"{root}.msg.messages").MOSDOp
-    t0 = 10_000.0
-    monkeypatch.setattr(objecter, "time", SimpleNamespace(monotonic=lambda: t0))
-    monkeypatch.setattr("secrets.token_hex", lambda n: "c1" * n)
+    pin_client(objecter, monkeypatch, t0)
     c = make_cluster(pkg, tmp_path)
     r = None
     try:
@@ -156,7 +169,8 @@ async def client_run(pkg: str, tmp_path, seed: int, monkeypatch) -> dict:
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_rados_client_matches_the_reference(tmp_path, seed, monkeypatch):
-    got = {pkg: asyncio.run(client_run(pkg, tmp_path, seed, monkeypatch))
+    t0 = pinned_t0()
+    got = {pkg: asyncio.run(client_run(pkg, tmp_path, seed, monkeypatch, t0))
            for pkg in ("jax", "torch")}
     ref, ours = got["jax"], got["torch"]
     assert ours["epoch"] == ref["epoch"]
@@ -171,3 +185,46 @@ def test_rados_client_matches_the_reference(tmp_path, seed, monkeypatch):
     # the script landed: calls answered with data, and objects were stored
     assert sum(1 for r in ref["replies"] if r[0] == "read" and r[1] not in (-2, b"")) > 2
     assert any(coll for store in ref["stores"] for coll in store.values())
+
+
+# -- the pin against the OSD's admission clock --------------------------------
+
+
+async def pinned_write(pkg: str, tmp_path, monkeypatch, t0: float):
+    """One write through a `Rados` whose Objecter's clock is pinned at
+    `t0`: its result (0, or the exception's type and text) and the OSDs'
+    `op_deadline_shed` count."""
+    root = ROOT[pkg]
+    objecter = importlib.import_module(f"{root}.client.objecter")
+    rados_mod = importlib.import_module(f"{root}.client.rados")
+    pin_client(objecter, monkeypatch, t0)
+    c = make_cluster(pkg, tmp_path)
+    r = None
+    try:
+        await c.start(30)
+        r = rados_mod.Rados(c.monmap, name=CLIENT, secret=c.keyring.get(CLIENT), stack="inproc")
+        await r.connect()
+        io = await r.open_ioctx("rep")
+        try:
+            await io.write_full("o", b"x" * 4096)
+            result = 0
+        except Exception as e:  # the outcome is what is compared
+            result = (type(e).__name__, str(e))
+        return result, sum(o.perf.get("op_deadline_shed") for o in c.running())
+    finally:
+        if r is not None:
+            await r.shutdown()
+        await c.stop()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_the_pin_an_hour_ahead_is_served(pkg, tmp_path, monkeypatch):
+    result, shed = asyncio.run(pinned_write(pkg, tmp_path, monkeypatch, pinned_t0()))
+    assert result == 0 and shed == 0
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_the_pin_behind_the_osd_clock_is_shed_at_admission(pkg, tmp_path, monkeypatch):
+    result, shed = asyncio.run(pinned_write(pkg, tmp_path, monkeypatch, pinned_t0(-100.0)))
+    assert result[0] == "TimeoutError" and "shed at osd admission" in result[1]
+    assert shed >= 1

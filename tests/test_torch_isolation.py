@@ -53,7 +53,10 @@ def test_port_files_found():
                    "cls/client.py", "common/tsdb.py", "mgr/prometheus.py",
                    "mgr/iostat.py", "mgr/progress.py", "mgr/metrics_history.py",
                    "mgr/clog.py", "mgr/balancer.py", "mgr/pg_autoscaler.py",
-                   "mgr/telemetry.py", "mgr/dashboard.py", "mgr/orchestrator.py"):
+                   "mgr/telemetry.py", "mgr/dashboard.py", "mgr/orchestrator.py",
+                   "client/absent.py", "rbd/__init__.py", "rbd/rbd.py", "rbd/mirror.py",
+                   "rgw/__init__.py", "rgw/rgw.py", "rgw/http.py", "rgw/swift.py",
+                   "fs/__init__.py", "fs/fs.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -320,6 +323,24 @@ def test_osd_daemon_import_leaves_jax_out():
         "    finally:\n"
         "        await c.stop()\n"
         "asyncio.run(main())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_access_layers_import_leaves_jax_out():
+    """RBD, rbd-mirror, the gateway's S3 and Swift front ends and the `fs`
+    library import neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.rbd, ceph_tpu_torch.rbd.mirror\n"
+        "import ceph_tpu_torch.rgw, ceph_tpu_torch.rgw.http, ceph_tpu_torch.rgw.swift\n"
+        "import ceph_tpu_torch.fs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

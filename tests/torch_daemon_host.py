@@ -16,6 +16,8 @@ for the daemons what the monitor's `OSDMonitor` does and nothing more:
   the incrementals it lacks (`OSDMonitor.check_sub`); `config`: an
   empty `MConfig` (no option is managed centrally here); `mgrmap`:
   nothing (no mgr runs here);
+- `MMonCommand`: `osd pool selfmanaged-snap-create` only (the pool's
+  snap id allocator, for RBD's snapshots), in a full-map epoch;
 - `MOSDBoot`: the OSD is marked up at its address in a new epoch
   (`prepare_boot`).  The first boots share one epoch, published once every
   OSD has booted, so a run's epochs do not depend on timing; later boots
@@ -188,11 +190,31 @@ class _MapServiceBody:
             self.log.extend(json.loads(msg.entries.decode() or "[]"))
             return True
         if isinstance(msg, msgs.MMonCommand):
-            self._send(conn, msgs.MMonCommandAck(
-                tid=msg.tid, retval=-self.m.errs.EINVAL,
-                rs="the map service takes no commands", outbl=b""))
+            self._command(conn, msg)
             return True
         return False
+
+    def _command(self, conn, msg) -> None:
+        """`osd pool selfmanaged-snap-create` as `OSDMonitor` does it (the
+        pool's `snap_seq` bumped in a new epoch, its value the answer);
+        every other command -EINVAL."""
+        msgs = self.m.messages
+        cmd = json.loads(msg.cmd) if isinstance(msg.cmd, str) else msg.cmd
+        if cmd.get("prefix") != "osd pool selfmanaged-snap-create":
+            self._send(conn, msgs.MMonCommandAck(
+                tid=msg.tid, retval=-self.m.errs.EINVAL,
+                rs="the map service takes no other command", outbl=b""))
+            return
+        out = {}
+
+        def mutate(m) -> None:
+            pool = m.get_pool(cmd["pool"])
+            pool.snap_seq += 1
+            out["snap_id"] = pool.snap_seq
+
+        self._change_full(mutate)
+        self._send(conn, msgs.MMonCommandAck(tid=msg.tid, retval=0, rs="",
+                                             outbl=json.dumps(out).encode()))
 
     def ms_handle_reset(self, conn) -> None:
         self.subs.pop(conn, None)
