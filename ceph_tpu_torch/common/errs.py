@@ -16,3 +16,5 @@ EBUSY = 16
 EPERM = 1
 ETIMEDOUT = 110
 ESHUTDOWN = 108
+ENOTDIR = 20
+ENOTEMPTY = 39

@@ -18,6 +18,16 @@ Mirrored behaviors:
 
 Rank scope per filesystem: one ACTIVE rank (0); multi-rank subtree
 partitioning is out of scope in ceph_tpu.mds and therefore here.
+
+The port's copy of `ceph_tpu/mon/mds_monitor.py`.  Where it differs
+(ROADMAP C30): the tick judges its own lateness.  A tick that woke more
+than half the grace late judges no beacon and gives every active a fresh
+grace (`beacon_stalls` counts such ticks), and a daemon's silence is
+measured without the time the monitor's loop lost in the ticks since its
+last beacon.  The monitor shares its event loop with its peers and, in
+one process, with the MDS daemons, so a held loop delays the beacons it
+would have received; the reference fails a healthy active over after
+such a hold.
 """
 
 from __future__ import annotations
@@ -153,6 +163,12 @@ class MDSMonitor:
         self.mon = mon
         self.map = FSMap()
         self._last_beacon: dict[str, float] = {}
+        # the port's (C30): ticks that woke too late to judge a beacon,
+        # the lateness of every tick summed (s), and its value when each
+        # daemon's grace last restarted
+        self.beacon_stalls = 0
+        self._stalled = 0.0
+        self._stalled_at: dict[str, float] = {}
         # daemon name -> RADOS client instance id, learned from beacons
         # (leader-local, like _last_beacon; repopulated within one beacon
         # interval after an election)
@@ -241,7 +257,7 @@ class MDSMonitor:
         # instantly fail a healthy active (same as MgrMonitor).
         now = time.monotonic()
         for name in [*self.map.actives().values(), *self.map.standbys]:
-            self._last_beacon[name] = now
+            self._restart_grace(name, now)
         # Drop leader-local fence state: a stale _fenced entry on a
         # re-elected leader would skip a NEEDED re-fence (the daemon was
         # unfenced by another leader in between), and an orphaned
@@ -256,7 +272,7 @@ class MDSMonitor:
 
     def prepare_beacon(self, msg: MMDSBeacon) -> None:
         """Leader-only (MDSMonitor::prepare_beacon)."""
-        self._last_beacon[msg.name] = time.monotonic()
+        self._restart_grace(msg.name, time.monotonic())
         client = getattr(msg, "client", "") or ""
         if client:
             self._clients[msg.name] = client
@@ -299,16 +315,37 @@ class MDSMonitor:
 
         self._queue(mutate)
 
-    def tick(self) -> None:
+    def _restart_grace(self, daemon: str, now: float) -> None:
+        self._last_beacon[daemon] = now
+        self._stalled_at[daemon] = self._stalled
+
+    def _silence(self, daemon: str, now: float) -> float:
+        """Seconds since `daemon`'s last beacon, less the time the
+        monitor's ticks lost meanwhile (C30)."""
+        lost = self._stalled - self._stalled_at.get(daemon, self._stalled)
+        return now - self._last_beacon.get(daemon, 0.0) - lost
+
+    def tick(self, late: float) -> None:
         """Fail expired actives over (MDSMonitor::tick →
-        maybe_replace_gid; driven by the monitor's periodic tick)."""
+        maybe_replace_gid; driven by the monitor's periodic tick).
+        `late` is how far past its interval the monitor's tick woke
+        (the port's; C30)."""
         if not self.mon.is_leader():
             return
         now = time.monotonic()
+        self._stalled += max(late, 0.0)
+        if late > BEACON_GRACE / 2:
+            # the loop that would have taken the beacons was held: their
+            # absence says nothing of the daemons
+            self.beacon_stalls += 1
+            dout("mon", 1, f"mds beacon tick {late:.3f} s late; judging no beacon")
+            for daemon in self.map.actives().values():
+                self._restart_grace(daemon, now)
+            return
         failed = [
             daemon
             for daemon in self.map.actives().values()
-            if now - self._last_beacon.get(daemon, 0.0) > BEACON_GRACE
+            if self._silence(daemon, now) > BEACON_GRACE
         ]
         # daemons whose fence proposal is still mid-paxos are skipped
         # outright: their promotion is already chained to that fence's
@@ -323,7 +360,7 @@ class MDSMonitor:
             # daemon and queue the promotion ahead of the fence; if the
             # failover somehow doesn't commit (lost leadership), the
             # stale beacon re-trips one grace period later and retries
-            self._last_beacon[daemon] = now
+            self._restart_grace(daemon, now)
         # client ids we will have blocklisted by the time the promotion
         # commits — recorded in the SAME FSMap mutation, so a
         # post-election leader can still lift the fence when the daemon
@@ -436,8 +473,7 @@ class MDSMonitor:
                 # `standby` beacon) and it rejoins the pool cleanly.
                 active = self.map.filesystems[name]["active_name"]
                 live = active and (
-                    time.monotonic() - self._last_beacon.get(active, 0.0)
-                    <= BEACON_GRACE
+                    self._silence(active, time.monotonic()) <= BEACON_GRACE
                 )
                 fence_client = self._client_of(active) if live else ""
 

@@ -18,7 +18,7 @@ for every PaxosService (here: OSDMonitor).  Mirrored structure:
 - OSD boot/failure reports: OSDs broadcast to all mons; only the leader
   acts (prepare_boot / prepare_failure).
 
-The port's copy differs in five places, each held by a test:
+The port's copy differs in six places, each held by a test:
 
 - `device`: the one device touch of the monitor is the codec
   `OSDMonitor` builds to check an EC profile; it is on `device`, cuda
@@ -30,6 +30,9 @@ The port's copy differs in five places, each held by a test:
   timeout late judges no lease (ROADMAP C16);
 - services propose once the leader's Paxos has caught up, not at the
   election (ROADMAP C17);
+- the MDS service's tick is told how late it woke and judges no beacon
+  after a tick more than half the beacon grace late (ROADMAP C30,
+  `mds_monitor.py`);
 - a PROPOSE of an older election epoch is dropped, or, from a monitor
   outside the quorum, calls an election, and an election message to a
   rank supersedes the one still queued to it (ROADMAP C21; the elector's
@@ -276,7 +279,7 @@ class Monitor(Dispatcher):
         self._lease_tick(late)
         if self.is_leader():
             self.mgrmon.tick()
-            self.mdsmon.tick()
+            self.mdsmon.tick(late)
             self.osdmon.tick()
             # health-event history + mute maintenance:
             # diffs rendered checks against committed state

@@ -17,8 +17,9 @@ daemon's: heartbeats (MPing, MOSDPing), boot and failure reports
 MMonCommandAck, MMonSubscribe), the mgr's (MMgrMap, MMgrReport), config
 and cluster log (MConfig, MLog) and watch/notify (MWatchNotify); and the
 monitors' and the mgr's own: Paxos and elections (MMonPaxos,
-MMonElection), the mgr's beacon and digest (MMgrBeacon, MMonMgrReport)
-and the MDS map service's (MMDSBeacon, MMDSMap).  The type
+MMonElection), the mgr's beacon and digest (MMgrBeacon, MMonMgrReport),
+the MDS map service's (MMDSBeacon, MMDSMap); and CephFS's client
+protocol (MClientRequest, MClientReply, MClientCaps).  The type
 numbers and field orders are the JAX package's, so a message encodes to its
 bytes.
 """
@@ -628,6 +629,63 @@ class MWatchNotify(Message):
         ("is_ack", "u8"),
         ("watcher", "str"),  # acking entity name
     ]
+
+
+# --- MDS / CephFS ------------------------------------------------------------
+
+
+@message_type(36)
+class MClientRequest(Message):
+    """Client -> MDS metadata op (src/messages/MClientRequest.h).  `op` is
+    the request name (mkdir, create, lookup, readdir, unlink, rmdir,
+    rename, setattr, open, release); `args` is a JSON blob — the dynamic
+    shape of the reference's filepath+args union.  `client` (v2) is the
+    sender's per-instance identity: with a STABLE tid across retries it
+    forms the (client, tid) reqid the MDS's completed-request table
+    dedups on, so a retried non-idempotent op (mkdir/create/unlink/
+    rename) replays its recorded reply instead of re-executing ('' = a
+    v1 sender; no dedup)."""
+
+    VERSION = 2
+    COMPAT = 1
+    FIELDS = [
+        ("tid", "u64"), ("op", "str"), ("args", "bytes"), ("client", "str")
+    ]
+
+    @classmethod
+    def decode(cls, dec):
+        # struct_v-gated tail (encoding.h WRITE_CLASS_ENCODER shape): a
+        # v1 frame simply lacks `client` and decodes as a no-dedup
+        # sender, instead of overrunning the versioned frame
+        struct_v = dec.start(cls.VERSION)
+        msg = cls.__new__(cls)
+        msg.src = ""
+        msg.seq = 0
+        msg.tid = dec.u64()
+        msg.op = dec.string()
+        msg.args = dec.bytes_()
+        msg.client = dec.string() if struct_v >= 2 else ""
+        dec.finish()
+        return msg
+
+
+@message_type(37)
+class MClientReply(Message):
+    """MDS -> client reply (src/messages/MClientReply.h): result errno +
+    JSON payload (inode records, dentry lists, cap grants)."""
+
+    FIELDS = [("tid", "u64"), ("result", "i64"), ("payload", "bytes")]
+
+
+@message_type(38)
+class MClientCaps(Message):
+    """Capability traffic both ways (src/messages/MClientCaps.h): the MDS
+    REVOKEs caps it granted; clients ACK revokes and RELEASE caps they
+    drop.  `caps` is the wanted/held mask ("r", "w", "rw")."""
+
+    REVOKE, ACK, RELEASE = 0, 1, 2
+
+    FIELDS = [("op", "u8"), ("ino", "u64"), ("caps", "str"), ("tid", "u64")]
 
 
 # --- the MDS map and the mgr's digest ----------------------------------------

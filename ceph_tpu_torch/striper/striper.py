@@ -15,13 +15,18 @@ math; libradosstriper/RadosStriperImpl.cc drives it):
 
 Same layout math here, over the async IoCtx surface.
 
-The port's copy of `ceph_tpu/striper/striper.py`.
+The port's copy of `ceph_tpu/striper/striper.py`.  Where it differs
+(ROADMAP C26): `exists`, `truncate` and `remove` take only a missing
+object (-ENOENT) for absent, as `size` and `read` do in both packages;
+the reference's catch every exception there, so an EIO reads as "no such
+object" and a truncate or remove reports success over objects it left.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..client.absent import unless_absent
 from ..common.errs import ENOENT
 
 SIZE_XATTR = "striper.size"  # RadosStriperImpl XATTR_SIZE analog
@@ -102,11 +107,7 @@ class StripedObject:
         await self.ioctx.setxattr(self._obj(0), SIZE_XATTR, str(size).encode())
 
     async def exists(self) -> bool:
-        try:
-            await self.ioctx.stat(self._obj(0))
-            return True
-        except Exception:
-            return False
+        return await unless_absent(self.ioctx.stat(self._obj(0))) is not None
 
     # -- I/O -------------------------------------------------------------------
 
@@ -149,10 +150,7 @@ class StripedObject:
                     continue
                 local = self._object_local_size(objno, size)
                 if local == 0 and objno != 0:
-                    try:
-                        await self.ioctx.remove(self._obj(objno))
-                    except Exception:
-                        pass
+                    await unless_absent(self.ioctx.remove(self._obj(objno)))
                 elif local < old_local:
                     await self.ioctx.truncate(self._obj(objno), local)
         if size != old:
@@ -183,11 +181,5 @@ class StripedObject:
     async def remove(self) -> None:
         size = await self.size()
         for objno in range(self._max_objno(size) + 1):
-            try:
-                await self.ioctx.remove(self._obj(objno))
-            except Exception:
-                pass
-        try:
-            await self.ioctx.remove(self._obj(0))
-        except Exception:
-            pass
+            await unless_absent(self.ioctx.remove(self._obj(objno)))
+        await unless_absent(self.ioctx.remove(self._obj(0)))

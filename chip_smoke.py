@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17,18}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
 kernels (parent, this, this, parent), each in a process of its own.  With
---mon-log, the monitors' log (Paxos, the elector's messages and timers,
-the lease) is written at level 10 to PATH.  With --only N, phase 1
-builds the kernels and phase N (14, 15, 16 or 17) runs alone; the script
-then exits without the kernel and contract lines.
+--mon-log, phase 15's monitors' log (Paxos, the elector's messages and
+timers, the lease) is written at level 10 to PATH (with --only N, phase
+N's).  With --only N, phases 1 and 1b build the kernels and phase N (14,
+15, 16, 17 or 18) runs alone; the script then exits without the kernel
+and contract lines.
+
+Phases 14-18 each build a cluster of their own, and after phase 13 they
+run side by side, one process each (this script with --cluster-phase N,
+which loads the kernels phase 1 built and prints its phase's result as
+one JSON line), on the one card; their output is printed in phase order
+when all five have ended, and their figures are taken side by side.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -25,7 +32,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    loop, and no CALL in any instance.  For csrc/packed_gf.cu: ptxas's
    registers, spills and stack frame of each instance of its three kernels
    (32 or 512 rows; fails on a spill or on local memory), and the CUDA
-   toolkit's release (the 512-row parameters need 12.1).
+   toolkit's release (the 512-row parameters need 12.1).  csrc/bitmatrix.cu,
+   the longest build, goes on building while phases 2-5 run: phase 1b,
+   before phase 6, waits for it and checks its SASS and ptxas lines.
 2. Kernel vs plain on the card: the kernel against its plain PyTorch
    version (`swar_code_reference`) and against the numpy oracle
    (`xor_matmul_host_batch` on the first stripe, the GF(2^8) table product
@@ -175,7 +184,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    MemStore holding one shard of one PG, messages through a pumped queue,
    the codec from `build_pg_backend` with no device argument, encodes and
    decodes through the default aggregators.  Pool rbd (RBD's data pool,
-   RS(8,3), stripe unit 4096, allow_ec_overwrites): 9a 64 WRITEFULLs of 4
+   RS(8,3), stripe unit 4096, allow_ec_overwrites): 9a 32 WRITEFULLs of 4
    MiB at QD1 (write, pump) and QD8 (8 writes a pump, encode window 8:
    one launch a batch), with the wall time split by stage; 9b 256
    unaligned RMW writes of 4-64 KiB in batches of 8, each batch with one
@@ -209,14 +218,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    k = 7, w = 7, (2048, 49, 2048), beside its bound and its plain version.
    10b: the Ceph documentation's example profile of every plugin
    (jerasure reed_sol_van, cauchy_good and liberation, isa, shec, lrc,
-   clay, xor) built with no device argument: 16 objects of 4 MiB through
+   clay, xor) built with no device argument: 8 objects of 4 MiB through
    `encode`, then every erasure set up to m that `minimum_to_decode`
    accepts through `decode`, each equal to the same call on
    device="cpu"; the launches of swar_gf, packed_code, the xor_matmul tier
    and gf2_plane_matmul printed by plugin (gf2_plane_matmul's counts set
    to 0 just before and read just after: the `kernels` line's launches).
    10c: recovery through ECBackend on 11 OSDs (phase 9's pool rbd, RS(8,3),
-   stripe unit 4096): 64 objects of 4 MiB written, then for each loss of
+   stripe unit 4096): 32 objects of 4 MiB written, then for each loss of
    [3], [9], [0] (the primary's own), [3, 9] and [0, 5, 10] the shards
    wiped and marked missing, `recover_object` for all 64 and the queue
    drained, the barrier only when it runs dry (decode window 8): every
@@ -239,9 +248,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    osd/ec_backend.py) on phase 9's harness at the option defaults, launch
    counts set to 0 just before and read just after (the `kernels` line's
    launches of packed_verify and packed_delta add these to phase 7b's).
-   11a: PgScrubber deep-scrubs 100 objects of 4 MiB on the append-only
+   11a: PgScrubber deep-scrubs 50 objects of 4 MiB on the append-only
    pool (RS(8,3), stripe unit 4096, 11 OSDs: the parity verify needs the
-   hinfo digests, which an allow_ec_overwrites pool drops) in 4 scrub
+   hinfo digests, which an allow_ec_overwrites pool drops) in 2 scrub
    chunks of 25, each one packed_verify launch of (3200, 11, 4096) through
    the backend's verify aggregator, every bitmap equal to
    `verify_array_host`; GB/s of codewords verified and the verify spans
@@ -295,7 +304,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    tree's two kernels at those shapes, in turns with this one's.  12d
    checks that every transform launch of BlueStore's 4 KiB blocks took
    the tile path.  12c: phase 9's pool rbd (RS(8,3),
-   stripe unit 4096, 11 OSDs) over in-memory BlueStores, 64 WRITEFULLs of
+   stripe unit 4096, 11 OSDs) over in-memory BlueStores, 32 WRITEFULLs of
    4 MiB at QD1 and QD8, the checksum offload off and then on (fresh
    clusters); MB/s, crc32c launches a write, the blocks the stores
    checksum and those `_csum_submit` submits apart, the csum service's
@@ -320,8 +329,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    pool `rbd_meta` (replicated size 3, pg_num 32), every EC PG's codec on
    the card (`PG(..., device=None)`), a PG log of at most 2 entries so that
    the members CRUSH adds after an out backfill.  Client ops reach
-   `PG.do_op` on each object's primary.  13a: 128 WRITEFULLs of 4 MiB
-   `rbd_data.*` objects, 64 at QD1 and 64 at QD8 (MB/s); 13b: every object
+   `PG.do_op` on each object's primary.  13a: 64 WRITEFULLs of 4 MiB
+   `rbd_data.*` objects, 32 at QD1 and 32 at QD8 (MB/s); 13b: every object
    read whole at QD8 (GB/s); 13c: osd.3 marked down (seconds from the map
    to every PG active), every object read degraded; 13d: osd.3 marked out
    (seconds to active and to clean, bytes pushed by recovery and backfill,
@@ -341,7 +350,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    packed_delta, or the run fails; no launch falls back to the host, the
    guard never degrades and no PG logs a cluster error.
 
-14. The OSD daemon: 12 port `OSD` daemons in this process on the card,
+14. The OSD daemon: 12 port `OSD` daemons in one process on the card,
    each on its own BlueStore in a temporary directory, over the `posix`
    messenger on loopback (Ceph's default `ms_type`) with cephx on (a
    generated keyring; `ms_secure` off), booting through their MonClient
@@ -350,7 +359,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    report it); the pools of phase 13.  Client ops go over the wire from
    that file's small client.  Cuts: one host, heartbeats every 0.25 s with
    a 1.5 s grace, the out given by the map service, scrub timers of 2 s.
-   14a boot to every PG active and clean (s); 14b 64 WRITEFULLs of 4 MiB
+   14a boot to every PG active and clean (s); 14b 32 WRITEFULLs of 4 MiB
    on rbd at QD1 and QD8 (MB/s), whole reads (GB/s); 14c QD8 again after
    `bluestore_csum_offload` is set through each daemon's admin socket
    (`injectargs` with `conf`; MB/s and crc32c launches), then set back to
@@ -359,7 +368,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    degraded-read GB/s); 14e osd.3 out (s to clean, MB/s rebuilt, the
    recovery-storm controllers' waves); 14f 16 objects on rgw_data, then
    the daemon's own scrub timer deep-scrubs one of its PGs (s,
-   packed_verify launches); 14g 256 hot-region overwrites at QD1 (writes/s,
+   packed_verify launches); 14g 128 hot-region overwrites at QD1 (writes/s,
    packed_delta launches); 14h a watch/notify round trip and a COPY_FROM
    (ms); 14i a launch fault armed on one daemon through `injectargs`: the
    op gets EIO, `tpu_backend.degraded` turns true, the probe heals it and
@@ -403,12 +412,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the balancer and pg_autoscaler in their default advise and warn
    modes), prometheus served on 127.0.0.1 and the mgr's admin socket on;
    every op through the port's `Rados` as `client.admin` with the
-   generated key, none through the test host's client.  Cuts: 32 objects,
-   a 64 MiB image, one out.  16a seconds to every PG clean and to
+   generated key, none through the test host's client.  Ceph's heartbeat
+   interval and grace (1 s, 6 s).  Cuts: 32 objects, a 32 MiB image, one
+   out.  16a seconds to every PG clean and to
    `Rados.connect`; 16b 32 `IoCtx.write_full` of 4 MiB on rbd, half at
    QD1 and half at QD8 (MB/s), read back byte-exact (GB/s), the iostat
    module's rbd write ops equal to the writes issued, `iostat top` on the
-   mgr's admin socket listing client.admin; 16c a 64 MiB image through
+   mgr's admin socket listing client.admin; 16c a 32 MiB image through
    `striper.StripedObject` over 4 MiB objects (RBD's default layout),
    written and read back byte-exact (MB/s), a `cls_lock` lock and unlock on
    `rbd_header.img16` and a `cls log` add and list on rbd_meta through
@@ -431,9 +441,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    monitors, 12 daemons on BlueStore, posix, cephx, the mgr with its ten
    modules) with one more pool, rbd_peer (phase 13's rbd shape at pg_num
    8), and Ceph's heartbeat interval, grace and down-out interval; every
-   op through the port's `Rados` as `client.admin`.  17a an RBD image of 128 MiB at order 22 on rbd
+   op through the port's `Rados` as `client.admin`.  17a an RBD image of 32 MiB at order 22 on rbd
    (RS(8,3), `allow_ec_overwrites`): written whole in 4 MiB writes at QD1
-   and again at QD8, read back byte-exact, 256 random overwrites of 4-64
+   and again at QD8, read back byte-exact, 128 random overwrites of 4-64
    KiB (QD8, distinct objects in flight), a snapshot, 8 writes after it read at the snapshot and at the
    head, the snapshot protected and cloned, a copy-up write in the clone,
    a flatten, the clone's export (which holds every overwrite) equal to
@@ -441,16 +451,41 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    MiB mirrored by `MirrorDaemon.sync_once` into rbd_peer (seconds from
    the last write until the destination equals the source, replay MB/s);
    17d the `fs` library with the metadata on rbd_meta and the data on
-   rbd: 64 files of 256 KiB-4 MiB in 8 directories written, listed, read
+   rbd: 16 files of 256 KiB-4 MiB in 8 directories written, listed, read
    back (QD8) and renamed; 17c the gateway on rgw_data (append-only) at RGW's
-   4 MiB stripe: S3 over HTTP on 127.0.0.1 signed with `sign_v2`, 32
-   PUTs of 4 MiB (16 at QD1, 16 at QD8 into 8 buckets), GETs at QD8, 32
+   4 MiB stripe: S3 over HTTP on 127.0.0.1 signed with `sign_v2`, 16
+   PUTs of 4 MiB (8 at QD1, 8 at QD8 into 8 buckets), GETs at QD8, 32
    ranged reads of 1 MiB at QD8 (through the striper: the S3 front end
-   serves no Range), a 32 MiB multipart upload in parts of 8 MiB, Swift's
+   serves no Range), a 16 MiB multipart upload in parts of 8 MiB, Swift's
    token, 8 PUTs of 1 MiB and 8 GETs at QD8, then osd.3 stopped and 8 GETs of objects with a data shard
    on it, byte-exact, which decode on `swar_gf`.  MB/s for each step and
    the `swar_gf` and `packed_delta` launches of each; `swar_gf` launches
    in every part; no fallback; the phase fails above 400 s.
+18. CephFS through the MDS: phase 17's cluster built anew (3 monitors,
+   the mgr with its ten modules, 12 daemons on BlueStore, posix, cephx,
+   Ceph's heartbeat interval and grace) with Ceph's documented
+   CephFS-on-EC pools: cephfs_metadata (replicated, size 3) and
+   cephfs_data (RS(8,3), `allow_ec_overwrites`), each at pg_num 32;
+   `fs new`, two port MDS daemons (rank 0 and a standby, cephx), and two
+   `CephFSClient`s in mon mode with CephFS's default file layout (4 MiB
+   objects, one 4 MiB stripe unit each).  18a the boot: seconds to clean
+   and from `fs new` to an active MDS, whose admin socket answers
+   `status`; 18b the namespace: 16 directories, 512 empty files created
+   at QD8 over both clients, 128 renames, every directory listed and
+   every entry stat'ed against the model (metadata ops/s; no kernel);
+   18c 64 files of 4 MiB written (32 at QD1, 32 at QD8) and read back
+   byte-exact at QD8; 18d caps: the second client opens for writing 8
+   files the first holds (revokes counted, the first's handles refused,
+   the second's writes land), then 256 overwrites of 4-64 KiB at QD8,
+   the touched files read back; 18e the active MDS stopped (no flush)
+   with 8 creates in flight: seconds until the standby is active, each
+   create answered 0 or -EAGAIN (the client's 10 s deadline), at least one
+   answered 0 unless the answers took 10 s, those unacknowledged made again
+   (0, or -EEXIST where the first landed), every create listed once, every
+   entry of the model listed and every file read back byte-exact.  The
+   monitors, the mgr and the MDS daemons have no `failed`, the guard is
+   not degraded, 18c and 18d launch `swar_gf`; no fallback; the phase
+   fails above 300 s.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -750,17 +785,33 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
         jobs[f"swar_baked {label}"] = lambda mat=mat: kern_exp2.make_swar(mat, 128).build().info
         jobs[f"swar3_baked {label}"] = (
             lambda mat=mat: kern_exp3.make_swar3(mat, 128, 256).build().info)
+    # the libraries whose SASS is read below are dumped as soon as each is
+    # built, while the longer builds still run (bitmatrix's, whose reading
+    # would take this process's GIL from phase 4's timed launches, in 1b)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    for label in ("swar_gf", "copy_floor", "crc32c", "compress_transform",
+                  "swar_baked rs83-van-encode"):
+        if os.path.exists(cuobjdump):
+            jobs[label] = lambda job=jobs[label]: dumped(job())
+
+    def dumped(info):
+        sass_text(cuobjdump, info["library"])
+        return info
+
+    # bitmatrix (the diagnostic kernels of phase 6, its longest build) goes
+    # on building while phases 2-5 run; phase 1b waits for it and checks it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        futures = {label: pool.submit(job) for label, job in jobs.items()}
-        infos = {label: future.result() for label, future in futures.items()}
-    print(f"[1] built {len(jobs)} libraries in {time.perf_counter() - t0:.2f} s "
-          "(one nvcc each, all started together)")
+    pool = ThreadPoolExecutor(max_workers=len(jobs))
+    futures = {label: pool.submit(job) for label, job in jobs.items()}
+    pool.shutdown(wait=False)
+    infos = {label: future.result() for label, future in futures.items()
+             if label != "bitmatrix"}
+    print(f"[1] built {len(infos)} libraries in {time.perf_counter() - t0:.2f} s "
+          f"(one nvcc each, all {len(jobs)} started together; bitmatrix builds on)")
     for label, info in infos.items():
         print(f"[1] {label}: {info['seconds']:.2f} s, sha256 {info['source_sha256']}")
-        # bitmatrix has 32 mm_only instances: its checked kernels are below,
-        # as are packed_gf's
-        for line in ptxas_lines(info) if label not in ("bitmatrix", "packed_gf") else []:
+        # packed_gf's checked kernels are below
+        for line in ptxas_lines(info) if label != "packed_gf" else []:
             print(f"[1]   ptxas: {line}")
     copy_ops = sass_opcodes(nvcc, infos["copy_floor"]["library"], "copy_floor_kernelILi8E")
     if copy_ops is None:
@@ -778,31 +829,6 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
         mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
         print(f"[1] swar_baked_kernel (rs83-van-encode) SASS: {total} instructions, "
               f"{total / 4:.1f} per word (TPU program as written: 539); {mix}")
-        # expand_only runs on the CUDA cores: no HMMA/IMMA/HGMMA/IGMMA...
-        # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op);
-        # mm_only on the tensor cores: HMMA (mma.sync); the grouped kernels:
-        # IGMMA (int8) and HGMMA (bf16), wgmma's products
-        for kernel in ("expand_only_kernel", MM_ONLY_RS83, GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
-            ops = sass_opcodes(nvcc, infos["bitmatrix"]["library"], kernel)
-            mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
-            mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
-            print(f"[1] bitmatrix {kernel} SASS: {sum(ops.values())} instructions, "
-                  f"{mma} tensor-core; {mix}")
-            if kernel == MM_ONLY_RS83:
-                hmma = count_prefix(ops, "HMMA")
-                print(f"[1] bitmatrix {kernel}: {hmma} HMMA, {count_prefix(ops, 'LDSM')} LDSM, "
-                      f"{count_prefix(ops, 'LDGSTS')} LDGSTS, {count_prefix(ops, 'F2I')} F2I")
-                check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
-            elif kernel in (GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
-                want = "IGMMA" if kernel == GROUPED_IMMA_RS83 else "HGMMA"
-                n = count_prefix(ops, want)
-                print(f"[1] bitmatrix {kernel}: {n} {want}, {count_prefix(ops, 'IMMA')} IMMA, "
-                      f"{count_prefix(ops, 'LDS')} LDS, {count_prefix(ops, 'SHFL')} SHFL, "
-                      f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LOP3')} LOP3, "
-                      f"{count_prefix(ops, 'FADD')} FADD, {count_prefix(ops, 'LDGSTS')} LDGSTS")
-                check(n > 0, f"bitmatrix {kernel}: no {want} in its SASS")
-            else:
-                check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
     check_swar_gf_build(nvcc, infos["swar_gf"])
     check_packed_build(infos["packed_gf"])
     for label, kernel in (("gf2_plane", "gf2_plane_kernel"), ("xor_reduce", "xor_reduce_kernel"),
@@ -814,23 +840,63 @@ def phase_env(torch, swar, gf, diag, kern_exp, packed, xor_mm, nvcc):
         check(not any("spill" in line and not re.search(r"\b0 bytes spill stores", line)
                       for line in lines), f"{kernel} spills: {lines}")
     check_bluestore_sass(nvcc, infos)
+    return name, card, infos, futures["bitmatrix"]
+
+
+def check_bitmatrix_build(nvcc: str, building) -> dict:
+    """1b: waits for csrc/bitmatrix.cu's build (started in phase 1), then
+    its SASS (expand_only on the CUDA cores, mm_only's HMMA, the grouped
+    kernels' IGMMA and HGMMA) and ptxas's registers and spills of its
+    checked instances; returns its build info."""
+    t0 = time.perf_counter()
+    info = building.result()
+    print(f"[1b] bitmatrix: {info['seconds']:.2f} s, sha256 {info['source_sha256']}, "
+          f"waited {time.perf_counter() - t0:.2f} s for it")
+    # expand_only runs on the CUDA cores: no HMMA/IMMA/HGMMA/IGMMA...
+    # (HFMA2.MMA, a move idiom on the FMA pipe, is not a matrix op);
+    # mm_only on the tensor cores: HMMA (mma.sync); the grouped kernels:
+    # IGMMA (int8) and HGMMA (bf16), wgmma's products
+    for kernel in ("expand_only_kernel", MM_ONLY_RS83, GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
+        ops = sass_opcodes(nvcc, info["library"], kernel)
+        if ops is None:
+            print("[1b] SASS: no cuobjdump in the toolkit, not counted")
+            break
+        mma = sum(n for op, n in ops.items() if op.split(".")[0].endswith("MMA"))
+        mix = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
+        print(f"[1b] bitmatrix {kernel} SASS: {sum(ops.values())} instructions, "
+              f"{mma} tensor-core; {mix}")
+        if kernel == MM_ONLY_RS83:
+            hmma = count_prefix(ops, "HMMA")
+            print(f"[1b] bitmatrix {kernel}: {hmma} HMMA, {count_prefix(ops, 'LDSM')} LDSM, "
+                  f"{count_prefix(ops, 'LDGSTS')} LDGSTS, {count_prefix(ops, 'F2I')} F2I")
+            check(hmma > 0, f"bitmatrix {kernel}: no HMMA in its SASS")
+        elif kernel in (GROUPED_IMMA_RS83, GROUPED_HGMMA_RS83):
+            want = "IGMMA" if kernel == GROUPED_IMMA_RS83 else "HGMMA"
+            n = count_prefix(ops, want)
+            print(f"[1b] bitmatrix {kernel}: {n} {want}, {count_prefix(ops, 'IMMA')} IMMA, "
+                  f"{count_prefix(ops, 'LDS')} LDS, {count_prefix(ops, 'SHFL')} SHFL, "
+                  f"{count_prefix(ops, 'PRMT')} PRMT, {count_prefix(ops, 'LOP3')} LOP3, "
+                  f"{count_prefix(ops, 'FADD')} FADD, {count_prefix(ops, 'LDGSTS')} LDGSTS")
+            check(n > 0, f"bitmatrix {kernel}: no {want} in its SASS")
+        else:
+            check(mma == 0, f"bitmatrix {kernel}: {mma} tensor-core instructions")
+    # bitmatrix has 32 mm_only instances: only the checked ones are printed
     for kernel in ("expand_only_kernel", MM_ONLY_RS83, MM_ONLY_LARGEST, GROUPED_IMMA_RS83,
                    GROUPED_IMMA_LARGEST, GROUPED_HGMMA_RS83, GROUPED_HGMMA_LARGEST):
-        for line in ptxas_lines(infos["bitmatrix"], kernel):
-            print(f"[1]   ptxas bitmatrix {kernel}: {line}")
-    regs = [int(n) for line in ptxas_lines(infos["bitmatrix"], GROUPED_HGMMA_RS83)
+        for line in ptxas_lines(info, kernel):
+            print(f"[1b]   ptxas bitmatrix {kernel}: {line}")
+    regs = [int(n) for line in ptxas_lines(info, GROUPED_HGMMA_RS83)
             for n in re.findall(r"Used (\d+) registers", line)]
-    check("ptxas" not in infos["bitmatrix"]
-          or (regs and max(regs) <= GROUPED_HGMMA_MAX_REGISTERS),
+    check("ptxas" not in info or (regs and max(regs) <= GROUPED_HGMMA_MAX_REGISTERS),
           f"{GROUPED_HGMMA_RS83}: {regs} registers, want <= {GROUPED_HGMMA_MAX_REGISTERS}")
     for family in ("mm_only_kernel", "grouped_"):
-        lines = ptxas_lines(infos["bitmatrix"], family)
-        check("ptxas" not in infos["bitmatrix"] or lines, f"no ptxas lines for {family}")
+        lines = ptxas_lines(info, family)
+        check("ptxas" not in info or lines, f"no ptxas lines for {family}")
         spills = [line for line in lines if "spill" in line and not (
             re.search(r"\b0 bytes spill stores", line)
             and re.search(r"\b0 bytes spill loads", line))]
         check(not spills, f"{family} instances spill: {spills}")
-    return name, card, infos
+    return info
 
 
 def check_bluestore_sass(nvcc: str, infos: dict) -> None:
@@ -963,30 +1029,37 @@ def phase_kernel_checks(torch, swar, gf, registry) -> int:
     gen.manual_seed(SEED)
     max_err = 0
     cases = 0
-    for label, mat in mats:
-        plan = swar.CodingPlan(mat, device=dev)
-        bm = gf.expand_matrix(mat)
-        for L, S in SHAPES:
-            data = torch.randint(0, 256, (S, plan.k, L), dtype=torch.uint8,
-                                 device=dev, generator=gen)
-            got = swar.swar_gf(plan, data)
-            ref = swar.swar_code_reference(plan.sched, data)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"{label} L={L} S={S}: kernel != plain (max err {err})")
-            # the bitslice oracle costs seconds per MiB on the host: it
-            # takes the first stripe up to 128 KiB, the table product
-            # the last stripe at every length
-            if L <= 131072:
-                oracle = gf.xor_matmul_host_batch(bm, data[:1].cpu().numpy())
-                check(np.array_equal(got[:1].cpu().numpy(), oracle),
-                      f"{label} L={L} S={S}: kernel != bitslice oracle")
-            table = gf.gf_matmul(mat, data[S - 1].cpu().numpy())
-            check(np.array_equal(got[S - 1].cpu().numpy(), table),
-                  f"{label} L={L} S={S}: kernel != table oracle")
-            cases += 1
-            del data, got, ref
+    # the host oracles run on every core while the card codes the next
+    # cases (numpy's matmul and XORs release the GIL); each is checked below
+    oracles = []
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        for label, mat in mats:
+            plan = swar.CodingPlan(mat, device=dev)
+            bm = gf.expand_matrix(mat)
+            for L, S in SHAPES:
+                data = torch.randint(0, 256, (S, plan.k, L), dtype=torch.uint8,
+                                     device=dev, generator=gen)
+                got = swar.swar_gf(plan, data)
+                ref = swar.swar_code_reference(plan.sched, data)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"{label} L={L} S={S}: kernel != plain (max err {err})")
+                # the bitslice oracle costs seconds per MiB on the host: it
+                # takes the first stripe up to 128 KiB, the table product
+                # the last stripe at every length
+                if L <= 131072:
+                    oracles.append((pool.submit(gf.xor_matmul_host_batch, bm,
+                                                data[:1].cpu().numpy()),
+                                    got[:1].cpu().numpy(),
+                                    f"{label} L={L} S={S}: kernel != bitslice oracle"))
+                oracles.append((pool.submit(gf.gf_matmul, mat, data[S - 1].cpu().numpy()),
+                                got[S - 1].cpu().numpy(),
+                                f"{label} L={L} S={S}: kernel != table oracle"))
+                cases += 1
+                del data, got, ref
+        for future, got, msg in oracles:
+            check(np.array_equal(got, future.result()), msg)
     print(f"[2] kernel == plain == oracle on {cases} cases "
           f"({len(mats)} matrices, (passes, rows) "
           f"{sorted({swar.pass_geometry(len(mat)) for _, mat in mats})}), max_abs_err={max_err}")
@@ -1627,18 +1700,24 @@ def phase_packed_checks(torch, packed, gf) -> dict:
         check(err == 0, f"{kernel} {label}: kernel != plain (max err {err})")
         cases[kernel] += 1
 
+    # the host oracles run on every core while the card takes the next
+    # cases; each is checked at the end of the phase
+    pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
+    oracles = []
+
+    def host_check(got, msg, fn, *args):
+        oracles.append((pool.submit(fn, *args), got.cpu().numpy(), msg))
+
     def code_case(label, mat, sched, data, n):
         got = packed.packed_code(sched, data)
         record("packed_code", label, got, packed.packed_code_reference(packed.best_program(mat),
                                                                        data))
         S = data.shape[0]
-        check(np.array_equal(got[0].cpu().numpy(),
-                             packed.packed_code_host(mat, data[0].cpu().numpy())),
-              f"packed_code {label}: stripe 0 != packed_code_host")
+        host_check(got[0], f"packed_code {label}: stripe 0 != packed_code_host",
+                   packed.packed_code_host, mat, data[0].cpu().numpy())
         if n % 3 == 0 or data.shape[-1] <= 4128:  # the table product costs host time
-            check(np.array_equal(got[S - 1].cpu().numpy(),
-                                 gf.gf_matmul(mat, data[S - 1].cpu().numpy())),
-                  f"packed_code {label}: stripe {S - 1} != gf_matmul")
+            host_check(got[S - 1], f"packed_code {label}: stripe {S - 1} != gf_matmul",
+                       gf.gf_matmul, mat, data[S - 1].cpu().numpy())
         return got
 
     mats = packed_matrices(gf)
@@ -1711,8 +1790,8 @@ def phase_packed_checks(torch, packed, gf) -> dict:
             got = packed.packed_verify(prog, cw)
             record("packed_verify", f"{label} L={L}", got, packed.packed_verify_reference(prog, cw))
             host = got.cpu().numpy()
-            check(np.array_equal(host, packed.packed_verify_host(mat, cw.cpu().numpy())),
-                  f"packed_verify {label} L={L} != packed_verify_host")
+            host_check(got, f"packed_verify {label} L={L} != packed_verify_host",
+                       packed.packed_verify_host, mat, cw.cpu().numpy())
             want = [verify_expected(mat, k, m, pos) for pos in range(k + m)] + [0]
             check(host.tolist() == want, f"packed_verify {label} L={L}: {host.tolist()} != {want}")
     # delta, stacked and flat (separately allocated shard buffers)
@@ -1730,13 +1809,16 @@ def phase_packed_checks(torch, packed, gf) -> dict:
                    packed.packed_delta_reference(prog, old, new, parity))
             check(torch.equal(got, packed.packed_code(prog, new)),
                   f"packed_delta {label} ({S}, {k}, {L}) != re-encode of the new data")
-            check(np.array_equal(got[S - 1].cpu().numpy(), packed.packed_delta_host(
-                mat, old[S - 1].cpu().numpy(), new[S - 1].cpu().numpy(),
-                parity[S - 1].cpu().numpy())), f"packed_delta {label}: != packed_delta_host")
+            host_check(got[S - 1], f"packed_delta {label}: != packed_delta_host",
+                       packed.packed_delta_host, mat, old[S - 1].cpu().numpy(),
+                       new[S - 1].cpu().numpy(), parity[S - 1].cpu().numpy())
             shards = lambda t: [t[:, j].contiguous().view(-1) for j in range(t.shape[1])]
             flat = packed.packed_delta_flat(prog, shards(old), shards(new), shards(parity), L)
             record("packed_delta", f"{label} flat ({S}, {k}, {L})", flat, got)
     wide_packed_checks(torch, packed, gf, rand, record)
+    with pool:
+        for future, got, msg in oracles:
+            check(np.array_equal(got, future.result()), msg)
     for kernel in PACKED_KERNELS:
         print(f"[7] {kernel} == plain == oracle on {cases[kernel]} cases, "
               f"max_abs_err={errs[kernel]}")
@@ -2672,7 +2754,7 @@ def phase_runtime(torch, swar, packed, dispatch, registry, card) -> dict:
 # writes of 4-64 KiB in batches of 8; and RGW's append-only EC data pool
 # (the hinfo path), 16 objects of 4 appends of 1 MiB.
 BK_K, BK_M, BK_SU = 8, 3, 4096
-BK_OBJECTS = 64
+BK_OBJECTS = 32  # cut from 64 to keep the whole script well under half its limit
 BK_OBJECT_BYTES = 4 << 20
 BK_QD = 8
 BK_RMW_WRITES = 256
@@ -3005,7 +3087,7 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
     def aggs0():
         return int(enc_agg.perf.get("launches")), int(dec_agg.perf.get("launches"))
 
-    # 9a: 64 WRITEFULLs of 4 MiB at QD1 (write, pump), then at QD8 (8 writes,
+    # 9a: 32 WRITEFULLs of 4 MiB at QD1 (write, pump), then at QD8 (8 writes,
     # one pump; encode window 8: one launch a batch)
     for qd, window in ((1, int(OPTIONS["ec_tpu_aggregate_window"].default)), (BK_QD, BK_QD)):
         if qd > 1:
@@ -3229,14 +3311,14 @@ def phase_backend(torch, swar, packed, dispatch, registry, card) -> dict:
 # default 2048 and two that are not multiples of 16) and its timing shape,
 # liberation k = 7, w = 7 at packetsize 2048 over 2048 super-packets.
 # 10b: the Ceph documentation's example profile of each plugin, 16 RBD
-# objects of 4 MiB each.  10c: phase 9's pool rbd, 64 objects of 4 MiB, and
+# objects of 4 MiB each.  10c: phase 9's pool rbd, 32 objects of 4 MiB, and
 # the five losses (one data shard, one parity, the primary's own, two, and
 # three with the primary's); the recovery decodes in windows of 8 objects.
 # 10d: a CLAY pool (k = 4, m = 2, d = 5) of 6 OSDs, 16 objects, shard 1 lost.
 G2_PACKETS = (4, 8, 32, 2048, 2052)
 G2_STRIPES = (1, 3, 256)
 G2_TIMING = (7, 7, 2048, 2048)  # liberation k, w, packetsize, super-packets
-PL_OBJECTS = 16
+PL_OBJECTS = 8  # cut from 16 with D_OBJECTS
 PL_PROFILES = [
     ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"}),
     ("jerasure", {"technique": "cauchy_good", "k": "4", "m": "2"}),
@@ -3248,7 +3330,7 @@ PL_PROFILES = [
     ("clay", {"k": "4", "m": "2", "d": "5"}),
     ("xor", {"k": "4"}),
 ]
-RC_OBJECTS = 64
+RC_OBJECTS = 32  # cut from 64 with BK_OBJECTS
 RC_LOSSES = ([3], [9], [0], [3, 9], [0, 5, 10])
 RC_WINDOW = 8
 CL_PROFILE = {"plugin": "clay", "k": "4", "m": "2", "d": "5"}
@@ -3334,7 +3416,7 @@ def phase_gf2_plane(torch, gf2, xor_mm, PLAN_CACHE, card) -> dict:
 
 
 def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
-    """10b: every plugin's documented example profile on the card: 16
+    """10b: every plugin's documented example profile on the card: 8
     objects of 4 MiB through encode, then every erasure set up to m that
     minimum_to_decode accepts through decode, each equal to the same call
     on device="cpu"; the kernels' launches by plugin."""
@@ -3419,7 +3501,7 @@ def phase_plugins(torch, swar, packed, xor_mm, registry, card) -> dict:
 
 def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
     """10c: recovery through ECBackend on 11 OSDs (pool rbd), five losses,
-    64 objects of 4 MiB each; 10d: CLAY repair from fragments on 6 OSDs."""
+    32 objects of 4 MiB each; 10d: CLAY repair from fragments on 6 OSDs."""
     from ceph_tpu_torch.codec import matrix_codec as mc
     from ceph_tpu_torch.common.mempool import ledger
     from ceph_tpu_torch.common.options import OPTIONS
@@ -3570,7 +3652,7 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
 
 # Phase 11's deployments, on phase 9's harness (RS(8,3) reed_sol_van,
 # stripe_unit 4096, 11 OSDs, option defaults: the device chunk cache at 32
-# MiB and the RMW delta path on).  11a: deep scrub of 100 objects of 4 MiB,
+# MiB and the RMW delta path on).  11a: deep scrub of 50 objects of 4 MiB,
 # 4 scrub chunks of CHUNK_MAX = 25, on the append-only pool (the parity
 # verify runs on chunks whose hinfo digests travel in the scrub map, and a
 # pool with allow_ec_overwrites keeps no hinfo).  11b: RBD small writes on
@@ -3578,7 +3660,7 @@ def phase_recovery(torch, swar, packed, dispatch, registry, card) -> dict:
 # 4 MiB on pool rbd, 256 overwrites of 4-64 KiB inside a 64 KiB region of
 # each, at QD1, with the delta path and again without it.  11c: phase 9d's
 # hole classes, each read twice from an empty cache.  11d: the drills.
-SC_OBJECTS = 100
+SC_OBJECTS = 50  # cut from 100 with BK_OBJECTS: two scrub chunks of 25
 HOT_OBJECTS = 4
 HOT_WRITES = 256
 HOT_REGION = 64 << 10
@@ -3702,7 +3784,7 @@ def phase_scrub_cache(torch, swar, packed, dispatch, card) -> dict:
         torch.cuda.synchronize()
         return {key: val - before[key] for key, val in probe.counts().items()}
 
-    # 11a: deep scrub, 4 chunks of 25 objects, one packed_verify launch each
+    # 11a: deep scrub, chunks of 25 objects, one packed_verify launch each
     sc = ScrubCluster(5, "rgw", overwrites=False)
     ec = sc.primary.ec
     sc_oids = [f"rgw.scrub.{i:03d}" for i in range(SC_OBJECTS)]
@@ -4041,7 +4123,7 @@ def phase_scrub_cache(torch, swar, packed, dispatch, card) -> dict:
 # its plain version: a 4 MiB object's shard write is 128 blocks of 4096
 # (one store launch), and 8 objects of 11 shards (12c's QD8 window) 11264.
 # 12c-12e: phase 9's pool rbd (RS(8,3), stripe unit 4096, 11 OSDs) over
-# in-memory BlueStores, 64 objects of 4 MiB.
+# in-memory BlueStores, 32 objects of 4 MiB.
 CRC_LENGTHS = (1, 3, 63, 64, 100, 4095, 4096, 4097, 65536)
 CRC_STRIPES = (1, 7, 128, 1408, 11264)
 CRC_ORACLE_BYTES = 64 << 20
@@ -4059,7 +4141,7 @@ XFORM_PATH = ((128, 4096),)
 XFORM_GENERAL = (65536, 4160)  # the general path (Lp % 4096 != 0), timed
 XOR_BULK = BULK
 XOR_PATH = ((1, 8, 524288),)
-BS_OBJECTS = 64
+BS_OBJECTS = 32  # cut from 64 with BK_OBJECTS
 BS_QD = 8
 BS_RATIO = 0.875  # Ceph's default bluestore_compression_required_ratio
 BS_DRILL_BYTES = 1 << 20
@@ -4312,7 +4394,7 @@ def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
                 check(got[oids[i]] == (0, [model[i].tobytes()]),
                       f"{label}: {oids[i]} did not read back")
 
-    # 12c: 64 WRITEFULLs of 4 MiB at QD1 and then QD8 on a fresh cluster of 11
+    # 12c: 32 WRITEFULLs of 4 MiB at QD1 and then QD8 on a fresh cluster of 11
     # BlueStores, the checksum offload off and then on
     images = {}
     co.crc32c_device.launches = 0
@@ -4605,7 +4687,7 @@ def phase_bluestore(torch, xor_mm, dispatch, card) -> dict:
 
 PG_OSDS = 12
 PG_NUM = 32  # Ceph's osd_pool_default_pg_num
-PG_OBJECTS = 128
+PG_OBJECTS = 64  # cut from 128 with BK_OBJECTS
 PG_OBJECT_BYTES = 4 << 20
 PG_QD = 8
 PG_OVERWRITES = 256
@@ -4877,11 +4959,11 @@ async def _phase_pg(torch, swar, packed, xor_mm, card) -> dict:
 
 D_OSDS = 12
 D_VICTIM = 3
-D_OBJECTS = 64  # cut from 128 to keep the whole script near 900 s with phase 17
+D_OBJECTS = 32  # cut from 128, then 64, to keep the whole script well under half its limit
 D_OBJECT_BYTES = 4 << 20
 D_QD = 8
 D_RGW_OBJECTS = 16
-D_OVERWRITES = 256
+D_OVERWRITES = 128  # cut from 256 with D_OBJECTS
 D_HOT_OBJECTS = 8
 # the daemon's options for the phase; everything else at the defaults
 D_CONF = {
@@ -5251,7 +5333,7 @@ async def _phase_daemon(torch, swar, packed, co, card, device) -> dict:
 M_MONS = 3  # Ceph's documented minimum for a quorum that survives one loss
 M_OSDS = 12
 M_VICTIM = 3
-M_OBJECTS = 32  # on rbd (cut from 64 to keep the whole script near 900 s)
+M_OBJECTS = 16  # on rbd (cut from 64, then 32, to keep the whole script well under half its limit)
 M_OBJECT_BYTES = 4 << 20
 M_QD = 8
 M_ELECTION_BATCH = 16  # the QD8 writes issued across 15c's election
@@ -5665,8 +5747,12 @@ R_VICTIM = 3
 R_OBJECTS = 32  # on rbd: half at QD1, half at QD8
 R_OBJECT_BYTES = 4 << 20  # RBD's default object size
 R_QD = 8
-R_IMAGE_BYTES = 64 << 20  # the striped image (cut)
+R_IMAGE_BYTES = 32 << 20  # the striped image (cut, from 64 MiB with D_OBJECTS)
 R_LIMIT_S = 150.0
+# Ceph's heartbeat interval and grace, as phase 17's: 16e outs a daemon
+# that keeps running, so nothing waits on a down, and the per-heartbeat PG
+# ticks and mgr reports of phase 15's 0.25 s beat load the shared loop
+R_CONF = {**D_CONF, **PG_CONF, "osd_heartbeat_interval": 1.0, "osd_heartbeat_grace": 6.0}
 R_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
 R_REACHES = {"16a": (), "16b": ("swar_gf",), "16c": ("swar_gf",), "16d": (),
              "16e": ("swar_gf",)}
@@ -5720,7 +5806,7 @@ async def _phase_client(torch, swar, packed, co, card, device) -> dict:
     guard = device_guard()
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_client_")
-    c = host.DaemonCluster("ceph_tpu_torch", R_OSDS, PG_POOLS, conf={**D_CONF, **PG_CONF},
+    c = host.DaemonCluster("ceph_tpu_torch", R_OSDS, PG_POOLS, conf=R_CONF,
                            device=device, stack="posix", keyring=True, root_dir=tmp,
                            store="bluestore", admin_sockets=True, mons=R_MONS,
                            mon_conf=M_MON_CONF)
@@ -6084,24 +6170,24 @@ A_MONS = 3
 A_OSDS = 12
 A_VICTIM = 3
 A_ORDER = 22  # RBD's default: 4 MiB objects
-A_IMAGE_BYTES = 128 << 20
+A_IMAGE_BYTES = 32 << 20  # cut from 128 MiB with D_OBJECTS
 A_QD = 8
-A_OVERWRITES = 256
+A_OVERWRITES = 128  # cut from 256 with D_OBJECTS
 A_OVERWRITE_BYTES = (4 << 10, 64 << 10)
 A_SNAP_WRITES = 8  # writes after the snapshot, 64 KiB each
 A_MIRROR_BYTES = 32 << 20
 A_MIRROR_WRITES = 16
 A_MIRROR_WRITE = 1 << 20
-A_S3_OBJECTS = 32  # half at QD1, half at QD8
+A_S3_OBJECTS = 16  # half at QD1, half at QD8 (cut from 32 with D_OBJECTS)
 A_S3_BYTES = 4 << 20
 A_RANGED = 32  # ranged reads of A_RANGE_BYTES
 A_RANGE_BYTES = 1 << 20
-A_MULTIPART_BYTES = 32 << 20
+A_MULTIPART_BYTES = 16 << 20  # cut from 32 MiB with D_OBJECTS
 A_PART_BYTES = 8 << 20
 A_SWIFT_OBJECTS = 8
 A_SWIFT_BYTES = 1 << 20
 A_DEGRADED_GETS = 8
-A_FS_FILES = 64
+A_FS_FILES = 16  # cut from 64 with D_OBJECTS
 A_FS_DIRS = 8
 A_FS_BYTES = (256 << 10, 4 << 20)
 # RGW's and CephFS's documented defaults (rgw_obj_stripe_size 4 MiB; a file
@@ -6114,7 +6200,7 @@ A_POOLS = PG_POOLS + [
      "overwrites": True, "profile": {"technique": "reed_sol_van"}},
 ]
 A_MON_CONF: dict = {}  # Ceph's down-out interval: 17c's degraded GETs decode, none rebuilds
-# Ceph's heartbeat interval and grace (phases 14-16 cut them to 0.25 s and
+# Ceph's heartbeat interval and grace (phases 14-15 cut them to 0.25 s and
 # 1.5 s): every daemon ticks its PGs and reports to the mgr each heartbeat,
 # work that grows with the objects stored and that phase 17 does not measure
 A_CONF = {**D_CONF, **PG_CONF, "osd_heartbeat_interval": 1.0, "osd_heartbeat_grace": 6.0}
@@ -6559,6 +6645,470 @@ async def _phase_access(torch, swar, packed, co, card, device) -> dict:
     return {"launches": totals, "by_part": by_part, "by_step": by_step, "figures": out}
 
 
+F_MONS = 3
+F_OSDS = 12
+F_QD = 8
+F_DIRS = 16
+F_FILES_PER_DIR = 32
+F_RENAMES = 128
+F_DATA_FILES = 64  # half at QD1, half at QD8
+F_FILE_BYTES = 4 << 20
+F_CAP_FILES = 8  # files the second client opens for writing while the first holds them
+F_OVERWRITES = 256
+F_OVERWRITE_BYTES = (4 << 10, 64 << 10)
+F_FAILOVER_CREATES = 8
+# Ceph's documented CephFS-on-EC setup: a replicated metadata pool and an
+# RS(8,3) data pool with allow_ec_overwrites, each at pg_num 32
+F_POOLS = [
+    {"name": "cephfs_metadata", "kind": "rep", "size": 3, "pg_num": PG_NUM},
+    {"name": "cephfs_data", "kind": "ec", "k": 8, "m": 3, "pg_num": PG_NUM, "stripe_unit": 4096,
+     "overwrites": True, "profile": {"technique": "reed_sol_van"}},
+]
+F_MDS = ("a", "b")  # rank 0 and a standby
+F_FS_CLIENTS = ("client.fs0", "client.fs1")
+F_CONF = A_CONF
+F_LIMIT_S = 300.0
+F_KERNELS = ("swar_gf", "packed_verify", "packed_delta", "crc32c")
+F_REACHES = {"18a": (), "18b": (), "18c": ("swar_gf",), "18d": ("swar_gf",), "18e": ()}
+
+
+def phase_cephfs(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 18: CephFS through the MDS, its data on RS(8,3)."""
+    import asyncio
+
+    return asyncio.run(_phase_cephfs(torch, swar, packed, co, card, device))
+
+
+async def _phase_cephfs(torch, swar, packed, co, card, device) -> dict:
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.common.errs import EAGAIN, EEXIST
+    from ceph_tpu_torch.mds import MDS, CephFSClient, FsClientError
+    from ceph_tpu_torch.msg.messages import MClientCaps
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.striper import StripePolicy
+
+    host = load_test_host("torch_daemon_host")
+    guard = device_guard()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cephfs_")
+    entities = (host.CLIENT, *F_FS_CLIENTS, *(f"mds.{n}" for n in F_MDS),
+                *(f"client.mds-{n}" for n in F_MDS))
+    c = host.DaemonCluster("ceph_tpu_torch", F_OSDS, F_POOLS, conf=F_CONF, device=device,
+                           stack="posix", keyring=True, root_dir=tmp, store="bluestore",
+                           admin_sockets=True, mons=F_MONS, clients=entities)
+    rados = None
+    mds_radoses: list = []
+    daemons: list = []
+    clients: list = []
+    mods: dict = {}
+    by_part: dict = {}
+    by_step: dict = {}
+    out: dict = {}
+    revokes = [0]
+    rng = np.random.default_rng(SEED + 180)
+    # CephFS's default file layout: 4 MiB objects, one stripe unit each
+    layout = StripePolicy(stripe_unit=F_FILE_BYTES, stripe_count=1, object_size=F_FILE_BYTES)
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "packed_verify": packed.launches["packed_verify"],
+                "packed_delta": packed.launches["packed_delta"],
+                "crc32c": co.crc32c_device.launches}
+
+    def delta(before: dict) -> dict:
+        torch.cuda.synchronize()
+        now = counts()
+        return {k: now[k] - before[k] for k in F_KERNELS}
+
+    def healthy(part: str) -> None:
+        c.raise_failed_monitor()
+        check(c.mgr.failed is None, f"{part}: the mgr stopped on {c.mgr.failed!r}")
+        for d in daemons:
+            check(d.failed is None, f"{part}: mds.{d.name} stopped on {d.failed!r}")
+        check(not guard.degraded, f"{part}: the device guard is degraded")
+
+    def done(part: str, before: dict) -> None:
+        by_part[part] = delta(before)
+        for kernel in F_REACHES[part]:
+            check(by_part[part][kernel] > 0, f"{part}: no {kernel} launch ({by_part[part]})")
+        healthy(part)
+
+    def blob(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def mbs(nbytes: int, t0: float) -> float:
+        return nbytes / (time.perf_counter() - t0) / 1e6
+
+    async def step(name: str, nbytes: int, coro):
+        before = counts()
+        t = time.perf_counter()
+        result = await coro
+        out[f"{name} MB/s"] = mbs(nbytes, t)
+        by_step[name] = {k: v for k, v in delta(before).items()
+                         if k in ("swar_gf", "packed_delta")}
+        return result
+
+    async def batches(calls: list, qd: int) -> list:
+        """Each call of `calls` (a coroutine function), at most qd at once."""
+        results = []
+        for lo in range(0, len(calls), qd):
+            results += await asyncio.gather(*(call() for call in calls[lo:lo + qd]))
+        return results
+
+    def active():
+        live = [d for d in daemons if d.state == "active"]
+        return live[0] if live else None
+
+    swar.launches = 0
+    for name in ("packed_code", "packed_verify", "packed_delta"):
+        packed.launches[name] = 0
+    co.crc32c_device.launches = 0
+    fallback0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    try:
+        # 18a: the cluster, `fs new`, two MDS daemons, two clients
+        before = counts()
+        out["18a s to clean"] = await c.start(180)
+        mods = mgr_modules(c.mgr)
+        rados = Rados(c.monmap, name="client.admin", secret=c.keyring.get("client.admin"),
+                      stack="posix")
+        await rados.connect(30.0)
+        t = time.perf_counter()
+        await c.command({"prefix": "fs new", "fs_name": "cephfs",
+                         "metadata": "cephfs_metadata", "data": "cephfs_data"})
+        for n in F_MDS:
+            r = Rados(c.monmap, name=f"client.mds-{n}", secret=c.keyring.get(f"client.mds-{n}"),
+                      stack="posix")
+            await r.connect(30.0)
+            mds_radoses.append(r)
+            d = MDS(stack="posix", name=n, monmap=c.monmap, rados=r, keyring=c.keyring,
+                    admin_socket=os.path.join(tmp, f"mds.{n}.asok"))
+            await d.start()
+            daemons.append(d)
+        await host.wait_until(lambda: active() is not None, 60.0, "an active MDS")
+        out["18a s fs new to active MDS"] = time.perf_counter() - t
+        data_io = await rados.open_ioctx("cephfs_data")
+        for name in F_FS_CLIENTS:
+            fsc = CephFSClient(data_ioctx=data_io, monmap=c.monmap, name=name, stack="posix",
+                               layout=layout, secret=c.keyring.get(name))
+            await fsc.connect(30.0)
+            dispatch_caps = fsc.ms_dispatch
+
+            def counting(conn, msg, dispatch_caps=dispatch_caps):
+                if isinstance(msg, MClientCaps) and msg.op == MClientCaps.REVOKE:
+                    revokes[0] += 1
+                return dispatch_caps(conn, msg)
+
+            fsc.ms_dispatch = counting
+            clients.append(fsc)
+        rank0 = active()
+        status = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: admin_command(os.path.join(tmp, f"mds.{rank0.name}.asok"), "status"))
+        check(status["state"] == "up:active" and status["fs"] == "cephfs",
+              f"18a: mds.{rank0.name}'s admin socket says {status}")
+        check(all(pg.backend.ec.device.type == "cuda" for o in c.osds
+                  for pg in o.pgs.values() if hasattr(pg.backend, "ec")),
+              "18: an EC PG's codec is not on the card")
+        done("18a", before)
+        print(f"[18] 18a: {F_MONS} monitors, mgr.x with {len(mods)} modules, {F_OSDS} OSD "
+              f"daemons on BlueStore, pools {[p['name'] for p in F_POOLS]}, every PG clean "
+              f"{out['18a s to clean']:.3f} s after the first start; `fs new` to mds.{rank0.name} "
+              f"active (standby {[d.name for d in daemons if d is not rank0]}) "
+              f"{out['18a s fs new to active MDS']:.3f} s; {len(clients)} clients in mon mode "
+              f"with cephx, layout {layout}; {card}", flush=True)
+
+        # 18b: the namespace: directories, empty files at QD8 over both clients,
+        # renames, then every directory listed and every entry stat'ed
+        before = counts()
+        model: dict = {}  # path -> bytes
+        dirs = [f"/d{i:02d}" for i in range(F_DIRS)]
+        t = time.perf_counter()
+        await batches([lambda p=p, i=i: clients[i % 2].mkdir(p) for i, p in enumerate(dirs)],
+                      F_QD)
+
+        async def create(fsc, path):
+            fh = await fsc.create(path)
+            await fh.close()
+            model[path] = b""
+
+        paths = [f"{d}/f{j:02d}" for d in dirs for j in range(F_FILES_PER_DIR)]
+        await batches([lambda p=p, i=i: create(clients[i % 2], p) for i, p in enumerate(paths)],
+                      F_QD)
+        renamed = {}
+        for i in range(F_RENAMES):
+            src = paths[i * len(paths) // F_RENAMES]
+            renamed[src] = f"{dirs[(i + 1) % F_DIRS]}/r{i:03d}"
+
+        async def rename(fsc, src, dst):
+            await fsc.rename(src, dst)
+            model[dst] = model.pop(src)
+
+        await batches([lambda s_=s_, d_=d_, i=i: rename(clients[i % 2], s_, d_)
+                       for i, (s_, d_) in enumerate(renamed.items())], F_QD)
+        listed = await batches([lambda d=d, i=i: clients[i % 2].listdir(d)
+                                for i, d in enumerate(dirs)], F_QD)
+        want = [sorted(p.rsplit("/", 1)[1] for p in model if p.startswith(d + "/")) for d in dirs]
+        check(listed == want, "18b: a listing differs from the model")
+        stats = await batches([lambda p=p, i=i: clients[i % 2].stat(p)
+                               for i, p in enumerate(sorted(model))], F_QD)
+        check(all(st["type"] == "file" and st["size"] == 0 for st in stats),
+              "18b: a stat differs from the model")
+        n_ops = len(dirs) * 2 + len(paths) + len(renamed) + len(stats)
+        out["18b metadata ops/s"] = n_ops / (time.perf_counter() - t)
+        out["18b metadata ops"] = n_ops
+        done("18b", before)
+        print(f"[18] 18b: {F_DIRS} directories, {len(paths)} files created at QD{F_QD} over "
+              f"{len(clients)} clients, {F_RENAMES} renames, every directory listed and "
+              f"{len(stats)} entries stat'ed, equal to the model: {n_ops} metadata ops "
+              f"{out['18b metadata ops/s']:.1f}/s; launches {by_part['18b']}; {card}", flush=True)
+
+        # 18c: file data through the striper into RS(8,3): 4 MiB files at QD1 and
+        # QD8, read back
+        before = counts()
+        files = {f"{dirs[i % F_DIRS]}/data{i:02d}": blob(F_FILE_BYTES) for i in range(F_DATA_FILES)}
+        names = list(files)
+        half = F_DATA_FILES // 2
+
+        async def write(i, path):
+            await clients[i % 2].write_file(path, files[path])
+            model[path] = files[path]
+
+        await step("18c write QD1", half * F_FILE_BYTES,
+                   batches([lambda p=p, i=i: write(i, p) for i, p in enumerate(names[:half])], 1))
+        await step("18c write QD8", half * F_FILE_BYTES,
+                   batches([lambda p=p, i=i: write(i, p)
+                            for i, p in enumerate(names[half:])], F_QD))
+
+        async def read_back(paths_):
+            got = await batches([lambda p=p, i=i: clients[(i + 1) % 2].read_file(p)
+                                 for i, p in enumerate(paths_)], F_QD)
+            for p, data in zip(paths_, got):
+                check(data == model[p], f"18c: {p} reads back wrong")
+
+        await step("18c read", F_DATA_FILES * F_FILE_BYTES, read_back(names))
+        done("18c", before)
+        print(f"[18] 18c: {F_DATA_FILES} files of {F_FILE_BYTES >> 20} MiB on cephfs_data: write "
+              f"{out['18c write QD1 MB/s']:.1f} MB/s at QD1, {out['18c write QD8 MB/s']:.1f} at "
+              f"QD8, read back byte-exact {out['18c read MB/s']:.1f} MB/s at QD8; launches by "
+              f"step { {k: v for k, v in by_step.items() if k.startswith('18c')} }; launches "
+              f"{by_part['18c']}; {card}", flush=True)
+
+        # 18d: caps: the second client opens for writing files the first holds;
+        # then 256 overwrites of 4-64 KiB at QD8
+        before = counts()
+        revokes0 = revokes[0]
+        held = names[:F_CAP_FILES]
+        first = await asyncio.gather(*(clients[0].open(p, "w") for p in held))
+        second = await asyncio.gather(*(clients[1].open(p, "w") for p in held))
+        await host.wait_until(lambda: not any(fh.valid for fh in first), 30.0,
+                              "the first client's caps revoked")
+        for fh in first:
+            try:
+                await fh.write(b"stale", 0)
+                check(False, f"18d: a revoked handle of {fh.path} wrote")
+            except FsClientError:
+                pass
+
+        async def overwrite_held(fh):
+            data = blob(F_OVERWRITE_BYTES[0])
+            await fh.write(data, 0)
+            model[fh.path] = data + model[fh.path][len(data):]
+            await fh.close()
+
+        await asyncio.gather(*(overwrite_held(fh) for fh in second))
+        out["18d revokes"] = revokes[0] - revokes0
+        check(out["18d revokes"] >= F_CAP_FILES, f"18d: {out['18d revokes']} revokes")
+        plan = []
+        for _ in range(F_OVERWRITES):
+            size = int(rng.integers(F_OVERWRITE_BYTES[0], F_OVERWRITE_BYTES[1] + 1))
+            plan.append((names[int(rng.integers(0, len(names)))],
+                         int(rng.integers(0, F_FILE_BYTES - size)), blob(size)))
+
+        async def overwrites():
+            # at most F_QD in flight, on distinct files, each by one client
+            batch: list = []
+            for item in plan + [None]:
+                if item is None or len(batch) == F_QD or item[0] in {b[0] for b in batch}:
+                    async def one(i, path, off, data):
+                        fh = await clients[i % 2].open(path, "w")
+                        try:
+                            await fh.write(data, off)
+                        finally:
+                            await fh.close()
+                    await asyncio.gather(*(one(i, *b) for i, b in enumerate(batch)))
+                    for path, off, data in batch:
+                        cur = model[path]
+                        model[path] = cur[:off] + data + cur[off + len(data):]
+                    batch = []
+                if item is not None:
+                    batch.append(item)
+
+        await step("18d overwrites", sum(len(d) for _p, _o, d in plan), overwrites())
+        touched = sorted({p for p, _o, _d in plan} | set(held))
+        await read_back(touched)
+        done("18d", before)
+        print(f"[18] 18d: the second client opened {F_CAP_FILES} files for writing that the "
+              f"first held: {out['18d revokes']} revokes, the first's handles refused, the "
+              f"second's writes landed; {F_OVERWRITES} overwrites of 4-64 KiB at QD{F_QD} "
+              f"{out['18d overwrites MB/s']:.2f} MB/s, {len(touched)} files read back "
+              f"byte-exact; launches by step "
+              f"{ {k: v for k, v in by_step.items() if k.startswith('18d')} }; launches "
+              f"{by_part['18d']}; {card}", flush=True)
+
+        # 18e: the active MDS stops under 8 creates in flight; the standby
+        # replays the journal; every acknowledged entry is there
+        before = counts()
+        old = active()
+        standby = next(d for d in daemons if d is not old)
+        fresh = [f"/failover/n{i}" for i in range(F_FAILOVER_CREATES)]
+        await clients[0].mkdir("/failover")
+        model_dirs = ["/failover"]
+
+        async def create_logged(i, path):
+            try:
+                await create(clients[i % 2], path)
+                return 0
+            except FsClientError as e:
+                return e.errno
+
+        inflight = [asyncio.ensure_future(create_logged(i, p)) for i, p in enumerate(fresh)]
+        await asyncio.sleep(0)
+        t = time.perf_counter()
+        await old.stop(flush=False)
+        await host.wait_until(lambda: standby.state == "active", 60.0, "the standby active")
+        out["18e s to standby active"] = time.perf_counter() - t
+        results = await asyncio.gather(*inflight)
+        out["18e s to creates answered"] = time.perf_counter() - t
+        acked = [p for p, rv in zip(fresh, results) if rv == 0]
+        # a resend past the client's 10 s deadline is unacknowledged (-EAGAIN)
+        # and may or may not have landed; any other answer (EEXIST above all:
+        # a resent create the standby ran again) is a fault of the failover
+        check(set(results) <= {0, -EAGAIN},
+              f"18e: the in-flight creates answered {dict(zip(fresh, results))}")
+        # the application creates an unacknowledged path again: a new request,
+        # so EEXIST here says its first create landed before the stop
+        again = [p for p, rv in zip(fresh, results) if rv != 0]
+        retried = await asyncio.gather(*(create_logged(i, p) for i, p in enumerate(again)))
+        check(set(retried) <= {0, -EEXIST},
+              f"18e: the creates made again answered {dict(zip(again, retried))}")
+        for p, rv in zip(again, retried):
+            model[p] = b""
+        listed = await clients[1].listdir("/failover")
+        check(sorted(listed) == sorted(p.rsplit("/", 1)[1] for p in fresh),
+              f"18e: acknowledged {acked} and made again {again}, listed {listed}")
+        # exactly once across the failover is shown by the creates that the
+        # standby answered: a failover that outlasts the client's deadline
+        # (a slow host) leaves none, and the run says so
+        deadline = inspect.signature(CephFSClient._request).parameters["timeout"].default
+        check(acked or out["18e s to creates answered"] >= deadline,
+              f"18e: no in-flight create acknowledged, answered after "
+              f"{out['18e s to creates answered']:.3f} s")
+        for d in dirs + model_dirs:
+            got = await clients[0].listdir(d)
+            want_d = sorted(p.rsplit("/", 1)[1] for p in model if p.startswith(d + "/"))
+            check(set(want_d) <= set(got) and (d == "/failover" or got == want_d),
+                  f"18e: {d} lists {len(got)} entries, the model {len(want_d)}")
+        await step("18e read", sum(len(v) for v in model.values()),
+                   read_back(sorted(p for p, v in model.items() if v)))
+        out["18e acknowledged creates"] = len(acked)
+        out["18e creates made again"] = len(again)
+        daemons.remove(old)
+        done("18e", before)
+        print(f"[18] 18e: mds.{old.name} stopped with {F_FAILOVER_CREATES} creates in flight: "
+              f"mds.{standby.name} active {out['18e s to standby active']:.3f} s later (beacon "
+              f"grace 6 s), the creates answered after {out['18e s to creates answered']:.3f} s, "
+              f"{len(acked)} acknowledged, {len(again)} made again, all listed; every entry of "
+              f"the model listed and every "
+              f"file read back byte-exact {out['18e read MB/s']:.1f} MB/s; launches "
+              f"{by_part['18e']}; {card}", flush=True)
+
+        statuses = [c.status(o.whoami) for o in c.running()]
+        check(all(s["tpu_backend"]["fallback_launches"] == 0 for s in statuses),
+              "18: a daemon's status blob reads fallback launches")
+        check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == fallback0,
+              "18: a launch fell back to the host")
+        check(c.client._tid == 0, "18: an op went through the test host's client")
+    finally:
+        for fsc in clients:
+            await fsc.shutdown()
+        for d in daemons:
+            await d.stop()
+        for r in mds_radoses:
+            await r.shutdown()
+        if rados is not None:
+            await rados.shutdown()
+        for module in mods.values():
+            if hasattr(module, "shutdown"):
+                await module.shutdown()
+        await c.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    totals = {k: sum(part[k] for part in by_part.values()) for k in F_KERNELS}
+    check(totals == counts(), f"18: launches {counts()} != the parts' sum {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] <= F_LIMIT_S, f"18: {out['seconds']:.1f} s, over {F_LIMIT_S} s")
+    print(f"[18] launches by part {by_part}; by step {by_step}; figures {json.dumps(out)}",
+          flush=True)
+    return {"launches": totals, "by_part": by_part, "by_step": by_step, "figures": out}
+
+
+CLUSTER_RESULT = "chip_smoke cluster phase result: "
+CLUSTER_LIMIT_S = 600.0
+
+
+def cluster_phases(phases: dict, mon_log: str | None) -> dict:
+    """Phases 14-18 side by side, one process each (this script with
+    --cluster-phase N), on the one card: each builds a cluster of its own
+    on its own ports and directories, so none waits on another's event
+    loop.  Each child loads the kernels phase 1 built; its standard output
+    is printed here in phase order once all have ended, its standard error
+    goes straight to this one's.  Returns each phase's result; fails if a
+    child fails (the others are stopped then) or all take longer than
+    CLUSTER_LIMIT_S."""
+    import tempfile
+
+    procs, outs, failed = {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
+        try:
+            for n in phases:
+                outs[n] = open(os.path.join(tmp, f"{n}.out"), "w+")
+                cmd = [sys.executable, os.path.abspath(__file__), "--cluster-phase", n]
+                if mon_log and n == "15":
+                    cmd += ["--mon-log", mon_log]
+                procs[n] = subprocess.Popen(cmd, stdin=subprocess.DEVNULL, stdout=outs[n])
+            deadline = time.monotonic() + CLUSTER_LIMIT_S
+            while any(p.poll() is None for p in procs.values()):
+                if any(p.returncode not in (None, 0) for p in procs.values()):
+                    break
+                if time.monotonic() > deadline:
+                    failed.append(f"still running after {CLUSTER_LIMIT_S:.0f} s")
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        results = {}
+        for n, p in procs.items():
+            outs[n].seek(0)
+            for line in outs[n].read().splitlines():
+                if line.startswith(CLUSTER_RESULT):
+                    results[n] = json.loads(line[len(CLUSTER_RESULT):])
+                else:
+                    print(line)
+            outs[n].close()
+            if p.returncode != 0 or n not in results:
+                failed.append(f"phase {n} exited {p.returncode}")
+        sys.stdout.flush()
+    check(not failed, f"phases {'-'.join(phases)} side by side: {', '.join(failed)}")
+    return results
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -6572,8 +7122,10 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16", "17"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17", "18"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
+    parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18"),
+                        help=argparse.SUPPRESS)  # one of the side-by-side phases' processes
     args = parser.parse_args(argv)
     import torch
 
@@ -6613,7 +7165,7 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
     diag = (kern_exp2, kern_exp3, kern_exp4, kern_exp5)
-    if args.mon_log:
+    if args.mon_log and (args.only or args.cluster_phase):  # else phase 15's process logs
         from ceph_tpu_torch.common.log import Log, default_client
 
         log = default_client()
@@ -6627,14 +7179,23 @@ def main(argv: list[str]) -> int:
         print(f"[{n}] phase {n}: {time.perf_counter() - t0:.2f} s", flush=True)
         return result
 
-    name, card, infos = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed, xor_mm,
-                              nvcc_path())
-    if args.only:
+    clusters = {"14": phase_daemon, "15": phase_mon, "16": phase_client,
+                "17": phase_access, "18": phase_cephfs}
+    if args.cluster_phase:
         from ceph_tpu_torch.ops import checksum_offload as co
 
-        alone = {"14": phase_daemon, "15": phase_mon, "16": phase_client,
-                 "17": phase_access}[args.only]
-        phase(int(args.only), alone, torch, swar, packed, co, card)
+        torch.set_num_threads(1)  # five such processes share the host's cores
+        result = phase(int(args.cluster_phase), clusters[args.cluster_phase], torch, swar,
+                       packed, co, card_line())
+        print(CLUSTER_RESULT + json.dumps(result, default=lambda o: o.item()), flush=True)
+        return 0
+    name, card, infos, building = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed,
+                                       xor_mm, nvcc_path())
+    if args.only:
+        phase("1b", check_bitmatrix_build, nvcc_path(), building)
+        from ceph_tpu_torch.ops import checksum_offload as co
+
+        phase(int(args.only), clusters[args.only], torch, swar, packed, co, card)
         return 0
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
@@ -6643,6 +7204,7 @@ def main(argv: list[str]) -> int:
     errs = phase("5a", phase_diag_checks, torch, swar, gf, diag)
     diag_launches = phase("5b", phase_diag_mains, torch, swar, diag)
     diag_times = phase("5c", phase_diag_timing, torch, swar, gf, diag, bulk["floor_ms"])
+    infos["bitmatrix"] = phase("1b", check_bitmatrix_build, nvcc_path(), building)
     errs.update(phase("6a", phase_bitmatrix_checks, torch, gf, kern_exp))
     diag_launches.update(phase("6b", phase_bitmatrix_main, torch, swar, kern_exp))
     diag_times.update(phase("6c", phase_bitmatrix_timing, torch, gf, kern_exp))
@@ -6663,12 +7225,8 @@ def main(argv: list[str]) -> int:
         if label in bluestore["times"]:
             bluestore["times"][label].update(row)
     pg = phase(13, phase_pg, torch, swar, packed, xor_mm, card)
-    from ceph_tpu_torch.ops import checksum_offload as co
-
-    daemon = phase(14, phase_daemon, torch, swar, packed, co, card)
-    mon = phase(15, phase_mon, torch, swar, packed, co, card)
-    client = phase(16, phase_client, torch, swar, packed, co, card)
-    access = phase(17, phase_access, torch, swar, packed, co, card)
+    side = phase("14-18", cluster_phases, clusters, args.mon_log)
+    daemon, mon, client, access, cephfs = (side[n] for n in clusters)
     fig15, fig16 = mon["figures"], client["figures"]
     print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
           f"{fig16['16b QD8 MB/s']:.1f} (QD1 / QD8, Rados, ten mgr modules) beside 15b "
@@ -6681,9 +7239,11 @@ def main(argv: list[str]) -> int:
                                  "14": daemon["launches"][kernel]}
     diag_launches["packed_verify"]["15"] = mon["launches"]["packed_verify"]
     diag_launches["packed_delta"]["17"] = access["launches"]["packed_delta"]
+    diag_launches["packed_delta"]["18"] = cephfs["launches"]["packed_delta"]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
-                     "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"]}
+                     "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"],
+                     "18": cephfs["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",

@@ -56,7 +56,10 @@ def test_port_files_found():
                    "mgr/telemetry.py", "mgr/dashboard.py", "mgr/orchestrator.py",
                    "client/absent.py", "rbd/__init__.py", "rbd/rbd.py", "rbd/mirror.py",
                    "rgw/__init__.py", "rgw/rgw.py", "rgw/http.py", "rgw/swift.py",
-                   "fs/__init__.py", "fs/fs.py"):
+                   "fs/__init__.py", "fs/fs.py", "mds/__init__.py", "mds/mds.py",
+                   "mds/client.py", "tools/__init__.py", "tools/vstart.py",
+                   "tools/ceph_cli.py", "tools/rados_cli.py", "tools/rbd_cli.py",
+                   "tools/rgw_admin.py", "tools/objectstore_tool.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -349,3 +352,82 @@ def test_access_layers_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_mds_and_tools_import_leaves_jax_out():
+    """The MDS, its client and the cluster tools import neither jax nor
+    the JAX package."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.mds, ceph_tpu_torch.mds.client\n"
+        "import ceph_tpu_torch.tools.vstart, ceph_tpu_torch.tools.ceph_cli\n"
+        "import ceph_tpu_torch.tools.rados_cli, ceph_tpu_torch.tools.rbd_cli\n"
+        "import ceph_tpu_torch.tools.rgw_admin, ceph_tpu_torch.tools.objectstore_tool\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+RUN_TOOL = (
+    "import runpy, sys\n"
+    "name, sys.argv = sys.argv[1], sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module(f'ceph_tpu_torch.tools.{name}', run_name='__main__', alter_sys=True)\n"
+    "    code = 0\n"
+    "except SystemExit as e:\n"
+    "    code = e.code or 0\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+    "print('imported', bad, file=sys.stderr)\n"
+    "sys.exit(1 if bad else code)\n"
+)
+
+
+def test_the_command_lines_run_as_processes_leave_jax_out(tmp_path):
+    """Each command line, run as a process of its own against a port dev
+    cluster on the CPU (the objectstore tool on a store of its own),
+    does its work and imports neither jax nor the JAX package."""
+    import asyncio
+
+    from ceph_tpu_torch.os.filestore import FileStore
+    from ceph_tpu_torch.os.transaction import Transaction
+    from ceph_tpu_torch.tools.vstart import DevCluster
+
+    store = FileStore(str(tmp_path / "osd"))
+    store.mount()
+    store.queue_transaction(Transaction().create_collection("1.0").write("1.0", "o", 0, b"x"))
+    store.umount()
+    cfile = str(tmp_path / "cluster.json")
+    runs = [
+        ("ceph_cli", ["--cluster-file", cfile, "osd", "pool", "create", "p"]),
+        ("rados_cli", ["--cluster-file", cfile, "-p", "p", "ls"]),
+        ("rbd_cli", ["--cluster-file", cfile, "-p", "p", "ls"]),
+        ("rgw_admin", ["--cluster-file", cfile, "-p", "p", "user", "list"]),
+        ("objectstore_tool", ["--data-path", str(tmp_path / "osd"), "--op", "list"]),
+        ("vstart", ["--help"]),
+    ]
+
+    def run(name, argv):
+        return subprocess.run([sys.executable, "-c", RUN_TOOL, name, *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=120)
+
+    async def main():
+        cluster = DevCluster(n_mons=1, n_osds=3, with_mgr=False, device="cpu")
+        await cluster.start()
+        try:
+            cluster.write_cluster_file(cfile)
+            loop = asyncio.get_running_loop()
+            return [await loop.run_in_executor(None, run, name, argv) for name, argv in runs]
+        finally:
+            await cluster.stop()
+
+    procs = dict(zip([name for name, _argv in runs], asyncio.run(main())))
+    for name, proc in procs.items():
+        assert proc.returncode == 0, (name, proc.stdout, proc.stderr)
+        assert "imported []" in proc.stderr, (name, proc.stderr)
+    assert '["1.0", "o"]' in procs["objectstore_tool"].stdout
+    assert "usage: vstart" in procs["vstart"].stdout

@@ -2,11 +2,13 @@
 
 `load(name)` reads `tests/<name>.py`, points every `ceph_tpu` import at
 `ceph_tpu_torch` and every `from test_x import` at the port's copy of
-that helper module (loaded the same way), and executes the text as the
-module `<name>__torch`.  The cases are the reference's, unchanged; only
-the package they import differs.  `collect(mod, names, into)` hands
-chosen test classes and functions to a port test file under a `_torch`
-suffix, so pytest collects them there.
+that helper module (loaded the same way), points the working directory
+and `PYTHONPATH` of the subprocesses it starts at this checkout's root,
+and executes the text (`ported_text(name)`) as the module
+`<name>__torch`.  The cases are the reference's, unchanged; only the
+package they import differs.  `collect(mod, names, into)` hands chosen
+test classes and functions to a port test file under a `_torch` suffix,
+so pytest collects them there.
 
 The port's daemons and monitors take `device=None` as cuda, where the
 reference's tests build them with no device: `cpu_daemons` (a fixture
@@ -28,6 +30,16 @@ import pytest
 TESTS = Path(__file__).resolve().parent
 _PKG = re.compile(r"\bceph_tpu\b(?!_torch)")
 _HELPER = re.compile(r"^(\s*)from (test_\w+) import", re.M)
+# a subprocess's `cwd="<root>"` or `"PYTHONPATH": "<root>"`, written for
+# the reference's checkout: the port's text runs from this one
+_ROOT = re.compile(r'(\bcwd=|"PYTHONPATH": )"[^"]*"')
+
+
+def ported_text(name: str) -> str:
+    """`tests/<name>.py` on the port, before its helper imports are
+    pointed at the port's copies."""
+    src = _PKG.sub("ceph_tpu_torch", (TESTS / f"{name}.py").read_text())
+    return _ROOT.sub(lambda m: m[1] + repr(str(TESTS.parent)), src)
 
 
 def load(name: str) -> types.ModuleType:
@@ -35,8 +47,7 @@ def load(name: str) -> types.ModuleType:
     key = f"{name}__torch"
     if key in sys.modules:
         return sys.modules[key]
-    src = (TESTS / f"{name}.py").read_text()
-    src = _PKG.sub("ceph_tpu_torch", src)
+    src = ported_text(name)
     mod = types.ModuleType(key)
     mod.__file__ = str(TESTS / f"{name}.py")
     sys.modules[key] = mod  # first: helpers may import each other
