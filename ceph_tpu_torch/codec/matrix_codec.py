@@ -45,6 +45,7 @@ from ..ops.packed_gf import (
 from ..ops import packed_gf, swar_gf
 from ..ops.offload_runtime import (
     AggTicket,
+    DonationPool,  # noqa: F401 (re-exported here, as the reference's module does)
     LaunchAggregator,
     _AggGroup,
     completion_event,

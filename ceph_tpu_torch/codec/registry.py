@@ -8,7 +8,9 @@ Plugin whose `factory()` builds codec instances, and verifies the instance's
 profile round-trips (:86-114).
 
 Here plugins are Python modules under `ceph_tpu_torch.codec.plugins`, loaded
-on demand, so the port's plugin keeps the name `tpu`.  The factory takes
+on demand, so the port's plugin keeps the name `tpu`.  `load_dynamic` is
+Ceph's dlopen path itself, which the `native` plugin loads its C++ engine
+through.  The factory takes
 the codec's device as a keyword, never as a profile key: the profile must
 round-trip unchanged.
 """
@@ -122,3 +124,72 @@ class ErasureCodePluginRegistry:
 
 def instance() -> ErasureCodePluginRegistry:
     return ErasureCodePluginRegistry.instance()
+
+
+# -- native plugin dlopen path (ErasureCodePlugin.cc:126-163) -----------------
+
+# The C-ABI version native plugins must export (Ceph checks
+# CEPH_GIT_NICE_VER; this is the ABI string of csrc/ec_native.cc).
+EC_NATIVE_ABI_VERSION = "ceph-tpu-ec-1.0"
+
+
+def load_dynamic(name: str, directory: str):
+    """dlopen `<directory>/libec_<name>.so` with Ceph's contract:
+
+    - load with RTLD_NOW | RTLD_LOCAL (ErasureCodePlugin.cc:126-128);
+    - a missing file -> -ENOENT; a failed dlopen, a missing
+      `__erasure_code_version` or a version other than
+      EC_NATIVE_ABI_VERSION -> -EXDEV (:134-143);
+    - a missing `__erasure_code_init` -> -ENOENT; a nonzero init return
+      is raised as that errno (:145-163).
+
+    Returns the loaded CDLL with the region-engine symbols typed.  The
+    port's own plugin library lives in `ceph_tpu_torch/_build/`
+    (`codec/plugins/native.py`)."""
+    import ctypes
+    import os
+
+    path = os.path.join(directory, f"libec_{name}.so")
+    if not os.path.exists(path):
+        raise EcError(ENOENT, f"plugin library {path} not found")
+    try:
+        lib = ctypes.CDLL(path, mode=ctypes.RTLD_LOCAL | os.RTLD_NOW)
+    except OSError as e:
+        raise EcError(EXDEV, f"dlopen {path} failed: {e}") from e
+    try:
+        version_fn = lib.__erasure_code_version
+    except AttributeError as e:
+        raise EcError(EXDEV, f"{path} missing __erasure_code_version") from e
+    version_fn.restype = ctypes.c_char_p
+    version_fn.argtypes = []
+    version = version_fn().decode()
+    if version != EC_NATIVE_ABI_VERSION:
+        raise EcError(
+            EXDEV, f"{path} version {version!r} != expected {EC_NATIVE_ABI_VERSION!r}"
+        )
+    try:
+        init_fn = lib.__erasure_code_init
+    except AttributeError as e:
+        raise EcError(ENOENT, f"{path} missing __erasure_code_init") from e
+    init_fn.restype = ctypes.c_int
+    init_fn.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    rc = init_fn(name.encode(), directory.encode())
+    if rc != 0:
+        raise EcError(abs(rc) or EXDEV, f"{path} init failed ({rc})")
+    # the region-engine surface, beyond the entry points
+    for sym, restype, argtypes in [
+        ("ec_tables_new", ctypes.c_void_p,
+         [ctypes.c_int, ctypes.c_int, ctypes.c_char_p]),
+        ("ec_tables_apply", None,
+         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t]),
+        ("ec_tables_free", None, [ctypes.c_void_p]),
+        ("ec_gf_invert_matrix", ctypes.c_int,
+         [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int]),
+        ("ec_region_xor", None,
+         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t]),
+    ]:
+        fn = getattr(lib, sym, None)
+        if fn is not None:
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return lib

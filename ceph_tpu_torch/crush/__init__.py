@@ -4,8 +4,9 @@ Deterministic pseudorandom placement: straw2 buckets, firstn/indep rule
 execution, weight-based rejection.  Kept on the host like Ceph keeps it
 in C: placement is latency-bound integer hashing, not device work.  The
 arithmetic is plain Python integers in fixed point, the JAX package's to
-the bit, so both packages place every PG on the same OSDs.  The ctypes
-bridge to `native/crush.cc` is not ported.
+the bit, so both packages place every PG on the same OSDs.  `native.py`
+bridges to the same math in C++ (`csrc/crush.cc`), which must agree
+with it bit for bit.
 """
 
 from .crush import (

@@ -267,12 +267,15 @@ class FlightRecorder:
             self._ring.append(rec)
         return rec
 
-    def record_raw(self, kind: str, stripes: int, nbytes: int) -> None:
+    def record_raw(self, kind: str, stripes: int, nbytes: int, devices: int = 1) -> None:
         """Lightweight span-less record for a dispatch that ran OUTSIDE
         an aggregator launch (eager bulk calls, timing loops): the ring
-        still shows when it happened and how big it was."""
+        still shows when it happened and how big it was.  `devices` > 1
+        marks a launch sharded over that many cards."""
         rec = new_record(kind, group="#raw", stripes=stripes, batch=stripes,
                          nbytes=nbytes)
+        rec["devices"] = max(1, int(devices))
+        rec["flags"]["sharded"] = devices > 1
         rec["dispatch_ts"] = rec["submit_ts"]
         self.commit(rec)
 

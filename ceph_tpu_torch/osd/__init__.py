@@ -1,1 +1,5 @@
 """OSD-side pieces of the PyTorch port."""
+
+from .osdmap import Incremental, OSDMap, PgPool, PG_NONE
+
+__all__ = ["Incremental", "OSDMap", "PgPool", "PG_NONE"]

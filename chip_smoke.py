@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17,18}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17,18,19}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
@@ -9,10 +9,11 @@ kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, phase 15's monitors' log (Paxos, the elector's messages and
 timers, the lease) is written at level 10 to PATH (with --only N, phase
 N's).  With --only N, phases 1 and 1b build the kernels and phase N (14,
-15, 16, 17 or 18) runs alone; the script then exits without the kernel
-and contract lines.
+15, 16, 17, 18 or 19) runs alone; the script then exits without the
+kernel and contract lines.
 
-Phases 14-18 each build a cluster of their own, and after phase 13 they
+Phase 19 (the offline tools) runs in this process right after phase 13.
+Phases 14-18 each build a cluster of their own, and after phase 19 they
 run side by side, one process each (this script with --cluster-phase N,
 which loads the kernels phase 1 built and prints its phase's result as
 one JSON line), on the one card; their output is printed in phase order
@@ -486,6 +487,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    monitors, the mgr and the MDS daemons have no `failed`, the guard is
    not degraded, 18c and 18d launch `swar_gf`; no fallback; the phase
    fails above 300 s.
+19. The offline tools on the card (run after phase 13, in this process),
+   every codec made with no device argument, so on cuda.  19a
+   `ec_tool encode` of a file of 4 MiB + 37 bytes, plugin `tpu` RS(8,3)
+   in both techniques at stripe unit 4096, then `decode`, whole and by
+   chunk, with 1 data, 1 parity, 2 mixed and 3 mixed chunks removed:
+   byte-equal to the file and to the chunks, and `swar_gf`'s launches
+   equal to the kernel-tier calls made (xor_reduce's to the single
+   erasures under the all-ones row); 19b `ec_corpus --check --standard`
+   of every tests/corpus fixture; 19c plugin `native` (its C++ engine,
+   csrc/ec_native.cc, built into ceph_tpu_torch/_build/ and loaded by
+   `load_dynamic`): its host chunks equal to plugin `tpu`'s device
+   chunks for RS(k,m) in (2,1), (4,2), (8,3), (10,4) x both techniques
+   over 1 MiB objects, a double erasure decoded, its `encode_array` on
+   cuda one `swar_gf` launch a call, and RS(8,3) encode and decode MB/s
+   through the chunk interface at 1 and 4 MiB beside plugin `tpu`'s;
+   19d `ec_benchmark` RS(8,3) at -S 1048576: encode, encode-pipelined
+   at depth 4, decode -e 1, 2 and 3 exhaustive (-e 3 again with its
+   decode plans cached), and CLAY(8,4,d=11) repair (read 2.75 chunks a
+   repaired chunk), each line with the GB/s
+   it implies; 19e `bench_sweep --baseline`: no `error` row, every row
+   on cuda, CLAY's read_amplification 2.75, rs_10_4_bulk_stripes at
+   65536 stripes in flight with its `swar_gf` launches; 19f
+   `bluestore_tool fsck --deep` on a BlueStore written with
+   csum_offload on the card (its csums from the `crc32c` kernel): 0
+   errors, then one flipped byte: shallow fsck 0, deep fsck names the
+   onode and block; 19g `trace_export` of 19a's and 19d's flight
+   records: valid, one launch slice on the device lane a record the
+   recorder holds; 19h a `codec.launch` fault armed before
+   `bench_sweep --baseline` and before `ec_corpus --check`: each exits
+   with DEVICE_ERROR_EXIT and records no row, and the guard's probe
+   heals it.  Every kernel's launches are counted by part.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -7056,6 +7088,360 @@ async def _phase_cephfs(torch, swar, packed, co, card, device) -> dict:
     return {"launches": totals, "by_part": by_part, "by_step": by_step, "figures": out}
 
 
+OT_FILE_BYTES = (4 << 20) + 37  # 19a's object: not a multiple of the stripe
+OT_STRIPE_UNIT = 4096
+OT_CLASSES = ([0], [9], [0, 9], [0, 5, 10])  # 1 data, 1 parity, 2 mixed, 3 mixed
+OT_NATIVE_KM = ((2, 1), (4, 2), (8, 3), (10, 4))
+OT_NATIVE_BYTES = 1 << 20
+OT_RATE_SIZES = (1 << 20, 4 << 20)
+OT_RATE_CALLS = 20
+OT_BENCH_SIZE = 1 << 20  # the reference tool's usage size, -S 1048576
+OT_BENCH_ITERATIONS = 100
+OT_REPAIR_ITERATIONS = 8
+OT_SWEEP_ITERATIONS = 8  # bench_sweep --baseline's default; cut first if phase 19 runs long
+OT_STORE_OBJECTS = 16
+OT_STORE_BYTES = 1 << 20
+OT_KERNELS = ("swar_gf", "packed_code", "packed_verify", "packed_delta", "gf2_plane_matmul",
+              "xor_reduce", "crc32c")
+
+
+def tool_run(main, argv: list) -> tuple[int, str, str]:
+    """One tool's `main(argv)` in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_tools(torch, swar, packed, xor_mm, co, card) -> dict:
+    """Phase 19: the offline tools on the card (19a-19h)."""
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.codec import registry
+    from ceph_tpu_torch.common.fault_injector import global_injector
+    from ceph_tpu_torch.ops import dispatch
+    from ceph_tpu_torch.ops.flight_recorder import flight_recorder
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.os.bluestore import _ONODE, BlueStore, Onode
+    from ceph_tpu_torch.os.transaction import Transaction
+    from ceph_tpu_torch.tools import (bench_sweep, bluestore_tool, ec_benchmark, ec_corpus,
+                                      ec_tool, trace_export)
+    from ceph_tpu_torch.tools.guarded import DEVICE_ERROR_EXIT
+
+    t_phase = time.perf_counter()
+    guard, fr = device_guard(), flight_recorder()
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, **packed.launches,
+                "gf2_plane_matmul": xor_mm.gf2_plane_matmul.launches,
+                "xor_reduce": xor_mm.xor_reduce.launches, "crc32c": co.crc32c_device.launches}
+
+    def reset() -> None:
+        swar.launches = 0
+        for name in packed.launches:
+            packed.launches[name] = 0
+        xor_mm.gf2_plane_matmul.launches = 0
+        xor_mm.xor_reduce.launches = 0
+        co.crc32c_device.launches = 0
+
+    by_part: dict = {}
+    records: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        # 19a: ec_tool encode and decode, every erasure class, both techniques
+        reset()
+        fr.reset()
+        d0 = dispatch.LAUNCHES.launches
+        rng = np.random.default_rng(SEED + 190)
+        original = rng.integers(0, 256, OT_FILE_BYTES, dtype=np.uint8).tobytes()
+        path = os.path.join(tmp, "obj")
+        expected_swar = expected_xor = 0
+        t0 = time.perf_counter()
+        for tech in ("reed_sol_van", "cauchy"):
+            profile = f"plugin=tpu,technique={tech},k=8,m=3"
+            ec = registry.instance().factory("tpu", {"technique": tech, "k": "8", "m": "3"})
+            check(ec.device.type == "cuda", f"19a codec on {ec.device}, want cuda")
+            with open(path, "wb") as f:
+                f.write(original)
+            rc, _out, err = tool_run(ec_tool.main, ["encode", profile, str(OT_STRIPE_UNIT), "",
+                                                    path])
+            check(rc == 0, f"19a ec_tool encode {tech}: rc {rc} {err}")
+            expected_swar += 1
+            chunks = {}
+            for i in range(11):
+                with open(f"{path}.{i}", "rb") as f:
+                    chunks[i] = f.read()
+            for cls in OT_CLASSES:
+                for e in cls:
+                    os.unlink(f"{path}.{e}")
+                want = ",".join(map(str, cls))
+                for spec in ("", want):
+                    rc, _out, err = tool_run(ec_tool.main, ["decode", profile,
+                                                            str(OT_STRIPE_UNIT), spec, path])
+                    check(rc == 0, f"19a ec_tool decode {tech} {cls} want '{spec}': rc {rc} {err}")
+                    if spec == "" and not any(e < 8 for e in cls):
+                        pass  # every data chunk is there: decode_concat launches nothing
+                    elif ec._use_xor_decode(sorted(cls)):
+                        expected_xor += 1
+                    else:
+                        expected_swar += 1
+                with open(f"{path}.decoded", "rb") as f:
+                    whole = f.read()
+                check(whole[:OT_FILE_BYTES] == original,
+                      f"19a {tech} {cls}: the decoded object differs from the file")
+                for e in cls:
+                    with open(f"{path}.{e}.decoded", "rb") as f:
+                        check(f.read() == chunks[e], f"19a {tech} {cls}: chunk {e} differs")
+                    with open(f"{path}.{e}", "wb") as f:
+                        f.write(chunks[e])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        by_part["19a"] = counts()
+        records["19a"] = (fr.records(), dispatch.LAUNCHES.launches - d0)
+        chunk = len(chunks[0])
+        print(f"[19a] ec_tool: {OT_FILE_BYTES} bytes, RS(8,3) reed_sol_van and cauchy, encode "
+              f"and {len(OT_CLASSES)} erasure classes decoded whole and by chunk, byte-exact "
+              f"(chunk {chunk} bytes); {seconds:.2f} s host clock; swar_gf launches "
+              f"{by_part['19a']['swar_gf']}, kernel-tier calls {expected_swar}; xor_reduce "
+              f"{by_part['19a']['xor_reduce']}, xor decodes {expected_xor}; {card}", flush=True)
+        check(by_part["19a"]["swar_gf"] == expected_swar > 0,
+              f"19a swar_gf launches {by_part['19a']['swar_gf']} != {expected_swar}")
+        check(by_part["19a"]["xor_reduce"] == expected_xor,
+              f"19a xor_reduce launches {by_part['19a']['xor_reduce']} != {expected_xor}")
+
+        # 19b: ec_corpus check of every tests/corpus fixture, plugins made with no device
+        reset()
+        corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "corpus")
+        check(os.path.isdir(corpus), f"19b: no corpus at {corpus}")
+        t0 = time.perf_counter()
+        rc, _out, err = tool_run(ec_corpus.main, ["--check", "--standard", "--base", corpus])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"19b ec_corpus --check --standard: rc {rc} {err}")
+        check(all(ec_corpus._factory(p, prof).device.type == "cuda"
+                  for p, _sw, prof in ec_corpus.STANDARD_CONFIGS),
+              "19b: a corpus plugin made with no device is not on cuda")
+        by_part["19b"] = counts()
+        print(f"[19b] ec_corpus --check: {len(ec_corpus.STANDARD_CONFIGS)} fixtures, every chunk "
+              f"equal to the stored bytes, 1 and 2 erasures decoded; {seconds:.2f} s host clock; "
+              f"launches {by_part['19b']}; {card}", flush=True)
+
+        # 19c: plugin native, host chunks against plugin tpu's device chunks
+        reset()
+        t0 = time.perf_counter()
+        calls = 0
+        for k, m in OT_NATIVE_KM:
+            for tech in ("reed_sol_van", "cauchy"):
+                profile = {"k": str(k), "m": str(m), "technique": tech}
+                nat = registry.instance().factory("native", dict(profile))
+                tpu = registry.instance().factory("tpu", dict(profile))
+                check(nat.device.type == "cuda", f"19c native codec on {nat.device}")
+                obj = rng.integers(0, 256, OT_NATIVE_BYTES, dtype=np.uint8).tobytes()
+                a, b = nat.encode(set(range(k + m)), obj), tpu.encode(set(range(k + m)), obj)
+                for i in range(k + m):
+                    check(np.array_equal(a[i], b[i]),
+                          f"19c RS({k},{m}) {tech}: native chunk {i} != tpu's")
+                lost = {0, k + m - 1} if m > 1 else {k - 1}
+                got = nat.decode(lost, {i: a[i] for i in range(k + m) if i not in lost})
+                for e in lost:
+                    check(np.array_equal(got[e], a[e]), f"19c RS({k},{m}) {tech}: decode {e}")
+                if m > 1:
+                    before = swar.launches
+                    data = torch.from_numpy(np.stack([a[i] for i in range(k)])[None]).to(nat.device)
+                    parity = nat.encode_array(data)
+                    check(swar.launches == before + 1,
+                          f"19c native encode_array: {swar.launches - before} swar_gf launches")
+                    calls += 1
+                    check(np.array_equal(parity.cpu().numpy()[0],
+                                         np.stack([a[i] for i in range(k, k + m)])),
+                          f"19c RS({k},{m}) {tech}: native encode_array != host chunks")
+        torch.cuda.synchronize()
+        by_part["19c"] = counts()
+        print(f"[19c] plugin native: RS(k,m) {list(OT_NATIVE_KM)} x 2 techniques over "
+              f"{OT_NATIVE_BYTES} bytes, host chunks equal to plugin tpu's device chunks, a double "
+              f"erasure decoded; encode_array on cuda {calls} calls, one swar_gf launch each; "
+              f"{time.perf_counter() - t0:.2f} s host clock; launches {by_part['19c']}; {card}",
+              flush=True)
+        rates = {}
+        for plugin in ("native", "tpu"):
+            ec = registry.instance().factory(plugin, {"k": "8", "m": "3"})
+            for size in OT_RATE_SIZES:
+                obj = rng.integers(0, 256, size, dtype=np.uint8)
+                enc = ec.encode(set(range(11)), obj)
+                avail = {i: enc[i] for i in range(11) if i not in (0, 5)}
+                for name, fn in (("encode", lambda: ec.encode(set(range(11)), obj)),
+                                 ("decode", lambda: ec.decode({0, 5}, avail))):
+                    fn()
+                    times = []
+                    for _ in range(OT_RATE_CALLS):
+                        t1 = time.perf_counter()
+                        fn()
+                        times.append(time.perf_counter() - t1)
+                    rates[f"{plugin} {name} {size >> 20} MiB"] = size / statistics.median(times) / 1e6
+        print(f"[19c] RS(8,3) reed_sol_van, chunk interface (host bytes in and out), MB/s, median "
+              f"of {OT_RATE_CALLS} calls, decode of chunks 0 and 5: "
+              + ", ".join(f"{key} {val:.1f}" for key, val in rates.items()) + f"; {card}",
+              flush=True)
+
+        # 19d: ec_benchmark, RS(8,3) tpu at -S 1048576, and CLAY(8,4,d=11) repair
+        reset()
+        fr.reset()
+        d0 = dispatch.LAUNCHES.launches
+        bench = {}
+        base = ["-p", "tpu", "-P", "k=8", "-P", "m=3", "-S", str(OT_BENCH_SIZE)]
+        runs = [("encode", base + ["-i", str(OT_BENCH_ITERATIONS)]),
+                ("encode-pipelined depth 4", base + ["-w", "encode-pipelined", "--depth", "4",
+                                                     "-i", str(OT_BENCH_ITERATIONS)])]
+        runs += [(f"decode -e {e} exhaustive",
+                  base + ["-w", "decode", "-e", str(e), "--erasures-generation", "exhaustive",
+                          "-i", str(OT_BENCH_ITERATIONS)]) for e in (1, 2, 3)]
+        # again, each pattern's decode plan now cached (100 of C(11, 3) = 165 patterns
+        # were new in the first run, so the first reads the plans' construction too)
+        runs.append(("decode -e 3 exhaustive, plans cached", runs[-1][1]))
+        runs.append(("repair CLAY(8,4,d=11)",
+                     ["-w", "repair", "-p", "clay", "-P", "k=8", "-P", "m=4", "-P", "d=11",
+                      "-S", str(OT_BENCH_SIZE), "-i", str(OT_REPAIR_ITERATIONS)]))
+        for name, argv in runs:
+            before = counts()
+            rc, out, err = tool_run(ec_benchmark.main, argv)
+            check(rc == 0, f"19d ec_benchmark {name}: rc {rc} {err}")
+            fields = out.strip().split("\t")
+            seconds, kib = float(fields[0]), float(fields[1])
+            moved = {key: val - before[key] for key, val in counts().items() if val - before[key]}
+            bench[name] = {"line": out.strip(), "GBps": kib * 1024 / seconds / 1e9,
+                           "launches": moved}
+            extra = ""
+            if name.startswith("repair"):
+                read, repaired = int(fields[2]), int(fields[3])
+                extra = f", read {read / repaired:.3f} chunks a repaired chunk"
+                check(abs(read / repaired - 2.75) < 1e-9, f"19d repair read {read}/{repaired}")
+            print(f"[19d] ec_benchmark {name}: {out.strip()!r} -> {bench[name]['GBps']:.3f} GB/s"
+                  f"{extra}; launches {moved}; {card}", flush=True)
+            check(moved.get("swar_gf", 0) > 0 or name.startswith("repair"),
+                  f"19d {name}: no swar_gf launch")
+        by_part["19d"] = counts()
+        records["19d"] = (fr.records(), dispatch.LAUNCHES.launches - d0)
+
+        # 19e: bench_sweep --baseline on cuda
+        reset()
+        bulk_launches = []
+        run_bulk = bench_sweep.run_bulk
+
+        def counted_bulk(*args):
+            before = swar.launches
+            result = run_bulk(*args)
+            bulk_launches.append(swar.launches - before)
+            return result
+
+        bench_sweep.run_bulk = counted_bulk
+        try:
+            t0 = time.perf_counter()
+            rc, out, err = tool_run(bench_sweep.main,
+                                    ["--baseline", "--iterations", str(OT_SWEEP_ITERATIONS)])
+            seconds = time.perf_counter() - t0
+        finally:
+            bench_sweep.run_bulk = run_bulk
+        check(rc == 0, f"19e bench_sweep --baseline: rc {rc} {err}")
+        rows = [json.loads(line) for line in out.strip().splitlines()]
+        errors = [r for r in rows if "error" in r]
+        check(not errors, f"19e bench_sweep error rows: {errors}")
+        check({r["config"] for r in rows} == {c["name"] for c in bench_sweep.BASELINE_CONFIGS},
+              f"19e configs {sorted({r['config'] for r in rows})}")
+        check(all(r["platform"] == "cuda" for r in rows), "19e: a row not on cuda")
+        clay = [r for r in rows if r["config"] == "clay_8_4_d11_subchunk_repair"]
+        check(clay and clay[0]["read_amplification"] == 2.75, f"19e clay row {clay}")
+        bulk = [r for r in rows if r["config"] == "rs_10_4_bulk_stripes"]
+        check(bulk and bulk[0]["stripes_in_flight"] == 65536, f"19e bulk row {bulk}")
+        rounds = 65536 // 4096
+        iters = max(2, OT_SWEEP_ITERATIONS // 4)
+        check(bulk_launches == [2 + rounds * iters],
+              f"19e bulk swar_gf launches {bulk_launches}, want {[2 + rounds * iters]}")
+        by_part["19e"] = counts()
+        for r in rows:
+            print(f"[19e] bench_sweep {json.dumps(r)}; {card}")
+        print(f"[19e] rs_10_4_bulk_stripes: {bulk[0]['stripes_in_flight']} stripes in flight "
+              f"(queues of 4096 x 10 x 4096), {bulk[0]['MBps']} MB/s, swar_gf launches "
+              f"{bulk_launches[0]}; the sweep {seconds:.2f} s host clock; launches "
+              f"{by_part['19e']}; {card}", flush=True)
+
+        # 19f: bluestore_tool fsck --deep on a store whose csums came from the crc32c kernel
+        reset()
+        store_path = os.path.join(tmp, "bluestore")
+        store = BlueStore(store_path, csum_offload=True)
+        store.mount()
+        store.queue_transaction(Transaction().create_collection("1.0s0"))
+        for i in range(OT_STORE_OBJECTS):
+            store.queue_transaction(Transaction().write(
+                "1.0s0", f"o{i}", 0, rng.integers(0, 256, OT_STORE_BYTES, np.uint8).tobytes()))
+        poff = Onode.decode(store.db.get(_ONODE, "1.0s0\x00o5")).blocks[3][0]
+        store.umount()
+        by_part["19f"] = counts()
+        check(by_part["19f"]["crc32c"] > 0, "19f: the store's csums launched no crc32c kernel")
+        rc, out, err = tool_run(bluestore_tool.main, ["--path", store_path, "--op", "fsck",
+                                                      "--deep"])
+        check(rc == 0 and "0 error(s)" in out, f"19f clean deep fsck: rc {rc} {out} {err}")
+        summary = out.splitlines()[0]
+        with open(os.path.join(store_path, "block"), "r+b") as f:
+            f.seek(poff + 100)
+            byte = f.read(1)
+            f.seek(poff + 100)
+            f.write(bytes([byte[0] ^ 0x01]))
+        rc, shallow, _err = tool_run(bluestore_tool.main, ["--path", store_path, "--op", "fsck"])
+        check(rc == 0 and "0 error(s)" in shallow, f"19f shallow fsck after the flip: {shallow}")
+        rc, deep, _err = tool_run(bluestore_tool.main, ["--path", store_path, "--op", "fsck",
+                                                        "--deep"])
+        check(rc == 1 and "1 error(s)" in deep and "onode 1.0s0/o5 block 3: csum mismatch" in deep,
+              f"19f deep fsck after the flip: rc {rc} {deep}")
+        print(f"[19f] bluestore_tool: {OT_STORE_OBJECTS} objects of {OT_STORE_BYTES} bytes "
+              f"written with csum_offload on cuda ({by_part['19f']['crc32c']} crc32c launches); "
+              f"deep fsck '{summary}'; one flipped byte: shallow 0 errors, deep names "
+              f"1.0s0/o5 block 3; {card}", flush=True)
+
+        # 19g: trace_export of 19a's and 19d's flight records
+        for part, (recs, dispatches) in records.items():
+            trace = trace_export.export_chrome_trace(recs)
+            trace_export.validate_chrome_trace(trace)
+            slices = [e for e in trace["traceEvents"]
+                      if e.get("ph") == "X" and e["pid"] == "devices" and e["name"] != "idle"]
+            check(len(slices) == len(recs) == min(fr.capacity, dispatches),
+                  f"19g {part}: {len(slices)} launch slices, {len(recs)} records, "
+                  f"{dispatches} dispatches")
+            print(f"[19g] trace_export of {part}: {len(trace['traceEvents'])} events, valid, "
+                  f"{len(slices)} launch slices on the device lane = {len(recs)} records the "
+                  f"recorder holds (of {dispatches} dispatches, ring {fr.capacity}); {card}",
+                  flush=True)
+
+        # 19h: a codec.launch fault ends bench_sweep and ec_corpus with no recorded row
+        reset()
+        for tool, argv in ((bench_sweep, ["--baseline", "--iterations", "1"]),
+                           (ec_corpus, ["--check", "--standard", "--base", corpus])):
+            name = tool.__name__.rsplit(".", 1)[-1]
+            global_injector().inject("codec.launch", 5, hits=1)
+            rc, out, err = tool_run(tool.main, argv)
+            global_injector().clear()
+            check(rc == DEVICE_ERROR_EXIT, f"19h {name}: rc {rc}, want {DEVICE_ERROR_EXIT}: {err}")
+            check(out.strip() == "" if tool is bench_sweep else "FAIL" not in err,
+                  f"19h {name}: a row for the failed config: {out} {err}")
+            check(guard.degraded, f"19h {name}: the guard is not DEGRADED")
+            check(guard.maybe_probe(), f"19h {name}: the probe did not heal the guard")
+            print(f"[19h] {name} under a codec.launch fault: exit {rc}, no row recorded, "
+                  f"'{err.strip().splitlines()[-1]}'; the probe healed the guard", flush=True)
+        check(not guard.degraded, "19h: the guard is DEGRADED at the end")
+        by_part["19h"] = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(part.get(k, 0) for part in by_part.values()) for k in OT_KERNELS}
+    print(f"[19] launches by part: {json.dumps(by_part)}; {card}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[19] phase 19: {seconds:.2f} s host clock; {card}", flush=True)
+    return {"by_part": by_part, "launches": total, "bench": bench, "rates": rates,
+            "seconds": seconds}
+
+
 CLUSTER_RESULT = "chip_smoke cluster phase result: "
 CLUSTER_LIMIT_S = 600.0
 
@@ -7122,7 +7508,7 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16", "17", "18"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
     parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18"),
                         help=argparse.SUPPRESS)  # one of the side-by-side phases' processes
@@ -7195,7 +7581,10 @@ def main(argv: list[str]) -> int:
         phase("1b", check_bitmatrix_build, nvcc_path(), building)
         from ceph_tpu_torch.ops import checksum_offload as co
 
-        phase(int(args.only), clusters[args.only], torch, swar, packed, co, card)
+        if args.only == "19":
+            phase(19, phase_tools, torch, swar, packed, xor_mm, co, card)
+        else:
+            phase(int(args.only), clusters[args.only], torch, swar, packed, co, card)
         return 0
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
@@ -7225,6 +7614,10 @@ def main(argv: list[str]) -> int:
         if label in bluestore["times"]:
             bluestore["times"][label].update(row)
     pg = phase(13, phase_pg, torch, swar, packed, xor_mm, card)
+    from ceph_tpu_torch.ops import checksum_offload as co
+
+    tools = phase(19, phase_tools, torch, swar, packed, xor_mm, co, card)["launches"]
+    check(tools["swar_gf"] > 0, f"phase 19 launched no swar_gf: {tools}")
     side = phase("14-18", cluster_phases, clusters, args.mon_log)
     daemon, mon, client, access, cephfs = (side[n] for n in clusters)
     fig15, fig16 = mon["figures"], client["figures"]
@@ -7240,10 +7633,15 @@ def main(argv: list[str]) -> int:
     diag_launches["packed_verify"]["15"] = mon["launches"]["packed_verify"]
     diag_launches["packed_delta"]["17"] = access["launches"]["packed_delta"]
     diag_launches["packed_delta"]["18"] = cephfs["launches"]["packed_delta"]
+    for kernel in ("packed_code", "packed_verify", "packed_delta"):
+        if tools[kernel]:
+            if not isinstance(diag_launches[kernel], dict):
+                diag_launches[kernel] = {"7b": diag_launches[kernel]}
+            diag_launches[kernel]["19"] = tools[kernel]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
                      "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"],
-                     "18": cephfs["launches"]["swar_gf"]}
+                     "18": cephfs["launches"]["swar_gf"], "19": tools["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -7283,12 +7681,16 @@ def main(argv: list[str]) -> int:
             "max_abs_err": errs[kernel],
             **diag_times[kernel],
         })
+    gf2_by_phase = {"10b": plugins["gf2_plane_matmul_launches"]}
+    if tools["gf2_plane_matmul"]:
+        gf2_by_phase["19"] = tools["gf2_plane_matmul"]
     kernels.append({
         "name": "gf2_plane_matmul",
         "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf2_plane.cu",
         "replaces": "ceph_tpu/ops/xor_mm.py:79",
-        "launches": plugins["gf2_plane_matmul_launches"],
+        "launches": sum(gf2_by_phase.values()),
+        "launches_by_phase": gf2_by_phase,
         **gf2_row,
         "source_sha256": infos["gf2_plane"]["source_sha256"],
     })
@@ -7305,6 +7707,8 @@ def main(argv: list[str]) -> int:
          "x".join(map(str, XFORM_BULK)),
          {"12d": bluestore["launches"]["compress_transform"]}),
     ):
+        if tools.get(kernel):
+            by_phase["19"] = tools[kernel]
         check(all(n > 0 for n in by_phase.values()), f"{kernel}: main-path launches {by_phase}")
         row = {key: val for key, val in times[f"{kernel} {shape}"].items()
                if key != "transpose_floor_ms"}

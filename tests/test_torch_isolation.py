@@ -1,5 +1,7 @@
 """The port stands alone: neither `ceph_tpu_torch/` nor `chip_smoke.py`
-imports jax, anything of the JAX package, or its `benchmarks` scripts."""
+imports jax, anything of the JAX package, or its `benchmarks` scripts,
+and the port builds and loads its host libraries only in its own
+`ceph_tpu_torch/_build/`, never in the JAX package's `native/`."""
 
 import ast
 import subprocess
@@ -28,7 +30,8 @@ def test_port_files_found():
     assert len(PORT_FILES) >= 15
     for source in ("swar_gf.cu", "copy_floor.cu", "swar_baked.cu", "swar3_baked.cu",
                    "bitmatrix.cu", "packed_gf.cu", "crc32c_host.cc", "gf2_plane.cu",
-                   "xor_reduce.cu", "crc32c.cu", "compress_transform.cu"):
+                   "xor_reduce.cu", "crc32c.cu", "compress_transform.cu",
+                   "ec_native.cc", "crush.cc"):
         assert (ROOT / "ceph_tpu_torch" / "csrc" / source).exists()
     for module in ("gf/gf2.py", "codec/jerasure.py", "codec/shec.py", "codec/lrc.py",
                    "codec/clay.py", "codec/plugins/jerasure.py", "codec/plugins/isa.py",
@@ -59,7 +62,12 @@ def test_port_files_found():
                    "fs/__init__.py", "fs/fs.py", "mds/__init__.py", "mds/mds.py",
                    "mds/client.py", "tools/__init__.py", "tools/vstart.py",
                    "tools/ceph_cli.py", "tools/rados_cli.py", "tools/rbd_cli.py",
-                   "tools/rgw_admin.py", "tools/objectstore_tool.py"):
+                   "tools/rgw_admin.py", "tools/objectstore_tool.py",
+                   "tools/ec_tool.py", "tools/ec_benchmark.py", "tools/ec_corpus.py",
+                   "tools/bench_sweep.py", "tools/bluestore_tool.py",
+                   "tools/trace_export.py", "tools/guarded.py", "codec/native_codec.py",
+                   "codec/plugins/native.py", "utils/native.py", "utils/host_build.py",
+                   "crush/native.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -431,3 +439,74 @@ def test_the_command_lines_run_as_processes_leave_jax_out(tmp_path):
         assert "imported []" in proc.stderr, (name, proc.stderr)
     assert '["1.0", "o"]' in procs["objectstore_tool"].stdout
     assert "usage: vstart" in procs["vstart"].stdout
+
+
+def test_offline_tools_and_native_plugin_import_leaves_jax_out():
+    """The offline tools, plugin `native`, the registry's dlopen path and
+    the native runtime import neither jax nor the JAX package: the
+    `native` plugin codes and decodes an object on the CPU."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.tools.ec_tool, ceph_tpu_torch.tools.ec_benchmark\n"
+        "import ceph_tpu_torch.tools.ec_corpus, ceph_tpu_torch.tools.bench_sweep\n"
+        "import ceph_tpu_torch.tools.bluestore_tool, ceph_tpu_torch.tools.trace_export\n"
+        "from ceph_tpu_torch.codec import registry\n"
+        "from ceph_tpu_torch.crush.native import hash32_3_native\n"
+        "ec = registry.instance().factory('native', {'k': '4', 'm': '2'}, device='cpu')\n"
+        "enc = ec.encode(set(range(6)), bytes(range(256)) * 40)\n"
+        "got = ec.decode({1, 4}, {i: c for i, c in enc.items() if i not in (1, 4)})\n"
+        "assert (got[1] == enc[1]).all() and (got[4] == enc[4]).all()\n"
+        "assert hash32_3_native(1, 2, 3) > 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_native_for_a_library_or_a_make(path):
+    """No port file joins a path with `native` (the reference's
+    `parents[1] / "native"`), names the JAX package's `native/` build
+    outputs, or runs `make`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            right = node.right
+            assert not (isinstance(right, ast.Constant) and right.value == "native"), (
+                f"{path.relative_to(ROOT)}:{node.lineno} joins a path with native")
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            text = node.value
+            assert text != "make" and not text.startswith("make "), (
+                f"{path.relative_to(ROOT)}:{node.lineno} runs make")
+            assert "libceph_tpu_native.so" not in text and "native/lib" not in text, (
+                f"{path.relative_to(ROOT)}:{node.lineno} names native/'s build output")
+
+
+def test_the_port_loads_its_libraries_only_from_its_build_dir():
+    """Every shared library of this checkout that a process of the port
+    maps (the crc32c and native runtimes, plugin `native`) lies under
+    `ceph_tpu_torch/_build/`."""
+    code = (
+        "import sys\n"
+        "from ceph_tpu_torch.utils import crc32c, native\n"
+        "from ceph_tpu_torch.crush.native import straw2_choose_native\n"
+        "from ceph_tpu_torch.codec import registry\n"
+        "crc32c.crc32c(b'x'); native.load(); straw2_choose_native(1, 0, [0, 1], [65536, 65536])\n"
+        "registry.instance().factory('native', {'k': '2', 'm': '1'}, device='cpu')\n"
+        "root = sys.argv[1]\n"
+        "libs = sorted({line.split()[-1] for line in open('/proc/self/maps')\n"
+        "               if line.rstrip().endswith('.so') and line.split()[-1].startswith(root)})\n"
+        "print('\\n'.join(libs))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT) + "/"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    libs = proc.stdout.split()
+    build = str(ROOT / "ceph_tpu_torch" / "_build") + "/"
+    names = {Path(p).name.split("_")[0] for p in libs}
+    assert {"libcrc32c", "libceph", "libec"} <= names, libs
+    assert libs and all(p.startswith(build) for p in libs), libs

@@ -14,7 +14,11 @@ The port's daemons and monitors take `device=None` as cuda, where the
 reference's tests build them with no device: `cpu_daemons` (a fixture
 of the files that collect such cases) makes the OSD's and the monitor's
 default the CPU for the test's length, which is what passing
-`device="cpu"` to each would do.
+`device="cpu"` to each would do.  The offline tools and the codec
+plugins take `device=None` as cuda too: `cpu_tools` makes every codec's
+default the CPU for the test's length (`codec.base.resolve_device`,
+which the plugins' codecs and `bench_sweep` resolve through), which is
+what passing `--device cpu` to each tool would do.
 """
 
 from __future__ import annotations
@@ -51,10 +55,17 @@ def load(name: str) -> types.ModuleType:
     mod = types.ModuleType(key)
     mod.__file__ = str(TESTS / f"{name}.py")
     sys.modules[key] = mod  # first: helpers may import each other
-    for _indent, helper in set(_HELPER.findall(src)):
+    # (in a function or not: the indent of the import's own line)
+    helpers = [(indent.rsplit("\n", 1)[-1], h) for indent, h in _HELPER.findall(src)]
+    # the helpers a module imports at its top run before it; those it
+    # imports inside a function after it, so that two helpers that
+    # import each other (test_mon, test_cluster) load in either order
+    for helper in sorted({h for indent, h in helpers if not indent}):
         load(helper)
     src = _HELPER.sub(r"\1from \2__torch import", src)
     exec(compile(src, mod.__file__, "exec"), mod.__dict__)
+    for helper in sorted({h for indent, h in helpers if indent}):
+        load(helper)
     return mod
 
 
@@ -75,3 +86,16 @@ def cpu_daemons(monkeypatch):
 
     for mod in ("ceph_tpu_torch.osd.osd", "ceph_tpu_torch.mon.monitor"):
         monkeypatch.setattr(importlib.import_module(mod), "resolve_device", resolve)
+
+
+@pytest.fixture
+def cpu_tools(monkeypatch):
+    """The port's codecs, and so its offline tools, default to the CPU
+    (see the module docstring)."""
+    base = importlib.import_module("ceph_tpu_torch.codec.base")
+    resolve_device = base.resolve_device
+
+    def resolve(device=None):
+        return resolve_device("cpu" if device is None else device)
+
+    monkeypatch.setattr(base, "resolve_device", resolve)
