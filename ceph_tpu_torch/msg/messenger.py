@@ -447,6 +447,9 @@ class Messenger:
         )
         self.default_policy = Policy.lossy_client()
         self._accepted: list[Connection] = []
+        # set for the length of a shutdown: an accept that completes after
+        # the shutdown closed the connections it knew of closes itself
+        self._stopping = False
         self.auth = auth
         # daemon-attached Tracer (common/tracer.py): when set and enabled,
         # delivery of a trace-carrying message records a messenger span
@@ -462,18 +465,27 @@ class Messenger:
         self.dispatchers.append(d)
 
     async def bind(self, addr: str) -> None:
+        self._stopping = False
         self._server, self.addr = await self.stack.listen(addr, self._accept)
 
     async def shutdown(self) -> None:
-        # Close live connections before the listener: Python 3.12's
-        # Server.wait_closed() blocks until every handler's transport is
-        # finished, so open accepted connections would deadlock it.
+        # Stop accepting first, then close live connections before
+        # waiting on the listener: Python 3.12's Server.wait_closed()
+        # blocks until every handler's transport is finished, so open
+        # accepted connections would deadlock it.  A handler that was
+        # mid-hello when the shutdown began attaches after the
+        # connections below were closed; `_stopping` makes it close its
+        # own (the port's; ROADMAP C33: a daemon's peers reconnect
+        # to it every heartbeat, and such a late accept held a daemon's
+        # stop for the whole 15 s bound below).
+        self._stopping = True
+        if self._server is not None:
+            self._server.close()
         for conn in list(self._conns.values()) + self._accepted:
             await conn.close()
         self._conns.clear()
         self._accepted.clear()
         if self._server is not None:
-            self._server.close()
             try:
                 # belt-and-braces bound: accept handlers are themselves
                 # time-bounded now, but a shutdown must never hang on a
@@ -571,6 +583,9 @@ class Messenger:
                     initiator=False,
                 )
             await conn._attach(reader, writer)
+            if self._stopping:
+                await conn.close()  # accepted while this messenger stopped
+                return
             self._accepted.append(conn)
             out = self._conns.get(conn.peer_addr)
             if out is not None and not out._closed:

@@ -92,6 +92,22 @@ def _default_probe() -> None:
         raise DeviceError("device probe: identity product differs")
 
 
+def _cpu_probe() -> None:
+    """The probe of a process whose launches all run on the CPU
+    (`DeviceGuard.probe_device` "cpu", as the chaos harness sets it for
+    `device="cpu"`): the same identity product on CPU tensors, where
+    `xor_matmul` takes its plain version.  It never touches a GPU."""
+    import numpy as np
+    import torch
+
+    from .xor_mm import xor_matmul
+
+    bm = torch.eye(8, dtype=torch.uint8)
+    x = torch.arange(128, dtype=torch.uint8).reshape(1, 128)
+    if not np.array_equal(xor_matmul(bm, x).numpy(), x.numpy()):
+        raise DeviceError("cpu probe: identity product differs")
+
+
 class DeviceGuard:
     """Per-process launch deadline + DEGRADED/healthy state machine."""
 
@@ -117,6 +133,9 @@ class DeviceGuard:
         self.probe_failures = 0
         self._last_probe = 0.0
         self._probe_cold = True  # first probe of a degrade episode
+        # where the default probe runs: the device the launches go to,
+        # `cuda` unless a process whose launches all run on the CPU says so
+        self.probe_device = "cuda"
 
     def configure(self, timeout_ms: int | None = None,
                   probe_interval_ms: int | None = None) -> None:
@@ -228,8 +247,9 @@ class DeviceGuard:
             probe_ms = self.timeout_ms
             if probe_ms > 0 and not cold:
                 probe_ms = min(probe_ms, max(250, self.probe_interval_ms))
-            self.call(probe_fn or _default_probe, what="probe",
-                      timeout_ms=probe_ms)
+            if probe_fn is None:
+                probe_fn = _cpu_probe if self.probe_device == "cpu" else _default_probe
+            self.call(probe_fn, what="probe", timeout_ms=probe_ms)
         except Exception:
             with self._lock:
                 self.probe_failures += 1

@@ -67,7 +67,7 @@ import numpy as np
 
 from ..codec.interface import EcError, ErasureCodeInterface
 from ..common import tracer as tracer_mod
-from ..common.errs import EIO, ETIMEDOUT
+from ..common.errs import EAGAIN, EIO, ETIMEDOUT
 from ..common.fault_injector import InjectedFailure, faultpoint, faultpoint_delay
 from ..common.log import dout
 from ..common.tracer import null_span
@@ -168,6 +168,9 @@ class Op:
     # object's previous version until they commit this one
     failed_shards: set[int] = field(default_factory=set)
     torn_shards: set[int] = field(default_factory=set)
+    # the acting set the write was submitted in: its sub-writes go out
+    # only while it is still the PG's (ROADMAP C34)
+    acting: list = field(default_factory=list)
 
 
 @dataclass
@@ -567,6 +570,7 @@ class ECBackend(PGBackend):
             on_failure=on_failure,
             obj_size=obj_size,
             trace=self._span("ec:write"),
+            acting=list(self.listener.acting()),
         )
         op.trace.keyval("oid", pgt.oid)
         op.trace.keyval("tid", tid)
@@ -892,7 +896,22 @@ class ECBackend(PGBackend):
 
     def _dispatch_encoded(self, op: Op) -> None:
         """Reap one launched encode and fan out its sub-writes
-        (the completion half of try_reads_to_commit)."""
+        (the completion half of try_reads_to_commit).
+
+        The port's (ROADMAP C34): a write whose interval ended before its
+        encode was reaped is answered -EAGAIN and sends nothing, so the
+        client resends it into the new interval.  The reference fans the
+        old interval's write out to the new acting set while it peers:
+        a member that answered the new interval's query before the
+        sub-write arrived holds the write, but the primary counts it
+        missing there, and with one more loss no rebuild finds k
+        sources (Ceph's on_change drops such writes)."""
+        if list(self.listener.acting()) != op.acting:
+            self._fail_encoded_op(
+                op, EcError(EAGAIN, "interval changed"), what="interval change",
+                clog=False,
+            )
+            return
         proj = self._projected.get(op.pgt.oid)
         # hinfo resolves at completion time, in tid order: the projected
         # (pending) chain if an earlier op already produced one, else the
@@ -999,7 +1018,9 @@ class ECBackend(PGBackend):
         # Unblock readers that were waiting on our pin.
         self._kick_waiting_reads()
 
-    def _fail_encoded_op(self, op: Op, err: EcError, what: str = "encode launch") -> None:
+    def _fail_encoded_op(
+        self, op: Op, err: EcError, what: str = "encode launch", clog: bool = True
+    ) -> None:
         """Fail an op whose LAUNCHED encode could not be materialized.
 
         Unlike the RMW-read failure path (where later same-object ops are
@@ -1037,10 +1058,14 @@ class ECBackend(PGBackend):
                 self._projected.pop(oid, None)
             else:
                 proj["size"] = max(survivors, key=lambda o: o.tid).plan.new_size
-        self.listener.clog_error(
+        note = (
             f"{self.listener.pgid}: {what} for {oid} failed ({errno}); "
             f"aborting {len(doomed)} queued write(s)"
         )
+        if clog:
+            self.listener.clog_error(note)
+        else:
+            dout("ec", 5, note)
         for o in doomed:
             if o.pin is not None:
                 self.extent_cache.release_pin(o.pin)

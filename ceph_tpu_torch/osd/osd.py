@@ -953,7 +953,30 @@ class OSD(Dispatcher):
         # storm victim detection: an OSD leaving up+in across this
         # advance names the whole-OSD rebuild the controller conducts
         self.recovery_storm.note_osdmap(old_map, self.osdmap)
+        self._restart_heartbeat_peers(old_map)
         self._advance_pgs()
+
+    def _restart_heartbeat_peers(self, old_map: OSDMap) -> None:
+        """The port's (ROADMAP C35): a peer the map marks down, or has
+        come back up (another address or up epoch: a new instance),
+        starts over, so its grace restarts from the first ping to that
+        instance (C20), not from the last reply of the one before.  Ceph
+        removes a down peer's HeartbeatInfo and adds a fresh one when it
+        is up again (OSD::maybe_update_heartbeat_peers).  The reference
+        keeps the old instance's last reply: a daemon that restarts
+        within a few seconds is reported by its peers at their next tick
+        and marked down again, and comes back with its PG logs empty."""
+        for peer, info in self.osdmap.osds.items():
+            old = old_map.osds.get(peer)
+            if (
+                info.up and old is not None and old.up and old.addr == info.addr
+                and old.last_up_epoch == info.last_up_epoch
+            ):
+                continue
+            for state in (self._hb_first_tx, self._hb_last_rx, self._hb_stalled_at,
+                          self._last_failure_report):
+                state.pop(peer, None)
+            self._reported_failed.discard(peer)
 
     def _advance_pgs(self) -> None:
         """consume_map: create/advance every PG we participate in."""

@@ -1,23 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,15,16,17,18,19}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,...,20}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
 kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, phase 15's monitors' log (Paxos, the elector's messages and
 timers, the lease) is written at level 10 to PATH (with --only N, phase
-N's).  With --only N, phases 1 and 1b build the kernels and phase N (14,
-15, 16, 17, 18 or 19) runs alone; the script then exits without the
-kernel and contract lines.
+N's).  With --only N, phases 1 and 1b build the kernels and phase N (14
+to 20) runs alone; the script then exits without the kernel and contract
+lines.
 
 Phase 19 (the offline tools) runs in this process right after phase 13.
-Phases 14-18 each build a cluster of their own, and after phase 19 they
-run side by side, one process each (this script with --cluster-phase N,
-which loads the kernels phase 1 built and prints its phase's result as
-one JSON line), on the one card; their output is printed in phase order
-when all five have ended, and their figures are taken side by side.
+Phases 14-18 and 20 each build a cluster of their own, and after phase
+19 they run side by side, one process each (this script with
+--cluster-phase N, which loads the kernels phase 1 built and prints its
+phase's result as one JSON line), on the one card; their output is
+printed in phase order when all six have ended, and their figures are
+taken side by side.
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -65,7 +66,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    instructions per word beside swar_gf's modelled ops per word); then
    `decode_array` at the same shape for one pattern of each erasure class,
    beside its bound, and RS(10,4)'s with 4 erasures (m = 4) at
-   (256, 10, 131072).
+   (256, 10, 131072).  Then `swar_gf` alone at the path's short rows
+   (stripe_unit 4096): (4096, 10, 4096), RS(10,4) as bench_sweep's bulk
+   row queues it, and RS(8,3)'s (1024, 8, 4096), the same CUDA-event
+   timing, each beside its byte bound at 3.35 TB/s and its integer-issue
+   bound (measured only; the kernel is phase 1's).
 5. The kernel experiments (ceph_tpu_torch/diag): copy_floor, swar_baked and
    swar3_baked against their plain versions and the oracle, byte for byte,
    on (1, 8, L) for L in {4096, 131072, 524288}, (8, 8, 16384) and
@@ -518,6 +523,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    `bench_sweep --baseline` and before `ec_corpus --check`: each exits
    with DEVICE_ERROR_EXIT and records no row, and the guard's probe
    heals it.  Every kernel's launches are counted by part.
+20. The chaos harness on the card (tools/chaos.py, a side-by-side
+   process): 20a `run_chaos(seed=0xC405)` at its default configuration
+   (5 OSDs on in-memory BlueStore, 24 objects, pg_num 4, pool RS(2,1)
+   plugin `tpu`, p99 bounds of 1000 ms, a 60 s rebuild bound) with no
+   device argument, so on cuda: socket faults, shard-read EIO, a gray
+   OSD, `codec.launch` faults under client writes, a deep scrub of
+   planted corruption under load, a pipelined wedge, csum and compressor
+   launch faults, an OSD flap, a whole-OSD recovery storm and a flapping
+   OSD under the mon's dampening; it must converge with 0 lost writes,
+   every assertion of the harness holding, 13 events, no host fallback
+   (`fallback_launches` and every `*.host_fallbacks` delta 0), at least
+   one unacknowledged write, failed csum ticket and failed compressor
+   batch, the guard healed by a probe and neither TPU_BACKEND_DEGRADED
+   nor SLOW_OPS in the final health; 20b prints the report's latency,
+   rebuild, hedge, launch-fault and flight figures, the guard's
+   degraded_total and probes and the (empty) regressions slice; 20c the
+   launches by kernel, each of `swar_gf` (the wedge), `xor_reduce`
+   (RS(2,1)'s encodes and single erasures), `packed_verify` (the scrub),
+   `crc32c` and `compress_transform` (phase 3.8) above 0.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -611,6 +635,9 @@ SWAR_GF_INSTANCES = [f"swar_gf_kernelILi{rows}E" for rows in range(1, 5)]
 SWAR_GF_RS83 = "swar_gf_kernelILi3E"
 # The bulk shape every kernel is timed at, and the calls timed per run.
 BULK = (256, 8, 131072)
+# swar_gf at the path's short rows (stripe_unit 4096), timed alone in phase
+# 4: ((S, k, L), m) for RS(10,4) as bench_sweep's bulk row queues it, RS(8,3)
+SHORT_ROWS = (((4096, 10, 4096), 4), ((1024, 8, 4096), 3))
 CALLS_PER_RUN = 5
 
 
@@ -1277,8 +1304,29 @@ def phase_bulk(torch, swar, registry, gf, card, kern_exp4, kern_exp2, nvcc):
     print(f"[4] RS(10,4) decode_array {erasures} at {(S, ec104.k, L)} (m = 4, one pass of "
           f"{swar.pass_geometry(len(c))[1]} rows): {dec_ms:.4f} ms, bound {dec_bound:.4f} ms "
           f"by {dec_by} ({dec_bound / dec_ms:.3f} of it)")
+    short_rows = {}
+    for (S_r, k_r, L_r), m_r in SHORT_ROWS:
+        ec_r = registry.instance().factory("tpu", {"k": str(k_r), "m": str(m_r)})
+        mat_r = ec_r.distribution_matrix()[k_r:]
+        plan_r = swar.CodingPlan(mat_r, device=dev)
+        rows = torch.randint(0, 256, (S_r, k_r, L_r), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        check(torch.equal(swar.swar_gf(plan_r, rows),
+                          swar.swar_code_reference(plan_r.sched, rows)),
+              f"swar_gf at {(S_r, k_r, L_r)} != plain version")
+        short_ms = time_ms(torch, functools.partial(swar.swar_gf, plan_r, rows))
+        byte_ms = (k_r + m_r) * S_r * L_r / HBM_BYTES_PER_S * 1e3
+        issue_ms = ring_word_ops(mat_r) * S_r * (L_r // 4) / INT32_OPS_PER_S * 1e3
+        short_rows[f"{S_r}x{k_r}x{L_r}"] = {"ms": short_ms, "byte_bound_ms": byte_ms,
+                                            "issue_bound_ms": issue_ms}
+        print(f"[4] swar_gf alone at {(S_r, k_r, L_r)} (RS({k_r},{m_r}), the path's short "
+              f"rows): {short_ms:.4f} ms ({CALLS_PER_RUN} calls between CUDA events, median "
+              f"of 20), {S_r * k_r * L_r / short_ms / 1e6:.2f} GB/s input; byte bound "
+              f"{byte_ms:.4f} ms at 3.35 TB/s ({byte_ms / short_ms:.3f} of it), integer-issue "
+              f"bound {issue_ms:.4f} ms ({ring_word_ops(mat_r)} ops/word, "
+              f"{issue_ms / short_ms:.3f} of it); {card}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "floor_ms": floor_ms}
+            "bound_by": bound_by, "floor_ms": floor_ms, "short_rows": short_rows}
 
 
 def coding_bound(mat, S: int, k: int, L: int) -> tuple[float, str]:
@@ -7442,12 +7490,106 @@ def phase_tools(torch, swar, packed, xor_mm, co, card) -> dict:
             "seconds": seconds}
 
 
+C_SEED = 0xC405  # the harness's own default seed
+C_KERNELS = ("swar_gf", "xor_reduce", "packed_code", "packed_verify", "packed_delta",
+             "crc32c", "compress_transform")
+# what the harness drives on the card, each checked to launch in the phase:
+# RS(2,1)'s encodes and single erasures fold on xor_reduce, the pipelined
+# wedge's RS(4,2) encodes run swar_gf, the deep scrub's parity verify
+# packed_verify, and phase 3.8's csum and compressor batches crc32c and
+# compress_transform
+C_REACHES = ("swar_gf", "xor_reduce", "packed_verify", "crc32c", "compress_transform")
+C_EVENTS = 13  # one a harness phase
+C_REPORT = ("chaos_p99_ms", "rebuild_seconds", "storm_p99_ms", "gray_p99_ms", "hedge_rate",
+            "scrub_p99_ms", "offload_p99_ms", "unacked_writes", "unacked_rolled_forward",
+            "launch_unacked_writes", "pipeline_wedge_failed", "pipeline_inflight_at_fault",
+            "pipeline_max_inflight_depth", "pipeline_drains", "offload_csum_failed",
+            "offload_compress_failed", "offload_csum_launches", "verify_launches",
+            "storm_decode_launches", "storm_objects", "recovery_occupancy", "hbm_peak_bytes",
+            "guard_degraded_total", "guard_probes")
+
+
+def phase_chaos(torch, swar, packed, co, card, device=None) -> dict:
+    """Phase 20: the chaos harness (`tools/chaos.py`) at its default
+    configuration on the card (20a), its figures (20b) and the launches
+    it made, by kernel (20c)."""
+    from ceph_tpu_torch.compressor import device as comp_dev
+    from ceph_tpu_torch.ops import dispatch, xor_mm
+    from ceph_tpu_torch.ops.guard import device_guard
+    from ceph_tpu_torch.ops.offload_runtime import offload_perf_dump
+    from ceph_tpu_torch.tools.chaos import run_chaos
+
+    def counts() -> dict:
+        return {"swar_gf": swar.launches, "xor_reduce": xor_mm.xor_reduce.launches,
+                **{k: packed.launches[k] for k in ("packed_code", "packed_verify",
+                                                   "packed_delta")},
+                "crc32c": co.crc32c_device.launches,
+                "compress_transform": comp_dev.transform_rows_device.launches}
+
+    def fallbacks() -> dict:
+        dump = offload_perf_dump()
+        return {k: v for k, v in dump.items() if k.endswith("host_fallbacks")}
+
+    guard = device_guard()
+    before, fb0 = counts(), fallbacks()
+    dispatch_fb0 = dispatch.FALLBACK_LAUNCHES.snapshot()["launches"]
+    t0 = time.perf_counter()
+    report = run_chaos(seed=C_SEED, device=device)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    now = counts()
+    launches = {k: now[k] - before[k] for k in C_KERNELS}
+    fb = {k: v - fb0.get(k, 0) for k, v in fallbacks().items()}
+    # 20a: what the harness asserted inside it held (it raises otherwise);
+    # these are C32's checks and the contract's on its report
+    check(report["converged"] and report["lost_writes"] == 0,
+          f"20a: converged {report['converged']}, lost writes {report['lost_writes']}")
+    check((report["osds"], report["objects"], report["smoke"]) == (5, 24, False),
+          "20a: not the harness's default configuration")
+    check(len(report["events"]) == C_EVENTS, f"20a: events {report['events']}")
+    check(report["fallback_launches"] == 0, f"20a: fallback launches {report}")
+    check(dispatch.FALLBACK_LAUNCHES.snapshot()["launches"] == dispatch_fb0,
+          "20a: a launch fell back to the host")
+    check(all(v == 0 for v in fb.values()), f"20a: host fallbacks {fb}")
+    check(report["offload_csum_fallbacks"] == 0 and report["offload_compress_fallbacks"] == 0,
+          "20a: an offload launch fell back to the host")
+    check(report["degraded_entered"] and report["unacked_writes"] >= 1,
+          "20a: the launch faults failed no write")
+    check(report["offload_csum_failed"] >= 1 and report["offload_compress_failed"] >= 1,
+          "20a: the offload faults failed no csum ticket or compressor batch")
+    check(report["pipeline_wedge_failed"] >= 1 and report["pipeline_inflight_at_fault"] >= 2,
+          "20a: the wedge failed nothing, or not at depth > 1")
+    check(report["guard_probes"] >= 1, "20a: no probe healed the guard")
+    check(not guard.degraded, "20a: the device guard is degraded after the run")
+    check("TPU_BACKEND_DEGRADED" not in report["health_checks"]
+          and "SLOW_OPS" not in report["health_checks"],
+          f"20a: final health {report['health_checks']}")
+    regressions = report["regressions"]
+    check(regressions.get("flagged") == [] and regressions.get("rounds_compared") == [],
+          f"20b: regressions {regressions}")
+    # 20c: the kernels the harness drives launched in this phase
+    for kernel in C_REACHES:
+        check(launches[kernel] > 0, f"20c: no {kernel} launch ({launches})")
+    figures = {key: report.get(key) for key in C_REPORT}
+    print(f"[20] 20a: run_chaos(seed={C_SEED:#x}) at the default configuration (5 OSDs, 24 "
+          f"objects, pg_num 4, RS(2,1) plugin tpu, p99 bounds 1000 ms, rebuild 60 s): "
+          f"converged, 0 lost writes, {len(report['events'])} events, every assertion held; "
+          f"no host fallback ({fb}); {card}", flush=True)
+    print(f"[20] 20b: {json.dumps(figures)}", flush=True)
+    print(f"[20] 20b: flight {json.dumps(report['flight'])}; guard degraded_total "
+          f"{report['guard_degraded_total']}, probes {report['guard_probes']}; regressions "
+          f"{json.dumps(regressions)}", flush=True)
+    print(f"[20] 20c: launches by kernel {launches}; phase 20 {seconds:.2f} s host clock; "
+          f"{card}", flush=True)
+    return {"launches": launches, "figures": figures, "seconds": seconds}
+
+
 CLUSTER_RESULT = "chip_smoke cluster phase result: "
 CLUSTER_LIMIT_S = 600.0
 
 
 def cluster_phases(phases: dict, mon_log: str | None) -> dict:
-    """Phases 14-18 side by side, one process each (this script with
+    """Phases 14-18 and 20 side by side, one process each (this script with
     --cluster-phase N), on the one card: each builds a cluster of its own
     on its own ports and directories, so none waits on another's event
     loop.  Each child loads the kernels phase 1 built; its standard output
@@ -7508,9 +7650,9 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19", "20"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
-    parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18"),
+    parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18", "20"),
                         help=argparse.SUPPRESS)  # one of the side-by-side phases' processes
     args = parser.parse_args(argv)
     import torch
@@ -7566,11 +7708,11 @@ def main(argv: list[str]) -> int:
         return result
 
     clusters = {"14": phase_daemon, "15": phase_mon, "16": phase_client,
-                "17": phase_access, "18": phase_cephfs}
+                "17": phase_access, "18": phase_cephfs, "20": phase_chaos}
     if args.cluster_phase:
         from ceph_tpu_torch.ops import checksum_offload as co
 
-        torch.set_num_threads(1)  # five such processes share the host's cores
+        torch.set_num_threads(1)  # six such processes share the host's cores
         result = phase(int(args.cluster_phase), clusters[args.cluster_phase], torch, swar,
                        packed, co, card_line())
         print(CLUSTER_RESULT + json.dumps(result, default=lambda o: o.item()), flush=True)
@@ -7618,8 +7760,9 @@ def main(argv: list[str]) -> int:
 
     tools = phase(19, phase_tools, torch, swar, packed, xor_mm, co, card)["launches"]
     check(tools["swar_gf"] > 0, f"phase 19 launched no swar_gf: {tools}")
-    side = phase("14-18", cluster_phases, clusters, args.mon_log)
-    daemon, mon, client, access, cephfs = (side[n] for n in clusters)
+    side = phase("14-18, 20", cluster_phases, clusters, args.mon_log)
+    daemon, mon, client, access, cephfs, chaos = (side[n] for n in clusters)
+    chaos_launches = chaos["launches"]
     fig15, fig16 = mon["figures"], client["figures"]
     print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
           f"{fig16['16b QD8 MB/s']:.1f} (QD1 / QD8, Rados, ten mgr modules) beside 15b "
@@ -7634,6 +7777,11 @@ def main(argv: list[str]) -> int:
     diag_launches["packed_delta"]["17"] = access["launches"]["packed_delta"]
     diag_launches["packed_delta"]["18"] = cephfs["launches"]["packed_delta"]
     for kernel in ("packed_code", "packed_verify", "packed_delta"):
+        if chaos_launches[kernel]:
+            if not isinstance(diag_launches[kernel], dict):
+                diag_launches[kernel] = {"7b": diag_launches[kernel]}
+            diag_launches[kernel]["20"] = chaos_launches[kernel]
+    for kernel in ("packed_code", "packed_verify", "packed_delta"):
         if tools[kernel]:
             if not isinstance(diag_launches[kernel], dict):
                 diag_launches[kernel] = {"7b": diag_launches[kernel]}
@@ -7641,7 +7789,8 @@ def main(argv: list[str]) -> int:
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
                      "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"],
-                     "18": cephfs["launches"]["swar_gf"], "19": tools["swar_gf"]}
+                     "18": cephfs["launches"]["swar_gf"], "19": tools["swar_gf"],
+                     "20": chaos_launches["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
@@ -7709,6 +7858,8 @@ def main(argv: list[str]) -> int:
     ):
         if tools.get(kernel):
             by_phase["19"] = tools[kernel]
+        if chaos_launches.get(kernel):
+            by_phase["20"] = chaos_launches[kernel]
         check(all(n > 0 for n in by_phase.values()), f"{kernel}: main-path launches {by_phase}")
         row = {key: val for key, val in times[f"{kernel} {shape}"].items()
                if key != "transpose_floor_ms"}

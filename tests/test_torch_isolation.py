@@ -67,7 +67,7 @@ def test_port_files_found():
                    "tools/bench_sweep.py", "tools/bluestore_tool.py",
                    "tools/trace_export.py", "tools/guarded.py", "codec/native_codec.py",
                    "codec/plugins/native.py", "utils/native.py", "utils/host_build.py",
-                   "crush/native.py"):
+                   "crush/native.py", "tools/chaos.py", "tools/perf_compare.py"):
         assert ROOT / "ceph_tpu_torch" / module in PORT_FILES, module
 
 
@@ -371,6 +371,25 @@ def test_mds_and_tools_import_leaves_jax_out():
         "import ceph_tpu_torch.tools.vstart, ceph_tpu_torch.tools.ceph_cli\n"
         "import ceph_tpu_torch.tools.rados_cli, ceph_tpu_torch.tools.rbd_cli\n"
         "import ceph_tpu_torch.tools.rgw_admin, ceph_tpu_torch.tools.objectstore_tool\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chaos_and_perf_compare_import_leaves_jax_out():
+    """The chaos harness and the round comparator import neither jax nor
+    the JAX package, and the comparator imports no torch either: it
+    parses JSON."""
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch.tools.perf_compare\n"
+        "assert 'torch' not in sys.modules, 'perf_compare imported torch'\n"
+        "import ceph_tpu_torch.tools.chaos\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
