@@ -30,6 +30,7 @@ import torch
 
 from ..common.errs import EINVAL, EIO
 from ..common.lockdep import make_lock
+from ..common.mempool import track_placement
 from ..gf import expand_matrix, isa_decode_matrix, xor_matmul_host_batch
 from ..gf.gf2 import gf2_inv, gf2_matmul
 from ..ops.dispatch import lead_stripes, record_launch
@@ -118,7 +119,8 @@ class _DeviceCoder:
         self.plan = CodingPlan(gf_rows, device=device, decode=decode)
         self.packed = PackedPlan(gf_rows, decode=decode)
         if bm is None:
-            bm = torch.from_numpy(expand_matrix(gf_rows)).to(device)
+            bm = track_placement(torch.from_numpy(expand_matrix(gf_rows)).to(device),
+                              "scratch", site="coder bit matrix")
         self.bm = bm
         self.decode = decode
 
@@ -246,7 +248,8 @@ class _GlobalPlanCache:
             if cached is not None:
                 self._decode.move_to_end(key)
                 return cached[0]
-        bm = torch.from_numpy(expand_matrix(matrix)).to(device)
+        bm = track_placement(torch.from_numpy(expand_matrix(matrix)).to(device),
+                          "scratch", site="decode bit matrix")
         self._lru_put(key, (bm, []))
         return bm
 

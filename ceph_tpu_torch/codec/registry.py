@@ -18,12 +18,12 @@ round-trip unchanged.
 from __future__ import annotations
 
 import importlib
-import threading
 from typing import Callable
 
 import torch
 
 from ..common.errs import EEXIST, ENOENT, EXDEV
+from ..common.lockdep import make_lock, make_rlock
 from .interface import EcError, ErasureCodeInterface, Profile
 
 # The ABI version plugins must declare (reference: CEPH_GIT_NICE_VER check).
@@ -51,10 +51,10 @@ class ErasureCodePluginRegistry:
     """Singleton get-or-load registry (ErasureCodePlugin.h:45)."""
 
     _instance: "ErasureCodePluginRegistry | None" = None
-    _instance_lock = threading.Lock()
+    _instance_lock = make_lock("ec_plugin_registry_instance")
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = make_rlock("ec_plugin_registry")
         self._plugins: dict[str, ErasureCodePlugin] = {}
 
     @classmethod

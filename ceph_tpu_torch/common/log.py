@@ -1,7 +1,8 @@
 """Leveled subsystem logging — mirror of src/log + dout.
 
-The port's copy of `ceph_tpu/common/log.py`, without `LogClient.from_config`
-(the port has no daemon Config yet): the mempool's pressure stages log
+The port's copy of `ceph_tpu/common/log.py`: `LogClient.from_config`
+builds a client from a `common/config.py` Config (its `debug_*` levels,
+`log_file` and `log_max_recent`), and the mempool's pressure stages log
 through `dout`.
 
 Reference: src/log/Log.h:32 (async log thread draining a
@@ -129,6 +130,20 @@ class LogClient:
     def __init__(self, log: Log | None = None, subsys_map: SubsystemMap | None = None):
         self.log = log or Log()
         self.subsys = subsys_map or SubsystemMap()
+
+    @classmethod
+    def from_config(cls, cfg) -> "LogClient":
+        """Build from a Config: debug_* options + log_file."""
+        sm = SubsystemMap()
+        from .options import OPTIONS
+
+        for name in OPTIONS:
+            if name.startswith("debug_"):
+                log_lvl, gather = cfg.debug_levels(name[len("debug_"):])
+                sm.set_log_level(name[len("debug_"):], log_lvl, gather)
+        return cls(
+            Log(str(cfg.get("log_file")), int(cfg.get("log_max_recent"))), sm
+        )
 
     def dout(self, subsys: str, level: int, msg: str) -> None:
         log_lvl, gather = self.subsys.levels(subsys)

@@ -55,7 +55,9 @@ from .lockdep import make_rlock
 #   device_cache         ops/device_cache.DeviceChunkCache entries
 #   sharded_placement    parallel/sharded.py NamedSharding device_puts
 #   verify               VerifyAggregator in-flight mismatch bitmaps
-#   scratch              plan-cache bit matrices + bench staging
+#   scratch              plan-cache bit matrices, swar plan masks, packed
+#                        program operands, gf2_plane row lists, crc32c
+#                        kernel tables (track_placement) + bench staging
 POOLS = (
     "ec_donation",
     "ec_pipeline_inflight",
@@ -566,3 +568,15 @@ def track_buffer(buf, pool: str = "scratch", site: str | None = None):
         return buf  # not weakref-able (python scalars): nothing to meter
     ledger().alloc(pool, nbytes, buf=buf, site=site)
     return buf
+
+
+def track_placement(buf, pool: str = "scratch", site: str | None = None):
+    """`track_buffer` for a placement kept past its call (a plan's
+    operand, a kernel's table): charged while it lies on a device, passed
+    through untracked when the caller's device is the CPU, where nothing
+    is resident on a card (the static analysis's ledger pass takes it as
+    tracked)."""
+    if getattr(getattr(buf, "device", None), "type", "cpu") == "cpu":
+        return buf
+    return track_buffer(buf, pool, site)
+

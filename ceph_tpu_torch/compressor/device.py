@@ -36,12 +36,12 @@ from __future__ import annotations
 
 import ctypes
 import struct
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..common.lockdep import make_lock
 from ..ops import _nvcc
 from ..ops.guard import DeviceError
 from .registry import Compressor
@@ -80,7 +80,7 @@ def transform_rows_plain(rows: torch.Tensor) -> torch.Tensor:
 
 
 _LIB: ctypes.CDLL | None = None
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = make_lock("compress_transform_launch")
 build_info: dict = {}
 
 

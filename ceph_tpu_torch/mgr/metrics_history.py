@@ -12,7 +12,7 @@ On top of the stored history it evaluates **trend sentinels**:
 - ``TPU_THROUGHPUT_REGRESSION`` — encode/decode GB/s over the recent
   window falls below ``mgr_trend_regression_ratio`` of its trailing
   baseline while launch volume persists (the device got slower, not
-  idler);
+  idler); decode's volume is its own launches' (see below);
 - ``TPU_OCCUPANCY_COLLAPSE`` — device occupancy collapses vs its
   baseline under sustained launch volume;
 - ``TPU_QUEUE_WAIT_INFLATION`` — mean launch queue-wait inflates past
@@ -36,7 +36,16 @@ the dashboard ``/api/perf_history`` route, and ``ceph_tpu_history_*``
 meta-gauges on the scrape (series count, retained points, byte bound,
 evictions — the fixed-memory witness).
 
-The port's copy of `ceph_tpu/mgr/metrics_history.py`.
+The port's copy of `ceph_tpu/mgr/metrics_history.py`, with one policy
+of its own: decode GB/s is judged only while decode launches persist
+(``decode_launches_per_sec``, from ``ec_dispatch.decode_launches``, at
+least ``mgr_trend_min_launch_rate`` in both windows and the recent one
+at least half the baseline's), where the reference gates it on all
+launches.  Degraded reads come in bursts while client encodes keep the
+launch rate up, so there a decode burst that ends reads as a decode
+regression on a healthy cluster (ROADMAP C37).  The module also keeps
+the figures of its last raise transitions (`sentinel_raises`), which
+the chaos harness prints when a healthy run fires a sentinel.
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ from ..common import health
 from ..common.log import dout
 from ..common.tsdb import TimeSeriesStore
 from .modules import MgrModule
+
+# raise transitions kept for their figures (`sentinel_raises`)
+SENTINEL_RAISES_KEPT = 16
 
 # minimum elapsed seconds between two snapshots of one daemon for a
 # rate sample (duplicate same-tick folds are anchor refreshes)
@@ -70,6 +82,7 @@ _RATE_FAMILIES = (
     ("encode_gbps", "ec_dispatch.bytes", 1e-9),
     ("decode_gbps", "ec_dispatch.decode_bytes", 1e-9),
     ("launches_per_sec", "ec_dispatch.launches", 1.0),
+    ("decode_launches_per_sec", "ec_dispatch.decode_launches", 1.0),
     ("fallback_per_sec", "ec_dispatch.fallback_launches", 1.0),
     ("op_rate", "op", 1.0),
 )
@@ -136,6 +149,10 @@ class MetricsHistoryModule(MgrModule):
         self._first_sample_t: float | None = None
         self.sentinels: dict[str, dict] = {}  # currently-raised, by code
         self.sentinels_fired = 0  # raise TRANSITIONS (chaos tracked key)
+        # the last SENTINEL_RAISES_KEPT raise transitions: code, seconds
+        # since the first sample, and the figures that raised it (the
+        # chaos harness names them when a healthy run fires one)
+        self.sentinel_raises: list[dict] = []
         self.config_errors = 0  # skipped config reads (visible, not silent)
 
     # -- config ----------------------------------------------------------------
@@ -293,10 +310,25 @@ class MetricsHistoryModule(MgrModule):
             and base_launch >= min_launch
             and cur_launch >= 0.5 * base_launch
         )
+        # decode's own cadence (C37): a decode burst that ends is a
+        # load drop of decode even while encodes keep the total up
+        cur_dec, base_dec = self._trend("decode_launches_per_sec", now)
+        kind_ok = {
+            "encode": True,
+            "decode": (
+                cur_dec is not None
+                and base_dec is not None
+                and cur_dec >= min_launch
+                and base_dec >= min_launch
+                and cur_dec >= 0.5 * base_dec
+            ),
+        }
         raised: dict[str, dict] = {}
         if volume_ok:
             regressions = {}
             for kind in ("encode", "decode"):
+                if not kind_ok[kind]:
+                    continue
                 cur, base = self._trend(f"{kind}_gbps", now)
                 if (
                     cur is not None and base is not None and base > 0.0
@@ -360,6 +392,12 @@ class MetricsHistoryModule(MgrModule):
             if rec is not None:
                 if code not in self.sentinels:
                     self.sentinels_fired += 1
+                    self.sentinel_raises.append({
+                        "code": code,
+                        "at_s": round(now - self._first_sample_t, 3),
+                        "data": rec["data"],
+                    })
+                    del self.sentinel_raises[:-SENTINEL_RAISES_KEPT]
                 self.set_health_check(
                     code, "HEALTH_WARN", rec["summary"], rec["detail"]
                 )

@@ -18,18 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
+from ..common.lockdep import DebugLock, make_lock
 from .guard import DeviceError
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 _BUILT: dict[str, "Built"] = {}
-_TAG_LOCKS: dict[str, threading.Lock] = {}
-_LOCK = threading.Lock()
+_TAG_LOCKS: dict[str, DebugLock] = {}
+_LOCK = make_lock("nvcc_registry")
 
 
 @dataclass
@@ -66,7 +66,7 @@ def build(name: str, source: Path | str, symbols: dict[str, list]) -> Built:
     tag = hashlib.sha256(text.encode()).hexdigest()[:16]
     key = f"{name}_{tag}"
     with _LOCK:
-        tag_lock = _TAG_LOCKS.setdefault(key, threading.Lock())
+        tag_lock = _TAG_LOCKS.setdefault(key, make_lock("nvcc_build"))
     with tag_lock:
         if key in _BUILT:
             return _BUILT[key]

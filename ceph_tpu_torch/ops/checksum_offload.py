@@ -33,13 +33,13 @@ constant.  Matrices are cached per L.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..common.lockdep import make_lock as _lockdep_make_lock
+from ..common.mempool import track_placement
 from ..utils.crc32c import _TABLE, crc32c
 from . import _nvcc
 from .guard import DeviceError
@@ -154,7 +154,7 @@ KERNEL_WORDS = OP_UNSHIFT + 16 * 8 * 16            # 8032
 IMG_FOLD, IMG_L = 0, 8 * 512
 IMG_S = IMG_L + OP_S
 IMG_UNSHIFT = IMG_S + (S_TABLES << FIELD_BITS)
-_TABLES_LOCK = threading.Lock()
+_TABLES_LOCK = _lockdep_make_lock("crc32c_tables")
 _HOST_TABLES: np.ndarray | None = None
 _DEVICE_TABLES: dict[str, torch.Tensor] = {}
 
@@ -245,14 +245,15 @@ def _device_tables(device: torch.device) -> torch.Tensor:
     with _TABLES_LOCK:
         dev = _DEVICE_TABLES.get(key)
     if dev is None:
-        dev = torch.from_numpy(kernel_tables().view(np.int32)).to(device)
+        dev = track_placement(torch.from_numpy(kernel_tables().view(np.int32)).to(device),
+                           "scratch", site="crc32c kernel tables")
         with _TABLES_LOCK:
             _DEVICE_TABLES[key] = dev
     return dev
 
 
 _LIB: ctypes.CDLL | None = None
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = _lockdep_make_lock("crc32c_launch")
 build_info: dict = {}
 
 

@@ -53,12 +53,13 @@ from __future__ import annotations
 import ctypes
 import itertools
 import struct
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..common.lockdep import make_lock
+from ..common.mempool import track_placement
 from ..gf.tables import GF_MUL_TABLE
 from . import _nvcc
 from .guard import DeviceError
@@ -243,7 +244,7 @@ def program_cost(prog) -> int:
 # best_program memo: decode matrices churn (one per erasure pattern).
 _PROGRAM_MEMO_CAPACITY = 512
 _PROGRAM_MEMO: dict[tuple, tuple] = {}
-_PROGRAM_LOCK = threading.Lock()
+_PROGRAM_LOCK = make_lock("packed_program_memo")
 
 
 def best_program(gf_matrix: np.ndarray) -> tuple:
@@ -401,12 +402,13 @@ class LoweredProgram:
         self._host = np.concatenate(
             [self.ops.ravel(), self.in_slots, self.out_slots]).astype(np.int32)
         self._dev: dict[int | None, torch.Tensor] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("packed_program_operand")
 
     def operand(self, device: torch.device) -> torch.Tensor:
         t = self._dev.get(device.index)
         if t is None:
-            t = torch.from_numpy(self._host).to(device)
+            t = track_placement(torch.from_numpy(self._host).to(device), "scratch",
+                             site="packed program operand")
             with self._lock:
                 t = self._dev.setdefault(device.index, t)
         return t
@@ -565,7 +567,7 @@ def kernel_program(gf_matrix: np.ndarray) -> LoweredProgram:
 # -- the hand kernels ----------------------------------------------------------------
 
 launches = {"packed_code": 0, "packed_verify": 0, "packed_delta": 0}
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = make_lock("packed_gf_launch")
 _LAUNCH = None  # the bound C entry packed_gf_launch
 _RAW_STREAM = None  # torch's current raw stream of a device index
 build_info: dict = {}

@@ -27,12 +27,13 @@ b of the matching byte of chunk j.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..common.lockdep import make_lock
+from ..common.mempool import track_placement
 from ..gf.bitslice import expand_matrix
 from . import _nvcc
 from .guard import DeviceError
@@ -166,9 +167,9 @@ class CodingPlan:
         self.sched = schedule_from_matrix(gf_matrix)
         self.masks = None
         if self.device.type == "cuda":
-            self.masks = torch.from_numpy(
+            self.masks = track_placement(torch.from_numpy(
                 schedule_masks(gf_matrix).view(np.int32)
-            ).to(self.device)
+            ).to(self.device), "scratch", site="swar_gf plan masks")
             self.device = self.masks.device  # "cuda" -> "cuda:<index>"
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
@@ -180,7 +181,7 @@ class CodingPlan:
 # -- the hand kernel ----------------------------------------------------------
 
 launches = 0  # kernel launches made by swar_gf (plain-version calls excluded)
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = make_lock("swar_gf_launch")
 _LIB: ctypes.CDLL | None = None
 build_info: dict = {}
 

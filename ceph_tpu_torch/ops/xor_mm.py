@@ -38,13 +38,14 @@ csrc/xor_reduce.cu).
 from __future__ import annotations
 
 import ctypes
-import threading
 from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..common.lockdep import make_lock
+from ..common.mempool import track_placement
 from . import _nvcc
 from .guard import DeviceError
 
@@ -171,7 +172,7 @@ def gf2_plane_matmul_reference(bit_matrix, planes: torch.Tensor) -> torch.Tensor
 
 
 _LIB: ctypes.CDLL | None = None
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = make_lock("xor_reduce_launch")
 build_info: dict = {}
 # Device row lists by (device, matrix, plane stride): a decode pattern's
 # list is uploaded once, like the coder LRU's operands.
@@ -213,8 +214,10 @@ def _row_list(bm: np.ndarray, stride_q: int, device: torch.device):
     if nnz * 8 + starts.size * 4 > _SMEM_BYTES:
         raise ValueError(f"gf2_plane_matmul: a {bm.shape} matrix with {nnz} entries does "
                          f"not fit the kernel's {_SMEM_BYTES} bytes of row list")
-    entry = (torch.from_numpy(starts).to(device),
-             torch.from_numpy(offs if nnz else np.zeros(1, np.int64)).to(device), nnz)
+    entry = (track_placement(torch.from_numpy(starts).to(device), "scratch",
+                          site="gf2_plane row starts"),
+             track_placement(torch.from_numpy(offs if nnz else np.zeros(1, np.int64)).to(device),
+                          "scratch", site="gf2_plane row offsets"), nnz)
     with _LAUNCH_LOCK:
         _ROW_LISTS[key] = entry
         while len(_ROW_LISTS) > _ROW_LIST_CAPACITY:

@@ -33,7 +33,10 @@ it leaves as a stray for backend messages (ROADMAP C12), pings leave on
 a heartbeat messenger of their own and a heartbeat tick that woke late
 judges no peer (C14), placement is computed once for each set of
 placement inputs and shared by the daemons of a process (`_placement`),
-and the scrub timer also runs deep scrubs (`osd_deep_scrub_interval`).
+and the scrub timer also runs deep scrubs (`osd_deep_scrub_interval`),
+and a device error that escapes `PG.do_op` is answered -EIO, where the
+reference's op worker logs it and the client waits out its op (ROADMAP
+C36).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from ..common.log import dout
 from ..common.perf_counters import PerfCountersBuilder
 from ..common.tracer import Tracer, null_span
 from ..codec.base import resolve_device
+from ..common.errs import EIO
+from ..ops.guard import is_device_error
 from ..mon.client import MonClient
 from ..mon.monmap import MonMap
 from ..msg.message import Message
@@ -1395,7 +1400,21 @@ class OSD(Dispatcher):
         op_span.event("reached_pg")
         try:
             pg.do_op(msg, reply, conn)
-        except Exception:
+        except Exception as e:
+            if is_device_error(e):
+                # a device error the PG did not answer: the client is
+                # told EIO, as a failed launch's write is, instead of
+                # waiting out its op (ROADMAP C36)
+                reply(
+                    MOSDOpReply(
+                        reqid=msg.reqid,
+                        result=-EIO,
+                        outdata=[],
+                        version=0,
+                        epoch=self.osdmap.epoch,
+                    )
+                )
+                return
             # a faulting op handler must not leak its tracker entry (the
             # reply closure, the only finish() site, will never run)
             self.op_tracker.finish(token)

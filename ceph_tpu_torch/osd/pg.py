@@ -10,7 +10,10 @@ leg (`osd.internal_op`), and watch/notify pushes to the client sessions
 of the daemon's messenger.  One policy differs from the JAX package's:
 an EC rebuild that fails for want of sources takes the members that
 moved slot this interval as holders of their old slots, and runs again
-(ROADMAP C13).  The host `osd` gives `whoami`, `store`, `conf`,
+(ROADMAP C13).  A device error (`ops.guard.is_device_error`) that meets
+a broad handler of an op (an object-class method, a write's submit) is
+answered -EIO, where the reference answers such a failure -EINVAL, the
+client's fault (ROADMAP C36).  The host `osd` gives `whoami`, `store`, `conf`,
 `osdmap`, `send_cluster`, `local_reserver`, `perf` and `clog_error`;
 the daemon (osd/osd.py) gives the rest (`internal_op`, `recovery_storm`,
 `note_subread_rtt`, `laggy_peers`, `io_accountant`).
@@ -48,6 +51,7 @@ from ..common.errs import (
     ECANCELED,
     EDQUOT,
     EINVAL,
+    EIO,
     ENODATA,
     ENOENT,
     EOPNOTSUPP,
@@ -65,6 +69,7 @@ from ..msg.messages import (
     PgId,
     ReqId,
 )
+from ..ops.guard import is_device_error
 from ..os.transaction import Transaction
 from .ec_transaction import PGTransaction
 from .osdmap import FLAG_FULL_QUOTA, PG_NONE, POOL_TYPE_ERASURE, PgPool
@@ -935,7 +940,8 @@ class PG(PGListener):
                     # faults to an errno the same way
                     dout("osd", 1, f"cls {op.name} raised {e!r}")
                     self._inflight_reqids.pop(msg.reqid.key(), None)
-                    reply(self._errored(msg, -EINVAL))
+                    # a device error is EIO, not the client's EINVAL (C36)
+                    reply(self._errored(msg, -(EIO if is_device_error(e) else EINVAL)))
                     return
                 # fold this method's staged mutations NOW (in op order)
                 staged = hctx.dirty()
@@ -1025,7 +1031,7 @@ class PG(PGListener):
         try:
             self.backend.submit_transaction(pgt, msg.reqid, on_commit, **kwargs)
         except Exception as e:  # EcError on an invalid write plan
-            err = getattr(e, "errno", EINVAL)
+            err = EIO if is_device_error(e) else getattr(e, "errno", EINVAL)
             finish(self._errored(msg, -abs(err)), remember=False)
 
     def _do_read(self, msg: MOSDOp, reply) -> None:
@@ -1120,7 +1126,8 @@ class PG(PGListener):
                     # a buggy/malformed-input method must not leak past
                     # the reply (the client would hang on its reqid)
                     dout("osd", 1, f"cls {op.name} raised {e!r}")
-                    result = -EINVAL
+                    # a device error is EIO, not the client's EINVAL (C36)
+                    result = -(EIO if is_device_error(e) else EINVAL)
                     break
             elif op.op == OSDOp.PGLS:
                 # PrimaryLogPG::do_pgnls — enumerate this PG's heads

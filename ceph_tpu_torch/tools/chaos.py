@@ -1500,11 +1500,13 @@ async def _run(cfg: dict, device) -> dict:
         # short enough to actually evaluate (pinned above)
         report["history_sentinels_fired"] = history_mod.sentinels_fired
         report["history_sentinels_active"] = sorted(history_mod.sentinels)
+        report["history_sentinel_raises"] = list(history_mod.sentinel_raises)
         report["history_store"] = history_mod.store.stats()
         assert report["history_sentinels_fired"] == 0, (
             f"chaos: trend sentinels fired on a healthy run: "
             f"{report['history_sentinels_active']} "
-            f"(fired {report['history_sentinels_fired']})"
+            f"(fired {report['history_sentinels_fired']}: "
+            f"{report['history_sentinel_raises']})"
         )
         # the final snapshot re-waits health_clear: the metrics section
         # above takes long enough for one stale beacon (e.g. a status

@@ -16,10 +16,10 @@ nothing falls back to it, since it runs at about 1 MB/s.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 
+from ..common.lockdep import make_lock
 from . import host_build
 
 SOURCE = host_build.CSRC / "crc32c_host.cc"
@@ -48,7 +48,7 @@ def _crc32c_py(crc: int, data: bytes) -> int:
     return c ^ 0xFFFFFFFF
 
 
-_lock = threading.Lock()
+_lock = make_lock("crc32c_host_library")
 _lib: ctypes.CDLL | None = None
 
 

@@ -15,8 +15,9 @@ import hashlib
 import os
 import platform
 import subprocess
-import threading
 from pathlib import Path
+
+from ..common.lockdep import make_lock
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -27,7 +28,7 @@ FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra"]
 if platform.machine() == "x86_64":
     FLAGS += ["-msse4.2", "-mssse3"]
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("host_build")
 
 
 def build(stem: str, sources: list[Path], flags: list[str] = FLAGS,

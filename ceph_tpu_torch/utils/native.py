@@ -16,13 +16,13 @@ library can be had, so its callers fall back to Python, the port keeps
 from __future__ import annotations
 
 import ctypes
-import threading
 
+from ..common.lockdep import make_lock
 from . import host_build
 
 SOURCES = [host_build.CSRC / "crc32c_host.cc", host_build.CSRC / "crush.cc"]
 
-_lock = threading.Lock()
+_lock = make_lock("native_host_library")
 _lib: ctypes.CDLL | None = None
 
 

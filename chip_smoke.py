@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,...,20}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,...,21}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
@@ -9,7 +9,7 @@ kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, phase 15's monitors' log (Paxos, the elector's messages and
 timers, the lease) is written at level 10 to PATH (with --only N, phase
 N's).  With --only N, phases 1 and 1b build the kernels and phase N (14
-to 20) runs alone; the script then exits without the kernel and contract
+to 21) runs alone; the script then exits without the kernel and contract
 lines.
 
 Phase 19 (the offline tools) runs in this process right after phase 13.
@@ -542,6 +542,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launches by kernel, each of `swar_gf` (the wedge), `xor_reduce`
    (RS(2,1)'s encodes and single erasures), `packed_verify` (the scrub),
    `crc32c` and `compress_transform` (phase 3.8) above 0.
+21. The tooling and the graft entry (after the side-by-side phases;
+   its three parts run at once): 21a `python -m ceph_tpu_torch.analysis
+   --json` over this checkout, in a process of its own, exits 0 with all
+   six passes, no open finding and no stale allowlist entry (each pass's
+   findings and allowlisted counts and the seconds printed); 21b
+   `graft_entry.entry()` on cuda: `fn(*args)` (the RS(8,3) bit-matrix
+   product of the (16, 8, 4096) batch of `np.random.default_rng(0)`)
+   byte-equal to the host oracle `xor_matmul_host_batch` and to plugin
+   `tpu`'s `encode_array` of the same batch, which raises `swar_gf`'s
+   launches by at least 1; 21c the lockdep replay of the aggregated
+   encode stack in a process started with CEPH_TPU_LOCKDEP=1 (this
+   script with --lockdep-replay, hidden from --help): RS(8,3), 64 objects
+   of 4 MiB through `EncodeAggregator(window=8, pipeline_depth=2)` and the
+   device chunk cache touched; lockdep's violations unchanged, its edges
+   non-empty with an `ec_aggregator` edge, 4 sampled parities byte-exact
+   against the host oracle in three 16 KiB column windows each, and
+   `swar_gf` launched.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -7584,6 +7601,145 @@ def phase_chaos(torch, swar, packed, co, card, device=None) -> dict:
     return {"launches": launches, "figures": figures, "seconds": seconds}
 
 
+# Phase 21's lockdep replay: RS(8,3), objects of 4 MiB as (1, 8, 512 KiB)
+# stripes, the aggregator's window and depth, the parities sampled, and
+# the byte windows of each sampled parity held against the host oracle
+# (a column of the parity depends only on the same column of the data;
+# the oracle takes about 6 s for a whole 4 MiB object on one core).
+LD_OBJECTS, LD_OBJECT_BYTES, LD_WINDOW, LD_DEPTH, LD_SAMPLES = 64, 4 << 20, 8, 2, 4
+LD_WINDOWS, LD_WINDOW_BYTES = 3, 16 << 10
+LOCKDEP_RESULT = "chip_smoke lockdep replay result: "
+ANALYSIS_LIMIT_S = 120
+
+
+def lockdep_replay(torch, swar, device=None) -> dict:
+    """21c's body, run in a process started with CEPH_TPU_LOCKDEP=1 (the
+    reference's `TestLockdepStackRegression` replay at RS(8,3) and 4 MiB
+    objects): the encodes through an EncodeAggregator, the device chunk
+    cache touched; returns what the parent checks."""
+    from ceph_tpu_torch.codec import registry
+    from ceph_tpu_torch.codec.matrix_codec import EncodeAggregator
+    from ceph_tpu_torch.common import lockdep
+    from ceph_tpu_torch.gf import expand_matrix, xor_matmul_host_batch
+    from ceph_tpu_torch.ops.device_cache import device_chunk_cache
+
+    enabled = lockdep.enabled()
+    v0 = lockdep.violations()
+    ec = registry.instance().factory("tpu", {"k": "8", "m": "3"}, device=device)
+    agg = EncodeAggregator(window=LD_WINDOW, pipeline_depth=LD_DEPTH)
+    rng = np.random.default_rng(SEED + 21)
+    shape = (1, 8, LD_OBJECT_BYTES // 8)
+    objects = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(LD_OBJECTS)]
+    before = swar.launches
+    t0 = time.perf_counter()
+    tickets = [agg.submit(ec, obj) for obj in objects]
+    agg.flush()
+    parities = [np.asarray(t.result()) for t in tickets]
+    cache = device_chunk_cache()
+    cache.put("lockdep-oid", 0, 1, np.zeros(256, dtype=np.uint8), device=device)
+    hit = cache.get("lockdep-oid", 0, 1)
+    cache.invalidate_object("lockdep-oid")
+    seconds = time.perf_counter() - t0
+    bm = expand_matrix(ec.distribution_matrix()[8:])
+    sampled = [int(i) for i in np.linspace(0, LD_OBJECTS - 1, LD_SAMPLES)]
+    L = shape[-1]
+    starts = [int(s) for s in np.linspace(0, L - LD_WINDOW_BYTES, LD_WINDOWS)]
+    exact = [bool(parities[i].shape == (1, 3, L) and all(
+        np.array_equal(parities[i][..., s:s + LD_WINDOW_BYTES],
+                       xor_matmul_host_batch(bm, objects[i][..., s:s + LD_WINDOW_BYTES]))
+        for s in starts)) for i in sampled]
+    edges = lockdep.edges()
+    return {"enabled": enabled, "violations": lockdep.violations() - v0,
+            "edges": sum(len(v) for v in edges.values()),
+            "aggregator_edge": any("ec_aggregator" in src for src in edges),
+            "cache_hit": hit is not None, "sampled": sampled, "exact": exact,
+            "launches": swar.launches - before, "seconds": seconds,
+            "device": str(ec.device)}
+
+
+def phase_tooling(torch, swar, registry, card, device=None) -> dict:
+    """Phase 21: the static analysis over this checkout (21a) and the lockdep
+    replay (21c), each in a process of its own, run while the graft entry
+    (21b) runs here."""
+    from ceph_tpu_torch import graft_entry
+    from ceph_tpu_torch.gf import expand_matrix, xor_matmul_host_batch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    analysis = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.analysis", "--json"], cwd=root,
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    replay_cmd = [sys.executable, os.path.abspath(__file__), "--lockdep-replay"]
+    if device is not None:
+        replay_cmd += ["--device", str(device)]
+    replay = subprocess.Popen(
+        replay_cmd, cwd=root, env={**os.environ, "CEPH_TPU_LOCKDEP": "1"},
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # 21b: the graft entry on the card, beside the codec's kernel path
+        fn, (bit_matrix, data) = graft_entry.entry(device=device)
+        want_dev = "cuda" if device is None else torch.device(device).type
+        check(bit_matrix.device.type == data.device.type == want_dev,
+              f"21b: entry on {data.device}, want {want_dev}")
+        out = fn(bit_matrix, data)
+        host = out.cpu().numpy()
+        oracle = xor_matmul_host_batch(bit_matrix.cpu().numpy(), data.cpu().numpy())
+        ec = registry.instance().factory("tpu", {"k": "8", "m": "3"}, device=device)
+        check(np.array_equal(expand_matrix(ec.distribution_matrix()[8:]),
+                             bit_matrix.cpu().numpy()),
+              "21b: plugin tpu's RS(8,3) parity rows are not the entry's bit-matrix")
+        before = swar.launches
+        coded = ec.encode_array(data).cpu().numpy()
+        codec_launches = swar.launches - before
+        b_seconds = time.perf_counter() - t0
+        check(host.shape == (16, 3, 4096) and np.array_equal(host, oracle),
+              "21b: entry's fn(*args) != the host oracle")
+        check(np.array_equal(coded, host),
+              "21b: plugin tpu's encode_array != the entry's fn(*args)")
+        check(codec_launches >= 1, f"21b: encode_array launched no swar_gf ({codec_launches})")
+        a_out, a_err = analysis.communicate(timeout=ANALYSIS_LIMIT_S)
+        a_seconds = time.perf_counter() - t0
+        r_out, r_err = replay.communicate(timeout=ANALYSIS_LIMIT_S)
+    finally:
+        for proc in (analysis, replay):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # 21a: the analysis over this checkout
+    check(analysis.returncode == 0, f"21a: analysis exited {analysis.returncode}: "
+                                    f"{a_out[-2000:]} {a_err[-2000:]}")
+    report = json.loads(a_out)
+    passes = report["passes"]
+    check(report["ok"] and not report["findings"] and not report["stale_allowlist"],
+          f"21a: findings {report['findings']} stale {report['stale_allowlist']}")
+    check(len(passes) == 6, f"21a: passes {sorted(passes)}")
+    # 21c: the lockdep replay
+    check(replay.returncode == 0, f"21c: replay exited {replay.returncode}: {r_err[-3000:]}")
+    lines = [ln for ln in r_out.splitlines() if ln.startswith(LOCKDEP_RESULT)]
+    check(len(lines) == 1, f"21c: no result line: {r_out[-2000:]}")
+    ld = json.loads(lines[0][len(LOCKDEP_RESULT):])
+    check(ld["enabled"], "21c: lockdep was off in the replay")
+    check(ld["violations"] == 0, f"21c: {ld['violations']} lock-order violations")
+    check(ld["edges"] > 0 and ld["aggregator_edge"], f"21c: edges {ld}")
+    check(all(ld["exact"]) and ld["cache_hit"], f"21c: parities or cache {ld}")
+    check(ld["launches"] > 0, f"21c: no swar_gf launch ({ld})")
+    seconds = time.perf_counter() - t0
+    counts = {pid: (v["findings"], v["allowlisted"]) for pid, v in passes.items()}
+    print(f"[21] 21a: python -m ceph_tpu_torch.analysis --json: exit 0, ok, 0 stale; "
+          f"(findings, allowlisted) by pass {counts}, {len(report['allowlisted'])} "
+          f"allowlisted in all; {a_seconds:.2f} s host clock (its process)", flush=True)
+    print(f"[21] 21b: graft_entry.entry() on {data.device}: fn(*args) (16, 3, 4096) "
+          f"byte-equal to xor_matmul_host_batch and to plugin tpu's encode_array "
+          f"({codec_launches} swar_gf launch); {b_seconds:.2f} s; {card}", flush=True)
+    print(f"[21] 21c: lockdep replay (CEPH_TPU_LOCKDEP=1) on {ld['device']}: "
+          f"{LD_OBJECTS} x {LD_OBJECT_BYTES >> 20} MiB RS(8,3) through EncodeAggregator(window={LD_WINDOW}, "
+          f"pipeline_depth={LD_DEPTH}) in {ld['seconds']:.2f} s, 0 violations, {ld['edges']} "
+          f"edges with ec_aggregator's, parities {ld['sampled']} exact in {LD_WINDOWS} windows of {LD_WINDOW_BYTES >> 10} KiB each, cache hit, "
+          f"{ld['launches']} swar_gf launches; phase 21 {seconds:.2f} s; {card}", flush=True)
+    return {"launches": {"21b": codec_launches, "21c": ld["launches"]}, "seconds": seconds,
+            "analysis": counts, "analysis_seconds": a_seconds}
+
+
 CLUSTER_RESULT = "chip_smoke cluster phase result: "
 CLUSTER_LIMIT_S = 600.0
 
@@ -7650,10 +7806,13 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19", "20"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19", "20", "21"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
     parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18", "20"),
                         help=argparse.SUPPRESS)  # one of the side-by-side phases' processes
+    parser.add_argument("--lockdep-replay", action="store_true",
+                        help=argparse.SUPPRESS)  # phase 21c's process
+    parser.add_argument("--device", help=argparse.SUPPRESS)  # 21c's codec device
     args = parser.parse_args(argv)
     import torch
 
@@ -7709,6 +7868,14 @@ def main(argv: list[str]) -> int:
 
     clusters = {"14": phase_daemon, "15": phase_mon, "16": phase_client,
                 "17": phase_access, "18": phase_cephfs, "20": phase_chaos}
+    if args.lockdep_replay:
+        import faulthandler
+
+        # a replay that hangs shows where, before the parent's limit
+        faulthandler.dump_traceback_later(ANALYSIS_LIMIT_S - 15, exit=True)
+        result = lockdep_replay(torch, swar, args.device)
+        print(LOCKDEP_RESULT + json.dumps(result), flush=True)
+        return 0
     if args.cluster_phase:
         from ceph_tpu_torch.ops import checksum_offload as co
 
@@ -7725,6 +7892,8 @@ def main(argv: list[str]) -> int:
 
         if args.only == "19":
             phase(19, phase_tools, torch, swar, packed, xor_mm, co, card)
+        elif args.only == "21":
+            phase(21, phase_tooling, torch, swar, registry, card)
         else:
             phase(int(args.only), clusters[args.only], torch, swar, packed, co, card)
         return 0
@@ -7762,6 +7931,7 @@ def main(argv: list[str]) -> int:
     check(tools["swar_gf"] > 0, f"phase 19 launched no swar_gf: {tools}")
     side = phase("14-18, 20", cluster_phases, clusters, args.mon_log)
     daemon, mon, client, access, cephfs, chaos = (side[n] for n in clusters)
+    tooling = phase(21, phase_tooling, torch, swar, registry, card)
     chaos_launches = chaos["launches"]
     fig15, fig16 = mon["figures"], client["figures"]
     print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
@@ -7790,7 +7960,8 @@ def main(argv: list[str]) -> int:
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
                      "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"],
                      "18": cephfs["launches"]["swar_gf"], "19": tools["swar_gf"],
-                     "20": chaos_launches["swar_gf"]}
+                     "20": chaos_launches["swar_gf"],
+                     "21": sum(tooling["launches"].values())}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
