@@ -105,6 +105,13 @@ class _DeviceCoder:
 
     Every tier counts one dispatch on `ops/dispatch.py`'s counters; a
     decode-kind coder also on DECODE_LAUNCHES.
+
+    Above the three tiers, the reference's sharded dispatch mode: when the
+    policy of parallel/dispatch.py gives a mesh for the input
+    (`shard_mesh_for`), the batch is split over it by
+    `parallel/sharded.py::sharded_coder_code`, one hand-kernel launch a
+    shard.  A process that sees one CUDA device never gets a mesh, and
+    the tiers run as they are.
     """
 
     __slots__ = ("bm", "plan", "packed", "decode")
@@ -134,7 +141,38 @@ class _DeviceCoder:
             return "packed"
         return "xor_matmul"
 
+    def shard_mesh_for(self, shape):
+        """Mesh for a sharded dispatch at this input shape, or None for the
+        single-device path.  Batched (..., k, L) inputs of at least
+        PACKED_MIN_BYTES shard, lead dims collapsed into one stripe axis
+        (CLAY's (planes, S, k+nu, sc) fragment launches included); the
+        threshold and width policy lives in parallel/dispatch.py (the
+        ec_tpu_shard_* knobs).  A mesh whose first device is not this
+        coder's leaves it on its device, where its results belong."""
+        if len(shape) < 3 or int(np.prod(shape)) < PACKED_MIN_BYTES:
+            return None
+        from ..parallel import dispatch as shard_dispatch
+
+        mesh = shard_dispatch.shard_mesh(int(np.prod(shape[:-2])))
+        if mesh is None or mesh.devices.flat[0] != self.plan.device:
+            return None
+        return mesh
+
     def __call__(self, data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+        mesh = self.shard_mesh_for(data.shape)
+        if mesh is not None:
+            # sharded dispatch mode: one launch, split over the mesh
+            from ..parallel.sharded import sharded_coder_code
+
+            lead = data.shape[:-2]
+            if len(lead) > 1:
+                # collapse lead dims into the stripe axis (CLAY batched
+                # fragments).  Donation skipped: a pooled buffer has the
+                # caller's lead geometry, not the flattened one.
+                flat = data.reshape(-1, *data.shape[-2:])
+                res = sharded_coder_code(self, flat, mesh)
+                return res.reshape(*lead, *res.shape[-2:])
+            return sharded_coder_code(self, data, mesh, out=out)
         tier = self.tier(data.shape)
         if tier == "swar":
             return self.plan(dense_aligned(data))
@@ -347,6 +385,25 @@ class _GlobalPlanCache:
 
 
 PLAN_CACHE = _GlobalPlanCache()
+
+
+def _coder_donatable(coder: _DeviceCoder, data_shape) -> bool:
+    """Will a dispatch through `coder` at this (already >= packed-size)
+    input shape write into a donated `out` buffer?  Mirrors the
+    _DeviceCoder dispatch: the packed tier writes it, the SWAR tier
+    ignores it, and a SHARDED launch writes it only on the packed path
+    with no remainder padding (a padded launch's result is a slice, not
+    the pooled logical-shape buffer)."""
+    mesh = coder.shard_mesh_for(tuple(data_shape))
+    if mesh is not None:
+        if len(data_shape) != 3:
+            return False  # flattened-lead launches skip donation
+        if coder.tier(data_shape) == "swar":
+            return False
+        from ..parallel.sharded import _stripe_shards
+
+        return data_shape[0] % _stripe_shards(mesh) == 0
+    return coder.tier(data_shape) == "packed"
 
 
 class EncodeAggregator(LaunchAggregator):
@@ -675,7 +732,7 @@ class MatrixCodecMixin:
         if int(np.prod(data_shape)) < PACKED_MIN_BYTES:
             return False
         coder = PLAN_CACHE.encode_coder(mat[self.k :], self.device)
-        return coder.tier(data_shape) == "packed"
+        return _coder_donatable(coder, data_shape)
 
     def decode_array(
         self, erasures: list[int], survivors, out: torch.Tensor | None = None
@@ -699,7 +756,7 @@ class MatrixCodecMixin:
         coder, _ = PLAN_CACHE.decode_coder(
             self.distribution_matrix(), list(erasures), self.k, self.device
         )
-        return coder.tier(data_shape) == "packed"
+        return _coder_donatable(coder, data_shape)
 
     def verify_array(self, codewords) -> torch.Tensor:
         """(..., k+m, L) uint8 codewords (data rows in encode order, then the

@@ -469,10 +469,9 @@ OPTIONS: dict[str, Option] = _opts(
         int,
         32,
         A,
-        "minimum stripe count before a coding launch would shard "
-        "data-parallel over several devices.  The port accepts and "
-        "records it (the OSD status blob); its launches stay on one "
-        "device (ops/dispatch.py), so it changes nothing yet",
+        "minimum stripe count before a coding launch shards "
+        "data-parallel over the visible devices (parallel/dispatch.py); "
+        "smaller launches stay on one device",
         see_also=("ec_tpu_shard_devices", "ec_tpu_aggregate_window"),
         runtime=True,
     ),
@@ -482,9 +481,8 @@ OPTIONS: dict[str, Option] = _opts(
         0,
         A,
         "device width for sharded coding launches (0 = every visible "
-        "device, 1 = no sharding, N = the first N devices).  The port "
-        "accepts and records it; its width stays 1 (ops/dispatch.py), "
-        "and the daemon never opens a second device",
+        "CUDA device, 1 = no sharding, N = the first N devices); a "
+        "process that sees one device never shards",
         see_also=("ec_tpu_shard_min_batch",),
         runtime=True,
     ),

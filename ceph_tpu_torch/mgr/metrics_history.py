@@ -46,6 +46,17 @@ launch rate up, so there a decode burst that ends reads as a decode
 regression on a healthy cluster (ROADMAP C37).  The module also keeps
 the figures of its last raise transitions (`sentinel_raises`), which
 the chaos harness prints when a healthy run fires a sentinel.
+
+Encode follows the same rule (ROADMAP C38).  The reference's
+``encode_gbps`` carries every dispatch's bytes: decodes, scrub verifies
+and the checksum and compression offload launches included.  So a burst
+of large recovery, scrub or offload batches that ends while small client
+writes keep the launch rate up reads as an encode regression.  Where a
+daemon reports those counters, encode is judged on its own bytes and
+launches (``encode_only_gbps`` and ``encode_launches_per_sec``: the
+totals less the decode, verify, ``csum`` and ``compress`` ones) by the
+same volume rule; a daemon that does not report them is judged by the
+reference's rule.
 """
 
 from __future__ import annotations
@@ -86,6 +97,33 @@ _RATE_FAMILIES = (
     ("fallback_per_sec", "ec_dispatch.fallback_launches", 1.0),
     ("op_rate", "op", 1.0),
 )
+
+# (family, (total counter, counters subtracted from it), scale): a
+# coding kind's own rate, sampled only from a daemon that reports every
+# counter it needs (C38: encode's own bytes and launches).  The offload
+# services' launches are theirs (`ops/offload_runtime.py`: each launch of
+# `csum` and `compress` is one dispatch of `launch_bytes` input bytes)
+_OWN_RATE_FAMILIES = (
+    ("encode_only_gbps",
+     ("ec_dispatch.bytes", "ec_dispatch.decode_bytes", "ec_dispatch.verify_bytes",
+      "offload.csum.launch_bytes", "offload.compress.launch_bytes"), 1e-9),
+    ("encode_launches_per_sec",
+     ("ec_dispatch.launches", "ec_dispatch.decode_launches",
+      "ec_dispatch.verify_launches", "offload.csum.launches",
+      "offload.compress.launches"), 1.0),
+)
+
+
+def _counter_total(value) -> float | None:
+    """A counter's cumulative total: a number as it is, a histogram
+    (`PerfHistogram.dump()`) by its sum; None for anything else."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    hist = value.get("histogram") if isinstance(value, dict) else None
+    if isinstance(hist, dict) and isinstance(hist.get("sum"), (int, float)):
+        return float(hist["sum"])
+    return None
+
 
 # (family, perf counter key) level gauges copied as-is
 _GAUGE_FAMILIES = (
@@ -154,6 +192,8 @@ class MetricsHistoryModule(MgrModule):
         # chaos harness names them when a healthy run fires one)
         self.sentinel_raises: list[dict] = []
         self.config_errors = 0  # skipped config reads (visible, not silent)
+        # the own-rate families some daemon has reported (C38)
+        self._own_seen: set[str] = set()
 
     # -- config ----------------------------------------------------------------
 
@@ -203,6 +243,19 @@ class MetricsHistoryModule(MgrModule):
                 rate = self._counter_rate(daemon, counter, float(value), now)
                 if rate is None:
                     continue  # first sight / restart: anchor, no sample
+                rate *= scale
+                self.store.append(family, labels, now, rate)
+                agg_rates[family] = agg_rates.get(family, 0.0) + rate
+            for family, counters, scale in _OWN_RATE_FAMILIES:
+                values = [_counter_total(perf.get(c)) for c in counters]
+                if None in values:
+                    continue
+                self._own_seen.add(family)
+                rate = self._counter_rate(
+                    daemon, family, values[0] - sum(values[1:]), now
+                )
+                if rate is None:
+                    continue
                 rate *= scale
                 self.store.append(family, labels, now, rate)
                 agg_rates[family] = agg_rates.get(family, 0.0) + rate
@@ -295,6 +348,16 @@ class MetricsHistoryModule(MgrModule):
         qw_factor = float(self._conf["mgr_trend_queue_wait_factor"])
         min_launch = float(self._conf["mgr_trend_min_launch_rate"])
         cur_launch, base_launch = self._trend("launches_per_sec", now)
+
+        def persists(cur, base) -> bool:
+            return (
+                cur is not None
+                and base is not None
+                and cur >= min_launch
+                and base >= min_launch
+                and cur >= 0.5 * base
+            )
+
         # "launch volume persists": BOTH windows ran at least
         # min_launch/sec, and the recent one at least half the baseline
         # cadence.  A load drop (fewer launches) is not a regression —
@@ -303,25 +366,21 @@ class MetricsHistoryModule(MgrModule):
         # baseline-volume gate, the first busy window after an idle
         # spell would trivially pass `cur >= 0.5 * 0` and every
         # sentinel could fire on a perfectly healthy warm-up.
-        volume_ok = (
-            cur_launch is not None
-            and base_launch is not None
-            and cur_launch >= min_launch
-            and base_launch >= min_launch
-            and cur_launch >= 0.5 * base_launch
-        )
-        # decode's own cadence (C37): a decode burst that ends is a
-        # load drop of decode even while encodes keep the total up
-        cur_dec, base_dec = self._trend("decode_launches_per_sec", now)
+        volume_ok = persists(cur_launch, base_launch)
+        # each kind's own cadence (C37, C38): a decode, or a recovery or
+        # scrub burst, that ends is a load drop of that kind even while
+        # other launches keep the total up
+        own = "encode_launches_per_sec" in self._own_seen
         kind_ok = {
-            "encode": True,
-            "decode": (
-                cur_dec is not None
-                and base_dec is not None
-                and cur_dec >= min_launch
-                and base_dec >= min_launch
-                and cur_dec >= 0.5 * base_dec
+            "encode": (
+                persists(*self._trend("encode_launches_per_sec", now))
+                if own else True
             ),
+            "decode": persists(*self._trend("decode_launches_per_sec", now)),
+        }
+        gbps_family = {
+            "encode": "encode_only_gbps" if own else "encode_gbps",
+            "decode": "decode_gbps",
         }
         raised: dict[str, dict] = {}
         if volume_ok:
@@ -329,7 +388,7 @@ class MetricsHistoryModule(MgrModule):
             for kind in ("encode", "decode"):
                 if not kind_ok[kind]:
                     continue
-                cur, base = self._trend(f"{kind}_gbps", now)
+                cur, base = self._trend(gbps_family[kind], now)
                 if (
                     cur is not None and base is not None and base > 0.0
                     and ratio > 0.0 and cur < ratio * base

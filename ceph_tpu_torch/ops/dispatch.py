@@ -19,7 +19,8 @@ Beside them, the offload runtime's gauges (ops/offload_runtime.py):
 `FALLBACK_LAUNCHES` (launches completed on the host oracle, never counted
 in `LAUNCHES`), `PIPELINE` (the depth-N in-flight ring and the donation
 pool's reuse and recycled-live invariant), `PAD_WASTE` and `FUSED`;
-`SHARDED_LAUNCHES` and `DEVICES_PER_LAUNCH` at width 1.  `perf_dump()`
+`SHARDED_LAUNCHES` and `DEVICES_PER_LAUNCH`, the width of each dispatch
+(parallel/sharded.py passes the devices a sharded launch spans).  `perf_dump()`
 flattens all of them, the device guard's state, the flight recorder's
 utilization and the launch scheduler's lanes into the reference's
 `ec_dispatch` keys.
@@ -72,11 +73,11 @@ DECODE_LAUNCHES = LaunchCounter()
 # LAUNCHES, like the decode counter.
 VERIFY_LAUNCHES = LaunchCounter()
 
-# Multi-device dispatches, counted in the reference when a dispatch spans
-# more than one device.  The port dispatches on one device (the stripe-
-# axis split over several is ROADMAP A8), so this stays 0 and every
-# launch lands on `devices_per_launch.1`; the counter keeps the
-# reference's perf-dump keys.
+# Multi-device dispatches: a launch that `parallel/sharded.py` split over
+# more than one device of a mesh is counted here AND in LAUNCHES.  Under
+# the default policy a process that sees one CUDA device never builds a
+# mesh (parallel/dispatch.py::shard_mesh), so there it stays 0 and every
+# launch lands on `devices_per_launch.1`.
 SHARDED_LAUNCHES = LaunchCounter()
 
 
@@ -295,23 +296,28 @@ def lead_stripes(shape) -> int:
 
 
 def record_launch(
-    stripes: int, nbytes: int, decode: bool = False, verify: bool = False
+    stripes: int, nbytes: int, decode: bool = False, devices: int = 1,
+    verify: bool = False,
 ) -> None:
     """Record one device dispatch carrying `stripes` stripes and `nbytes`
     input bytes.  `decode=True` (a decode-kind coder) also lands it on
-    DECODE_LAUNCHES, `verify=True` (a verify plan) on VERIFY_LAUNCHES; it
-    spans one device (the occupancy distribution's width 1).
+    DECODE_LAUNCHES, `verify=True` (a verify plan) on VERIFY_LAUNCHES.
+    `devices` is how many mesh devices the dispatch spanned (the sharded
+    dispatcher passes its mesh's width); > 1 also lands it on
+    SHARDED_LAUNCHES, and every value feeds the occupancy distribution.
 
     Flight recorder hook: a dispatch running under an aggregator launch
-    annotates its kind onto the ACTIVE flight record; a dispatch with no
-    active record (eager bulk paths, timing loops) appends a lightweight
-    span-less record so the ring still shows it."""
+    annotates its devices and kind onto the ACTIVE flight record; a
+    dispatch with no active record (eager bulk paths, timing loops)
+    appends a lightweight span-less record so the ring still shows it."""
     LAUNCHES.record(stripes, nbytes)
     if decode:
         DECODE_LAUNCHES.record(stripes, nbytes)
     if verify:
         VERIFY_LAUNCHES.record(stripes, nbytes)
-    DEVICES_PER_LAUNCH.record(1)
+    if devices > 1:
+        SHARDED_LAUNCHES.record(stripes, nbytes)
+    DEVICES_PER_LAUNCH.record(devices)
     from .flight_recorder import flight_recorder
 
     fr = flight_recorder()
@@ -322,10 +328,13 @@ def record_launch(
         # worker whose device unwedges later still holds this record
         # through its contextvars copy, and a post-commit rewrite would
         # corrupt the ring under readers
-        if not rec["settle_ts"] and (decode or verify):
-            rec["kind"] = kind
+        if not rec["settle_ts"]:
+            rec["devices"] = max(rec["devices"], int(devices))
+            rec["flags"]["sharded"] = rec["flags"]["sharded"] or devices > 1
+            if decode or verify:
+                rec["kind"] = kind
     else:
-        fr.record_raw(kind, stripes, nbytes)
+        fr.record_raw(kind, stripes, nbytes, devices)
 
 
 def perf_dump() -> dict[str, object]:

@@ -161,6 +161,7 @@ class CodingPlan:
 
     def __init__(self, gf_matrix: np.ndarray, *, device: torch.device, decode: bool = False):
         gf_matrix = np.asarray(gf_matrix, dtype=np.uint8)
+        self.gf_matrix = gf_matrix  # parallel/sharded.py copies the tables from it
         self.m, self.k = gf_matrix.shape
         self.device = torch.device(device)
         self.decode = decode
@@ -201,19 +202,29 @@ def build_library() -> ctypes.CDLL:
     return _LIB
 
 
-def swar_gf(plan: CodingPlan, data: torch.Tensor) -> torch.Tensor:
+def swar_gf(plan: CodingPlan, data: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Wrapper of the hand kernel: (..., k, L) uint8 -> (..., m, L) uint8.
 
     A CPU tensor takes `swar_code_reference`; a CUDA tensor launches
-    csrc/swar_gf.cu on the current stream or raises."""
+    csrc/swar_gf.cu on the current stream or raises.  `out` is written and
+    returned when its shape, dtype and device are the result's and it is
+    contiguous with a 16-byte aligned base (a stripe shard of a larger
+    result); otherwise it is ignored."""
     global launches
     *lead, k, L = data.shape
     if data.dtype != torch.uint8:
         raise TypeError(f"swar_gf: dtype {data.dtype}, want torch.uint8")
     if k != plan.k:
         raise ValueError(f"swar_gf: k={k} but the plan has k={plan.k}")
+    want = (*lead, plan.m, L)
+    if not (out is not None and tuple(out.shape) == want and out.dtype == torch.uint8
+            and out.device == data.device and out.is_contiguous()
+            and out.data_ptr() % 16 == 0):
+        out = None
     if data.device.type == "cpu":
-        return swar_code_reference(plan.sched, data)
+        got = swar_code_reference(plan.sched, data)
+        return got if out is None else out.copy_(got)
     if data.device.type != "cuda" or data.device != plan.device:
         raise ValueError(f"swar_gf: data on {data.device}, plan on {plan.device}")
     if not data.is_contiguous():
@@ -221,7 +232,8 @@ def swar_gf(plan: CodingPlan, data: torch.Tensor) -> torch.Tensor:
     if L % 16 or data.data_ptr() % 16:
         raise ValueError("swar_gf: chunk length and base address must be 16-byte aligned")
     stripes = int(np.prod(lead)) if lead else 1
-    out = torch.empty((*lead, plan.m, L), dtype=torch.uint8, device=data.device)
+    if out is None:
+        out = torch.empty(want, dtype=torch.uint8, device=data.device)
     if stripes == 0 or L == 0:
         return out
     lib = build_library()

@@ -27,8 +27,9 @@ every PG's EC codec and the store's offloads on `device` (None: `cuda`,
 which raises with no GPU; tests pass "cpu"); the status blob keeps the
 reference's keys, `tpu_backend` reading the port's device guard and
 `fallback_launches` 0 (nothing is recomputed on the host), `hbm_*` the
-port's mempool ledger; `ec_tpu_shard_*` are accepted and the daemon
-stays on its one device.  Where the port's daemon differs: it keeps a PG
+port's mempool ledger; `ec_tpu_shard_*` feed the sharded-dispatch policy
+(parallel/dispatch.py), which splits a large launch over the CUDA
+devices the process sees and never builds a mesh over one.  Where the port's daemon differs: it keeps a PG
 it leaves as a stray for backend messages (ROADMAP C12), pings leave on
 a heartbeat messenger of their own and a heartbeat tick that woke late
 judges no peer (C14), placement is computed once for each set of
@@ -575,9 +576,22 @@ class OSD(Dispatcher):
                 ["bluestore_csum_offload"],
                 lambda _n, v: self.store.set_csum_offload(bool(v)),
             )
-        # sharded-dispatch policy: the port accepts and records the two
-        # knobs (the status blob's `shard_policy`), and its launches stay
-        # on this daemon's one device (ops/dispatch.py)
+        # sharded-dispatch policy: the process-wide mesh fan-out knobs
+        # ride the same config/observer plumbing as the aggregators
+        from ..parallel import dispatch as shard_dispatch
+
+        shard_dispatch.configure(
+            min_batch=self.conf.get("ec_tpu_shard_min_batch"),
+            devices=self.conf.get("ec_tpu_shard_devices"),
+        )
+        self.conf.add_observer(
+            ["ec_tpu_shard_min_batch"],
+            lambda _n, v: shard_dispatch.configure(min_batch=int(v)),
+        )
+        self.conf.add_observer(
+            ["ec_tpu_shard_devices"],
+            lambda _n, v: shard_dispatch.configure(devices=int(v)),
+        )
         # recovery-storm controller: the cross-PG wave
         # orchestrator — engages when a whole-OSD failure floods the
         # missing sets, batches reconstruction decodes into mesh-wide

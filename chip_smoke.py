@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,...,21}]
+    python3 chip_smoke.py [--parent DIR] [--mon-log PATH] [--only {14,...,22}]
 
 With --parent, phase 7c also times the packed kernels of the older
 checkout at DIR beside this one's, and phase 12b its crc32c and transform
@@ -9,7 +9,7 @@ kernels (parent, this, this, parent), each in a process of its own.  With
 --mon-log, phase 15's monitors' log (Paxos, the elector's messages and
 timers, the lease) is written at level 10 to PATH (with --only N, phase
 N's).  With --only N, phases 1 and 1b build the kernels and phase N (14
-to 21) runs alone; the script then exits without the kernel and contract
+to 22) runs alone; the script then exits without the kernel and contract
 lines.
 
 Phase 19 (the offline tools) runs in this process right after phase 13.
@@ -559,6 +559,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    non-empty with an `ec_aggregator` edge, 4 sampled parities byte-exact
    against the host oracle in three 16 KiB column windows each, and
    `swar_gf` launched.
+22. The stripe-parallel layer (ceph_tpu_torch/parallel/, after phase 21,
+   in this process).  22a: the sharded functions over meshes that repeat
+   cuda:0 (width 2 with one lane, width 4 with two lanes, width 8 with
+   two pods): `sharded_encode` / `_decode` and `scrub_step` (xor_matmul,
+   plain torch) at the dry run's shapes and at (256, 8, 4096);
+   `sharded_plan_encode` / `_decode`, `plan_scrub_step` and
+   `sharded_coder_code` at the path's rows, RS(8,3) (4096, 8, 4096)
+   (32 objects of 4 MiB cut at stripe_unit 4096) and RS(10,4)
+   (4096, 10, 4096); 37 stripes (uneven stripe shards), L = 4097
+   (uneven lane shards, packed_code on each tile) and L = 4100 through
+   `sharded_coder_code` (packed_code on every shard).  Each output
+   byte-exact against the single-device kernel on the whole batch and
+   against `xor_matmul_host_batch` on the first and last stripe of each
+   shard; both scrubs read 0 on a clean batch and exactly 3 (the exact
+   mask) with one byte flipped in 3 stripes spread over the shards (one
+   data chunk, two parity chunks); `swar_gf.launches` rises by stripe
+   shards x lane shards on each plan call, LAUNCHES and SHARDED_LAUNCHES
+   by 1 on each plan and coder call, DEVICES_PER_LAUNCH in the stripe-
+   shard bucket on each coder call.  Over distinct devices when
+   `torch.cuda.device_count()` >= 2, else one line says it did not run.
+   22b: `graft_entry.dryrun_multichip(8, devices=[cuda:0] * 8)`, then
+   plugin `tpu` RS(8,3) `encode_array` and `decode_array` (one pattern of
+   each erasure class) at (4096, 8, 4096) inside `use_devices([cuda:0] *
+   4)` with min_batch 32: each one sharded launch, byte-exact against the
+   single-device path.  22c: the width-1 witness over phases 2-21:
+   SHARDED_LAUNCHES rose by 0 and DEVICES_PER_LAUNCH only in bucket 1 in
+   this process, and each side-by-side process and the lockdep replay
+   report 0 sharded launches.  22d (measured only): `sharded_plan_encode`
+   at (4096, 8, 4096) over 1, 2 and 4 shards of cuda:0 beside the
+   single-device `encode_array`, CUDA events around 5 calls, median of 20.
 
 The last line of standard output is one JSON object,
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -7649,7 +7679,9 @@ def lockdep_replay(torch, swar, device=None) -> dict:
                        xor_matmul_host_batch(bm, objects[i][..., s:s + LD_WINDOW_BYTES]))
         for s in starts)) for i in sampled]
     edges = lockdep.edges()
-    return {"enabled": enabled, "violations": lockdep.violations() - v0,
+    from ceph_tpu_torch.ops.dispatch import SHARDED_LAUNCHES
+
+    return {"enabled": enabled, "sharded_launches": SHARDED_LAUNCHES.snapshot()["launches"], "violations": lockdep.violations() - v0,
             "edges": sum(len(v) for v in edges.values()),
             "aggregator_edge": any("ec_aggregator" in src for src in edges),
             "cache_hit": hit is not None, "sampled": sampled, "exact": exact,
@@ -7737,7 +7769,343 @@ def phase_tooling(torch, swar, registry, card, device=None) -> dict:
           f"edges with ec_aggregator's, parities {ld['sampled']} exact in {LD_WINDOWS} windows of {LD_WINDOW_BYTES >> 10} KiB each, cache hit, "
           f"{ld['launches']} swar_gf launches; phase 21 {seconds:.2f} s; {card}", flush=True)
     return {"launches": {"21b": codec_launches, "21c": ld["launches"]}, "seconds": seconds,
-            "analysis": counts, "analysis_seconds": a_seconds}
+            "analysis": counts, "analysis_seconds": a_seconds,
+            "replay_sharded": ld["sharded_launches"]}
+
+
+# Phase 22: the path's rows (stripe_unit 4096), ((S, k, L), m): RS(8,3) as
+# 32 objects of 4 MiB, RS(10,4) as bench_sweep's bulk row queues it; the
+# rows of the xor_matmul (plain torch) functions, which build a float
+# plane per bit; the uneven cases; the meshes over one repeated device
+# (width, make_mesh options); the shard counts 22d times; the live path's
+# erasure classes (1 data, 1 parity, 2 mixed, 3 mixed).
+SH_ROWS = (((4096, 8, 4096), 3), ((4096, 10, 4096), 4))
+SH_XOR_ROWS = (256, 8, 4096)
+SH_UNEVEN_S, SH_UNEVEN_L, SH_PACKED_L = 37, 4097, 4100
+SH_MESHES = ((2, {"lane_parallelism": 1}), (4, {"lane_parallelism": 2}), (8, {"pods": 2}))
+SH_TIMED_SHARDS = (1, 2, 4)
+SH_CLASSES = ([0], [9], [0, 9], [0, 5, 10])
+
+
+class ShardCounts:
+    """The launch counters phase 22 reads around each sharded call."""
+
+    def __init__(self, swar, packed, dispatch):
+        self.swar, self.packed, self.dispatch = swar, packed, dispatch
+        self.totals = collections.Counter()
+
+    def snap(self) -> dict:
+        return {"swar_gf": self.swar.launches,
+                "packed_code": self.packed.launches["packed_code"],
+                "launches": self.dispatch.LAUNCHES.snapshot()["launches"],
+                "sharded": self.dispatch.SHARDED_LAUNCHES.snapshot()["launches"],
+                "devices": self.dispatch.DEVICES_PER_LAUNCH.snapshot()}
+
+    def call(self, what: str, fn, *, swar=0, packed_code=0, dispatches=1, bucket=None):
+        """fn() once; the kernels' launches must rise by `swar` and
+        `packed_code`, LAUNCHES and SHARDED_LAUNCHES by `dispatches`, and
+        DEVICES_PER_LAUNCH by one in `bucket` (when given)."""
+        b = self.snap()
+        out = fn()
+        a = self.snap()
+        got = {key: a[key] - b[key] for key in ("swar_gf", "packed_code", "launches", "sharded")}
+        want = {"swar_gf": swar, "packed_code": packed_code, "launches": dispatches,
+                "sharded": dispatches}
+        check(got == want, f"22a: {what}: launches {got}, want {want}")
+        if bucket is not None:
+            moved = {n: c - b["devices"].get(n, 0) for n, c in a["devices"].items()
+                     if c != b["devices"].get(n, 0)}
+            check(moved == {bucket: 1}, f"22a: {what}: devices_per_launch moved {moved}, "
+                                        f"want {{{bucket}: 1}}")
+        self.totals.update({"swar_gf": swar, "packed_code": packed_code, "calls": 1})
+        return out
+
+
+def shard_edges(S: int, ns: int):
+    """The first and last stripe of each of `ns` stripe shards of S stripes."""
+    s = S // ns
+    return sorted({i * s for i in range(ns)} | {i * s + s - 1 for i in range(ns)})
+
+
+def sharded_checks(torch, swar, packed, dispatch, gf, devices, tag: str) -> dict:
+    """22a over meshes of `devices` (SH_MESHES' widths that fit); returns the
+    kernels' launches and the calls made."""
+    from ceph_tpu_torch.codec.matrix_codec import PLAN_CACHE
+    from ceph_tpu_torch.parallel import sharded
+    from ceph_tpu_torch.parallel.mesh import make_mesh
+
+    first = torch.device(devices[0])
+    gen = torch.Generator(device=first)
+    gen.manual_seed(SEED + 22)
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=first, generator=gen)
+
+    def host_edges(bm, data, got, ns, what):
+        # the host oracle on the first and last stripe of each stripe shard
+        S = data.shape[0]
+        rows = [r for r in shard_edges(S + (-S % ns), ns) if r < S]
+        want = gf.xor_matmul_host_batch(bm, data[rows].cpu().numpy())
+        check(np.array_equal(got[rows].cpu().numpy(), want), f"22a {tag}: {what}: host oracle")
+
+    counts = ShardCounts(swar, packed, dispatch)
+    t0 = time.perf_counter()
+    widths = []
+    for width, opts in SH_MESHES:
+        if width > len(devices):
+            continue
+        mesh = make_mesh(width, devices=devices[:width], **opts)
+        ns, nl = sharded._stripe_shards(mesh), sharded._lane_shards(mesh)
+        widths.append(f"{width} ({ns}x{nl}{', 2 pods' if 'pods' in opts else ''})")
+        van = gf.isa_rs_vandermonde_matrix(8, 3)
+        bm83 = gf.expand_matrix(van[8:])
+        bm_dev = torch.from_numpy(bm83).to(first)
+        # the xor_matmul functions: the dry run's shape and SH_XOR_ROWS
+        plan83 = swar.CodingPlan(van[8:], device=first)
+        for S, L in ((2 * ns, 256 * nl), (SH_XOR_ROWS[0], SH_XOR_ROWS[2])):
+            data = rand((S, 8, L))
+            single = swar.swar_gf(plan83, data)
+            parity = sharded.sharded_encode(bm_dev, data, mesh)
+            check(torch.equal(parity, single), f"22a {tag}: sharded_encode {tuple(data.shape)}")
+            host_edges(bm83, data, parity, ns, f"sharded_encode {tuple(data.shape)}")
+            c, idx = gf.isa_decode_matrix(van, [1, 9], 8)
+            cw = torch.cat([data, parity], dim=1)
+            rebuilt = sharded.sharded_decode(torch.from_numpy(gf.expand_matrix(c)).to(first),
+                                             cw[:, idx], mesh)
+            check(torch.equal(rebuilt, cw[:, [1, 9]]), f"22a {tag}: sharded_decode {S}x{L}")
+            scrub_case(torch, sharded, mesh, cw, 8,
+                       lambda chunks: sharded.scrub_step(bm_dev, chunks, 8, mesh),
+                       f"22a {tag}: scrub_step {tuple(cw.shape)}")
+        # the plan functions at the path's rows, and the uneven cases
+        for (S, k, L), m in SH_ROWS:
+            mat = gf.isa_rs_vandermonde_matrix(k, m)
+            plan = swar.CodingPlan(mat[k:], device=first)
+            data = rand((S, k, L))
+            single = swar.swar_gf(plan, data)
+            parity = counts.call(f"sharded_plan_encode {tuple(data.shape)} over {width}",
+                                 lambda: sharded.sharded_plan_encode(plan, data, mesh),
+                                 swar=ns * nl)
+            check(torch.equal(parity, single), f"22a {tag}: sharded_plan_encode RS({k},{m})")
+            host_edges(gf.expand_matrix(mat[k:]), data, parity, ns,
+                       f"sharded_plan_encode RS({k},{m})")
+            erasures = [0, 5, k + m - 1][:m]
+            c, idx = gf.isa_decode_matrix(mat, erasures, k)
+            dplan = swar.CodingPlan(c, device=first, decode=True)
+            cw = torch.cat([data, parity], dim=1)
+            survivors = cw[:, idx].contiguous()
+            rebuilt = counts.call(f"sharded_plan_decode RS({k},{m}) {erasures}",
+                                  lambda: sharded.sharded_plan_decode(dplan, survivors, mesh),
+                                  swar=ns * nl)
+            check(torch.equal(rebuilt, cw[:, erasures]) and
+                  torch.equal(rebuilt, swar.swar_gf(dplan, survivors)),
+                  f"22a {tag}: sharded_plan_decode RS({k},{m}) {erasures}")
+            scrub_case(torch, sharded, mesh, cw, k,
+                       lambda chunks: counts.call(
+                           f"plan_scrub_step RS({k},{m})",
+                           lambda: sharded.plan_scrub_step(plan, chunks, k, mesh),
+                           swar=ns * nl),
+                       f"22a {tag}: plan_scrub_step RS({k},{m}) {tuple(cw.shape)}")
+            del data, parity, cw, survivors, rebuilt
+            # the dispatch mode, as _DeviceCoder runs it
+            coder = PLAN_CACHE.encode_coder(mat[k:], first)
+            for S2, L2, want_swar in ((S, L, True), (S, SH_PACKED_L, False),
+                                      (SH_UNEVEN_S, SH_PACKED_L, False)):
+                data = rand((S2, k, L2))
+                pad = -S2 % ns
+                tiles = ns * nl
+                single = (swar.swar_gf(plan, data) if want_swar else
+                          packed.packed_code(coder.packed.lowered, data))
+                out = (torch.empty((S2, m, L2), dtype=torch.uint8, device=first)
+                       if not want_swar and not pad else None)
+                got = counts.call(
+                    f"sharded_coder_code RS({k},{m}) {(S2, k, L2)} over {width}",
+                    lambda: sharded.sharded_coder_code(coder, data, mesh, out=out),
+                    swar=tiles if want_swar else 0, packed_code=0 if want_swar else tiles,
+                    bucket=ns)
+                check(torch.equal(got, single), f"22a {tag}: sharded_coder_code {(S2, k, L2)}")
+                check(got.shape == (S2, m, L2), f"22a {tag}: coder shape {tuple(got.shape)}")
+                check(out is None or got.data_ptr() == out.data_ptr(),
+                      f"22a {tag}: sharded_coder_code {(S2, k, L2)} did not write out")
+                host_edges(gf.expand_matrix(mat[k:]), data, got, ns,
+                           f"sharded_coder_code {(S2, k, L2)}")
+        # uneven stripe and lane shards through the plan path: 37 stripes,
+        # L = 4097 (no SWAR geometry on a tile: packed_code on each)
+        plan = plan83
+        for S, L in ((SH_UNEVEN_S, 4096), (SH_UNEVEN_S, SH_UNEVEN_L)):
+            data = rand((S, 8, L))
+            tiles = ns * nl
+            tile_l = (L + (-L % nl)) // nl
+            geom = swar.pick_geometry(tile_l) is not None
+            tile_bytes = (S + (-S % ns)) // ns * 8 * tile_l
+            big = tile_bytes >= packed.PACKED_MIN_BYTES
+            parity = counts.call(
+                f"sharded_plan_encode {(S, 8, L)} over {width}",
+                lambda: sharded.sharded_plan_encode(plan, data, mesh),
+                swar=tiles if geom else 0, packed_code=tiles if not geom and big else 0)
+            check(parity.shape == (S, 3, L), f"22a {tag}: uneven shape {tuple(parity.shape)}")
+            check(torch.equal(parity, packed.packed_code(
+                PLAN_CACHE.encode_coder(van[8:], first).packed.lowered, data)),
+                f"22a {tag}: sharded_plan_encode {(S, 8, L)}")
+            check(np.array_equal(parity[[0, S - 1]].cpu().numpy(),
+                                 gf.xor_matmul_host_batch(bm83, data[[0, S - 1]].cpu().numpy())),
+                  f"22a {tag}: sharded_plan_encode {(S, 8, L)} host oracle")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"[22] 22a {tag}: meshes {', '.join(widths)} on {', '.join(map(str, devices))}: "
+          f"{counts.totals['calls']} counted sharded calls exact (single-device kernel, host "
+          f"oracle on each shard's first and last stripe, scrubs 0 then 3), swar_gf "
+          f"{counts.totals['swar_gf']} and packed_code {counts.totals['packed_code']} "
+          f"launches as counted; {seconds:.2f} s host clock", flush=True)
+    return {"swar_gf": counts.totals["swar_gf"], "packed_code": counts.totals["packed_code"],
+            "calls": counts.totals["calls"], "seconds": seconds}
+
+
+def scrub_case(torch, sharded, mesh, cw, k: int, scrub, what: str) -> None:
+    """A scrub over codewords `cw` reads 0; with one byte flipped in 3
+    stripes spread over the stripe shards (a data chunk, then two parity
+    chunks) it reads 3 and exactly their mask."""
+    count, mask = scrub(cw)
+    check(int(count) == 0 and not bool(mask.any()), f"{what}: clean batch read {int(count)}")
+    S, rows, L = cw.shape
+    ns = sharded._stripe_shards(mesh)
+    s = S // ns if S >= ns else 1
+    picked = {min(S - 1, i * s + j) for j, i in enumerate((0, ns // 2, ns - 1))}
+    for extra in range(S):  # fewer shards than 3: other stripes of the same shards
+        if len(picked) >= 3:
+            break
+        picked.add(extra)
+    stripes = sorted(picked)
+    dirty = cw.clone()
+    for n, (stripe, row) in enumerate(zip(stripes, (1, k, rows - 1))):
+        dirty[stripe, row, (37 * n + 5) % L] ^= 1 << n
+    count, mask = scrub(dirty)
+    want = torch.zeros(S, dtype=torch.bool, device=mask.device)
+    want[stripes] = True
+    check(int(count) == 3 and torch.equal(mask, want),
+          f"{what}: 3 flipped stripes {stripes} read {int(count)}, "
+          f"mask {mask.nonzero().flatten().tolist()}")
+
+
+def phase_sharded(torch, swar, packed, dispatch, registry, gf, card, device=None) -> dict:
+    """Phase 22: the stripe-parallel layer on the card (22a, 22b, 22d; 22c
+    is read in main).  `device` (None: the current CUDA device) only for a
+    rehearsal on the CPU."""
+    from ceph_tpu_torch import graft_entry
+    from ceph_tpu_torch.parallel import dispatch as shard_dispatch
+    from ceph_tpu_torch.parallel import sharded
+    from ceph_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    swar.launches = 0
+    for kernel in PACKED_KERNELS:
+        packed.launches[kernel] = 0
+    # 22a over meshes that repeat the card, then over distinct cards
+    a = sharded_checks(torch, swar, packed, dispatch, gf, [dev] * 8, "repeated")
+    launches = {"swar_gf": a["swar_gf"], "packed_code": a["packed_code"]}
+    count = torch.cuda.device_count() if device is None else 1
+    if count >= 2:
+        d = sharded_checks(torch, swar, packed, dispatch, gf,
+                           [torch.device("cuda", i) for i in range(count)], "distinct")
+        for kernel in launches:
+            launches[kernel] += d[kernel]
+    else:
+        print(f"[22] 22a over distinct devices: not run, torch.cuda.device_count() = {count}",
+              flush=True)
+    # 22b: the dry run at 8, then plugin tpu's live path over 4 shards
+    t1 = time.perf_counter()
+    w0 = swar.launches
+    dry = graft_entry.dryrun_multichip(8, devices=[dev] * 8)
+    check(dry["live_sharded_launches"] == 2, f"22b: dry run {dry}")
+    dry_swar = swar.launches - w0
+    ec = registry.instance().factory("tpu", {"k": "8", "m": "3"}, device=device)
+    check(ec.device == dev, f"22b: codec on {ec.device}, want {dev}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 222)
+    shape = SH_ROWS[0][0]
+    data = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    with shard_dispatch.use_devices([dev]):  # the single-device path
+        check(shard_dispatch.shard_mesh(shape[0]) is None, "22b: one device gave a mesh")
+        single = ec.encode_array(data)
+        full = torch.cat([data, single], dim=1)
+        singles = {}
+        for erasures in SH_CLASSES:
+            singles[str(erasures)] = ec.decode_array(
+                erasures, full[:, ec.decode_index(erasures)].contiguous())
+    live = {}
+    saved = shard_dispatch.settings()
+    with shard_dispatch.use_devices([dev] * 4):
+        shard_dispatch.configure(min_batch=32, devices=0)
+        try:
+            s0 = dispatch.SHARDED_LAUNCHES.snapshot()["launches"]
+            w0 = swar.launches
+            parity = ec.encode_array(data)
+            live["encode"] = (dispatch.SHARDED_LAUNCHES.snapshot()["launches"] - s0,
+                              swar.launches - w0)
+            check(torch.equal(parity, single), "22b: sharded encode_array != single-device")
+            for erasures in SH_CLASSES:
+                survivors = full[:, ec.decode_index(erasures)].contiguous()
+                s0 = dispatch.SHARDED_LAUNCHES.snapshot()["launches"]
+                w0 = swar.launches
+                rec = ec.decode_array(erasures, survivors)
+                live[str(erasures)] = (dispatch.SHARDED_LAUNCHES.snapshot()["launches"] - s0,
+                                       swar.launches - w0)
+                check(torch.equal(rec, singles[str(erasures)]) and
+                      torch.equal(rec, full[:, erasures]),
+                      f"22b: sharded decode_array {erasures} != single-device")
+        finally:
+            shard_dispatch.configure(*saved)
+    live_swar = sum(w for _, w in live.values())
+    check(all(v == (1, 4) for v in live.values()),
+          f"22b: (sharded launches, swar_gf launches) by call {live}, want (1, 4) each")
+    b_seconds = time.perf_counter() - t1
+    print(f"[22] 22b: dryrun_multichip(8, devices=[{dev}] * 8) passed its six steps "
+          f"(mesh {dry['mesh']}, pods {dry['pod_mesh']}, batch {dry['batch']}, "
+          f"{dry_swar} swar_gf launches); plugin tpu RS(8,3) encode_array and decode_array "
+          f"{[e for e in SH_CLASSES]} at {shape} inside use_devices([{dev}] * 4): one "
+          f"sharded launch of 4 swar_gf launches each, byte-exact against the single-device "
+          f"path; {b_seconds:.2f} s host clock", flush=True)
+    launches["swar_gf"] += dry_swar + live_swar
+    # 22d: the split's own cost on one card
+    k = shape[1]
+    plan = swar.CodingPlan(gf.isa_rs_vandermonde_matrix(8, 3)[8:], device=dev)
+    times = {"encode_array (single device)": time_ms(torch, lambda: ec.encode_array(data))}
+    w0 = swar.launches
+    for n in SH_TIMED_SHARDS:
+        mesh = make_mesh(n, lane_parallelism=1, devices=[dev] * n)
+        times[f"sharded_plan_encode {n} shard{'s' if n > 1 else ''}"] = time_ms(
+            torch, lambda mesh=mesh: sharded.sharded_plan_encode(plan, data, mesh))
+    launches["swar_gf"] += swar.launches - w0
+    moved = shape[0] * (k + 3) * shape[2]
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    print(f"[22] 22d: RS(8,3) {shape}, ms a call (CUDA events around {CALLS_PER_RUN} calls, "
+          f"median of 20): " + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+          + f"; byte bound {bound:.4f} ms; {card}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[22] 22a-22d: swar_gf {launches['swar_gf']} and packed_code "
+          f"{launches['packed_code']} launches; phase 22 {seconds:.2f} s; {card}", flush=True)
+    return {"launches": launches, "times": times, "seconds": seconds}
+
+
+def width_one_witness(before: dict, after: dict, side: dict, replay: int) -> None:
+    """22c: over phases 2-21, no sharded launch and every launch in bucket 1,
+    in this process and in each side-by-side process and the replay."""
+    sharded = after["sharded"] - before["sharded"]
+    moved = {n: c - before["devices"].get(n, 0) for n, c in after["devices"].items()
+             if c != before["devices"].get(n, 0)}
+    others = {n: r.get("sharded_launches") for n, r in side.items()}
+    print(f"[22] 22c: over phases 2-21 this process made {sharded} sharded launches and "
+          f"devices_per_launch moved {moved}; side-by-side processes' sharded launches "
+          f"{others}; lockdep replay {replay}", flush=True)
+    check(sharded == 0, f"22c: {sharded} sharded launches over phases 2-21")
+    check(set(moved) == {1} and moved[1] > 0, f"22c: devices_per_launch moved {moved}")
+    check(all(v == 0 for v in others.values()) and replay == 0,
+          f"22c: sharded launches in other processes {others}, replay {replay}")
+
+
+def shard_snapshot(dispatch) -> dict:
+    return {"sharded": dispatch.SHARDED_LAUNCHES.snapshot()["launches"],
+            "devices": dispatch.DEVICES_PER_LAUNCH.snapshot()}
 
 
 CLUSTER_RESULT = "chip_smoke cluster phase result: "
@@ -7806,7 +8174,7 @@ def main(argv: list[str]) -> int:
                              "DIR and print one JSON line (what --parent runs)")
     parser.add_argument("--mon-log", metavar="PATH",
                         help="write the monitors' log (subsystem mon, level 10) to PATH")
-    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19", "20", "21"),
+    parser.add_argument("--only", choices=("14", "15", "16", "17", "18", "19", "20", "21", "22"),
                         help="run phase 1 (the builds) and this phase alone; no contract line")
     parser.add_argument("--cluster-phase", choices=("14", "15", "16", "17", "18", "20"),
                         help=argparse.SUPPRESS)  # one of the side-by-side phases' processes
@@ -7882,6 +8250,7 @@ def main(argv: list[str]) -> int:
         torch.set_num_threads(1)  # six such processes share the host's cores
         result = phase(int(args.cluster_phase), clusters[args.cluster_phase], torch, swar,
                        packed, co, card_line())
+        result["sharded_launches"] = dispatch.SHARDED_LAUNCHES.snapshot()["launches"]  # 22c
         print(CLUSTER_RESULT + json.dumps(result, default=lambda o: o.item()), flush=True)
         return 0
     name, card, infos, building = phase(1, phase_env, torch, swar, gf, diag, kern_exp, packed,
@@ -7894,9 +8263,12 @@ def main(argv: list[str]) -> int:
             phase(19, phase_tools, torch, swar, packed, xor_mm, co, card)
         elif args.only == "21":
             phase(21, phase_tooling, torch, swar, registry, card)
+        elif args.only == "22":
+            phase(22, phase_sharded, torch, swar, packed, dispatch, registry, gf, card)
         else:
             phase(int(args.only), clusters[args.only], torch, swar, packed, co, card)
         return 0
+    width_one = shard_snapshot(dispatch)  # 22c: over phases 2-21
     max_err = phase(2, phase_kernel_checks, torch, swar, gf, registry)
     launches, xor_launches = phase(3, phase_main_path, torch, swar, registry, gf)
     bulk = phase(4, phase_bulk, torch, swar, registry, gf, card, kern_exp4, kern_exp2,
@@ -7932,6 +8304,9 @@ def main(argv: list[str]) -> int:
     side = phase("14-18, 20", cluster_phases, clusters, args.mon_log)
     daemon, mon, client, access, cephfs, chaos = (side[n] for n in clusters)
     tooling = phase(21, phase_tooling, torch, swar, registry, card)
+    width_one = (width_one, shard_snapshot(dispatch))
+    sharded = phase(22, phase_sharded, torch, swar, packed, dispatch, registry, gf, card)
+    phase("22c", width_one_witness, *width_one, side, tooling["replay_sharded"])
     chaos_launches = chaos["launches"]
     fig15, fig16 = mon["figures"], client["figures"]
     print(f"[16] client MB/s in this run: 16b {fig16['16b QD1 MB/s']:.1f} / "
@@ -7956,12 +8331,16 @@ def main(argv: list[str]) -> int:
             if not isinstance(diag_launches[kernel], dict):
                 diag_launches[kernel] = {"7b": diag_launches[kernel]}
             diag_launches[kernel]["19"] = tools[kernel]
+    if not isinstance(diag_launches["packed_code"], dict):
+        diag_launches["packed_code"] = {"7b": diag_launches["packed_code"]}
+    diag_launches["packed_code"]["22"] = sharded["launches"]["packed_code"]
     swar_by_phase = {"3": launches, "13": pg["launches"]["swar_gf"],
                      "14": daemon["launches"]["swar_gf"], "15": mon["launches"]["swar_gf"],
                      "16": client["launches"]["swar_gf"], "17": access["launches"]["swar_gf"],
                      "18": cephfs["launches"]["swar_gf"], "19": tools["swar_gf"],
                      "20": chaos_launches["swar_gf"],
-                     "21": sum(tooling["launches"].values())}
+                     "21": sum(tooling["launches"].values()),
+                     "22": sharded["launches"]["swar_gf"]}
     kernels = [{
         "name": "swar_gf",
         "route": "cuda",
